@@ -1,0 +1,85 @@
+"""Carries the JAX package's trained weights into the port.
+
+``load_flax_variables(model, variables)`` takes a Flax variable tree
+``{"params": ..., "batch_stats": ...}`` given as nested dicts of numpy
+arrays (the port does not import Flax; a caller turns the Flax tree into
+plain dicts, e.g. with ``jax.tree_util.tree_map(np.asarray, variables)``)
+and fills the port module's ``state_dict``. The port's modules carry the
+Flax scope names, so a leaf at ``a/b/kernel`` lands at ``a.b.weight``:
+
+- Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+- Conv ``kernel`` HWIO -> ``weight`` OIHW;
+- BatchNorm ``scale``/``bias`` and ``mean``/``var`` (``batch_stats``) ->
+  ``weight``/``bias`` and ``running_mean``/``running_var``;
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+- ``positional_encoding`` and ``object_queries`` keep their names.
+
+It raises on a Flax leaf with no counterpart and on a port entry left
+unfilled, so a renamed module cannot slip through with its random init.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (str(key),))
+        else:
+            yield path + (str(key),), np.asarray(value)
+
+
+def _map_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray
+              ) -> Tuple[str, np.ndarray]:
+    *scopes, leaf = path
+    if collection == "batch_stats":
+        name = _STATS.get(leaf, leaf)
+    elif leaf == "kernel":
+        name = "weight"
+        if value.ndim == 2:  # Dense [in, out] -> [out, in]
+            value = value.T
+        elif value.ndim == 4:  # Conv HWIO -> OIHW
+            value = value.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel {'/'.join(path)} has rank {value.ndim}")
+    elif leaf == "scale":
+        name = "weight"
+    else:
+        name = leaf
+    return ".".join([*scopes, name]), value
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
+    """Fills every parameter and buffer of ``model`` from ``variables``."""
+    state = model.state_dict()
+    filled = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise KeyError(f"unknown Flax collection '{collection}'")
+        for path, value in _leaves(tree):
+            key, value = _map_leaf(collection, path, value)
+            where = f"{collection}/{'/'.join(path)}"
+            if key not in state:
+                raise KeyError(f"Flax leaf {where} -> '{key}' has no "
+                               f"counterpart in {type(model).__name__}")
+            if key in filled:
+                raise KeyError(f"Flax leaf {where} fills '{key}' twice")
+            if tuple(value.shape) != tuple(state[key].shape):
+                raise ValueError(f"Flax leaf {where} {value.shape} does not "
+                                 f"fit '{key}' {tuple(state[key].shape)}")
+            filled[key] = torch.from_numpy(
+                np.ascontiguousarray(value)).to(state[key].dtype)
+    missing = sorted(set(state) - set(filled))
+    if missing:
+        raise KeyError(f"{len(missing)} entries of {type(model).__name__} "
+                       f"have no Flax leaf: {missing[:8]}")
+    model.load_state_dict(filled, strict=True)

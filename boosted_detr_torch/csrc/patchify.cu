@@ -1,0 +1,276 @@
+// Patchify-stem convolution forward for Hopper (sm_90a): clip, convert,
+// space-to-depth and matrix product in one pass over the image.
+//
+// Replaces the Pallas TPU kernel _fwd_kernel / _fwd_impl of
+// boosted_detr_tpu/ops/pallas_patchify.py (:83-92, :122-149). It computes
+//
+//   out[b, ho, wo, n] = sum_{di, dj, c} r(clip(x[b, ho*P+di-pt, wo*P+dj-pl, c]))
+//                                       * w[di, dj, c, n]
+//
+// for an NHWC float32 image x [B, H, W, C] and an HWIO kernel w [P, P, C, N]
+// (float32 or bfloat16): clip is the optional [0, 1] clamp, r rounds to the
+// kernel's dtype, the sum is taken in float32 and the result is written in
+// the output dtype (float32 or bfloat16). Positions outside the image are
+// zero: (pt, pl) is XLA's SAME padding for stride == kernel == P, so a
+// geometry that P does not divide gives the SAME-padded convolution that
+// the JAX package computes with an ordinary conv in that case.
+//
+// Bound on an H100 SXM at the flagship shape (x f32 [8, 640, 640, 3],
+// w bf16 [8, 8, 3, 128], out bf16 [8, 80, 80, 128]; M = 51200 output
+// positions, K = 192, N = 128): it must read 39.3 MB of image and write
+// 13.1 MB of output, about 15.7 us at 3.35 TB/s, while its 2.52 GFLOP take
+// about 2.5 us at the 989 TFLOP/s bf16 tensor-core rate. Memory bytes bound
+// it.
+//
+// Design (the first, simple version): one thread block per output row
+// (b, ho) and per slice of BN output channels (blockIdx.y; BN = N up to 128,
+// smaller when shared memory requires it). The block
+//   1. reads its P full image rows, which are contiguous in NHWC (P*W*C
+//      float32, 61 KB at the flagship), clips them, rounds them to the
+//      kernel's dtype and stages them in shared memory as float32 (exact),
+//      with SAME padding written as zeros;
+//   2. stages the kernel slice [P*P*C, BN] in shared memory in its own dtype
+//      (48 KB bf16 at the flagship);
+//   3. lets every thread accumulate 4 positions x 4 channels in float32 by
+//      FMA: the patch of position wo is, for each di, the P*C contiguous
+//      values at row di, column wo*P*C, so space-to-depth is only an offset.
+// Each image byte is read from device memory once, each output byte written
+// once; the weights are re-read from L2 by every block. The host computes
+// the shared memory from the geometry and refuses what exceeds the 227 KB a
+// block may use (ops/patchify.py). The products run on the CUDA cores, not
+// the tensor cores: wgmma, TMA and a tiled M loop are the later steps
+// toward the bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TM = 4;  // positions per thread per pass
+constexpr int TN = 4;  // channels per thread
+
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void load4(const float* src, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(src);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* src, float* v) {
+  const uint2 q = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 packed;
+  packed.x = *reinterpret_cast<unsigned int*>(&lo);
+  packed.y = *reinterpret_cast<unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
+// Shared memory: the image rows img [P][row] as float32, row = Wo*P*C, then
+// the kernel slice ws [K][bn] in WT, 16-byte aligned.
+__host__ __device__ inline long long image_bytes(int P, int Wo, int C) {
+  return (static_cast<long long>(P) * Wo * P * C * 4 + 15) / 16 * 16;
+}
+
+template <typename WT, typename OT>
+__global__ void __launch_bounds__(THREADS)
+patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                    OT* __restrict__ out, int H, int W, int C, int P, int N,
+                    int Ho, int Wo, int pad_top, int pad_left, int bn,
+                    int clip01, int vec4) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = Wo * P * C;  // one padded image row, in values
+  const int PC = P * C;
+  const int K = P * PC;
+  float* img = reinterpret_cast<float*>(smem);
+  WT* ws = reinterpret_cast<WT*>(smem + image_bytes(P, Wo, C));
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / Ho;
+  const int ho = blockIdx.x - b * Ho;
+  const int n0 = blockIdx.y * bn;
+  const WT wzero = WT(0.f);
+
+  // 1. Image rows: clip, round to WT, SAME padding as zeros.
+  for (int di = 0; di < P; ++di) {
+    const int h = ho * P + di - pad_top;
+    float* dst = img + di * row;
+    if (h < 0 || h >= H) {
+      for (int e = tid; e < row; e += THREADS) dst[e] = 0.f;
+      continue;
+    }
+    const float* src = x + (static_cast<long long>(b) * H + h) * W * C;
+    if (vec4) {  // no horizontal padding, row of a multiple of 4, aligned
+      for (int e = 4 * tid; e < row; e += 4 * THREADS) {
+        float v[4];
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src + e));
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // written so that NaN passes through, as torch.clamp and jnp.clip do
+          if (clip01) v[i] = v[i] < 0.f ? 0.f : (v[i] > 1.f ? 1.f : v[i]);
+          v[i] = round_to(v[i], wzero);
+        }
+        store4(dst + e, v);
+      }
+    } else {
+      const int lo = pad_left * C, hi = pad_left * C + W * C;
+      for (int e = tid; e < row; e += THREADS) {
+        float v = 0.f;
+        if (e >= lo && e < hi) {
+          v = __ldg(src + (e - lo));
+          if (clip01) v = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+          v = round_to(v, wzero);
+        }
+        dst[e] = v;
+      }
+    }
+  }
+
+  // 2. Kernel slice [K, bn]; channels past N are zero.
+  for (int e = tid; e < K * bn; e += THREADS) {
+    const int k = e / bn;
+    const int j = e - k * bn;
+    const int n = n0 + j;
+    ws[e] = n < N ? w[static_cast<long long>(k) * N + n] : wzero;
+  }
+  __syncthreads();
+
+  // 3. Each thread: channels j0..j0+3 of the slice, positions wo = wb +
+  //    i*rg for i < TM, one pass after another over the row.
+  const int groups = bn / TN;  // bn is a power of two >= TN, so this divides
+  const int rg = THREADS / groups;
+  const int j0 = (tid % groups) * TN;
+  const int ty = tid / groups;
+  OT* out_row = out + (static_cast<long long>(b) * Ho + ho) * Wo * N;
+  const bool vec_out = (N % TN == 0) && (n0 + j0 + TN <= N);
+
+  for (int wb = ty; wb < Wo; wb += TM * rg) {
+    int base[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int wo = wb + i * rg;
+      base[i] = (wo < Wo ? wo : 0) * PC;  // out-of-row positions are not stored
+    }
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
+
+    for (int di = 0; di < P; ++di) {
+      const float* a_row = img + di * row;
+      const WT* w_rows = ws + static_cast<long long>(di) * PC * bn + j0;
+      for (int r = 0; r < PC; ++r) {
+        float wv[TN];
+        load4(w_rows + r * bn, wv);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float a = a_row[base[i] + r];
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj)
+            acc[i][jj] = fmaf(a, wv[jj], acc[i][jj]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int wo = wb + i * rg;
+      if (wo >= Wo) continue;
+      OT* dst = out_row + static_cast<long long>(wo) * N + n0 + j0;
+      if (vec_out) {
+        store4(dst, acc[i]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj)
+          if (n0 + j0 + jj < N) store1(dst + jj, acc[i][jj]);
+      }
+    }
+  }
+}
+
+template <typename WT, typename OT>
+cudaError_t launch(const float* x, const void* w, void* out, int batch, int H,
+                   int W, int C, int P, int N, int Ho, int Wo, int pad_top,
+                   int pad_left, int bn, int clip01, int vec4,
+                   long long smem_bytes, cudaStream_t stream) {
+  auto kernel = patchify_fwd_kernel<WT, OT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned int>(batch) * Ho, (N + bn - 1) / bn);
+  kernel<<<grid, THREADS, static_cast<size_t>(smem_bytes), stream>>>(
+      x, static_cast<const WT*>(w), static_cast<OT*>(out), H, W, C, P, N, Ho,
+      Wo, pad_top, pad_left, bn, clip01, vec4);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one block of the kernel needs for this geometry, in bytes.
+// The wrapper checks it against the card's limit before it launches.
+long long patchify_smem_bytes(int P, int C, int Wo, int bn, int w_bf16) {
+  const long long k = static_cast<long long>(P) * P * C;
+  return image_bytes(P, Wo, C) + k * bn * (w_bf16 ? 2 : 4);
+}
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 = the
+// launch was accepted). Pointers are device pointers of contiguous tensors;
+// the caller allocates `out` [batch, Ho, Wo, N]. `bn` is a power of two
+// from 4 to 128.
+int patchify_fwd(const void* x, const void* w, void* out, int batch, int H,
+                 int W, int C, int P, int N, int Ho, int Wo, int pad_top,
+                 int pad_left, int bn, int w_bf16, int out_bf16, int clip01,
+                 int vec4, void* stream) {
+  if (batch <= 0 || Ho <= 0 || Wo <= 0 || N <= 0 || C <= 0 || P <= 0 ||
+      bn < TN || bn > 128 || (bn & (bn - 1)) != 0 ||
+      static_cast<long long>(batch) * Ho > 0x7fffffffLL ||
+      (N + bn - 1) / bn > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = patchify_smem_bytes(P, C, Wo, bn, w_bf16);
+  const float* xf = static_cast<const float*>(x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (w_bf16 && out_bf16)
+    err = launch<__nv_bfloat16, __nv_bfloat16>(
+        xf, w, out, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left, bn,
+        clip01, vec4, smem, s);
+  else if (w_bf16)
+    err = launch<__nv_bfloat16, float>(xf, w, out, batch, H, W, C, P, N, Ho,
+                                       Wo, pad_top, pad_left, bn, clip01,
+                                       vec4, smem, s);
+  else if (out_bf16)
+    err = launch<float, __nv_bfloat16>(xf, w, out, batch, H, W, C, P, N, Ho,
+                                       Wo, pad_top, pad_left, bn, clip01,
+                                       vec4, smem, s);
+  else
+    err = launch<float, float>(xf, w, out, batch, H, W, C, P, N, Ho, Wo,
+                               pad_top, pad_left, bn, clip01, vec4, smem, s);
+  return static_cast<int>(err);
+}
+
+const char* patchify_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,116 @@
+"""The standard DETR model in PyTorch.
+
+Counterpart of boosted_detr_tpu/models/detr.py:31-104: backbone -> neck ->
+encoder blocks -> decoder blocks -> category, attribute and box heads. The
+forward maps NHWC float32 images in [0, 1] to probabilities: ``category``
+[B, P, Vc] softmax, ``attribute`` [B, P, Va] sigmoid and ``boxes``
+[B, P, 4], all float32. It is the inference forward (``train=False``):
+BatchNorm uses the running statistics and dropout is the identity; the
+training forward comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Union
+
+import torch
+from torch import nn
+
+from boosted_detr_torch.config import ModelConfig
+from boosted_detr_torch.models import layers
+from boosted_detr_torch.models.backbone import BackboneNeck, EncoderBackbone
+from boosted_detr_torch.models.heads import (BoxPredictionHead,
+                                             MultiClassPredictionHead,
+                                             SingleClassPredictionHead)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _resolve_device(device) -> torch.device:
+    """``cuda`` when no device is given; without a GPU that raises rather
+    than run on the CPU, which the caller asks for with ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} requested but CUDA is not available")
+    return device
+
+
+class DETR(nn.Module):
+    """DETR on ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"``), with parameters drawn from ``seed`` through a
+    ``torch.Generator`` in the Flax initialisers' distributions. Trained
+    weights come from ``bridge.load_flax_variables``."""
+
+    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        device = _resolve_device(device)
+        self.config = cfg = config
+        if cfg.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+        dtype = _DTYPES[cfg.compute_dtype]
+        eps = cfg.layernorm_epsilon
+        self.backbone = EncoderBackbone(cfg.backbone, cfg.backbone_width,
+                                        cfg.norm, dtype, cfg.stem,
+                                        cfg.preprocessing,
+                                        cfg.use_pallas_stem)
+        self.neck = BackboneNeck(self.backbone.resnet.out_channels,
+                                 cfg.encoder_dim, cfg.norm, dtype)
+        self.encoder = layers.ImageEncoder(
+            cfg.grid_size, cfg.encoder_dim, cfg.num_encoder_blocks,
+            cfg.num_encoder_heads, eps, dtype)
+        self.decoder_prep = layers.DecoderPrep(cfg.num_object_preds,
+                                               cfg.decoder_dim, dtype)
+        self.num_decoder_blocks = cfg.num_decoder_blocks
+        for i in range(cfg.num_decoder_blocks):
+            # decoder block 0 has no self-attention (layers.py:298)
+            self.add_module(f"decoder_block_{i}", layers.DecoderBlock(
+                cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
+                self_attention=(i > 0), encoder_dim=cfg.encoder_dim))
+        hidden = cfg.resolved_head_hidden_dim
+        self.category_head = SingleClassPredictionHead(
+            cfg.decoder_dim, cfg.num_categories, hidden, cfg.num_object_preds,
+            cfg.norm, dtype)
+        self.attribute_head = MultiClassPredictionHead(
+            cfg.decoder_dim, cfg.num_attributes, hidden, cfg.num_object_preds,
+            cfg.norm, dtype)
+        self.box_head = BoxPredictionHead(
+            cfg.decoder_dim, cfg.decoder_dim, cfg.num_object_preds, cfg.norm,
+            dtype)
+        layers.reset_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.positional_encoding.device
+
+    def encode(self, image):
+        """Backbone + neck + transformer encoder -> (tokens, positional)."""
+        feats = self.neck(self.backbone(image))
+        return self.encoder(feats)
+
+    def apply_heads(self, decoder_features) -> Dict[str, torch.Tensor]:
+        return {"category": self.category_head(decoder_features),
+                "attribute": self.attribute_head(decoder_features),
+                "boxes": self.box_head(decoder_features)}
+
+    def forward(self, image: torch.Tensor, *, return_intermediate: bool = False
+                ) -> Union[Dict[str, torch.Tensor],
+                           List[Dict[str, torch.Tensor]]]:
+        if self.training:
+            raise NotImplementedError(
+                "the training forward (dropout, batch statistics) is not "
+                "ported yet; call .eval() to serve")
+        tokens, pos = self.encode(image)
+        enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
+        outputs: List[Dict[str, torch.Tensor]] = []
+        n = self.num_decoder_blocks
+        for i in range(n):
+            dec = getattr(self, f"decoder_block_{i}")(enc_value, dec, enc_key)
+            if return_intermediate or i == n - 1:
+                outputs.append(self.apply_heads(dec))
+        return outputs if return_intermediate else outputs[-1]

@@ -1,0 +1,79 @@
+"""Builds and loads the port's CUDA kernels.
+
+Each source ``boosted_detr_torch/csrc/<name>.cu`` exposes a plain C
+interface. At first use it is compiled with nvcc for Hopper (``sm_90a``)
+into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
+and loaded with ``ctypes``; the digest covers the source and the flags, so
+an edited source builds anew. Nothing is built when a module is imported:
+the CPU path never calls this. The JAX package has no counterpart: JAX
+compiles its Pallas kernels itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compiles ``csrc/<name>.cu`` unless its library exists; returns the
+    library's path. The compiler's output (ptxas register and shared-memory
+    report included) goes beside it as ``.log``. Raises if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Builds every kernel source under ``csrc/`` at once, one nvcc process
+    each."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(build(name)))
