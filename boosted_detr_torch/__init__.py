@@ -2,14 +2,19 @@
 
 The port of ``boosted_detr_tpu`` (JAX, Flax, Pallas), which stays as the
 reference. This package imports torch and never JAX or the JAX package.
-It serves the flagship DETR today: ``DETR`` with the ResNet ``patchify8``
-backbone, whose stem runs through the CUDA kernel in ``csrc/patchify.cu``.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+It serves and trains the flagship DETR: ``DETR`` with the ResNet
+``patchify8`` backbone, whose stem runs through the CUDA kernels in
+``csrc/patchify.cu`` (forward and weight gradient), trained by
+``make_train_step`` with the exact matcher of ``csrc/lap.cu``. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from boosted_detr_torch.bridge import load_flax_variables
-from boosted_detr_torch.config import ModelConfig
+from boosted_detr_torch.bridge import load_flax_variables, to_flax_layout
+from boosted_detr_torch.config import LossWeights, ModelConfig, TrainConfig
 from boosted_detr_torch.models.detr import DETR
-from boosted_detr_torch.train.steps import predict
+from boosted_detr_torch.train.steps import (TrainState, make_optimizer,
+                                            make_train_step, predict)
 
-__all__ = ["DETR", "ModelConfig", "load_flax_variables", "predict"]
+__all__ = ["DETR", "LossWeights", "ModelConfig", "TrainConfig", "TrainState",
+           "load_flax_variables", "make_optimizer", "make_train_step",
+           "predict", "to_flax_layout"]

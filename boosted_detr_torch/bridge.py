@@ -16,11 +16,16 @@ Flax scope names, so a leaf at ``a/b/kernel`` lands at ``a.b.weight``:
 
 It raises on a Flax leaf with no counterpart and on a port entry left
 unfilled, so a renamed module cannot slip through with its random init.
+
+``to_flax_layout(model, tensors)`` is the inverse: a dict keyed by the
+port's names (gradients, parameters, running statistics) becomes the Flax
+tree ``{"params": ..., "batch_stats": ...}`` of numpy arrays, so that a
+test compares the two packages leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -83,3 +88,37 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
         raise KeyError(f"{len(missing)} entries of {type(model).__name__} "
                        f"have no Flax leaf: {missing[:8]}")
     model.load_state_dict(filled, strict=True)
+
+
+_STAT_LEAVES = {v: k for k, v in _STATS.items()}
+
+
+def to_flax_layout(model: nn.Module, tensors: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, Dict]:
+    """``{port name: tensor}`` -> ``{"params": tree, "batch_stats": tree}``
+    in Flax's layout (float32 numpy leaves), for the names present. Raises
+    on a name that is not in ``model.state_dict()``."""
+    state = model.state_dict()
+    out: Dict[str, Dict] = {}
+    for key, tensor in tensors.items():
+        if key not in state:
+            raise KeyError(f"'{key}' is not an entry of "
+                           f"{type(model).__name__}")
+        *scopes, name = key.split(".")
+        value = tensor.detach().float().cpu().numpy()
+        collection = "params"
+        if name in _STAT_LEAVES:
+            collection, leaf = "batch_stats", _STAT_LEAVES[name]
+        elif name == "weight" and value.ndim == 2:  # Linear -> Dense kernel
+            leaf, value = "kernel", value.T
+        elif name == "weight" and value.ndim == 4:  # OIHW -> HWIO
+            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+        elif name == "weight":  # BatchNorm / LayerNorm
+            leaf = "scale"
+        else:
+            leaf = name
+        node = out.setdefault(collection, {})
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out

@@ -1,25 +1,50 @@
 """Model configuration, the port's own copy.
 
 Counterpart of boosted_detr_tpu/config.py: ``PAD_TOKEN``/``OOV_TOKEN``
-(:19-20) and ``ModelConfig`` (:47-167), with the same field names and
-defaults so that one set of keyword arguments builds either package's
-config. Copied, never imported: the PyTorch package does not load the JAX
-package. ``TrainConfig`` comes with the training slice.
+(:19-20), ``LossWeights`` (:22-44), ``ModelConfig`` (:47-167) and
+``TrainConfig`` (:170-220), with the same field names and defaults so that
+one set of keyword arguments builds either package's config. Copied, never
+imported: the PyTorch package does not load the JAX package.
 
 Fields the port reads with a meaning of its own:
 - ``use_pallas_stem``: run the patchify stem through the hand-written CUDA
   kernel (ops/patchify.py) with the preprocessing folded into its weights;
 - ``compute_dtype``: the activation dtype, with parameters kept in float32
-  and cast at use, as Flax does.
+  and cast at use, as Flax does;
+- ``matcher="pallas"``: the exact matcher through the hand-written CUDA
+  kernel (ops/lap.py) on CUDA tensors.
+
+``TrainConfig`` fields the port does not implement yet keep their names and
+defaults; the code that reads them raises ``NotImplementedError`` when they
+are set (``agc_clip``, ``train_block``, ``mesh_shape``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 PAD_TOKEN = "<PAD>"
 OOV_TOKEN = "<OOV>"
+
+# Default loss weights (the reference's losses_and_metrics.py:8-11).
+DEFAULT_CATEGORY_WEIGHT = 1000.0
+DEFAULT_BOX_WEIGHT = 1.0
+DEFAULT_ATTRIBUTE_WEIGHT = 100.0
+DEFAULT_EXIST_WEIGHT = 100.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Matching-loss term weights; ``giou`` and ``l2`` weigh the two parts
+    of the box loss."""
+
+    category: float = DEFAULT_CATEGORY_WEIGHT
+    box: float = DEFAULT_BOX_WEIGHT
+    attribute: float = DEFAULT_ATTRIBUTE_WEIGHT
+    exist: float = DEFAULT_EXIST_WEIGHT
+    giou: float = 2.0
+    l2: float = 5.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,4 +106,31 @@ class ModelConfig:
         return (-(-self.image_size[0] // 32), -(-self.image_size[1] // 32))
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    learning_rate: float = 1e-3
+    lr_schedule: str = "cosine_restarts"  # cosine_restarts | aiayn | constant
+    warmup_steps: int = 4000
+    momentum: float = 0.9
+    nesterov: bool = True
+    clipnorm: float = 0.1  # per tensor, Keras ``clipnorm``
+    agc_clip: float = 0.0  # not ported (the skipinit backbone)
+    ema_decay: float = 0.0
+    optimizer: str = "sgd"  # sgd | adamw
+    weight_decay: float = 0.0
+    loss_weights: LossWeights = dataclasses.field(default_factory=LossWeights)
+    train_block: Optional[int] = None  # not ported (the boosted model)
+    freeze_bn_stats: bool = False
+    use_intermediate_losses: bool = False
+    intermediate_loss_avg: bool = False
+    seed: int = 0
+    mesh_shape: Optional[Dict[str, int]] = None  # not ported (multi-GPU)
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 3
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -82,6 +82,47 @@ __device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 
+// Stages image row h of image b into dst[0, row) as float32: clipped to
+// [0, 1] when clip01, rounded to WT, with SAME padding (rows outside the
+// image, columns before pad_left and past the image) as zeros. Every
+// thread of the block takes part.
+template <typename WT>
+__device__ __forceinline__ void stage_image_row(
+    float* dst, const float* __restrict__ x, int b, int h, int H, int W,
+    int C, int row, int pad_left, int clip01, int vec4, WT wzero) {
+  const int tid = threadIdx.x;
+  if (h < 0 || h >= H) {
+    for (int e = tid; e < row; e += THREADS) dst[e] = 0.f;
+    return;
+  }
+  const float* src = x + (static_cast<long long>(b) * H + h) * W * C;
+  if (vec4) {  // no horizontal padding, row of a multiple of 4, aligned
+    for (int e = 4 * tid; e < row; e += 4 * THREADS) {
+      float v[4];
+      const float4 q = __ldg(reinterpret_cast<const float4*>(src + e));
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // written so that NaN passes through, as torch.clamp and jnp.clip do
+        if (clip01) v[i] = v[i] < 0.f ? 0.f : (v[i] > 1.f ? 1.f : v[i]);
+        v[i] = round_to(v[i], wzero);
+      }
+      store4(dst + e, v);
+    }
+  } else {
+    const int lo = pad_left * C, hi = pad_left * C + W * C;
+    for (int e = tid; e < row; e += THREADS) {
+      float v = 0.f;
+      if (e >= lo && e < hi) {
+        v = __ldg(src + (e - lo));
+        if (clip01) v = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+        v = round_to(v, wzero);
+      }
+      dst[e] = v;
+    }
+  }
+}
+
 // Shared memory: the image rows img [P][row] as float32, row = Wo*P*C, then
 // the kernel slice ws [K][bn] in WT, 16-byte aligned.
 __host__ __device__ inline long long image_bytes(int P, int Wo, int C) {
@@ -108,40 +149,9 @@ patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   const WT wzero = WT(0.f);
 
   // 1. Image rows: clip, round to WT, SAME padding as zeros.
-  for (int di = 0; di < P; ++di) {
-    const int h = ho * P + di - pad_top;
-    float* dst = img + di * row;
-    if (h < 0 || h >= H) {
-      for (int e = tid; e < row; e += THREADS) dst[e] = 0.f;
-      continue;
-    }
-    const float* src = x + (static_cast<long long>(b) * H + h) * W * C;
-    if (vec4) {  // no horizontal padding, row of a multiple of 4, aligned
-      for (int e = 4 * tid; e < row; e += 4 * THREADS) {
-        float v[4];
-        const float4 q = __ldg(reinterpret_cast<const float4*>(src + e));
-        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // written so that NaN passes through, as torch.clamp and jnp.clip do
-          if (clip01) v[i] = v[i] < 0.f ? 0.f : (v[i] > 1.f ? 1.f : v[i]);
-          v[i] = round_to(v[i], wzero);
-        }
-        store4(dst + e, v);
-      }
-    } else {
-      const int lo = pad_left * C, hi = pad_left * C + W * C;
-      for (int e = tid; e < row; e += THREADS) {
-        float v = 0.f;
-        if (e >= lo && e < hi) {
-          v = __ldg(src + (e - lo));
-          if (clip01) v = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
-          v = round_to(v, wzero);
-        }
-        dst[e] = v;
-      }
-    }
-  }
+  for (int di = 0; di < P; ++di)
+    stage_image_row(img + di * row, x, b, ho * P + di - pad_top, H, W, C,
+                    row, pad_left, clip01, vec4, wzero);
 
   // 2. Kernel slice [K, bn]; channels past N are zero.
   for (int e = tid; e < K * bn; e += THREADS) {
@@ -223,6 +233,204 @@ cudaError_t launch(const float* x, const void* w, void* out, int batch, int H,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Weight gradient (K1-dW).
+//
+// Replaces the Pallas TPU kernel _dw_kernel / _dw_impl of
+// boosted_detr_tpu/ops/pallas_patchify.py (:95-113, :152-175), the weight
+// half of the custom VJP (:178-206). It computes
+//
+//   dw[di, dj, c, n] = sum_{b, ho, wo} r(clip(x[b, ho*P+di-pt, wo*P+dj-pl, c]))
+//                                      * r(g[b, ho, wo, n])
+//
+// with r the rounding to the weights' dtype, each product of the rounded
+// values summed in float32, then cast to the weights' dtype; the float32
+// sum is an output too. K = P*P*C rows (di, dj, c) by N columns.
+//
+// Bound on an H100 SXM at the flagship shape (x f32 [8, 640, 640, 3],
+// g bf16 [8, 80, 80, 128], dw [192, 128]; M = 51200 positions): 39.3 MB of
+// image and 13.1 MB of g read is about 15.6 us at 3.35 TB/s, against
+// 2.5 GFLOP, about 2.5 us at the bf16 tensor-core rate. Memory bytes bound
+// it.
+//
+// Design (the first, simple version). The TPU kernel carries one dW
+// accumulator across its sequential grid; Hopper's blocks run in no order,
+// so the reduction over M is split into two deterministic passes with no
+// atomics:
+//   1. patchify_dw_partial_kernel: block (chunk, k tile, n tile) sums the
+//      positions of a chunk of output rows (b, ho) into a [BK, BN] float32
+//      tile of its chunk's partial. For each row it stages the image rows
+//      that its k tile touches (the row of intra-patch offset di is
+//      contiguous in NHWC, as in the forward: the gather is an offset) and
+//      the g row, both rounded, in shared memory; each thread accumulates
+//      TK x TN outputs by FMA over the row's Wo positions.
+//   2. patchify_dw_reduce_kernel: each thread sums one (k, n) over the
+//      chunks in chunk order and writes the float32 sum and its cast.
+// The host sizes the chunks to give about two blocks per SM. Bytes: the
+// image rows a k tile touches overlap the next tile's by up to one row, and
+// the partials (7.9 MB at the flagship) are written and read once more.
+// The products run on the CUDA cores; tensor cores and TMA are the later
+// steps toward the bound.
+
+constexpr int DW_TK = 4;                    // k values per thread
+constexpr int DW_TN = 8;                    // n values per thread
+constexpr int DW_BK = 16 * DW_TK;           // 64 k values per block tile
+constexpr int DW_BN = 16 * DW_TN;           // 128 n values per block tile
+
+__host__ __device__ inline int dw_rows_staged(int P, int C) {
+  const int pc = P * C;
+  const int rows = (DW_BK - 1) / pc + 2;  // a k tile spans at most this many
+  return rows < P ? rows : P;
+}
+
+// The staged image rows, in floats, rounded up to whole 16-byte groups.
+__host__ __device__ inline long long dw_image_floats(int P, int C, int Wo) {
+  const long long n = static_cast<long long>(dw_rows_staged(P, C)) * Wo * P * C;
+  return (n + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ float load_as_float(const float* p) { return *p; }
+__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename WT, typename GT>
+__global__ void __launch_bounds__(THREADS)
+patchify_dw_partial_kernel(const float* __restrict__ x,
+                           const GT* __restrict__ g,
+                           float* __restrict__ partial, int batch, int H,
+                           int W, int C, int P, int N, int Ho, int Wo,
+                           int pad_top, int pad_left, int rows_per_chunk,
+                           int clip01, int vec4) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = Wo * P * C;  // one padded image row, in values
+  const int PC = P * C;
+  const int K = P * PC;
+  float* img = reinterpret_cast<float*>(smem);   // [staged][row]
+  float* gs = img + dw_image_floats(P, C, Wo);   // [Wo][DW_BN], 16B aligned
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // n group
+  const int ty = tid / 16;  // k group
+  const int k0 = blockIdx.y * DW_BK;
+  const int n0 = blockIdx.z * DW_BN;
+  const int di_lo = k0 / PC;
+  const int k_end = min(k0 + DW_BK, K);
+  const int di_hi = (k_end - 1) / PC;  // inclusive
+  const WT wzero = WT(0.f);
+
+  // Offsets of this thread's k values in the staged rows; k past K reads
+  // the zero at the start of a padded slot (valid flag clears it below).
+  int off[DW_TK];
+  bool k_ok[DW_TK];
+#pragma unroll
+  for (int t = 0; t < DW_TK; ++t) {
+    const int k = k0 + ty * DW_TK + t;
+    k_ok[t] = k < K;
+    const int kk = k_ok[t] ? k : k0;
+    const int di = kk / PC;
+    off[t] = (di - di_lo) * row + (kk - di * PC);
+  }
+
+  float acc[DW_TK][DW_TN];
+#pragma unroll
+  for (int t = 0; t < DW_TK; ++t)
+#pragma unroll
+    for (int q = 0; q < DW_TN; ++q) acc[t][q] = 0.f;
+
+  const int total_rows = batch * Ho;
+  const int r_begin = blockIdx.x * rows_per_chunk;
+  const int r_end = min(r_begin + rows_per_chunk, total_rows);
+  for (int r = r_begin; r < r_end; ++r) {
+    const int b = r / Ho;
+    const int ho = r - b * Ho;
+    for (int di = di_lo; di <= di_hi; ++di)
+      stage_image_row(img + (di - di_lo) * row, x, b, ho * P + di - pad_top,
+                      H, W, C, row, pad_left, clip01, vec4, wzero);
+    const GT* g_row = g + static_cast<long long>(r) * Wo * N;
+    for (int e = tid; e < Wo * DW_BN; e += THREADS) {
+      const int wo = e / DW_BN;
+      const int n = n0 + (e - wo * DW_BN);
+      gs[e] = n < N ? round_to(load_as_float(g_row + static_cast<long long>(wo) * N + n), wzero)
+                    : 0.f;
+    }
+    __syncthreads();
+    for (int wo = 0; wo < Wo; ++wo) {
+      const float* a_base = img + wo * PC;
+      float a[DW_TK];
+#pragma unroll
+      for (int t = 0; t < DW_TK; ++t) a[t] = a_base[off[t]];
+      float gv[DW_TN];
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN);
+      const float4 g1 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN + 4);
+      gv[0] = g0.x; gv[1] = g0.y; gv[2] = g0.z; gv[3] = g0.w;
+      gv[4] = g1.x; gv[5] = g1.y; gv[6] = g1.z; gv[7] = g1.w;
+#pragma unroll
+      for (int t = 0; t < DW_TK; ++t)
+#pragma unroll
+        for (int q = 0; q < DW_TN; ++q)
+          acc[t][q] = fmaf(a[t], gv[q], acc[t][q]);
+    }
+    __syncthreads();
+  }
+
+  float* dst = partial + static_cast<long long>(blockIdx.x) * K * N;
+#pragma unroll
+  for (int t = 0; t < DW_TK; ++t) {
+    if (!k_ok[t]) continue;
+    const int k = k0 + ty * DW_TK + t;
+#pragma unroll
+    for (int q = 0; q < DW_TN; ++q) {
+      const int n = n0 + tx * DW_TN + q;
+      if (n < N) dst[static_cast<long long>(k) * N + n] = acc[t][q];
+    }
+  }
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(THREADS)
+patchify_dw_reduce_kernel(const float* __restrict__ partial, int chunks,
+                          int KN, float* __restrict__ dw32,
+                          WT* __restrict__ dw) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= KN) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += partial[static_cast<long long>(c) * KN + e];
+  dw32[e] = s;
+  store1(dw + e, s);
+}
+
+__host__ __device__ inline long long dw_smem(int P, int C, int Wo) {
+  return 4LL * dw_image_floats(P, C, Wo) + 4LL * Wo * DW_BN;
+}
+
+template <typename WT, typename GT>
+cudaError_t launch_dw(const float* x, const void* g, float* partial,
+                      float* dw32, void* dw, int batch, int H, int W, int C,
+                      int P, int N, int Ho, int Wo, int pad_top, int pad_left,
+                      int rows_per_chunk, int chunks, int clip01, int vec4,
+                      cudaStream_t stream) {
+  auto kernel = patchify_dw_partial_kernel<WT, GT>;
+  const long long smem = dw_smem(P, C, Wo);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int K = P * P * C;
+  const dim3 grid(chunks, (K + DW_BK - 1) / DW_BK, (N + DW_BN - 1) / DW_BN);
+  kernel<<<grid, THREADS, static_cast<size_t>(smem), stream>>>(
+      x, static_cast<const GT*>(g), partial, batch, H, W, C, P, N, Ho, Wo,
+      pad_top, pad_left, rows_per_chunk, clip01, vec4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int KN = K * N;
+  patchify_dw_reduce_kernel<WT><<<(KN + THREADS - 1) / THREADS, THREADS, 0,
+                                  stream>>>(partial, chunks, KN, dw32,
+                                            static_cast<WT*>(dw));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,6 +474,55 @@ int patchify_fwd(const void* x, const void* w, void* out, int batch, int H,
   else
     err = launch<float, float>(xf, w, out, batch, H, W, C, P, N, Ho, Wo,
                                pad_top, pad_left, bn, clip01, vec4, smem, s);
+  return static_cast<int>(err);
+}
+
+// Shared memory one block of the weight-gradient kernel needs, in bytes:
+// the image rows a k tile touches and one g row.
+long long patchify_dw_smem_bytes(int P, int C, int Wo) {
+  return dw_smem(P, C, Wo);
+}
+
+// Launches the two passes of the weight gradient on `stream` and returns
+// cudaGetLastError() (0 = both launches were accepted). x [batch, H, W, C]
+// float32, g [batch, Ho, Wo, N] (bfloat16 when g_bf16, else float32),
+// partial [chunks, K, N] float32 scratch, dw32 [K, N] float32 and dw [K, N]
+// (bfloat16 when w_bf16, else float32) are device pointers of contiguous
+// tensors, K = P*P*C; chunks * rows_per_chunk >= batch * Ho.
+int patchify_dw(const void* x, const void* g, void* partial, void* dw32,
+                void* dw, int batch, int H, int W, int C, int P, int N,
+                int Ho, int Wo, int pad_top, int pad_left, int rows_per_chunk,
+                int chunks, int w_bf16, int g_bf16, int clip01, int vec4,
+                void* stream) {
+  const long long K = static_cast<long long>(P) * P * C;
+  if (batch <= 0 || Ho <= 0 || Wo <= 0 || N <= 0 || C <= 0 || P <= 0 ||
+      rows_per_chunk <= 0 || chunks <= 0 ||
+      static_cast<long long>(chunks) * rows_per_chunk <
+          static_cast<long long>(batch) * Ho ||
+      (K + DW_BK - 1) / DW_BK > 65535 || (N + DW_BN - 1) / DW_BN > 65535 ||
+      K * N > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  float* pf = static_cast<float*>(partial);
+  float* d32 = static_cast<float*>(dw32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (w_bf16 && g_bf16)
+    err = launch_dw<__nv_bfloat16, __nv_bfloat16>(
+        xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
+        rows_per_chunk, chunks, clip01, vec4, s);
+  else if (w_bf16)
+    err = launch_dw<__nv_bfloat16, float>(
+        xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
+        rows_per_chunk, chunks, clip01, vec4, s);
+  else if (g_bf16)
+    err = launch_dw<float, __nv_bfloat16>(
+        xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
+        rows_per_chunk, chunks, clip01, vec4, s);
+  else
+    err = launch_dw<float, float>(
+        xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
+        rows_per_chunk, chunks, clip01, vec4, s);
   return static_cast<int>(err);
 }
 

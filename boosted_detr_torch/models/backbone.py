@@ -1,7 +1,8 @@
 """ResNet backbone with the patchify stem, and the neck, in PyTorch.
 
 Counterpart of boosted_detr_tpu/models/backbone.py, the part on the serving
-path: ``make_norm`` (:49-64, BatchNorm only), ``PallasPatchifyConv``
+path: ``make_norm`` (:49-64, BatchNorm, in eval and training mode),
+``PallasPatchifyConv``
 (:103-157) as ``PatchifyConv``, ``ConvNormAct`` (:160-194),
 ``BottleneckBlock`` (:197-226), ``ResNetBackbone`` (:229-292, the
 ``patchify8`` and ``patchify`` stems), ``_preprocess_affine`` (:631-643),
@@ -30,18 +31,28 @@ from boosted_detr_torch.ops.patchify import same_padding
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm(use_running_average=True, epsilon=1e-3)`` over the
-    last axis, for NHWC maps and for [B, T, C] tokens alike (the heads
-    normalise over B and T per channel, heads.py:51).
+    """Flax ``nn.BatchNorm(use_running_average=not train, momentum=0.99,
+    epsilon=1e-3)`` over the last axis, for NHWC maps and for [B, T, C]
+    tokens alike (the heads normalise over B and T per channel,
+    heads.py:51).
 
     Traps:
     - eps is 1e-3 (Keras' default), not torch's 1e-5;
-    - at inference it uses the running statistics;
+    - in eval mode it uses the running statistics; in training mode the
+      batch statistics, taken in float32 over every axis but the last with
+      Flax's fast variance ``max(0, E[x^2] - E[x]^2)`` (flax 0.12
+      ``_compute_stats``), with gradients through both;
+    - the running update is ``ra = 0.99 ra + 0.01 stat`` with that biased
+      variance, so ``F.batch_norm`` (torch's momentum convention, unbiased
+      variance) is not called;
     - Flax promotes the bf16 activations against the float32 statistics,
       normalises in float32 and only then casts to the compute dtype. That
       is written out here; cuDNN's bf16 batch norm is not called.
-    Training-mode normalisation (batch statistics) comes with the training
-    slice, so a module in training mode raises."""
+    A module called several times in one training forward (a head under
+    ``return_intermediate``) updates its running statistics each time, as
+    Flax's mutable collection does."""
+
+    momentum = 0.99
 
     def __init__(self, num_features: int, dtype: torch.dtype,
                  eps: float = 1e-3):
@@ -60,12 +71,20 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm with batch statistics is not ported yet; call "
-                ".eval() to normalise with the running statistics")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(self.dtype)
 
 
@@ -117,8 +136,10 @@ class Conv(nn.Module):
 
 
 class PatchifyConv(nn.Module):
-    """The patchify stem through the hand-written kernel
-    (``ops.patchify.patchify_conv``), counterpart of ``PallasPatchifyConv``.
+    """The patchify stem through the hand-written kernels
+    (``ops.patchify.PatchifyConvFn``: the forward kernel, and the
+    weight-gradient kernel in backward), counterpart of
+    ``PallasPatchifyConv``.
     Same parameter as the plain stem conv (``weight``, OIHW), so weights
     interchange between the two routes.
 
@@ -156,8 +177,8 @@ class PatchifyConv(nn.Module):
             kernel = kernel * a.reshape(1, 1, -1, 1)
             if perm is not None:
                 kernel = kernel[:, :, list(np.argsort(perm)), :]
-        y = patchify.patchify_conv(x, kernel.to(dtype).contiguous(),
-                                   out_dtype=dtype, clip01=clip01)
+        y = patchify.PatchifyConvFn.apply(x, kernel.to(dtype).contiguous(),
+                                          dtype, clip01)
         if bias is not None:
             y = y + bias.to(y.dtype)
         return y

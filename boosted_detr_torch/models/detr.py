@@ -4,14 +4,18 @@ Counterpart of boosted_detr_tpu/models/detr.py:31-104: backbone -> neck ->
 encoder blocks -> decoder blocks -> category, attribute and box heads. The
 forward maps NHWC float32 images in [0, 1] to probabilities: ``category``
 [B, P, Vc] softmax, ``attribute`` [B, P, Va] sigmoid and ``boxes``
-[B, P, 4], all float32. It is the inference forward (``train=False``):
-BatchNorm uses the running statistics and dropout is the identity; the
-training forward comes with the training slice.
+[B, P, 4], all float32.
+
+``model.eval()`` gives the JAX ``train=False`` forward: BatchNorm uses the
+running statistics and there is no dropout. ``model.train()`` gives the
+``train=True`` forward: BatchNorm normalises with the batch statistics and
+updates its running ones, and dropout draws its bits from the
+``generator`` the caller passes (the train step makes one per step).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -62,7 +66,7 @@ class DETR(nn.Module):
                                  cfg.encoder_dim, cfg.norm, dtype)
         self.encoder = layers.ImageEncoder(
             cfg.grid_size, cfg.encoder_dim, cfg.num_encoder_blocks,
-            cfg.num_encoder_heads, eps, dtype)
+            cfg.num_encoder_heads, eps, dtype, cfg.dropout_rate)
         self.decoder_prep = layers.DecoderPrep(cfg.num_object_preds,
                                                cfg.decoder_dim, dtype)
         self.num_decoder_blocks = cfg.num_decoder_blocks
@@ -70,7 +74,8 @@ class DETR(nn.Module):
             # decoder block 0 has no self-attention (layers.py:298)
             self.add_module(f"decoder_block_{i}", layers.DecoderBlock(
                 cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
-                self_attention=(i > 0), encoder_dim=cfg.encoder_dim))
+                self_attention=(i > 0), encoder_dim=cfg.encoder_dim,
+                dropout_rate=cfg.dropout_rate))
         hidden = cfg.resolved_head_hidden_dim
         self.category_head = SingleClassPredictionHead(
             cfg.decoder_dim, cfg.num_categories, hidden, cfg.num_object_preds,
@@ -88,29 +93,34 @@ class DETR(nn.Module):
     def device(self) -> torch.device:
         return self.encoder.positional_encoding.device
 
-    def encode(self, image):
+    def encode(self, image, generator=None):
         """Backbone + neck + transformer encoder -> (tokens, positional)."""
         feats = self.neck(self.backbone(image))
-        return self.encoder(feats)
+        return self.encoder(feats, generator)
 
     def apply_heads(self, decoder_features) -> Dict[str, torch.Tensor]:
         return {"category": self.category_head(decoder_features),
                 "attribute": self.attribute_head(decoder_features),
                 "boxes": self.box_head(decoder_features)}
 
-    def forward(self, image: torch.Tensor, *, return_intermediate: bool = False
+    def forward(self, image: torch.Tensor, *, return_intermediate: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Union[Dict[str, torch.Tensor],
                            List[Dict[str, torch.Tensor]]]:
-        if self.training:
-            raise NotImplementedError(
-                "the training forward (dropout, batch statistics) is not "
-                "ported yet; call .eval() to serve")
-        tokens, pos = self.encode(image)
+        """``generator`` draws the dropout bits in training mode, where it
+        is required when ``dropout_rate > 0``; in eval mode it is unused."""
+        if not self.training:
+            generator = None
+        elif generator is None and self.config.dropout_rate > 0.0:
+            raise ValueError("the training forward draws dropout from an "
+                             "explicit generator; pass generator=")
+        tokens, pos = self.encode(image, generator)
         enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
         outputs: List[Dict[str, torch.Tensor]] = []
         n = self.num_decoder_blocks
         for i in range(n):
-            dec = getattr(self, f"decoder_block_{i}")(enc_value, dec, enc_key)
+            dec = getattr(self, f"decoder_block_{i}")(enc_value, dec, enc_key,
+                                                      generator)
             if return_intermediate or i == n - 1:
                 outputs.append(self.apply_heads(dec))
         return outputs if return_intermediate else outputs[-1]

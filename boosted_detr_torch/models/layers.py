@@ -3,15 +3,18 @@
 Counterpart of boosted_detr_tpu/models/layers.py:45-310
 (``trig_positional_init``, ``MultiheadAttention``, ``AttentionBlock``,
 ``FeedForwardBlock``, ``EncoderBlock``, ``ImageEncoder``, ``DecoderPrep``,
-``DecoderBlock``), inference only. Submodules and parameters carry the
-Flax names, so that ``bridge.load_flax_variables`` maps one tree onto the
-other leaf by leaf. Tokens are ``[B, T, D]`` as in the JAX package.
+``DecoderBlock``). Submodules and parameters carry the Flax names, so that
+``bridge.load_flax_variables`` maps one tree onto the other leaf by leaf.
+Tokens are ``[B, T, D]`` as in the JAX package.
 
 Parameters are float32 and cast to the compute dtype at use, as Flax does
-with ``dtype=bfloat16``. Dropout is absent: the modules serve at
-``train=False``, where the JAX package's dropout is the identity. The fused
-attention kernel (``use_pallas=True``), the attention mask and ``qk_norm``
-are not on the serving path and are not ported here.
+with ``dtype=bfloat16``. Dropout sits where the JAX blocks have it, after
+the attention (layers.py:159) and after the FFN (:184). Each forward takes
+a ``generator``: ``None`` is the JAX ``deterministic=True`` (no dropout);
+a ``torch.Generator`` on the activations' device draws the dropout bits,
+never the global RNG. The fused attention kernel (``use_pallas=True``),
+the attention mask and ``qk_norm`` are not on the flagship path and are
+not ported here.
 """
 
 from __future__ import annotations
@@ -45,6 +48,20 @@ def variance_scaling_(t: torch.Tensor, scale: float, mode: str, fan_in: int,
 
 _INITS = {"glorot_normal": (1.0, "fan_avg"), "he_normal": (2.0, "fan_in"),
           "lecun_normal": (1.0, "fan_in")}
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout(rate)``: keeps each value with probability
+    ``1 - rate`` and scales the kept ones by dividing by ``1 - rate`` in
+    ``x``'s dtype; the identity when ``generator`` is None or ``rate`` is
+    0. The bits come from ``generator``, so they differ from JAX's."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def reset_parameters(module: nn.Module,
@@ -164,36 +181,42 @@ class MultiheadAttention(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """MHA + residual + LayerNorm (layers.py:143-165); the residual add and
-    the norm are float32."""
+    """MHA + dropout + residual + LayerNorm (layers.py:143-165); the
+    residual add and the norm are float32."""
 
     def __init__(self, dim: int, num_heads: int, eps: float,
-                 dtype: torch.dtype, kv_dim: Optional[int] = None):
+                 dtype: torch.dtype, kv_dim: Optional[int] = None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.attention = MultiheadAttention(dim, num_heads, dtype, kv_dim)
         self.layer_norm = LayerNorm(dim, eps)
 
-    def forward(self, query, key, value):
-        attn = self.attention(query, key, value)
+    def forward(self, query, key, value, generator=None):
+        attn = dropout(self.attention(query, key, value), self.dropout_rate,
+                       generator)
         x = query.float() + attn.float()
         return self.layer_norm(x).to(self.dtype)
 
 
 class FeedForwardBlock(nn.Module):
-    """Constant-width Dense(relu) -> Dense + residual + LayerNorm
+    """Constant-width Dense(relu) -> Dense + dropout + residual + LayerNorm
     (layers.py:168-188)."""
 
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.dense_relu = Dense(dim, dim, "glorot_normal")
         self.dense_linear = Dense(dim, dim, "glorot_normal")
         self.layer_norm = LayerNorm(dim, eps)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = torch.relu(self.dense_relu(x, self.dtype))
-        h = self.dense_linear(h, self.dtype)
+        h = dropout(self.dense_linear(h, self.dtype), self.dropout_rate,
+                    generator)
         out = x.float() + h.float()
         return self.layer_norm(out).to(self.dtype)
 
@@ -207,15 +230,16 @@ class EncoderBlock(nn.Module):
     (layers.py:204-213)."""
 
     def __init__(self, dim: int, num_heads: int, eps: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, dropout_rate: float = 0.1):
         super().__init__()
-        self.self_attention = AttentionBlock(dim, num_heads, eps, dtype)
-        self.ffn = FeedForwardBlock(dim, eps, dtype)
+        self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
+                                             dropout_rate=dropout_rate)
+        self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
-    def forward(self, features, positional):
+    def forward(self, features, positional, generator=None):
         qk = features + positional.to(features.dtype)
-        features = self.self_attention(qk, qk, features)
-        return self.ffn(features)
+        features = self.self_attention(qk, qk, features, generator)
+        return self.ffn(features, generator)
 
 
 class ImageEncoder(nn.Module):
@@ -224,7 +248,8 @@ class ImageEncoder(nn.Module):
     positional [B, R*C, D])."""
 
     def __init__(self, grid: tuple, dim: int, num_blocks: int,
-                 num_heads: int, eps: float, dtype: torch.dtype):
+                 num_heads: int, eps: float, dtype: torch.dtype,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.grid = tuple(grid)
         self.dim = dim
@@ -232,8 +257,8 @@ class ImageEncoder(nn.Module):
         self.positional_encoding = nn.Parameter(
             torch.empty(grid[0] * grid[1], dim))
         for i in range(num_blocks):
-            self.add_module(f"block_{i}",
-                            EncoderBlock(dim, num_heads, eps, dtype))
+            self.add_module(f"block_{i}", EncoderBlock(
+                dim, num_heads, eps, dtype, dropout_rate))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -241,7 +266,7 @@ class ImageEncoder(nn.Module):
             self.positional_encoding.copy_(torch.from_numpy(
                 trig_positional_init(*self.positional_encoding.shape)))
 
-    def forward(self, features):
+    def forward(self, features, generator=None):
         b, r, c, d = features.shape
         if (r, c) != self.grid:
             raise ValueError(f"encoder built for a {self.grid} grid, got "
@@ -249,7 +274,7 @@ class ImageEncoder(nn.Module):
         tokens = features.reshape(b, r * c, d)
         pos = self.positional_encoding[None].expand(b, r * c, d)
         for i in range(self.num_blocks):
-            tokens = getattr(self, f"block_{i}")(tokens, pos)
+            tokens = getattr(self, f"block_{i}")(tokens, pos, generator)
         return tokens, pos
 
 
@@ -284,20 +309,25 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, self_attention: bool = True,
-                 encoder_dim: Optional[int] = None):
+                 encoder_dim: Optional[int] = None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         if self_attention:
-            self.self_attention = AttentionBlock(dim, num_heads, eps, dtype)
+            self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
+                                                 dropout_rate=dropout_rate)
         else:
             self.self_attention = None
         self.cross_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                              kv_dim=encoder_dim)
-        self.ffn = FeedForwardBlock(dim, eps, dtype)
+                                              kv_dim=encoder_dim,
+                                              dropout_rate=dropout_rate)
+        self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
-    def forward(self, encoder_value, decoder_features, encoder_key):
+    def forward(self, encoder_value, decoder_features, encoder_key,
+                generator=None):
         if self.self_attention is not None:
             decoder_features = self.self_attention(
-                decoder_features, decoder_features, decoder_features)
+                decoder_features, decoder_features, decoder_features,
+                generator)
         decoder_features = self.cross_attention(decoder_features, encoder_key,
-                                                encoder_value)
-        return self.ffn(decoder_features)
+                                                encoder_value, generator)
+        return self.ffn(decoder_features, generator)

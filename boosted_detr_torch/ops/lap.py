@@ -1,0 +1,189 @@
+"""Exact batched linear assignment (K2): the hand-written Hopper kernel and
+its plain PyTorch version.
+
+Counterpart of boosted_detr_tpu/ops/pallas_lap.py: ``hungarian_lap_pallas``
+(:159-191) and its kernel ``_lap_kernel`` (:49-156). Contract: cost
+[B, O, P] float32 (no gradient) and ``num_objects`` [B] int32 in; a 0/1
+float32 mask [B, O, P] out, one 1 in each of the first ``num_objects[b]``
+rows and zero on the other rows, at an assignment of least total cost.
+
+The algorithm is the Jonker-Volgenant shortest augmenting path with dual
+potentials u (rows) and v (columns), row after row. Columns are the P real
+ones, then one private dummy column per row, then a virtual start column
+(C = P + O + 1 in all). A dummy costs -BIG to its row when the row is
+inactive (i >= n) and +BIG otherwise, so an inactive row takes its dummy
+in one Dijkstra step and every problem runs the same loop structure.
+
+``hungarian_lap_reference`` is the plain version: all B problems advance
+in lockstep over [B, C] tensors with masks, as the TPU kernel's lanes do,
+deterministically, with the lowest index winning a tie in the argmin
+(``torch.min`` over a dim returns the first minimum, as ``jnp.argmin``
+does). It is also the port's ``matcher="hungarian"`` solver.
+
+The kernel, ``csrc/lap.cu``, is CUDA C++ for ``sm_90a``: one warp per
+problem, the C columns spread over the 32 lanes, the cost rows in shared
+memory, a warp-shuffle argmin. It repeats the plain version's float32
+arithmetic operation for operation, so the two give the same mask, ties
+included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_INF = 1e30
+_BIG = 1e9
+# The kernel holds at most 8 columns in each of its 32 lanes.
+MAX_COLUMNS = 256
+# The most shared memory one thread block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+
+
+def _check(cost: torch.Tensor, num_objects: torch.Tensor):
+    if cost.dim() != 3:
+        raise ValueError(f"cost must be [B, O, P], got {tuple(cost.shape)}")
+    if num_objects.shape != (cost.shape[0],):
+        raise ValueError(f"num_objects must be [B] = [{cost.shape[0]}], got "
+                         f"{tuple(num_objects.shape)}")
+
+
+def hungarian_lap_reference(cost: torch.Tensor, num_objects: torch.Tensor
+                            ) -> torch.Tensor:
+    """The plain version: exact assignment mask [B, O, P] float32."""
+    _check(cost, num_objects)
+    cost = cost.detach().float()
+    b, o, p = cost.shape
+    dev = cost.device
+    c = p + o + 1
+    virt = c - 1
+    free = o  # the row id of an unmatched column
+    n = num_objects.reshape(b).to(device=dev, dtype=torch.long)
+    lanes = torch.arange(b, device=dev)
+    col_ids = torch.arange(c, device=dev)
+    row_ids = torch.arange(o, device=dev)
+
+    # [B, O, C]: real costs, the dummy columns, BIG at the virtual column
+    inactive = row_ids[None, :] >= n[:, None]  # [B, O]
+    dummy = torch.full((b, o, o), _BIG, device=dev)
+    dummy[:, row_ids, row_ids] = torch.where(inactive, -_BIG, _BIG)
+    cost_aug = torch.cat([cost, dummy, torch.full((b, o, 1), _BIG,
+                                                  device=dev)], dim=2)
+
+    u = torch.zeros((b, o), device=dev)
+    v = torch.zeros((b, c), device=dev)
+    match = torch.full((b, c), free, dtype=torch.long, device=dev)
+    for i in range(o):
+        match[:, virt] = i
+        minv = torch.full((b, c), _INF, device=dev)
+        way = torch.full((b, c), virt, dtype=torch.long, device=dev)
+        used = torch.zeros((b, c), dtype=torch.bool, device=dev)
+        j0 = torch.full((b,), virt, dtype=torch.long, device=dev)
+        # Each step marks a new column used, so a search ends within C
+        # steps; the cap only stops a loop on NaN costs.
+        for _ in range(c):
+            i0 = match[lanes, j0]
+            active = i0 != free
+            n_active = int(active.sum())
+            if n_active == 0:
+                break
+            hungarian_lap_reference.relaxations += n_active
+            i0c = i0.clamp(max=o - 1)
+            used = used | ((col_ids[None, :] == j0[:, None]) & active[:, None])
+            reduced = cost_aug[lanes, i0c] - u[lanes, i0c][:, None] - v
+            avail = ~used
+            better = (reduced < minv) & avail & active[:, None]
+            minv = torch.where(better, reduced, minv)
+            way = torch.where(better, j0[:, None], way)
+            masked = torch.where(avail, minv, torch.full_like(minv, _INF))
+            delta, j1 = masked.min(dim=1)
+            delta = torch.where(active, delta, torch.zeros_like(delta))
+            # rows owning used columns gain delta (the current row i owns
+            # the virtual column), used columns lose it, the tentative
+            # distances of the others shrink by it
+            hit = used & active[:, None]
+            owners = torch.where(hit, match, torch.full_like(match, free))
+            gain = torch.zeros((b, o + 1), device=dev)
+            gain.scatter_(1, owners, hit.float())
+            u = torch.where(gain[:, :o] > 0, u + delta[:, None], u)
+            v = torch.where(hit, v - delta[:, None], v)
+            minv = torch.where(avail & active[:, None], minv - delta[:, None],
+                               minv)
+            j0 = torch.where(active, j1, j0)
+        # augment along ``way`` back to the virtual column
+        for _ in range(c):
+            active = j0 != virt
+            if not bool(active.any()):
+                break
+            j1 = way[lanes, j0]
+            m_j1 = match[lanes, j1]
+            at_j0 = (col_ids[None, :] == j0[:, None]) & active[:, None]
+            match = torch.where(at_j0, m_j1[:, None], match)
+            j0 = torch.where(active, j1, j0)
+
+    mask = (match[:, None, :p] == row_ids[None, :, None]) & ~inactive[:, :, None]
+    return mask.float()
+
+
+# Dijkstra steps taken, summed over the problems: each relaxes the C columns
+# of one problem. A measurement counts the work its data needed with it.
+hungarian_lap_reference.relaxations = 0
+
+
+def _library() -> ctypes.CDLL:
+    from boosted_detr_torch.ops import build
+
+    lib = build.load("lap")
+    lib.lap_solve.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])
+    lib.lap_solve.restype = ctypes.c_int
+    lib.lap_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.lap_smem_bytes.restype = ctypes.c_longlong
+    lib.lap_error_string.argtypes = [ctypes.c_int]
+    lib.lap_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def hungarian_lap(cost: torch.Tensor, num_objects: torch.Tensor
+                  ) -> torch.Tensor:
+    """Exact assignment mask [B, O, P] float32 of ``cost`` [B, O, P] with
+    the first ``num_objects[b]`` rows of problem b taking part.
+
+    CPU tensors go to ``hungarian_lap_reference``. A CUDA tensor launches
+    the kernel or raises; there is no fallback. Each launch adds one to
+    ``hungarian_lap.launches``."""
+    _check(cost, num_objects)
+    if cost.device.type == "cpu":
+        return hungarian_lap_reference(cost, num_objects)
+    if cost.device.type != "cuda":
+        raise ValueError(f"hungarian_lap: cost on {cost.device}; it must be "
+                         f"on a CUDA device or on the CPU")
+    b, o, p = cost.shape
+    if p + o + 1 > MAX_COLUMNS:
+        raise ValueError(f"hungarian_lap: the kernel takes P + O + 1 <= "
+                         f"{MAX_COLUMNS} columns, got P={p}, O={o}")
+    cost = cost.detach().float().contiguous()
+    n = num_objects.to(device=cost.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, o, p), dtype=torch.float32, device=cost.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    smem = lib.lap_smem_bytes(o, p)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"hungarian_lap: a problem needs {smem} bytes of "
+                         f"shared memory at O={o}, P={p}, over the "
+                         f"{SMEM_LIMIT}-byte limit")
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lap_solve(cost.data_ptr(), n.data_ptr(), out.data_ptr(), b,
+                           o, p, stream)
+    if rc != 0:
+        raise RuntimeError(f"lap_solve launch failed: "
+                           f"{lib.lap_error_string(rc).decode()} (B={b}, "
+                           f"O={o}, P={p})")
+    hungarian_lap.launches += 1
+    return out
+
+
+hungarian_lap.launches = 0

@@ -26,8 +26,17 @@ SAME-padded convolution instead of its kernel (``supported``, :47-50). Here
 the kernel (and the plain version) compute that same SAME-padded result
 directly, with the padding as zeros, so one path serves every geometry.
 
-The weight gradient (``_dw_kernel``) is not ported yet: this is the
-inference slice.
+The weight gradient (``_dw_kernel``/``_dw_impl``, :95-113, :152-175) is
+the second kernel of the same source, ``patchify_conv_dw``: the reduction
+over the M output positions, which the TPU carries across its sequential
+grid, runs in two deterministic passes (per-chunk float32 partials, then
+a sum over the chunks in a fixed order). Its bound at the flagship shape is
+39.3 MB of image and 13.1 MB of g read, about 15.6 us at 3.35 TB/s, against
+about 2.5 us of tensor-core work: memory bytes bound it too.
+``PatchifyConvFn`` is the custom VJP (:178-206): forward through
+``patchify_conv``, dW through ``patchify_conv_dw``, and dx in plain torch
+(depth-to-space of g times the kernel, zeroed where the clip cut) only when
+the image needs a gradient.
 """
 
 from __future__ import annotations
@@ -76,20 +85,62 @@ def patchify_conv_reference(x: torch.Tensor, w: torch.Tensor, *,
     reshape/permute, float32 matmul of the rounded values, cast."""
     out_dtype = out_dtype or w.dtype
     _check(x, w, out_dtype)
-    b, h, width, c_in = x.shape
     p, c_out = w.shape[0], w.shape[3]
+    patches, (b, ho, wo) = _patch_matrix(x, p, w.dtype, clip01)
+    out = patches.float() @ w.reshape(-1, c_out).float()
+    return out.reshape(b, ho, wo, c_out).to(out_dtype)
+
+
+def _patch_matrix(x: torch.Tensor, p: int, dtype: torch.dtype, clip01: bool):
+    """[M, P*P*C_in] patches of ``x`` in ``dtype``, rows in (b, ho, wo)
+    order, columns in (di, dj, c) order: clip, round, SAME zero padding,
+    space-to-depth by reshape/permute. Returns (patches, (B, Ho, Wo))."""
+    b, h, width, c_in = x.shape
     if clip01:
         x = x.clamp(0.0, 1.0)
-    x = x.to(w.dtype)
+    x = x.to(dtype)
     (top, bottom), (left, right) = (same_padding(h, p, p),
                                     same_padding(width, p, p))
     if top or bottom or left or right:
         x = torch.nn.functional.pad(x, (0, 0, left, right, top, bottom))
     ho, wo = x.shape[1] // p, x.shape[2] // p
     patches = x.reshape(b, ho, p, wo, p, c_in).permute(0, 1, 3, 2, 4, 5)
-    patches = patches.reshape(b * ho * wo, p * p * c_in)
-    out = patches.float() @ w.reshape(p * p * c_in, c_out).float()
-    return out.reshape(b, ho, wo, c_out).to(out_dtype)
+    return patches.reshape(b * ho * wo, p * p * c_in), (b, ho, wo)
+
+
+def _check_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
+              w_dtype: torch.dtype):
+    if x.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"patchify_conv_dw: x must be [B,H,W,C_in] and g "
+                         f"[B,Ho,Wo,C_out], got {tuple(x.shape)} and "
+                         f"{tuple(g.shape)}")
+    b, h, width, _ = x.shape
+    want = (b, -(-h // patch), -(-width // patch))
+    if tuple(g.shape[:3]) != want:
+        raise ValueError(f"patchify_conv_dw: g {tuple(g.shape)} does not fit "
+                         f"x {tuple(x.shape)} at P={patch}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"patchify_conv_dw reads a float32 image, got "
+                        f"{x.dtype}")
+    if w_dtype not in _DTYPES or g.dtype not in _DTYPES:
+        raise TypeError(f"weights and g must be float32 or bfloat16, got "
+                        f"{w_dtype} and {g.dtype}")
+
+
+def patchify_conv_dw_reference(x: torch.Tensor, g: torch.Tensor, patch: int,
+                               w_dtype: torch.dtype, *, clip01: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the weight gradient, with the kernel's
+    arithmetic: patches and g rounded to ``w_dtype``, their product summed
+    in float32. Returns (dw [P,P,C_in,C_out] in ``w_dtype``, the same in
+    float32 before the rounding)."""
+    _check_dw(x, g, patch, w_dtype)
+    patches, _ = _patch_matrix(x, patch, w_dtype, clip01)
+    c_out = g.shape[-1]
+    gm = g.reshape(-1, c_out).to(w_dtype).float()
+    dw32 = (patches.float().t() @ gm).reshape(patch, patch, x.shape[-1],
+                                              c_out)
+    return dw32.to(w_dtype), dw32
 
 
 # The most shared memory one thread block may use on an H100 (227 KB).
@@ -105,6 +156,11 @@ def _library() -> ctypes.CDLL:
     lib.patchify_fwd.restype = ctypes.c_int
     lib.patchify_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.patchify_smem_bytes.restype = ctypes.c_longlong
+    lib.patchify_dw.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
+                                + [ctypes.c_void_p])
+    lib.patchify_dw.restype = ctypes.c_int
+    lib.patchify_dw_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.patchify_dw_smem_bytes.restype = ctypes.c_longlong
     lib.patchify_error_string.argtypes = [ctypes.c_int]
     lib.patchify_error_string.restype = ctypes.c_char_p
     return lib
@@ -164,10 +220,7 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
     w_bf16 = w.dtype == torch.bfloat16
     lib = _library()
     bn, _ = _channel_slice(lib, p, c_in, wo, c_out, w_bf16)
-    # whole float4 loads of the image rows need rows with no horizontal
-    # padding, a multiple of 4 values long, from a 16-byte aligned base
-    vec4 = (left == 0 and wo * p == width and (width * c_in) % 4 == 0
-            and x.data_ptr() % 16 == 0)
+    vec4 = _vec4(x, p)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.patchify_fwd(
@@ -185,3 +238,127 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
 
 
 patchify_conv.launches = 0
+
+
+# Blocks the weight gradient's first pass aims for: two per SM of an H100.
+DW_TARGET_BLOCKS = 2 * 132
+# The first pass's block tile: 64 k values (di, dj, c) by 128 channels.
+DW_TILE_K, DW_TILE_N = 64, 128
+
+
+def _vec4(x: torch.Tensor, p: int) -> bool:
+    """Whole float4 loads of the image rows need rows with no horizontal
+    padding, a multiple of 4 values long, from a 16-byte aligned base."""
+    width, c_in = x.shape[2], x.shape[3]
+    left, _ = same_padding(width, p, p)
+    wo = -(-width // p)
+    return (left == 0 and wo * p == width and (width * c_in) % 4 == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
+                     w_dtype: torch.dtype, *, clip01: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weight gradient of ``patchify_conv(x, w, clip01=clip01)`` for the
+    output cotangent ``g`` [B,Ho,Wo,C_out]: (dw [P,P,C_in,C_out] in
+    ``w_dtype``, its float32 sum before the rounding).
+
+    A CPU tensor goes to ``patchify_conv_dw_reference``. A CUDA tensor
+    launches the kernel or raises; there is no fallback. Each launch adds
+    one to ``patchify_conv_dw.launches``."""
+    _check_dw(x, g, patch, w_dtype)
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return patchify_conv_dw_reference(x, g, patch, w_dtype,
+                                          clip01=clip01)
+    if x.device.type != "cuda" or g.device != x.device:
+        raise ValueError(f"patchify_conv_dw: x on {x.device} and g on "
+                         f"{g.device}; both must be on one CUDA device or "
+                         f"both on the CPU")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("patchify_conv_dw: x and g must be contiguous")
+    b, h, width, c_in = x.shape
+    ho, wo, c_out = g.shape[1], g.shape[2], g.shape[3]
+    top, _ = same_padding(h, patch, patch)
+    left, _ = same_padding(width, patch, patch)
+    k = patch * patch * c_in
+    dw32 = torch.empty((k, c_out), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, c_out), dtype=w_dtype, device=x.device)
+    shape = (patch, patch, c_in, c_out)
+    if b * ho * wo == 0:
+        return dw.zero_().reshape(shape), dw32.zero_().reshape(shape)
+    lib = _library()
+    smem = lib.patchify_dw_smem_bytes(patch, c_in, wo)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"patchify_conv_dw: a block needs {smem} bytes of shared memory "
+            f"for P={patch}, C_in={c_in}, Wo={wo}, over the {SMEM_LIMIT}-byte "
+            f"limit")
+    tiles = -(-k // DW_TILE_K) * -(-c_out // DW_TILE_N)
+    rows = b * ho
+    rows_per_chunk = -(-rows // max(1, min(rows, -(-DW_TARGET_BLOCKS
+                                                     // tiles))))
+    chunks = -(-rows // rows_per_chunk)
+    partial = torch.empty((chunks, k, c_out), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.patchify_dw(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw32.data_ptr(),
+            dw.data_ptr(), b, h, width, c_in, patch, c_out, ho, wo, top, left,
+            rows_per_chunk, chunks, int(w_dtype == torch.bfloat16),
+            int(g.dtype == torch.bfloat16), int(clip01),
+            int(_vec4(x, patch)), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"patchify_dw launch failed: "
+            f"{lib.patchify_error_string(rc).decode()} (x {tuple(x.shape)}, "
+            f"g {tuple(g.shape)} {g.dtype}, w {w_dtype}, {chunks} chunks of "
+            f"{rows_per_chunk} rows)")
+    patchify_conv_dw.launches += 1
+    return dw.reshape(shape), dw32.reshape(shape)
+
+
+patchify_conv_dw.launches = 0
+
+
+def _dx_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+              clip01: bool) -> torch.Tensor:
+    """The image's gradient: depth-to-space of g times the kernel in
+    float32, cropped to the image, zeroed where the clip cut
+    (pallas_patchify.py:193-203)."""
+    p, _, c_in, c_out = w.shape
+    b, ho, wo, _ = g.shape
+    dx = torch.einsum("bhwo,ko->bhwk", g.float(),
+                      w.reshape(-1, c_out).float())
+    dx = dx.reshape(b, ho, wo, p, p, c_in).permute(0, 1, 3, 2, 4, 5)
+    dx = dx.reshape(b, ho * p, wo * p, c_in)
+    h, width = x.shape[1], x.shape[2]
+    top, _ = same_padding(h, p, p)
+    left, _ = same_padding(width, p, p)
+    dx = dx[:, top:top + h, left:left + width]
+    if clip01:
+        dx = torch.where((x >= 0.0) & (x <= 1.0), dx, torch.zeros_like(dx))
+    return dx.to(x.dtype)
+
+
+class PatchifyConvFn(torch.autograd.Function):
+    """``patchify_conv`` with its gradient: forward by the kernel (or the
+    plain version on the CPU), dW by the weight-gradient kernel (or its
+    plain version), dx in plain torch only when the image needs one."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype, clip01):
+        ctx.save_for_backward(x, w)
+        ctx.clip01 = clip01
+        return patchify_conv(x, w, out_dtype=out_dtype, clip01=clip01)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw, _ = patchify_conv_dw(x, g.contiguous(), w.shape[0], w.dtype,
+                                     clip01=ctx.clip01)
+        if ctx.needs_input_grad[0]:
+            dx = _dx_plain(x, w, g, ctx.clip01)
+        return dx, dw, None, None

@@ -8,23 +8,34 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
    with nvcc for sm_90a, one process per source, all at once;
-2. kernels: calls each kernel's wrapper on the card at the shapes the
-   serving path gives it (and the port's other patchify shapes), holds the
-   result against the plain PyTorch version on the same inputs, and times
-   kernel, plain version and one PyTorch library call with CUDA events;
+2. kernels: calls each kernel's wrapper on the card at the shapes the main
+   paths give it (and the port's other stem shapes): the stem's forward
+   (K1-fwd) and weight gradient (K1-dW) and the exact matcher (K2); holds
+   each result against the plain PyTorch version on the same inputs, and
+   times kernel, plain version and one PyTorch library call (where one
+   computes the same function) with CUDA events;
 3. serving: builds the flagship DETR (640x640, batch 8, bf16, ResNet
    patchify8 stem through the kernel) from seeded random weights and
    running statistics, serves a few requests through ``predict``, checks
    the outputs, and compares the same model with its stem switched to the
-   plain version; then holds a small float32 DETR on the card against the
-   same weights on the CPU, the path the CPU tests hold against JAX;
-4. report: the card's name and power limit, a ``kernels`` JSON line, and
+   plain version; then where one request's time goes;
+4. training: the flagship train step of bench.py (the same model, live
+   BatchNorm, dropout 0.1, the matched loss through the K2 matcher, SGD
+   with Nesterov momentum and per-tensor clipnorm) on the batch bench.py
+   builds: warm-up steps, then timed steps, their losses, the stem's
+   gradient, a profile of one step, and one step from the same state with
+   the plain versions in place of the kernels;
+5. small reference: a small float32 DETR on the card against the same
+   weights on the CPU, the path the CPU tests hold against JAX: one
+   forward, and one train step;
+6. report: the card's name and power limit, a ``kernels`` JSON line, and
    the last line ``{"ok": true, "device": {...}}``.
 
-The launch counters are set to 0 just before the requests and read just
-after, so ``launches`` counts what the serving path ran. TF32 is off for
-matmuls and convolutions, so that every float32 comparison is float32.
-Without a CUDA card it exits non-zero and prints no result.
+Every launch counter is set to 0 just before a main path runs (the served
+requests; the timed train steps) and read just after, so ``launches``
+counts what that path ran. TF32 is off for matmuls and convolutions, so
+that every float32 comparison is float32. Without a CUDA card it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 WARMUP, REPEATS = 3, 25
 REQUESTS, BATCH, RES = 3, 8, 640
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
 def _say(*parts):
@@ -63,14 +75,14 @@ def _close(out, ref, atol, rtol, what):
     return max_abs
 
 
-def _time_ms(fn, flush):
-    """Median of REPEATS launches timed one by one with CUDA events, each
-    after a write of a buffer larger than the 50 MB L2, so that every launch
-    finds its inputs in device memory as a fresh request would."""
+def _time_ms(fn, flush, repeats=REPEATS):
+    """Median of ``repeats`` launches timed one by one with CUDA events,
+    each after a write of a buffer larger than the 50 MB L2, so that every
+    launch finds its inputs in device memory as a fresh request would."""
     for _ in range(WARMUP):
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -144,14 +156,178 @@ def _patchify_case(patch, c_out, dtype, seed, flush):
     return row
 
 
+def _bound(n_bytes, ops, dtype):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _dw_case(patch, c_out, dtype, seed, flush):
+    """K1-dW: the stem's weight gradient for an output cotangent g in the
+    weights' dtype (the output's, on the stem), as the train step gives it."""
+    from boosted_detr_torch.ops import patchify as P
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda")
+    x = x * 1.2 - 0.1
+    ho = RES // patch
+    g = torch.randn((BATCH, ho, ho, c_out), generator=gen,
+                    device="cuda").to(dtype)
+    dw, dw32 = P.patchify_conv_dw(x, g, patch, dtype, clip01=True)
+    ref, ref32 = P.patchify_conv_dw_reference(x, g, patch, dtype,
+                                              clip01=True)
+    torch.cuda.synchronize()
+    what = f"dW P={patch} -> {c_out} {str(dtype)[6:]}"
+    # Both sum the same exact products of rounded values in float32, in
+    # other orders (the kernel's per-chunk partials against cuBLAS): the
+    # float32 sums differ by a few ulps of the sum of the products'
+    # magnitudes, held to 1e-5 of it. The cast results then differ by at
+    # most one bf16 ulp where the sums straddle a rounding boundary: 2**-7.
+    patches, _ = P._patch_matrix(x, patch, dtype, True)
+    scale = (patches.float().abs().t()
+             @ g.reshape(-1, c_out).float().abs()).reshape(dw32.shape)
+    bound32 = 1e-5 * scale + 1e-6
+    bad = ((dw32 - ref32).abs() > bound32).sum().item()
+    err = (dw.float() - ref.float()).abs()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    bad += (err > bound32 + ulp * ref.float().abs()).sum().item()
+    max_abs = err.max().item()
+    _say(f"  {what}: max abs err {max_abs:.3e} (float32 sums "
+         f"{(dw32 - ref32).abs().max().item():.3e}; held to 1e-5 of the "
+         f"summed |products| plus one result ulp); {bad} values outside")
+    if bad or not torch.isfinite(dw32).all():
+        raise AssertionError(f"{what}: {bad} values outside the tolerance")
+    m, k = patches.shape
+    row = {"shape": what, "max_abs_err": max_abs}
+    row.update(_bound(x.numel() * 4 + g.numel() * g.element_size()
+                      + dw.numel() * (dw.element_size() + 4),
+                      2 * m * k * c_out, dtype))
+    # The library yardstick, which the port never calls: cuDNN's weight
+    # gradient of the stride-P conv on the clipped image in the weights'
+    # dtype (NCHW views of NHWC data, channels_last).
+    xc = x.clamp(0.0, 1.0).to(dtype).permute(0, 3, 1, 2)
+    gc = g.permute(0, 3, 1, 2)
+    w_size = (c_out, 3, patch, patch)
+    lib = torch.nn.grad.conv2d_weight(xc, w_size, gc, stride=patch)
+    lib_err = (lib.permute(2, 3, 1, 0).float() - ref32).abs().max().item()
+    _say(f"  {what} cuDNN yardstick: max abs err {lib_err:.3e}")
+    row.update(
+        ms=_time_ms(lambda: P.patchify_conv_dw(x, g, patch, dtype,
+                                               clip01=True), flush),
+        plain_ms=_time_ms(lambda: P.patchify_conv_dw_reference(
+            x, g, patch, dtype, clip01=True), flush),
+        library_ms=_time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xc, w_size, gc, stride=patch), flush))
+    _say(f"  {what}: kernel {row['ms']:.4f} ms, plain "
+         f"{row['plain_ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms, "
+         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def _lap_case(b, o, p, seed, flush, edges=False):
+    """K2 on tie-free random costs: valid masks at scipy's total cost, and
+    the plain version's mask (the same float32 arithmetic, step for
+    step)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from boosted_detr_torch.ops import lap as L
+
+    rng = np.random.default_rng(seed)
+    cost_np = rng.uniform(0.0, 10.0, (b, o, p)).astype(np.float32)
+    n_np = rng.integers(1, o + 1, (b,)).astype(np.int32)
+    if edges:  # no objects, and every row taking part
+        n_np[0], n_np[-1] = 0, o
+    cost = torch.from_numpy(cost_np).cuda()
+    n = torch.from_numpy(n_np).cuda()
+    got = L.hungarian_lap(cost, n)
+    L.hungarian_lap_reference.relaxations = 0
+    want = L.hungarian_lap_reference(cost, n)
+    relaxations = L.hungarian_lap_reference.relaxations
+    torch.cuda.synchronize()
+    what = f"LAP [{b}, {o}, {p}]" + (" n=0 and n=O" if edges else "")
+    mask = got.cpu().numpy()
+    for i in range(b):
+        ni = int(n_np[i])
+        ok = (mask[i, ni:] == 0).all() and (mask[i].sum(0) <= 1).all()
+        if ni:
+            r, c = linear_sum_assignment(cost_np[i, :ni])
+            ok = ok and (mask[i, :ni].sum(1) == 1).all() and np.isclose(
+                (mask[i] * cost_np[i]).sum(), cost_np[i][r, c].sum(),
+                rtol=1e-5, atol=1e-3)
+        if not ok:
+            raise AssertionError(f"{what}: problem {i} is not an optimal "
+                                 f"assignment")
+    max_abs = (got - want).abs().max().item()
+    _say(f"  {what}: valid, at scipy's total cost (rtol 1e-5, atol 1e-3); "
+         f"max abs err against the plain version {max_abs:.1f} (tie-free "
+         f"costs: held to 0)")
+    if max_abs != 0.0:
+        raise AssertionError(f"{what}: the kernel's mask is not the plain "
+                             f"version's")
+    # Bytes: cost and num_objects in, mask out. Operations: what this data
+    # took, 6 float32 operations per column in each Dijkstra step (two
+    # subtractions and a compare for the relaxation, a compare for the
+    # argmin, the dual or distance update).
+    row = {"shape": what, "max_abs_err": max_abs,
+           "relaxations": relaxations}
+    row.update(_bound(2 * cost.numel() * 4 + n.numel() * 4,
+                      relaxations * (p + o + 1) * 6, torch.float32))
+
+    def host():
+        costs = cost.cpu().numpy()
+        for i in range(b):
+            if n_np[i]:
+                linear_sum_assignment(costs[i, :n_np[i]])
+
+    row.update(ms=_time_ms(lambda: L.hungarian_lap(cost, n), flush),
+               plain_ms=_time_ms(lambda: L.hungarian_lap_reference(cost, n),
+                                 flush, repeats=5),
+               library_ms=None, scipy_host_ms=_host_ms(host))
+    _say(f"  {what}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+         f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
+         f"{relaxations} Dijkstra steps); no PyTorch call computes a LAP; "
+         f"note: scipy on the host, D2H copy included, "
+         f"{row['scipy_host_ms']:.4f} ms")
+    return row
+
+
 def phase_kernels():
     _say("[kernels] patchify_conv against patchify_conv_reference on the "
          f"card, x f32 [{BATCH}, {RES}, {RES}, 3]")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    return [_patchify_case(8, 128, torch.bfloat16, 0, flush),
-            _patchify_case(8, 128, torch.float32, 1, flush),
-            _patchify_case(4, 64, torch.bfloat16, 2, flush),
-            _patchify_case(16, 384, torch.bfloat16, 3, flush)]
+    rows = {"patchify_fwd": [_patchify_case(8, 128, torch.bfloat16, 0, flush),
+                             _patchify_case(8, 128, torch.float32, 1, flush),
+                             _patchify_case(4, 64, torch.bfloat16, 2, flush),
+                             _patchify_case(16, 384, torch.bfloat16, 3,
+                                            flush)]}
+    _say("[kernels] patchify_conv_dw against patchify_conv_dw_reference")
+    rows["patchify_dw"] = [_dw_case(8, 128, torch.bfloat16, 4, flush),
+                           _dw_case(8, 128, torch.float32, 5, flush),
+                           _dw_case(4, 64, torch.bfloat16, 6, flush),
+                           _dw_case(16, 384, torch.bfloat16, 7, flush)]
+    _say("[kernels] hungarian_lap against hungarian_lap_reference and scipy")
+    rows["lap"] = [_lap_case(8, 32, 96, 8, flush),
+                   _lap_case(8, 32, 96, 9, flush, edges=True),
+                   _lap_case(32, 32, 96, 10, flush, edges=True)]
+    return rows
+
+
+def _counters():
+    from boosted_detr_torch.ops import lap as L
+    from boosted_detr_torch.ops import patchify as P
+
+    return {"patchify_fwd": P.patchify_conv, "patchify_dw": P.patchify_conv_dw,
+            "lap": L.hungarian_lap}
+
+
+def _reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _launches():
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _randomize_running_stats(model, seed):
@@ -196,6 +372,7 @@ def phase_serving():
                          num_attributes=len(codec.attribute_vocab))
     t0 = time.perf_counter()
     model = bt.DETR(cfg, seed=0)  # on cuda: the entry point's default
+    model.eval()  # a server holds its model in eval mode
     _randomize_running_stats(model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
     _say(f"[serving] flagship DETR, {n_params} parameters, built in "
@@ -206,17 +383,17 @@ def phase_serving():
 
     bt.predict(model, requests[0], codec)  # warm-up: cuDNN and cuBLAS plans
     torch.cuda.synchronize()
-    P.patchify_conv.launches = 0
+    _reset_launches()
     results, latencies = [], []
     for images in requests:
         t0 = time.perf_counter()
         results.append(bt.predict(model, images, codec))
         latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = P.patchify_conv.launches
-    _say(f"  patchify_conv launches over {REQUESTS} requests: {launches}")
-    if launches != REQUESTS:
-        raise AssertionError(f"expected {REQUESTS} stem launches, got "
-                             f"{launches}")
+    launches = _launches()
+    _say(f"  kernel launches over {REQUESTS} requests: {launches}")
+    if launches != {"patchify_fwd": REQUESTS, "patchify_dw": 0, "lap": 0}:
+        raise AssertionError(f"expected {REQUESTS} stem launches and no "
+                             f"other, got {launches}")
     for i, ms in enumerate(latencies):
         _say(f"  request {i}: {BATCH} images in {ms:.2f} ms")
     total_s = sum(latencies) / 1e3
@@ -295,7 +472,8 @@ def phase_breakdown(model, codec, images, stem_ms):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         _say("  profiler: no device time recorded; kernel breakdown not "
@@ -311,18 +489,210 @@ def phase_breakdown(model, codec, images, stem_ms):
     return row
 
 
+def _flagship_batch(cfg, batch_size, device):
+    """The batch bench.py builds (bench.py:110-125): numpy seed 0, the same
+    draws in the same order."""
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size
+    batch = {
+        "image": rng.uniform(0, 1, (batch_size, h, w, 3)).astype(np.float32),
+        "category_ids": rng.integers(
+            2, cfg.num_categories,
+            (batch_size, cfg.max_objects)).astype(np.int32),
+        "attribute_ids": rng.integers(
+            0, cfg.num_attributes,
+            (batch_size, cfg.max_objects, 4)).astype(np.int32),
+        "bbox": rng.uniform(0.05, 0.45, (batch_size, cfg.max_objects,
+                                         4)).astype(np.float32),
+        "num_objects": rng.integers(1, cfg.max_objects + 1,
+                                    (batch_size,)).astype(np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+_PHASES = ("train_step/forward", "train_step/loss_and_matching",
+           "train_step/backward", "train_step/optimizer")
+
+
+def _profile_split(prof, wall_us):
+    """Device time of one profiled step by phase. Each kernel is attached
+    to the CPU op that launched it; the op's start on the host falls inside
+    the ``record_function`` range of its phase (the backward's ops run on
+    autograd's thread while the main thread waits inside its range)."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    windows = {ph: [(e.time_range.start, e.time_range.end) for e in events
+                    if e.name == ph and e.device_type == cpu]
+               for ph in _PHASES}
+    split = dict.fromkeys(_PHASES, 0.0)
+    split["other"] = 0.0
+    for e in events:
+        if e.device_type != cpu or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        t = e.time_range.start
+        phase = next((ph for ph, ws in windows.items()
+                      if any(a <= t <= b for a, b in ws)), "other")
+        split[phase] += us
+    busy = sum(split.values())
+    return {k: v / 1e3 for k, v in split.items()}, busy / 1e3, wall_us / 1e3
+
+
+def phase_training():
+    """The flagship train step (bench.py:46-72, TrainConfig defaults)."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.ops import lap as L
+    from boosted_detr_torch.ops import patchify as P
+
+    cfg = bt.ModelConfig(image_size=(RES, RES), backbone="resnet",
+                         compute_dtype="bfloat16", max_objects=32,
+                         matcher="pallas", stem="patchify8",
+                         norm="batchnorm", use_pallas_stem=True,
+                         use_pallas_attention=False)
+    tcfg = bt.TrainConfig(batch_size=BATCH)
+    model = bt.DETR(cfg, seed=0)
+    state = bt.TrainState.create(model, bt.make_optimizer(
+        tcfg, model.parameters(), d_model=cfg.decoder_dim))
+    step = bt.make_train_step(model, cfg, tcfg)
+    batch = _flagship_batch(cfg, BATCH, model.device)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _say(f"[training] flagship train step: batch {BATCH} at {RES}x{RES}, "
+         f"bf16, matcher {cfg.matcher}, SGD Nesterov {tcfg.momentum}, "
+         f"clipnorm {tcfg.clipnorm}, {tcfg.lr_schedule}; "
+         f"{TRAIN_WARMUP} warm-up and {TRAIN_STEPS} timed steps")
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    _say(f"  warm-up: {time.perf_counter() - t0:.2f} s")
+
+    _reset_launches()
+    events, auxes = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, aux = step(state, batch)
+        end.record()
+        events.append((start, end))
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    _say(f"  kernel launches over {TRAIN_STEPS} steps: {launches}")
+    if launches != dict.fromkeys(launches, TRAIN_STEPS):
+        raise AssertionError(f"expected {TRAIN_STEPS} launches of each "
+                             f"kernel, got {launches}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    for i, (ms, aux) in enumerate(zip(step_ms, auxes)):
+        vals = {k: v.item() for k, v in aux.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: a loss is not finite: {vals}")
+        _say(f"  step {i}: {ms:.3f} ms (CUDA events); " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(vals.items())))
+    images_per_s = TRAIN_STEPS * BATCH / wall_s
+    _say(f"  {images_per_s:.2f} images/s over {TRAIN_STEPS} steps (host "
+         f"clock, {wall_s * 1e3 / TRAIN_STEPS:.3f} ms a step); median step "
+         f"{statistics.median(step_ms):.3f} ms (CUDA events)")
+
+    stem = model.backbone.resnet.stem.conv.weight.grad
+    if stem is None or not torch.isfinite(stem).all() or stem.abs().sum() == 0:
+        raise AssertionError("the stem weight's gradient is missing, not "
+                             "finite or zero on the kernel route")
+    _say(f"  stem weight gradient: finite, L2 norm {stem.norm().item():.4e} "
+         f"after the per-tensor clip")
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    still = [k for k in params if torch.equal(after[k], before[k])]
+    stats = [k for k in after if "running" in k]
+    still_stats = [k for k in stats if torch.equal(after[k], before[k])]
+    _say(f"  changed: {len(params) - len(still)} of {len(params)} "
+         f"parameters, {len(stats) - len(still_stats)} of {len(stats)} "
+         f"running statistics; unchanged: {still + still_stats}")
+    # A key-projection bias shifts all of one query's logits alike, which
+    # softmax ignores: its gradient is zero up to rounding, and it may stay.
+    if still_stats or any(not k.endswith("key_projection.bias")
+                          for k in still):
+        raise AssertionError("a parameter or running statistic did not move")
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split, busy_ms, wall_ms = _profile_split(prof, wall_us)
+    row = {"images_per_s": images_per_s, "step_ms": step_ms,
+           "launches": launches}
+    if busy_ms == 0:
+        _say("  profiler: no device time recorded; split not measured")
+    else:
+        row.update(profile_split_ms=split, profile_busy_ms=busy_ms,
+                   profile_wall_ms=wall_ms,
+                   device_busy_share=busy_ms / wall_ms)
+        _say(f"  profiler, one step: wall {wall_ms:.3f} ms, device busy "
+             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); by phase "
+             "(device ms): " + ", ".join(f"{k.split('/')[-1]} {v:.3f}"
+                                         for k, v in split.items()))
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+            _say(f"    {e.self_device_time_total / 1e3:8.3f} ms "
+                 f"x{e.count:<4d} {e.key[:90]}")
+
+    # One step from the same state with the plain versions in place of the
+    # kernels: the same dropout bits (the step count seeds them), the same
+    # batch. K1-fwd is bit-exact against its plain version and K2 gives the
+    # same mask, so the losses differ only where cuDNN or cuBLAS take
+    # another algorithm between calls: held to 1e-3 relative, a few bf16
+    # roundings of the activations.
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    at = state.step
+    state, aux = step(state, batch)
+    kernel_loss = aux["loss"].item()
+    model.load_state_dict(snapshot)
+    state.step = at
+    saved = (P.patchify_conv, P.patchify_conv_dw, L.hungarian_lap)
+    P.patchify_conv = P.patchify_conv_reference
+    P.patchify_conv_dw = P.patchify_conv_dw_reference
+    L.hungarian_lap = L.hungarian_lap_reference
+    try:
+        state, aux = step(state, batch)
+    finally:
+        P.patchify_conv, P.patchify_conv_dw, L.hungarian_lap = saved
+    plain_loss = aux["loss"].item()
+    rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    _say(f"  step {at} from one state: loss {kernel_loss:.6f} with the "
+         f"kernels, {plain_loss:.6f} with the plain versions (relative "
+         f"difference {rel:.3e}, held to 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError("the kernel step's loss is off the plain one")
+    row["loss_rel_diff_plain"] = rel
+    return row
+
+
+def _small_config():
+    import boosted_detr_torch as bt
+
+    return bt.ModelConfig(image_size=(64, 64), backbone="resnet",
+                          backbone_width=0.25, stem="patchify8",
+                          use_pallas_stem=True, compute_dtype="float32",
+                          num_encoder_blocks=2, num_decoder_blocks=2,
+                          encoder_dim=64, decoder_dim=64, num_object_preds=16,
+                          num_categories=12, num_attributes=20,
+                          max_objects=8, matcher="pallas", dropout_rate=0.0)
+
+
 def phase_small_reference():
     """A small float32 DETR on the card against the same weights on the CPU,
     where the port runs the plain versions that the CPU tests hold against
     the JAX package."""
     import boosted_detr_torch as bt
 
-    cfg = bt.ModelConfig(image_size=(64, 64), backbone="resnet",
-                         backbone_width=0.25, stem="patchify8",
-                         use_pallas_stem=True, compute_dtype="float32",
-                         num_encoder_blocks=2, num_decoder_blocks=2,
-                         encoder_dim=64, decoder_dim=64, num_object_preds=16,
-                         num_categories=12, num_attributes=20)
+    cfg = _small_config()
     cpu = bt.DETR(cfg, device="cpu", seed=2)
     _randomize_running_stats(cpu, seed=3)
     gpu = bt.DETR(cfg, seed=2)
@@ -338,6 +708,67 @@ def phase_small_reference():
         _close(torch.from_numpy(got[key]), torch.from_numpy(want[key]),
                atol=1e-4, rtol=1e-4, what=key)
 
+    # One train step from the same weights and batch: the card through the
+    # kernels (stem forward and dW, K2), the CPU through the plain versions.
+    # Dropout is 0 (the CPU and the card draw different bits). With live
+    # batch statistics this model amplifies float32 rounding ~2000x at
+    # batch 8 (tests/test_torch_train.py), and cuDNN and oneDNN round
+    # differently: losses are held to 1e-4 relative, the new parameters to
+    # 2e-5 absolute (a tenth of the largest single-value update, lr 1e-3 x
+    # 1.9 x the 0.1 clip), the running statistics to 1e-4.
+    tcfg = bt.TrainConfig(batch_size=8)
+    batches = {dev: _flagship_batch(cfg, 8, dev) for dev in ("cpu", "cuda")}
+    results = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        state = bt.TrainState.create(model, bt.make_optimizer(
+            tcfg, model.parameters(), d_model=cfg.decoder_dim))
+        _, aux = bt.make_train_step(model, cfg, tcfg)(state, batches[dev])
+        results[dev] = ({k: v.item() for k, v in aux.items()},
+                        {k: v.cpu() for k, v in model.state_dict().items()})
+    (want_aux, want_state), (got_aux, got_state) = results["cpu"], results[
+        "cuda"]
+    worst = max(abs(got_aux[k] - want_aux[k]) / max(abs(want_aux[k]), 1e-6)
+                for k in want_aux)
+    _say(f"  train step: losses within {worst:.3e} relative (held to 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError(f"train-step losses differ: {got_aux} against "
+                             f"{want_aux}")
+    params = {k: v for k, v in want_state.items() if "running" not in k}
+    stats = {k: v for k, v in want_state.items() if "running" in k}
+    p_err = max((got_state[k] - v).abs().max().item()
+                for k, v in params.items())
+    s_err = max(((got_state[k] - v).abs() / v.abs().clamp_min(1e-2)).max()
+                .item() for k, v in stats.items())
+    _say(f"  train step: new parameters within {p_err:.3e} (held to 2e-5), "
+         f"running statistics within {s_err:.3e} relative (held to 1e-4)")
+    if p_err > 2e-5 or s_err > 1e-4:
+        raise AssertionError("the train step's state differs between the "
+                             "card and the CPU")
+
+
+def _kernel_line(rows, train, serving):
+    """The ``kernels`` JSON line: each kernel at the flagship's shape (the
+    first row of its list), with its launches on the main paths."""
+    sources = {"patchify_fwd": ("boosted_detr_torch/csrc/patchify.cu",
+                                "boosted_detr_tpu/ops/pallas_patchify.py:122"),
+               "patchify_dw": ("boosted_detr_torch/csrc/patchify.cu",
+                               "boosted_detr_tpu/ops/pallas_patchify.py:152"),
+               "lap": ("boosted_detr_torch/csrc/lap.cu",
+                       "boosted_detr_tpu/ops/pallas_lap.py:160")}
+    out = []
+    for name, (source, replaces) in sources.items():
+        main_row = rows[name][0]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": serving["launches"][name] + train["launches"][name],
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
+    return {"kernels": out}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -349,34 +780,26 @@ def main() -> int:
     _say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels()
     serving = phase_serving()
     breakdown = phase_breakdown(serving.pop("model"), serving.pop("codec"),
-                                serving.pop("images"), rows[0]["ms"])
+                                serving.pop("images"),
+                                rows["patchify_fwd"][0]["ms"])
+    train = phase_training()
     phase_small_reference()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    _say("[report] per-shape patchify rows: " + json.dumps(rows))
+    _say("[report] per-shape kernel rows: " + json.dumps(rows))
     _say("[report] serving: " + json.dumps(dict(serving, **breakdown)))
+    _say("[report] training: " + json.dumps(train))
+    _say(f"[report] {time.perf_counter() - t_start:.1f} s in all")
     _say(card)
-    main_row = rows[0]  # the serving path's shape: P=8 -> 128, bf16
-    print(json.dumps({"kernels": [{
-        "name": "patchify_fwd",
-        "route": "cuda",
-        "source": "boosted_detr_torch/csrc/patchify.cu",
-        "replaces": "boosted_detr_tpu/ops/pallas_patchify.py:122",
-        "launches": serving["launches"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]}))
+    print(json.dumps(_kernel_line(rows, train, serving)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

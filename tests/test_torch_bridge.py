@@ -147,6 +147,10 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "boosted_detr_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10 and files[-1].exists()
+    scanned = {str(f.relative_to(ROOT / "boosted_detr_torch"))
+               for f in files[:-1]}
+    assert {"ops/boxes.py", "ops/losses.py", "ops/lap.py", "ops/matching.py",
+            "train/schedules.py", "train/steps.py"} <= scanned
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in _BANNED]

@@ -1,11 +1,14 @@
 """The port's patchify stem (boosted_detr_torch/ops/patchify.py) against the
 JAX package's ``patchify_conv`` (ops/pallas_patchify.py), which runs its
-Pallas kernel through the interpreter on the CPU. On a CPU tensor the
-port's wrapper takes its plain PyTorch version, so these tests hold that
-version, the arithmetic the CUDA kernel repeats, against the TPU kernel.
-The kernel itself is held against the plain version on the card by
+Pallas kernels through the interpreter on the CPU: the forward, and the
+gradient (``PatchifyConvFn`` against ``jax.grad`` of the custom VJP, whose
+weight half is the ``_dw_kernel``). On a CPU tensor the port's wrappers
+take their plain PyTorch versions, so these tests hold those versions, the
+arithmetic the CUDA kernels repeat, against the TPU kernels. The kernels
+themselves are held against the plain versions on the card by
 test_torch_patchify_kernel.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,3 +94,63 @@ def test_wrapper_checks_and_counts_only_launches():
         tp.patchify_conv(torch.from_numpy(x).double(), torch.from_numpy(w))
     with pytest.raises(ValueError):
         tp.patchify_conv(torch.from_numpy(x), torch.from_numpy(w[:4]))
+
+
+def _grads(x, w, g, dtype, clip01):
+    """(dx, dw) of sum(out * g) on both sides, out in the weights' dtype."""
+    tdt, jdt = _DT[dtype]
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w).to(tdt).requires_grad_(True)
+    out = tp.PatchifyConvFn.apply(xt, wt, tdt, clip01)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+
+    def loss(xj, wj):
+        out = jp.patchify_conv(xj, wj, clip01=clip01)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    dx, dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                             jnp.asarray(w).astype(jdt))
+    return ((xt.grad.numpy(), wt.grad.float().numpy()),
+            (np.asarray(dx), np.asarray(jnp.asarray(dw, jnp.float32))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip01", [True, False])
+@pytest.mark.parametrize("shape,patch,cout", [
+    ((2, 32, 32, 3), 8, 16),   # the patchify8 stem, scaled down
+    ((1, 20, 27, 3), 8, 8),    # SAME padding: JAX takes an ordinary conv
+])
+def test_gradient_matches_jax(shape, patch, cout, dtype, clip01):
+    x, w = _inputs(shape, patch, cout, seed=2)
+    ho, wo = -(-shape[1] // patch), -(-shape[2] // patch)
+    g = np.random.default_rng(3).standard_normal(
+        (shape[0], ho, wo, cout)).astype(np.float32)
+    (dx, dw), (ref_dx, ref_dw) = _grads(x, w, g, dtype, clip01)
+    assert dw.shape == ref_dw.shape == w.shape and dx.shape == x.shape
+    # dW sums M <= 32 products of unit-scale values: float32 order only;
+    # in bf16 both round identical inputs and g (g arrives in the output's
+    # dtype), sum in float32 and round the result once (2**-8 relative).
+    # dx is plain float32 in the kernel's VJP on both sides; where JAX
+    # leaves its kernel for an ordinary conv (SAME padding), XLA's conv
+    # transpose gives a bf16 dx, one rounding from the port's float32 one.
+    f32 = dict(atol=1e-5, rtol=1e-5)
+    tol = f32 if dtype == "float32" else dict(atol=2e-2, rtol=8e-3)
+    np.testing.assert_allclose(dw, ref_dw, **tol)
+    np.testing.assert_allclose(
+        dx, ref_dx, **(f32 if jp.supported(x.shape, patch) else tol))
+    if clip01:  # the clip's gradient is zero outside [0, 1]
+        assert (dx[(x < 0) | (x > 1)] == 0).all()
+
+
+def test_weight_gradient_exposes_its_float32_sum():
+    x, _ = _inputs((2, 16, 16, 3), 8, 4, seed=4)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 2, 2, 4)).astype(np.float32)).bfloat16()
+    before = tp.patchify_conv_dw.launches
+    dw, dw32 = tp.patchify_conv_dw(torch.from_numpy(x), g, 8,
+                                   torch.bfloat16, clip01=True)
+    assert tp.patchify_conv_dw.launches == before  # the plain version
+    assert dw.dtype == torch.bfloat16 and dw32.dtype == torch.float32
+    assert torch.equal(dw, dw32.bfloat16())
+    with pytest.raises(ValueError, match="does not fit"):
+        tp.patchify_conv_dw(torch.from_numpy(x), g[:, :1], 8, torch.bfloat16)
