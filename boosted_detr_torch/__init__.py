@@ -2,11 +2,13 @@
 
 The port of ``boosted_detr_tpu`` (JAX, Flax, Pallas), which stays as the
 reference. This package imports torch and never JAX or the JAX package.
-It serves and trains the flagship DETR: ``DETR`` with the ResNet
-``patchify8`` backbone, whose stem runs through the CUDA kernels in
-``csrc/patchify.cu`` (forward and weight gradient), trained by
-``make_train_step`` with the exact matcher of ``csrc/lap.cu``. Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+It serves and trains ``DETR`` with the ResNet ``patchify8`` backbone (the
+640px flagship, and at 1280px) or the ViT backbone, whose stem or patch
+embed runs through the CUDA kernels in ``csrc/patchify.cu`` (forward and
+weight gradient), whose attention runs through the fused kernels of
+``csrc/attention.cu`` (forward, dq, dk/dv) with ``use_pallas_attention``,
+trained by ``make_train_step`` with the exact matcher of ``csrc/lap.cu``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from boosted_detr_torch.bridge import load_flax_variables, to_flax_layout

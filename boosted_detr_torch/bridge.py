@@ -11,8 +11,16 @@ Flax scope names, so a leaf at ``a/b/kernel`` lands at ``a.b.weight``:
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - BatchNorm ``scale``/``bias`` and ``mean``/``var`` (``batch_stats``) ->
   ``weight``/``bias`` and ``running_mean``/``running_var``;
-- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
-- ``positional_encoding`` and ``object_queries`` keep their names.
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``; the bias-free
+  QK-norm (``attn/q_norm/scale``, ``attn/k_norm/scale``) has a ``weight``
+  only;
+- ``positional_encoding``, ``positional_embedding`` (the ViT's) and
+  ``object_queries`` keep their names.
+
+The ViT backbone's leaves follow the same rules: ``vit/patch_embed``
+(``kernel``, ``bias``: the patchify kernel's route and the plain conv's
+share the tree), ``vit/positional_embedding``, ``vit/block_i/{ln1, ln2,
+attn, mlp_in, mlp_out}``, ``vit/ln_final`` and ``vit/reduce``.
 
 It raises on a Flax leaf with no counterpart and on a port entry left
 unfilled, so a renamed module cannot slip through with its random init.

@@ -9,6 +9,9 @@ imported: the PyTorch package does not load the JAX package.
 Fields the port reads with a meaning of its own:
 - ``use_pallas_stem``: run the patchify stem through the hand-written CUDA
   kernel (ops/patchify.py) with the preprocessing folded into its weights;
+- ``use_pallas_attention``: run every attention (DETR encoder and decoder,
+  ViT blocks) through the hand-written CUDA K3 kernels (ops/attention.py),
+  with the numerics of the JAX package's Pallas kernel;
 - ``compute_dtype``: the activation dtype, with parameters kept in float32
   and cast at use, as Flax does;
 - ``matcher="pallas"``: the exact matcher through the hand-written CUDA

@@ -1,31 +1,36 @@
-"""ResNet backbone with the patchify stem, and the neck, in PyTorch.
+"""The ResNet and ViT backbones with the patchify stem, and the neck, in
+PyTorch.
 
-Counterpart of boosted_detr_tpu/models/backbone.py, the part on the serving
-path: ``make_norm`` (:49-64, BatchNorm, in eval and training mode),
-``PallasPatchifyConv``
+Counterpart of boosted_detr_tpu/models/backbone.py: ``make_norm`` (:49-64,
+BatchNorm, in eval and training mode), ``PallasPatchifyConv``
 (:103-157) as ``PatchifyConv``, ``ConvNormAct`` (:160-194),
 ``BottleneckBlock`` (:197-226), ``ResNetBackbone`` (:229-292, the
-``patchify8`` and ``patchify`` stems), ``_preprocess_affine`` (:631-643),
-``EncoderBackbone`` (:646-731, the fused-stem route and the plain ResNet
-route) and ``BackboneNeck`` (:734-754).
+``patchify8`` and ``patchify`` stems), ``ViTBlock`` (:490-518),
+``ViTBackbone`` (:521-582), ``parse_vit_spec`` (:585-610),
+``_preprocess_affine`` (:631-643), ``EncoderBackbone`` (:646-731, the
+fused-stem route and the plain route, for ``resnet`` and ``vit``/``vit_*``)
+and ``BackboneNeck`` (:734-754).
 
 Activations are NHWC at every module boundary, as in the JAX package. A
 convolution hands ``x.permute(0, 3, 1, 2)`` to ``F.conv2d``: that NCHW view
 of an NHWC tensor is torch's channels_last layout, so no copy is made. The
 ``conv7`` stem, GroupNorm, ``skipinit`` and the other backbones
-(EfficientNet, tiny, ViT) are not ported yet (ROADMAP.md, Queue 1).
+(EfficientNet, tiny) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from boosted_detr_torch.models.layers import _INITS, variance_scaling_
+from boosted_detr_torch.models.layers import (_INITS, Dense, LayerNorm,
+                                              MultiheadAttention,
+                                              trig_positional_init,
+                                              variance_scaling_)
 from boosted_detr_torch.ops import patchify
 from boosted_detr_torch.ops.patchify import same_padding
 
@@ -97,8 +102,9 @@ def make_norm(norm: str, num_features: int, dtype: torch.dtype) -> nn.Module:
 
 
 class Conv(nn.Module):
-    """Flax ``nn.Conv(padding="SAME")`` on NHWC input in the given dtype.
-    The weight is stored as torch's OIHW.
+    """Flax ``nn.Conv(padding="SAME")`` on NHWC input in the given dtype, or
+    ``padding="VALID"`` with ``valid=True``. The weight is stored as
+    torch's OIHW.
 
     Trap: XLA's SAME padding is asymmetric (``same_padding``). The input is
     padded explicitly with ``lo = total // 2`` before and the rest after,
@@ -107,10 +113,11 @@ class Conv(nn.Module):
     where ``padding=1`` would shift every output by one pixel."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, bias: bool = False):
+                 stride: int = 1, bias: bool = False, valid: bool = False):
         super().__init__()
         self.kernel = kernel
         self.stride = stride
+        self.valid = valid
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
@@ -124,11 +131,12 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        top, bottom = same_padding(x.shape[1], self.kernel, self.stride)
-        left, right = same_padding(x.shape[2], self.kernel, self.stride)
         x = x.to(dtype)
-        if top or bottom or left or right:
-            x = F.pad(x, (0, 0, left, right, top, bottom))
+        if not self.valid:
+            top, bottom = same_padding(x.shape[1], self.kernel, self.stride)
+            left, right = same_padding(x.shape[2], self.kernel, self.stride)
+            if top or bottom or left or right:
+                x = F.pad(x, (0, 0, left, right, top, bottom))
         bias = None if self.bias is None else self.bias.to(dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dtype), bias,
                      self.stride)
@@ -153,27 +161,34 @@ class PatchifyConv(nn.Module):
     - for ``caffe`` the channel axis is inverse-permuted (``argsort(perm)``);
     - the stem reads the raw float32 image and clips it inside the kernel
       (``clip01=True``), so no preprocessed image is ever written;
-    - the bias is added after the kernel, in the output dtype."""
+    - the bias is added after the kernel, in the output dtype; with
+      ``bias=True`` (the ViT patch embed) the conv's own bias comes first,
+      plus the folded one (``bias + fold``)."""
 
-    def __init__(self, in_channels: int, features: int, patch: int):
+    def __init__(self, in_channels: int, features: int, patch: int,
+                 bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, patch, patch))
+        self.bias = nn.Parameter(torch.empty(features)) if bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         o, i, kh, kw = self.weight.shape
         variance_scaling_(self.weight, *_INITS["lecun_normal"], i * kh * kw,
                           o * kh * kw, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 preprocess=None) -> torch.Tensor:
         kernel = self.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO, float32
-        bias = None
+        bias = self.bias
         clip01 = False
         if preprocess is not None:
             a, b, perm, clip01 = preprocess
-            bias = torch.einsum("ijco,c->o", kernel, b)
+            fold = torch.einsum("ijco,c->o", kernel, b)
+            bias = fold if bias is None else bias + fold
             kernel = kernel * a.reshape(1, 1, -1, 1)
             if perm is not None:
                 kernel = kernel[:, :, list(np.argsort(perm)), :]
@@ -292,6 +307,132 @@ class ResNetBackbone(nn.Module):
         return x
 
 
+class ViTBlock(nn.Module):
+    """Pre-LN transformer block (backbone.py:490-518): LayerNorm (eps 1e-6)
+    -> MHA -> residual, LayerNorm -> Dense 4x -> GELU -> Dense -> residual.
+    The residual stream stays float32; the matmuls run in the compute dtype.
+
+    Trap: Flax's ``nn.gelu`` is the tanh approximation, so this block takes
+    ``F.gelu(approximate="tanh")``, not torch's default erf GELU."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 use_pallas: bool = False, qk_norm: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.ln1 = LayerNorm(dim, 1e-6)
+        self.attn = MultiheadAttention(dim, num_heads, dtype,
+                                       use_pallas=use_pallas,
+                                       qk_norm=qk_norm)
+        self.ln2 = LayerNorm(dim, 1e-6)
+        self.mlp_in = Dense(dim, 4 * dim)
+        self.mlp_out = Dense(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # float32 [B, T, D]
+        dt = self.dtype
+        h = self.ln1(x).to(dt)
+        x = x + self.attn(h, h, h).float()
+        h = self.mlp_in(self.ln2(x).to(dt), dt)
+        h = self.mlp_out(F.gelu(h, approximate="tanh"), dt)
+        return x + h.float()
+
+
+class ViTBackbone(nn.Module):
+    """Pre-LN ViT as a stride-32 backbone (backbone.py:521-582): the patch
+    embed (a VALID P x P stride-P conv with bias, or the patchify kernel
+    with the preprocessing folded in when ``pallas_stem``), a
+    trig-initialised ``positional_embedding`` added in float32, ``depth``
+    blocks, ``ln_final``, and for ``patch < 32`` the ``reduce`` conv
+    (r x r stride r, r = 32 / patch, to 2 * dim, with bias) back to the
+    stride-32 grid. ``image_size`` fixes the token grid, which Flax reads
+    from the first input."""
+
+    def __init__(self, image_size: Tuple[int, int], dim: int = 384,
+                 depth: int = 8, num_heads: int = 6, patch: int = 16,
+                 dtype: torch.dtype = torch.float32,
+                 use_pallas: bool = False, qk_norm: bool = False,
+                 pallas_stem: bool = False):
+        super().__init__()
+        if dim % num_heads or 32 % patch:
+            raise ValueError(f"ViT needs heads | dim and patch | 32, got "
+                             f"dim {dim}, {num_heads} heads, patch {patch}")
+        self.dim = dim
+        self.dtype = dtype
+        self.pallas_stem = pallas_stem
+        if pallas_stem:  # SAME patches, as the kernel takes them
+            self.grid = tuple(-(-s // patch) for s in image_size)
+            self.patch_embed = PatchifyConv(3, dim, patch, bias=True)
+        else:
+            self.grid = tuple(s // patch for s in image_size)
+            self.patch_embed = Conv(3, dim, patch, patch, bias=True,
+                                    valid=True)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(self.grid[0] * self.grid[1], dim))
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block_{i}", ViTBlock(
+                dim, num_heads, dtype, use_pallas=use_pallas,
+                qk_norm=qk_norm))
+        self.ln_final = LayerNorm(dim, 1e-6)
+        if patch < 32:
+            r = 32 // patch
+            self.reduce = Conv(dim, 2 * dim, r, r, bias=True, valid=True)
+            self.out_channels = 2 * dim
+        else:
+            self.reduce = None
+            self.out_channels = dim
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.positional_embedding.copy_(torch.from_numpy(
+                trig_positional_init(*self.positional_embedding.shape)))
+
+    def forward(self, x: torch.Tensor, preprocess=None) -> torch.Tensor:
+        if self.pallas_stem:
+            x = self.patch_embed(x, self.dtype, preprocess)
+        elif preprocess is not None:
+            raise ValueError("preprocess folding needs the patchify stem")
+        else:
+            x = self.patch_embed(x, self.dtype)
+        b, gh, gw, _ = x.shape
+        if (gh, gw) != self.grid:
+            raise ValueError(f"ViT built for a {self.grid} token grid, got "
+                             f"{(gh, gw)}")
+        x = x.reshape(b, gh * gw, self.dim).float() + self.positional_embedding
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x)
+        x = self.ln_final(x).reshape(b, gh, gw, self.dim).to(self.dtype)
+        return x if self.reduce is None else self.reduce(x, self.dtype)
+
+
+def parse_vit_spec(backbone: str, width: float
+                   ) -> Tuple[int, int, int, int, bool]:
+    """A ``vit[_pP][_dD][_wW][_hH][_qk]`` backbone name -> (dim, depth,
+    heads, patch, qk_norm) (backbone.py:585-610). Defaults: width 384,
+    depth 8, 6 heads, patch 16; ``width`` scales the embedding width; the
+    ``qk`` token turns on the per-head QK-norm."""
+    dim, depth, heads, patch = 384, 8, 6, 16
+    qk_norm = False
+    for tok in backbone.split("_")[1:]:
+        if tok == "qk":
+            qk_norm = True
+            continue
+        if len(tok) < 2 or tok[0] not in "pdwh" or not tok[1:].isdigit():
+            raise ValueError(f"bad vit spec token '{tok}' in '{backbone}' "
+                             "(expected p<patch>/d<depth>/w<dim>/h<heads>"
+                             "/qk)")
+        kind, val = tok[0], int(tok[1:])
+        if kind == "p":
+            patch = val
+        elif kind == "d":
+            depth = val
+        elif kind == "w":
+            dim = val
+        else:
+            heads = val
+    return int(dim * width), depth, heads, patch, qk_norm
+
+
 def _preprocess_affine(mode: str):
     """The input-handling modes of ``EncoderBackbone`` as a per-channel
     affine ``a * x[..., perm] + b`` over the clipped [0,1] image."""
@@ -307,25 +448,33 @@ def _preprocess_affine(mode: str):
 
 
 class EncoderBackbone(nn.Module):
-    """Input handling + CNN: images arrive in [0,1] as NHWC float32.
+    """Input handling + backbone: images arrive in [0,1] as NHWC float32.
 
-    Fused-stem route (``use_pallas_stem`` with a patchify stem): the raw
-    float32 image goes straight to the stem kernel, which clips it, and the
-    preprocessing affine is folded into the stem weights. Plain route: clip,
-    preprocess and cast here, then an ordinary conv stem."""
+    Fused-stem route (``use_pallas_stem`` with a ViT, or with a ResNet
+    patchify stem): the raw float32 image goes straight to the stem kernel,
+    which clips it, and the preprocessing affine is folded into the stem
+    weights. Plain route: clip, preprocess and cast here, then the
+    ordinary stem conv. ``backbone`` is ``resnet`` (submodule ``resnet``)
+    or ``vit``/``vit_*`` (submodule ``vit``, whose blocks take the fused
+    attention when ``use_pallas``); the ViT needs ``image_size``.
+    ``out_channels`` is the width the neck receives."""
 
     def __init__(self, backbone: str = "resnet", width: float = 1.0,
                  norm: str = "batchnorm", dtype: torch.dtype = torch.float32,
                  stem: str = "conv7", preprocessing: str = "scale",
-                 use_pallas_stem: bool = False):
+                 use_pallas_stem: bool = False, *, use_pallas: bool = False,
+                 image_size: Optional[Tuple[int, int]] = None):
         super().__init__()
-        if backbone != "resnet":
+        # exact-prefix match, as in JAX: "vitp32" is not a ViT
+        is_vit = backbone == "vit" or backbone.startswith("vit_")
+        if backbone != "resnet" and not is_vit:
             raise NotImplementedError(
                 f"backbone '{backbone}' is not ported yet (ROADMAP.md, "
-                f"Queue 1); the port serves backbone='resnet'")
+                f"Queue 1); the port serves backbone='resnet' and 'vit'")
         self.dtype = dtype
         self.preprocessing = preprocessing
-        self.fused = use_pallas_stem and stem.startswith("patchify")
+        self.fused = use_pallas_stem and (is_vit
+                                          or stem.startswith("patchify"))
         a, b, perm = _preprocess_affine(preprocessing)
         self.perm = perm
         # constants, not weights: kept out of the state_dict
@@ -333,13 +482,29 @@ class EncoderBackbone(nn.Module):
                              persistent=False)
         self.register_buffer("pre_shift", torch.tensor(b, dtype=torch.float32),
                              persistent=False)
-        self.resnet = ResNetBackbone(width, norm=norm, dtype=dtype, stem=stem,
-                                     pallas_stem=self.fused)
+        if is_vit:
+            if image_size is None:
+                raise ValueError("the ViT backbone needs image_size")
+            dim, depth, heads, patch, qk_norm = parse_vit_spec(backbone,
+                                                               width)
+            self.vit = ViTBackbone(image_size, dim, depth, heads, patch,
+                                   dtype, use_pallas=use_pallas,
+                                   qk_norm=qk_norm, pallas_stem=self.fused)
+        else:
+            self.resnet = ResNetBackbone(width, norm=norm, dtype=dtype,
+                                         stem=stem, pallas_stem=self.fused)
+        self.net_name = "vit" if is_vit else "resnet"
+        self.out_channels = self.net.out_channels
+
+    @property
+    def net(self) -> nn.Module:
+        """The backbone network, ``resnet`` or ``vit``."""
+        return getattr(self, self.net_name)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         if self.fused:
             pre = (self.pre_scale, self.pre_shift, self.perm, True)
-            return self.resnet(image.float().contiguous(), preprocess=pre)
+            return self.net(image.float().contiguous(), preprocess=pre)
         x = image.float().clamp(0.0, 1.0)
         if self.preprocessing == "scale":
             x = x * 2.0 - 1.0
@@ -350,7 +515,7 @@ class EncoderBackbone(nn.Module):
         else:  # caffe: 0-255 BGR minus the ImageNet channel means
             x = x.flip(-1) * 255.0
             x = x - torch.tensor([103.939, 116.779, 123.68], device=x.device)
-        return self.resnet(x.to(self.dtype))
+        return self.net(x.to(self.dtype))
 
 
 class BackboneNeck(nn.Module):

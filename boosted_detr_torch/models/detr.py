@@ -11,6 +11,12 @@ running statistics and there is no dropout. ``model.train()`` gives the
 ``train=True`` forward: BatchNorm normalises with the batch statistics and
 updates its running ones, and dropout draws its bits from the
 ``generator`` the caller passes (the train step makes one per step).
+
+``use_pallas_attention`` sends every attention of the model (encoder,
+decoder self- and cross-attention, ViT blocks) through the fused K3
+kernels (ops/attention.py), as the JAX package sends it through its Pallas
+kernel (detr.py:43-65); ``use_pallas_stem`` sends the patchify stem or the
+ViT patch embed through the K1 kernels.
 """
 
 from __future__ import annotations
@@ -58,15 +64,18 @@ class DETR(nn.Module):
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         dtype = _DTYPES[cfg.compute_dtype]
         eps = cfg.layernorm_epsilon
+        pallas = cfg.use_pallas_attention
         self.backbone = EncoderBackbone(cfg.backbone, cfg.backbone_width,
                                         cfg.norm, dtype, cfg.stem,
                                         cfg.preprocessing,
-                                        cfg.use_pallas_stem)
-        self.neck = BackboneNeck(self.backbone.resnet.out_channels,
+                                        cfg.use_pallas_stem,
+                                        use_pallas=pallas,
+                                        image_size=cfg.image_size)
+        self.neck = BackboneNeck(self.backbone.out_channels,
                                  cfg.encoder_dim, cfg.norm, dtype)
         self.encoder = layers.ImageEncoder(
             cfg.grid_size, cfg.encoder_dim, cfg.num_encoder_blocks,
-            cfg.num_encoder_heads, eps, dtype, cfg.dropout_rate)
+            cfg.num_encoder_heads, eps, dtype, cfg.dropout_rate, pallas)
         self.decoder_prep = layers.DecoderPrep(cfg.num_object_preds,
                                                cfg.decoder_dim, dtype)
         self.num_decoder_blocks = cfg.num_decoder_blocks
@@ -75,7 +84,7 @@ class DETR(nn.Module):
             self.add_module(f"decoder_block_{i}", layers.DecoderBlock(
                 cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
                 self_attention=(i > 0), encoder_dim=cfg.encoder_dim,
-                dropout_rate=cfg.dropout_rate))
+                dropout_rate=cfg.dropout_rate, use_pallas=pallas))
         hidden = cfg.resolved_head_hidden_dim
         self.category_head = SingleClassPredictionHead(
             cfg.decoder_dim, cfg.num_categories, hidden, cfg.num_object_preds,

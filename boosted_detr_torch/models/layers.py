@@ -12,9 +12,16 @@ with ``dtype=bfloat16``. Dropout sits where the JAX blocks have it, after
 the attention (layers.py:159) and after the FFN (:184). Each forward takes
 a ``generator``: ``None`` is the JAX ``deterministic=True`` (no dropout);
 a ``torch.Generator`` on the activations' device draws the dropout bits,
-never the global RNG. The fused attention kernel (``use_pallas=True``),
-the attention mask and ``qk_norm`` are not on the flagship path and are
-not ported here.
+never the global RNG.
+
+``use_pallas=True`` (``ModelConfig.use_pallas_attention``) sends an MHA
+through the fused attention kernels (``ops/attention.py``, the K3 kernels
+on the card), with the TPU kernel's numerics: q scaled before the dot and
+the probabilities kept in float32 through P.V, where the plain route
+divides the logits and casts the probabilities to the compute dtype
+first. ``qk_norm`` is the per-head bias-free LayerNorm of q and k that the
+ViT blocks may use. The attention mask is not ported: no ported path
+passes one.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from boosted_detr_torch.ops import attention
 
 # Flax's truncated-normal variance scaling divides the std by the std of a
 # unit normal truncated to [-2, 2].
@@ -96,29 +105,32 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm(epsilon, dtype=float32)`` over the last axis.
+    """Flax ``nn.LayerNorm(epsilon, use_bias=bias, dtype=float32)`` over the
+    last axis.
 
     Trap: the JAX blocks normalise in float32 with eps 1e-3 (torch's default
     is 1e-5), and Flax takes the variance as E[x^2] - E[x]^2 (clipped at 0),
     not torch's two-pass E[(x - E[x])^2]. Both are reproduced here, so the
-    remaining difference is float32 summation order."""
+    remaining difference is float32 summation order. ``bias=False`` is the
+    scale-only norm of ``qk_norm``."""
 
-    def __init__(self, dim: int, eps: float):
+    def __init__(self, dim: int, eps: float, bias: bool = True):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
 
     def reset_parameters(self, generator=None):
         nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         mean = x.mean(-1, keepdim=True)
         var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return y if self.bias is None else y + self.bias
 
 
 def trig_positional_init(num_positions: int, dim: int) -> np.ndarray:
@@ -135,29 +147,42 @@ def trig_positional_init(num_positions: int, dim: int) -> np.ndarray:
 
 
 class MultiheadAttention(nn.Module):
-    """Plain attention of layers.py:58-140 (the non-fused branch).
+    """MHA of layers.py:58-140, with no mask.
 
-    Written as tensor code on purpose, not ``scaled_dot_product_attention``:
+    The plain route (layers.py:120-140) is tensor code on purpose, not
+    ``scaled_dot_product_attention``:
     - the logits are float32 from q and k in the compute dtype (bf16 values
       are exact in float32, so the float32 matmul is the JAX einsum with
-      ``preferred_element_type=float32``), scaled by 1/sqrt(head_dim);
+      ``preferred_element_type=float32``), divided by sqrt(head_dim);
     - softmax is float32; the probabilities are cast to the compute dtype
       before P.V, which again accumulates in float32;
     - heads merge in the standard [B, T, H, D] -> [B, T, H*D] order, not
       the reference's scrambled reshape (layers.py:24-30).
+    The fused route (``use_pallas``, layers.py:104-118) folds the heads
+    into contiguous [B*H, T, D], calls ``attention.fused_attention`` (the
+    K3 kernels on the card), unfolds and casts to the compute dtype before
+    the output projection. ``qk_norm`` (layers.py:91-102) normalises q and
+    k over head_dim in float32 (eps 1e-6, scale only) on either route.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 kv_dim: Optional[int] = None):
+                 kv_dim: Optional[int] = None, use_pallas: bool = False,
+                 qk_norm: bool = False):
         super().__init__()
         kv_dim = kv_dim or dim
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.dtype = dtype
+        self.use_pallas = use_pallas
         proj = self.head_dim * num_heads
         self.query_projection = Dense(dim, proj, "glorot_normal")
         self.key_projection = Dense(kv_dim, proj, "glorot_normal")
         self.value_projection = Dense(kv_dim, proj, "glorot_normal")
+        if qk_norm:
+            self.q_norm = LayerNorm(self.head_dim, 1e-6, bias=False)
+            self.k_norm = LayerNorm(self.head_dim, 1e-6, bias=False)
+        else:
+            self.q_norm = self.k_norm = None
         self.output_projection = Dense(proj, dim, "glorot_normal")
 
     def forward(self, query, key, value):
@@ -171,11 +196,22 @@ class MultiheadAttention(nn.Module):
         q = split(self.query_projection(query, dt))
         k = split(self.key_projection(key, dt))
         v = split(self.value_projection(value, dt))
-        logits = q.float() @ k.float().transpose(-1, -2)
-        logits = logits / math.sqrt(self.head_dim)
-        probs = torch.softmax(logits, dim=-1)
-        out = probs.to(dt).float() @ v.float()  # [B, H, Tq, D], f32 sums
-        b, _, tq, _ = out.shape
+        if self.q_norm is not None:
+            q = self.q_norm(q).to(dt)
+            k = self.k_norm(k).to(dt)
+        b, _, tq, _ = q.shape
+        if self.use_pallas:
+            def fold(x):  # [B, H, T, D] -> contiguous [B*H, T, D]
+                return x.reshape(b * self.num_heads, x.shape[2],
+                                 self.head_dim).contiguous()
+
+            out = attention.fused_attention(fold(q), fold(k), fold(v))
+            out = out.reshape(b, self.num_heads, tq, self.head_dim)
+        else:
+            logits = q.float() @ k.float().transpose(-1, -2)
+            logits = logits / math.sqrt(self.head_dim)
+            probs = torch.softmax(logits, dim=-1)
+            out = probs.to(dt).float() @ v.float()  # [B, H, Tq, D], f32 sums
         out = out.transpose(1, 2).reshape(b, tq, -1).to(dt)
         return self.output_projection(out, dt)
 
@@ -186,11 +222,12 @@ class AttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, kv_dim: Optional[int] = None,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, use_pallas: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
-        self.attention = MultiheadAttention(dim, num_heads, dtype, kv_dim)
+        self.attention = MultiheadAttention(dim, num_heads, dtype, kv_dim,
+                                            use_pallas)
         self.layer_norm = LayerNorm(dim, eps)
 
     def forward(self, query, key, value, generator=None):
@@ -230,10 +267,12 @@ class EncoderBlock(nn.Module):
     (layers.py:204-213)."""
 
     def __init__(self, dim: int, num_heads: int, eps: float,
-                 dtype: torch.dtype, dropout_rate: float = 0.1):
+                 dtype: torch.dtype, dropout_rate: float = 0.1,
+                 use_pallas: bool = False):
         super().__init__()
         self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                             dropout_rate=dropout_rate)
+                                             dropout_rate=dropout_rate,
+                                             use_pallas=use_pallas)
         self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
     def forward(self, features, positional, generator=None):
@@ -249,7 +288,7 @@ class ImageEncoder(nn.Module):
 
     def __init__(self, grid: tuple, dim: int, num_blocks: int,
                  num_heads: int, eps: float, dtype: torch.dtype,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, use_pallas: bool = False):
         super().__init__()
         self.grid = tuple(grid)
         self.dim = dim
@@ -258,7 +297,7 @@ class ImageEncoder(nn.Module):
             torch.empty(grid[0] * grid[1], dim))
         for i in range(num_blocks):
             self.add_module(f"block_{i}", EncoderBlock(
-                dim, num_heads, eps, dtype, dropout_rate))
+                dim, num_heads, eps, dtype, dropout_rate, use_pallas))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -310,16 +349,18 @@ class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, self_attention: bool = True,
                  encoder_dim: Optional[int] = None,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, use_pallas: bool = False):
         super().__init__()
         if self_attention:
             self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                                 dropout_rate=dropout_rate)
+                                                 dropout_rate=dropout_rate,
+                                                 use_pallas=use_pallas)
         else:
             self.self_attention = None
         self.cross_attention = AttentionBlock(dim, num_heads, eps, dtype,
                                               kv_dim=encoder_dim,
-                                              dropout_rate=dropout_rate)
+                                              dropout_rate=dropout_rate,
+                                              use_pallas=use_pallas)
         self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
     def forward(self, encoder_value, decoder_features, encoder_key,

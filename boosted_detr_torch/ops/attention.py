@@ -1,0 +1,275 @@
+"""Fused attention (K3): the hand-written Hopper kernels and their plain
+PyTorch versions.
+
+Counterpart of boosted_detr_tpu/ops/pallas_attention.py:
+``fused_attention`` (:345-358) and ``fused_attention_with_lse``
+(:333-342), with the forward kernel ``_attention_kernel`` of
+``_fused_attention_fwd_impl`` (:45-80, :97-135) and the kernels ``_dq_kernel``
+and ``_dkdv_kernel`` of ``_fused_attention_bwd_impl`` (:138-199,
+:202-287). Contract: q [BH, Tq, D], k and v [BH, Tk, D], one dtype
+(float32 or bfloat16), no mask; out [BH, Tq, D] in q's dtype and the
+per-row log-sum-exp of the scaled logits, lse [BH, Tq] float32.
+
+The arithmetic is the TPU kernels', not the plain MHA's
+(models/layers.py): q is scaled by 1/sqrt(D) before the dot, and the
+probabilities stay float32 through P.V; ``denom`` is clamped at 1e-30 and
+``lse = m + log(max(denom, 1e-30))``. The gradient rebuilds p from the lse:
+``p = exp(qs.k - lse)``, ``ds = p (dO.v - delta)`` with ``delta =
+rowsum(dO * O) - g_lse``, ``dq = scale ds.k``, ``dk = ds^T qs``, ``dv =
+p^T dO``. ``delta`` is one plain torch pass, as JAX leaves it to XLA.
+
+The kernels, ``csrc/attention.cu``, are CUDA C++ for ``sm_90a``, built by
+nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32
+and D = 64; any other head dim on a CUDA tensor raises. They take
+contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
+before the call (one copy each of q, k and v), so the kernels need no
+strides. Each ``attention_*`` wrapper runs its plain version
+(``attention_*_reference``) on CPU tensors only; a CUDA tensor launches
+the kernel or raises, and each launch adds one to the wrapper's
+``launches``. ``FusedAttentionFn`` is the custom VJP: the forward saves
+(q, k, v, out, lse) and the backward runs dq and dk/dv through the same
+wrappers, so the CPU tests reach the same lse-rebuilt backward the card
+runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+SUPPORTED_HEAD_DIMS = (32, 64)
+_DTYPES = (torch.float32, torch.bfloat16)
+_FLOOR = 1e-30
+
+
+def _scale(d: int) -> float:
+    return 1.0 / float(d) ** 0.5
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"fused attention takes q [BH, Tq, D] and k, v "
+                         f"[BH, Tk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if (k.shape != v.shape or q.shape[0] != k.shape[0]
+            or q.shape[2] != k.shape[2]):
+        raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if 0 in q.shape or 0 in k.shape:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k and v must share one dtype, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_grad(q, g, lse, delta):
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"g must be {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    rows = tuple(q.shape[:2])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != rows or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {rows} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward: (out in q's dtype, lse [BH, Tq] float32), with a
+    full float32 softmax of the logits of q scaled first."""
+    _check(q, k, v)
+    qs = q.float() * _scale(q.shape[-1])
+    logits = qs @ k.float().transpose(1, 2)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    denom = p.sum(-1, keepdim=True).clamp_min(_FLOOR)
+    out = (p @ v.float()) / denom
+    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+
+
+def _rebuilt(q, k, v, g, lse, delta):
+    """qs, p rebuilt from the lse, and ds, all float32."""
+    qs = q.float() * _scale(q.shape[-1])
+    p = torch.exp(qs @ k.float().transpose(1, 2) - lse[..., None])
+    dp = g.float() @ v.float().transpose(1, 2)
+    return qs, p, p * (dp - delta[..., None])
+
+
+def attention_dq_reference(q, k, v, g, lse, delta) -> torch.Tensor:
+    """The plain dq: ``scale * ds @ k`` in q's dtype."""
+    _check(q, k, v)
+    _check_grad(q, g, lse, delta)
+    _, _, ds = _rebuilt(q, k, v, g, lse, delta)
+    return ((ds @ k.float()) * _scale(q.shape[-1])).to(q.dtype)
+
+
+def attention_dkdv_reference(q, k, v, g, lse, delta
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain (dk, dv): ``ds^T @ qs`` and ``p^T @ g`` in k's and v's
+    dtypes."""
+    _check(q, k, v)
+    _check_grad(q, g, lse, delta)
+    qs, p, ds = _rebuilt(q, k, v, g, lse, delta)
+    dk = ds.transpose(1, 2) @ qs
+    dv = p.transpose(1, 2) @ g.float()
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    from boosted_detr_torch.ops import build
+
+    lib = build.load("attention")
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    for name, pointers in (("attention_fwd", 5), ("attention_dq", 7),
+                           ("attention_dkdv", 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + tail
+        fn.restype = ctypes.c_int
+    lib.attention_error_string.argtypes = [ctypes.c_int]
+    lib.attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _use_kernel(name: str, q, k, v, *grad) -> bool:
+    """False when every tensor lies on the CPU, where the plain version
+    checks them. Otherwise checks them for the kernels and returns True;
+    raises unless they all lie on one CUDA device and suit the kernels."""
+    tensors = (q, k, v) + grad
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; "
+                         f"all must be on one CUDA device or all on the CPU")
+    _check(q, k, v)
+    if grad:
+        _check_grad(q, *grad)
+    d = q.shape[-1]
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim D={d} is not supported; the "
+                         f"kernels are built for D in {SUPPORTED_HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernels take contiguous tensors")
+    return True
+
+
+def _launch(fn, name: str, device: torch.device, *args):
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           f"{lib.attention_error_string(rc).decode()} "
+                           f"({name})")
+
+
+def _shape_args(q, k):
+    bh, tq, d = q.shape
+    return (bh, tq, k.shape[1], d, int(q.dtype == torch.bfloat16),
+            _scale(d))
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the forward kernel; CPU tensors take
+    ``attention_fwd_reference``. Each launch adds one to
+    ``attention_fwd.launches``."""
+    if not _use_kernel("attention_fwd", q, k, v):
+        return attention_fwd_reference(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch("attention_fwd", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
+            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), *_shape_args(q, k))
+    attention_fwd.launches += 1
+    return out, lse
+
+
+attention_fwd.launches = 0
+
+
+def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
+    """dq of the dq kernel; CPU tensors take ``attention_dq_reference``.
+    Each launch adds one to ``attention_dq.launches``."""
+    if not _use_kernel("attention_dq", q, k, v, g, lse, delta):
+        return attention_dq_reference(q, k, v, g, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("attention_dq", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
+            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *_shape_args(q, k))
+    attention_dq.launches += 1
+    return dq
+
+
+attention_dq.launches = 0
+
+
+def attention_dkdv(q, k, v, g, lse, delta
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the dk/dv kernel; CPU tensors take
+    ``attention_dkdv_reference``. Each launch adds one to
+    ``attention_dkdv.launches``."""
+    if not _use_kernel("attention_dkdv", q, k, v, g, lse, delta):
+        return attention_dkdv_reference(q, k, v, g, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("attention_dkdv", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
+            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k))
+    attention_dkdv.launches += 1
+    return dk, dv
+
+
+attention_dkdv.launches = 0
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """(out, lse) with the flash-style gradient (pallas_attention.py:290-330):
+    the forward saves (q, k, v, out, lse); the backward folds the lse's
+    cotangent into delta (``delta - g_lse``: d lse / d logits = p) and runs
+    dq and dk/dv. An output nobody used arrives as None and counts as 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.set_materialize_grads(False)
+        out, lse = attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g: Optional[torch.Tensor],
+                 g_lse: Optional[torch.Tensor]):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = (torch.zeros_like(out) if g is None
+             else g.to(out.dtype).contiguous())
+        delta = (g.float() * out.float()).sum(-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = attention_dq(q, k, v, g, lse, delta)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = attention_dkdv(q, k, v, g, lse, delta)
+        return dq, dk, dv
+
+
+def fused_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax(q k^T / sqrt(D)) v and the per-row log-sum-exp of the scaled
+    logits ([BH, Tq] float32), both differentiable."""
+    return FusedAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v over q [BH, Tq, D] and k, v [BH, Tk, D]:
+    [BH, Tq, D] in q's dtype."""
+    return fused_attention_with_lse(q, k, v)[0]

@@ -7,39 +7,49 @@ Run from the root of a checkout:
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
-   with nvcc for sm_90a, one process per source, all at once;
+   (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
+   per source, all at once;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
-   (K1-fwd) and weight gradient (K1-dW) and the exact matcher (K2); holds
-   each result against the plain PyTorch version on the same inputs, and
-   times kernel, plain version and one PyTorch library call (where one
-   computes the same function) with CUDA events;
-3. serving: builds the flagship DETR (640x640, batch 8, bf16, ResNet
-   patchify8 stem through the kernel) from seeded random weights and
-   running statistics, serves a few requests through ``predict``, checks
-   the outputs, and compares the same model with its stem switched to the
-   plain version; then where one request's time goes;
-4. training: the flagship train step of bench.py (the same model, live
-   BatchNorm, dropout 0.1, the matched loss through the K2 matcher, SGD
-   with Nesterov momentum and per-tensor clipnorm) on the batch bench.py
-   builds: warm-up steps, then timed steps, their losses, the stem's
-   gradient, a profile of one step, and one step from the same state with
-   the plain versions in place of the kernels;
-5. small reference: a small float32 DETR on the card against the same
-   weights on the CPU, the path the CPU tests hold against JAX: one
-   forward, and one train step;
-6. report: the card's name and power limit, a ``kernels`` JSON line, and
+   (K1-fwd) and weight gradient (K1-dW), the exact matcher (K2), and the
+   fused attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
+   (K3-dkdv) in bf16 and float32; holds each result against the plain
+   PyTorch version on the same inputs, and times kernel, plain version and
+   one PyTorch library call (where one computes the same function) with
+   CUDA events;
+3. the main paths, each built from seeded random weights (and random
+   running statistics for serving) at full width, every launch counter set
+   to 0 just before the path runs and read just after:
+   - flagship serving: DETR at 640x640, batch 8, bf16, ResNet patchify8
+     stem through K1, a few requests through ``predict``, outputs checked,
+     the same model with its stem on the plain version; then where one
+     request's time goes;
+   - flagship training: the train step of bench.py (live BatchNorm,
+     dropout 0.1, the matched loss through K2, SGD with Nesterov momentum
+     and per-tensor clipnorm) on the batch bench.py builds: warm-up steps,
+     timed steps, a profile of one step, and the same step from one state
+     with the kernels, with the plain versions (the losses held together),
+     and with the plain forward but the backward kernels (the gradients
+     held against the plain step's);
+   - the same two at 1280x1280 with ``use_pallas_attention`` (1600 encoder
+     tokens: K3 in every attention, against the plain K1 and K3 versions);
+   - the same two for the ViT-p16 backbone at 640x640 (width 384, depth 8,
+     6 heads: K1 at P=16 -> 384 and K3 in the ViT blocks and in DETR);
+4. small reference: small float32 models on the card against the same
+   weights on the CPU, the path the CPU tests hold against JAX (the
+   ResNet DETR with plain attention, the same with the fused attention,
+   and a ViT DETR): one forward, and one train step;
+5. report: the card's name and power limit, a ``kernels`` JSON line, and
    the last line ``{"ok": true, "device": {...}}``.
 
-Every launch counter is set to 0 just before a main path runs (the served
-requests; the timed train steps) and read just after, so ``launches``
-counts what that path ran. TF32 is off for matmuls and convolutions, so
-that every float32 comparison is float32. Without a CUDA card it exits
-non-zero and prints no result.
+TF32 is off for matmuls and convolutions, so that every float32 comparison
+is float32. Without a CUDA card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -56,6 +66,40 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 WARMUP, REPEATS = 3, 25
 REQUESTS, BATCH, RES = 3, 8, 640
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# the 1280px and ViT paths: fewer steps, each several times the 640px one
+HR_RES, HR_TRAIN_WARMUP, HR_TRAIN_STEPS = 1280, 2, 5
+# Every kernel: its module under boosted_detr_torch/ops, its wrapper, its
+# plain version, its source, and the TPU kernel it replaces.
+KERNELS = {
+    "patchify_fwd": ("patchify", "patchify_conv", "patchify_conv_reference",
+                     "boosted_detr_torch/csrc/patchify.cu",
+                     "boosted_detr_tpu/ops/pallas_patchify.py:122"),
+    "patchify_dw": ("patchify", "patchify_conv_dw",
+                    "patchify_conv_dw_reference",
+                    "boosted_detr_torch/csrc/patchify.cu",
+                    "boosted_detr_tpu/ops/pallas_patchify.py:152"),
+    "lap": ("lap", "hungarian_lap", "hungarian_lap_reference",
+            "boosted_detr_torch/csrc/lap.cu",
+            "boosted_detr_tpu/ops/pallas_lap.py:160"),
+    "attention_fwd": ("attention", "attention_fwd", "attention_fwd_reference",
+                      "boosted_detr_torch/csrc/attention.cu",
+                      "boosted_detr_tpu/ops/pallas_attention.py:112"),
+    "attention_dq": ("attention", "attention_dq", "attention_dq_reference",
+                     "boosted_detr_torch/csrc/attention.cu",
+                     "boosted_detr_tpu/ops/pallas_attention.py:233"),
+    "attention_dkdv": ("attention", "attention_dkdv",
+                       "attention_dkdv_reference",
+                       "boosted_detr_torch/csrc/attention.cu",
+                       "boosted_detr_tpu/ops/pallas_attention.py:257"),
+}
+# K3 at the shapes the new main paths give it: (label, BH, Tq, Tk, D)
+K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
+             ("1280 cross-attention", 64, 96, 1600, 32),
+             ("decoder self-attention", 64, 96, 96, 32),
+             ("ViT-p16 blocks", 48, 1600, 1600, 64),
+             ("ViT config's DETR encoder", 64, 400, 400, 32),
+             ("ViT config's DETR cross-attention", 64, 96, 400, 32),
+             ("ragged", 16, 300, 520, 64))
 
 
 def _say(*parts):
@@ -73,6 +117,12 @@ def _close(out, ref, atol, rtol, what):
     if bad or not torch.isfinite(out).all():
         raise AssertionError(f"{what}: {bad} values outside the tolerance")
     return max_abs
+
+
+def _norm_rel(out, ref):
+    """||out - ref|| / ||ref||, both L2 over all values, in float64."""
+    out, ref = out.double(), ref.double()
+    return ((out - ref).norm() / ref.norm()).item()
 
 
 def _time_ms(fn, flush, repeats=REPEATS):
@@ -108,11 +158,11 @@ def phase_build():
                 _say(f"  {name}: {line.strip()}")
 
 
-def _patchify_case(patch, c_out, dtype, seed, flush):
+def _patchify_case(patch, c_out, dtype, seed, flush, res=RES):
     from boosted_detr_torch.ops import patchify as P
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda")
+    x = torch.rand((BATCH, res, res, 3), generator=gen, device="cuda")
     x = x * 1.2 - 0.1  # a little outside [0, 1], so that the clip works
     k = patch * patch * 3
     w = (torch.randn((patch, patch, 3, c_out), generator=gen, device="cuda")
@@ -120,7 +170,7 @@ def _patchify_case(patch, c_out, dtype, seed, flush):
     out = P.patchify_conv(x, w, clip01=True)
     ref = P.patchify_conv_reference(x, w, clip01=True)
     torch.cuda.synchronize()
-    what = f"P={patch} -> {c_out} {str(dtype)[6:]}"
+    what = f"{res}px P={patch} -> {c_out} {str(dtype)[6:]}"
     # float32: only the order of the float32 sums differs. bfloat16: both
     # round identical inputs and sum in float32, so the outputs differ by
     # at most one rounding of the bf16 result, 2**-7 relative.
@@ -163,22 +213,22 @@ def _bound(n_bytes, ops, dtype):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _dw_case(patch, c_out, dtype, seed, flush):
+def _dw_case(patch, c_out, dtype, seed, flush, res=RES):
     """K1-dW: the stem's weight gradient for an output cotangent g in the
     weights' dtype (the output's, on the stem), as the train step gives it."""
     from boosted_detr_torch.ops import patchify as P
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda")
+    x = torch.rand((BATCH, res, res, 3), generator=gen, device="cuda")
     x = x * 1.2 - 0.1
-    ho = RES // patch
+    ho = res // patch
     g = torch.randn((BATCH, ho, ho, c_out), generator=gen,
                     device="cuda").to(dtype)
     dw, dw32 = P.patchify_conv_dw(x, g, patch, dtype, clip01=True)
     ref, ref32 = P.patchify_conv_dw_reference(x, g, patch, dtype,
                                               clip01=True)
     torch.cuda.synchronize()
-    what = f"dW P={patch} -> {c_out} {str(dtype)[6:]}"
+    what = f"dW {res}px P={patch} -> {c_out} {str(dtype)[6:]}"
     # Both sum the same exact products of rounded values in float32, in
     # other orders (the kernel's per-chunk partials against cuBLAS): the
     # float32 sums differ by a few ulps of the sum of the products'
@@ -292,42 +342,228 @@ def _lap_case(b, o, p, seed, flush, edges=False):
     return row
 
 
+def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
+    """K3-fwd (with the lse), K3-dq and K3-dkdv at one shape against their
+    plain versions; in bf16 also timed, with F.scaled_dot_product_attention
+    (forward, and forward + backward) as the library yardstick, which the
+    port never calls. Returns one row per kernel."""
+    import torch.nn.functional as F
+
+    from boosted_detr_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda")
+                  .to(dtype) for t in (tq, tk, tk, tq))
+    g_lse = torch.randn((bh, tq), generator=gen, device="cuda")
+    out, lse = A.attention_fwd(q, k, v)
+    ref, ref_lse = A.attention_fwd_reference(q, k, v)
+    # both backward kernels get the plain forward's lse and delta, so that
+    # each is held against its own plain version alone
+    delta = (g.float() * ref.float()).sum(-1) - g_lse
+    args = (q, k, v, g, ref_lse, delta)
+    dq = A.attention_dq(*args)
+    dk, dv = A.attention_dkdv(*args)
+    ref_dq = A.attention_dq_reference(*args)
+    ref_dk, ref_dv = A.attention_dkdv_reference(*args)
+    torch.cuda.synchronize()
+    what = f"K3 {label} [{bh}, {tq}, {tk}, {d}] {str(dtype)[6:]}"
+    # float32: the same float32 formulas summed in other orders (64-row
+    # tiles and 4-16-row chunks against cuBLAS): out 1e-5 / 1e-4, the
+    # gradients (sums over up to 1600 rows) 1e-4 / 1e-4. bfloat16: the K1
+    # gates, one rounding of the result (2**-7) over 1e-5, and 1e-4 for the
+    # gradients' float32 sums. The lse is float32 in both: 1e-5 / 1e-5.
+    if dtype == torch.float32:
+        tol, grad_tol = dict(atol=1e-5, rtol=1e-4), dict(atol=1e-4, rtol=1e-4)
+    else:
+        tol = dict(atol=1e-5, rtol=2.0 ** -7)
+        grad_tol = dict(atol=1e-4, rtol=2.0 ** -7)
+    errs = {"fwd": max(_close(out, ref, what=f"{what} out", **tol),
+                       _close(lse, ref_lse, atol=1e-5, rtol=1e-5,
+                              what=f"{what} lse")),
+            "dq": _close(dq, ref_dq, what=f"{what} dq", **grad_tol),
+            "dkdv": max(_close(dk, ref_dk, what=f"{what} dk", **grad_tol),
+                        _close(dv, ref_dv, what=f"{what} dv", **grad_tol))}
+    size = q.element_size()
+    pairs = bh * tq * tk * d
+    nq, nk = bh * tq * d, bh * tk * d  # a q-shaped and a k-shaped tensor
+    n_bytes = {  # each input read once, each output written once
+        "fwd": size * (2 * nq + 2 * nk) + 4 * bh * tq,  # q k v, out, lse
+        "dq": size * (3 * nq + 2 * nk) + 8 * bh * tq,  # + g, lse, delta
+        "dkdv": size * (2 * nq + 4 * nk) + 8 * bh * tq}
+    ops = {"fwd": 4 * pairs, "dq": 6 * pairs, "dkdv": 8 * pairs}
+    rows = {}
+    for name in ("fwd", "dq", "dkdv"):
+        rows[name] = {"shape": what, "max_abs_err": errs[name],
+                      "library_ms": None}
+        rows[name].update(_bound(n_bytes[name], ops[name], dtype))
+    if dtype != torch.bfloat16:
+        return rows
+
+    rows["fwd"].update(
+        ms=_time_ms(lambda: A.attention_fwd(q, k, v), flush),
+        plain_ms=_time_ms(lambda: A.attention_fwd_reference(q, k, v), flush))
+    rows["dq"].update(
+        ms=_time_ms(lambda: A.attention_dq(*args), flush),
+        plain_ms=_time_ms(lambda: A.attention_dq_reference(*args), flush))
+    rows["dkdv"].update(
+        ms=_time_ms(lambda: A.attention_dkdv(*args), flush),
+        plain_ms=_time_ms(lambda: A.attention_dkdv_reference(*args), flush))
+    # The library yardstick on [1, BH, T, D] views (flash attention in
+    # bf16): the forward, and the forward with the backward of all three
+    # inputs, against the port's forward + delta + dq + dk/dv through its
+    # autograd Function. SDPA's backward computes dq, dk and dv in one, so
+    # dq and dk/dv alone have no library call.
+    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_()
+                  for t in (q, k, v))
+    g4 = g.unsqueeze(0)
+    lib = F.scaled_dot_product_attention(q4, k4, v4)
+    lib_err = (lib[0].float() - ref.float()).abs().max().item()
+    _say(f"  {what} SDPA yardstick: max abs err {lib_err:.3e}")
+    leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+
+    def ours_fb():
+        torch.autograd.grad(A.fused_attention(*leaves), leaves, g)
+
+    def lib_fb():
+        torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4),
+                            (q4, k4, v4), g4)
+
+    with torch.no_grad():
+        rows["fwd"]["library_ms"] = _time_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4), flush)
+    fb = {"kernels_fwd_bwd_ms": _time_ms(ours_fb, flush),
+          "sdpa_fwd_bwd_ms": _time_ms(lib_fb, flush)}
+    for name in ("fwd", "dq", "dkdv"):
+        rows[name].update(fb)
+        r = rows[name]
+        _say(f"  {what} {name}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, SDPA "
+             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none")
+             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    _say(f"  {what} forward + backward: kernels "
+         f"{fb['kernels_fwd_bwd_ms']:.4f} ms, SDPA "
+         f"{fb['sdpa_fwd_bwd_ms']:.4f} ms")
+    return rows
+
+
 def phase_kernels():
     _say("[kernels] patchify_conv against patchify_conv_reference on the "
-         f"card, x f32 [{BATCH}, {RES}, {RES}, 3]")
+         f"card, x f32 [{BATCH}, res, res, 3]")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    rows = {"patchify_fwd": [_patchify_case(8, 128, torch.bfloat16, 0, flush),
+    # the 1280px stem (Wo = 160) last: another channel slice and shared
+    # memory footprint than at 640px
+    bf16 = torch.bfloat16
+    rows = {"patchify_fwd": [_patchify_case(8, 128, bf16, 0, flush),
                              _patchify_case(8, 128, torch.float32, 1, flush),
-                             _patchify_case(4, 64, torch.bfloat16, 2, flush),
-                             _patchify_case(16, 384, torch.bfloat16, 3,
-                                            flush)]}
+                             _patchify_case(4, 64, bf16, 2, flush),
+                             _patchify_case(16, 384, bf16, 3, flush),
+                             _patchify_case(8, 128, bf16, 30, flush,
+                                            res=HR_RES)]}
     _say("[kernels] patchify_conv_dw against patchify_conv_dw_reference")
-    rows["patchify_dw"] = [_dw_case(8, 128, torch.bfloat16, 4, flush),
+    rows["patchify_dw"] = [_dw_case(8, 128, bf16, 4, flush),
                            _dw_case(8, 128, torch.float32, 5, flush),
-                           _dw_case(4, 64, torch.bfloat16, 6, flush),
-                           _dw_case(16, 384, torch.bfloat16, 7, flush)]
+                           _dw_case(4, 64, bf16, 6, flush),
+                           _dw_case(16, 384, bf16, 7, flush),
+                           _dw_case(8, 128, bf16, 31, flush, res=HR_RES)]
     _say("[kernels] hungarian_lap against hungarian_lap_reference and scipy")
     rows["lap"] = [_lap_case(8, 32, 96, 8, flush),
                    _lap_case(8, 32, 96, 9, flush, edges=True),
                    _lap_case(32, 32, 96, 10, flush, edges=True)]
+    _say("[kernels] attention_fwd, attention_dq and attention_dkdv against "
+         "their plain versions")
+    for name in ("attention_fwd", "attention_dq", "attention_dkdv"):
+        rows[name] = []
+    seed = 11
+    for dtype in (torch.bfloat16, torch.float32):  # the 1280 encoder first
+        for shape in K3_SHAPES:
+            case = _attention_case(*shape, dtype, seed, flush)
+            seed += 1
+            for name in ("fwd", "dq", "dkdv"):
+                rows[f"attention_{name}"].append(case[name])
     return rows
 
 
-def _counters():
-    from boosted_detr_torch.ops import lap as L
-    from boosted_detr_torch.ops import patchify as P
-
-    return {"patchify_fwd": P.patchify_conv, "patchify_dw": P.patchify_conv_dw,
-            "lap": L.hungarian_lap}
+def _wrapper(name):
+    """A kernel's module and the names of its wrapper and plain version."""
+    module, wrapper, plain = KERNELS[name][:3]
+    return (importlib.import_module(f"boosted_detr_torch.ops.{module}"),
+            wrapper, plain)
 
 
 def _reset_launches():
-    for fn in _counters().values():
-        fn.launches = 0
+    for name in KERNELS:
+        module, wrapper, _ = _wrapper(name)
+        getattr(module, wrapper).launches = 0
 
 
 def _launches():
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(*_wrapper(name)[:2]).launches for name in KERNELS}
+
+
+@contextlib.contextmanager
+def _gradients(state, params):
+    """Each parameter's gradient as the backward leaves it, recorded before
+    the optimizer clips it and adds the momentum (both in place)."""
+    grads = {}
+    optimizer = state.optimizer
+
+    def step():
+        grads.update({k: p.grad.clone() for k, p in params.items()
+                      if p.grad is not None})
+        type(optimizer).step(optimizer)
+
+    optimizer.step = step
+    try:
+        yield grads
+    finally:
+        del optimizer.step
+
+
+@contextlib.contextmanager
+def _plain_versions(names):
+    """The named kernels' wrappers replaced by their plain versions."""
+    saved = {name: getattr(*_wrapper(name)[:2]) for name in names}
+    for name in names:
+        module, wrapper, plain = _wrapper(name)
+        setattr(module, wrapper, getattr(module, plain))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(_wrapper(name)[0], KERNELS[name][1], fn)
+
+
+def _expect(**per_run):
+    """Launches of each kernel per forward or per step: 0 where unnamed."""
+    return {name: per_run.get(name, 0) for name in KERNELS}
+
+
+_K3 = ("attention_fwd", "attention_dq", "attention_dkdv")
+_BACKWARD = ("patchify_dw", "attention_dq", "attention_dkdv")
+# The paths: label, ModelConfig keywords, launches per forward (serving) and
+# per train step, and the kernels the plain comparison swaps out.
+PATHS = {
+    "flagship": dict(
+        res=RES, cfg=dict(backbone="resnet", stem="patchify8"),
+        forward=_expect(patchify_fwd=1),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1),
+        serving_plain=("patchify_fwd",)),
+    # 1600 encoder tokens: 4 encoder, 4 cross and 3 decoder self-attentions
+    "flagship_1280": dict(
+        res=HR_RES, cfg=dict(backbone="resnet", stem="patchify8",
+                             use_pallas_attention=True),
+        forward=_expect(patchify_fwd=1, attention_fwd=11),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=11,
+                     attention_dq=11, attention_dkdv=11),
+        serving_plain=("patchify_fwd",) + _K3),
+    # 8 ViT blocks over 1600 patches, then the 11 attentions of DETR
+    "vit_p16": dict(
+        res=RES, cfg=dict(backbone="vit", use_pallas_attention=True),
+        forward=_expect(patchify_fwd=1, attention_fwd=19),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=19,
+                     attention_dq=19, attention_dkdv=19),
+        serving_plain=("patchify_fwd",) + _K3),
+}
 
 
 def _randomize_running_stats(model, seed):
@@ -353,32 +589,51 @@ def _known_attributes(text, names):
     return part == ""
 
 
-def phase_serving():
-    import boosted_detr_torch as bt
+def _codec():
+    """The flagship's vocabularies (bench.py): COCO's 80 categories and
+    Fashionpedia's 294 attributes, each with <PAD> and <OOV>."""
     from boosted_detr_torch.data import vocabularies
     from boosted_detr_torch.data.codec import TextCodec
-    from boosted_detr_torch.ops import patchify as P
 
-    # The flagship of bench.py: COCO's 80 categories and Fashionpedia's 294
-    # attributes, each with <PAD> and <OOV>.
-    vocab = {"category": vocabularies.vocab_dict("COCO")["category"],
-             "attribute": vocabularies.vocab_dict("Fashionpedia")[
-                 "attribute"]}
-    codec = TextCodec(vocab)
-    cfg = bt.ModelConfig(image_size=(RES, RES), backbone="resnet",
-                         stem="patchify8", use_pallas_stem=True,
-                         norm="batchnorm", compute_dtype="bfloat16",
-                         num_categories=len(codec.category_vocab),
-                         num_attributes=len(codec.attribute_vocab))
+    return TextCodec({
+        "category": vocabularies.vocab_dict("COCO")["category"],
+        "attribute": vocabularies.vocab_dict("Fashionpedia")["attribute"]})
+
+
+def _path_config(name, codec):
+    import boosted_detr_torch as bt
+
+    path = PATHS[name]
+    res = path["res"]
+    return bt.ModelConfig(image_size=(res, res), use_pallas_stem=True,
+                          norm="batchnorm", compute_dtype="bfloat16",
+                          max_objects=32, matcher="pallas",
+                          num_categories=len(codec.category_vocab),
+                          num_attributes=len(codec.attribute_vocab),
+                          **path["cfg"])
+
+
+def phase_serving(name):
+    """One path's serving: the model in eval mode with random running
+    statistics, a warm-up request, then REQUESTS requests through
+    ``predict`` with the launch counters read around them."""
+    import boosted_detr_torch as bt
+
+    path = PATHS[name]
+    res = path["res"]
+    codec = _codec()
+    cfg = _path_config(name, codec)
     t0 = time.perf_counter()
     model = bt.DETR(cfg, seed=0)  # on cuda: the entry point's default
     model.eval()  # a server holds its model in eval mode
     _randomize_running_stats(model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
-    _say(f"[serving] flagship DETR, {n_params} parameters, built in "
-         f"{time.perf_counter() - t0:.1f} s on {model.device}")
+    _say(f"[serving {name}] DETR {res}x{res}, backbone {cfg.backbone}, "
+         f"fused attention {cfg.use_pallas_attention}, {n_params} "
+         f"parameters, built in {time.perf_counter() - t0:.1f} s on "
+         f"{model.device}")
     rng = np.random.default_rng(0)
-    requests = [rng.uniform(0.0, 1.0, (BATCH, RES, RES, 3)).astype(np.float32)
+    requests = [rng.uniform(0.0, 1.0, (BATCH, res, res, 3)).astype(np.float32)
                 for _ in range(REQUESTS)]
 
     bt.predict(model, requests[0], codec)  # warm-up: cuDNN and cuBLAS plans
@@ -391,9 +646,9 @@ def phase_serving():
         latencies.append((time.perf_counter() - t0) * 1e3)
     launches = _launches()
     _say(f"  kernel launches over {REQUESTS} requests: {launches}")
-    if launches != {"patchify_fwd": REQUESTS, "patchify_dw": 0, "lap": 0}:
-        raise AssertionError(f"expected {REQUESTS} stem launches and no "
-                             f"other, got {launches}")
+    want = {k: n * REQUESTS for k, n in path["forward"].items()}
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
     for i, ms in enumerate(latencies):
         _say(f"  request {i}: {BATCH} images in {ms:.2f} ms")
     total_s = sum(latencies) / 1e3
@@ -418,20 +673,30 @@ def phase_serving():
     _say("  outputs: categories and attributes from the vocabulary, softmax "
          "rows sum to 1, boxes in (-1, 2)")
 
-    # The same model with the stem on the plain version on the card. The
-    # stems agree to one bf16 rounding; that propagates through bf16
-    # compute, so probabilities and boxes are held to 5e-2.
-    kernel_stem = P.patchify_conv
-    P.patchify_conv = P.patchify_conv_reference
-    try:
+    # The same model with the path's kernels on their plain versions on the
+    # card: the stem (K1-fwd, bit-exact) and K3 where it runs. K3 agrees to
+    # one bf16 rounding of its results; that propagates through bf16
+    # compute to the heads' bf16 logits, where one rounding (2**-8 of a
+    # logit of a few units) moves a probability by about 1%. Each output is
+    # held as a whole to 5e-2 of its own L2 norm (a category probability is
+    # ~0.012 on average, so a flat bound would not see a wrong K3), and
+    # each value to 5e-2.
+    swapped = path["serving_plain"]
+    with _plain_versions(swapped):
         plain = bt.predict(model, requests[0], codec, decode_text=False)
-    finally:
-        P.patchify_conv = kernel_stem
+    rel_errs = {}
     for key in ("category", "attribute", "boxes"):
-        _close(torch.from_numpy(raw[key]), torch.from_numpy(plain[key]),
-               atol=5e-2, rtol=0.0, what=f"serving {key}, kernel vs plain stem")
+        got, want = torch.from_numpy(raw[key]), torch.from_numpy(plain[key])
+        what = f"serving {key}, kernels vs plain {'/'.join(swapped)}"
+        _close(got, want, atol=5e-2, rtol=0.0, what=what)
+        rel_errs[key] = _norm_rel(got, want)
+        _say(f"  {what}: L2 norm of the difference {rel_errs[key]:.3e} of "
+             f"the plain output's (held to 5e-2)")
+        if not rel_errs[key] <= 5e-2:
+            raise AssertionError(f"{what}: off the plain output")
     return {"images_per_s": REQUESTS * BATCH / total_s,
             "latency_ms": latencies, "launches": launches,
+            "plain_norm_rel_err": rel_errs,
             "model": model, "codec": codec, "images": requests[0]}
 
 
@@ -445,10 +710,11 @@ def _host_ms(fn, repeats=5):
     return statistics.median(times)
 
 
-def phase_breakdown(model, codec, images, stem_ms):
-    """Where one flagship request's time goes: the host-to-device copy of
-    the images, the forward on the card, the text decode on the host, and
-    the forward's kernels by device time (torch.profiler)."""
+def phase_breakdown(name, model, codec, images):
+    """Where one request of a path goes: the host-to-device copy of the
+    images, the forward on the card, the text decode on the host, and the
+    forward's kernels by device time (torch.profiler), with the shares of
+    the stem kernel (K1) and the attention kernels (K3)."""
     from boosted_detr_torch.train.steps import make_predict_step
 
     step = make_predict_step(model)
@@ -458,10 +724,10 @@ def phase_breakdown(model, codec, images, stem_ms):
     row = {"h2d_ms": _host_ms(lambda: torch.from_numpy(images).cuda()),
            "forward_ms": _time_ms(lambda: step(x), flush),
            "decode_ms": _host_ms(lambda: codec.decode_predictions(raw))}
-    _say(f"[breakdown] one request of {BATCH}: H2D copy {row['h2d_ms']:.3f} "
-         f"ms (host clock), forward {row['forward_ms']:.3f} ms (CUDA events),"
-         f" text decode {row['decode_ms']:.3f} ms (host clock); the stem "
-         f"kernel is {100 * stem_ms / row['forward_ms']:.2f}% of the forward")
+    _say(f"[breakdown {name}] one request of {BATCH}: H2D copy "
+         f"{row['h2d_ms']:.3f} ms (host clock), forward "
+         f"{row['forward_ms']:.3f} ms (CUDA events), text decode "
+         f"{row['decode_ms']:.3f} ms (host clock)")
     n = 5
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -480,8 +746,17 @@ def phase_breakdown(model, codec, images, stem_ms):
              "measured")
         return row
     row["device_busy_share"] = busy_us / wall_us
-    _say(f"  profiler, {n} forwards: device busy {busy_us / n / 1e3:.3f} ms "
-         f"per forward, {100 * busy_us / wall_us:.1f}% of the wall time")
+    row["device_busy_ms"] = busy_us / n / 1e3
+    shares = []
+    for key, tag in (("stem_kernel_ms", "patchify_fwd_kernel"),
+                     ("attention_ms", "attn_")):
+        us = sum(e.self_device_time_total for e in kernels if tag in e.key)
+        row[key] = us / n / 1e3
+        shares.append(f"{row[key]:.3f} ms ({100 * us / busy_us:.1f}%)")
+    _say(f"  profiler, {n} forwards: device busy {row['device_busy_ms']:.3f} "
+         f"ms per forward, {100 * busy_us / wall_us:.1f}% of the wall time; "
+         f"per forward the stem kernel (K1) {shares[0]}, the attention "
+         f"kernels (K3) {shares[1]} of the busy time")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         _say(f"    {e.self_device_time_total / n / 1e3:8.3f} ms "
              f"{100 * e.self_device_time_total / busy_us:5.1f}% "
@@ -515,10 +790,11 @@ _PHASES = ("train_step/forward", "train_step/loss_and_matching",
 
 
 def _profile_split(prof, wall_us):
-    """Device time of one profiled step by phase. Each kernel is attached
-    to the CPU op that launched it; the op's start on the host falls inside
-    the ``record_function`` range of its phase (the backward's ops run on
-    autograd's thread while the main thread waits inside its range)."""
+    """Device time of one profiled step by phase, and K3's share of it.
+    Each kernel is attached to the CPU op that launched it; the op's start
+    on the host falls inside the ``record_function`` range of its phase
+    (the backward's ops run on autograd's thread while the main thread
+    waits inside its range)."""
     cpu = torch.autograd.DeviceType.CPU
     events = prof.events()
     windows = {ph: [(e.time_range.start, e.time_range.end) for e in events
@@ -526,29 +802,40 @@ def _profile_split(prof, wall_us):
                for ph in _PHASES}
     split = dict.fromkeys(_PHASES, 0.0)
     split["other"] = 0.0
+    attention_us = 0.0
     for e in events:
         if e.device_type != cpu or not e.kernels:
             continue
         us = sum(k.duration for k in e.kernels)
+        attention_us += sum(k.duration for k in e.kernels
+                            if "attn_" in k.name)
         t = e.time_range.start
         phase = next((ph for ph, ws in windows.items()
                       if any(a <= t <= b for a, b in ws)), "other")
         split[phase] += us
     busy = sum(split.values())
-    return {k: v / 1e3 for k, v in split.items()}, busy / 1e3, wall_us / 1e3
+    return ({k: v / 1e3 for k, v in split.items()}, busy / 1e3,
+            wall_us / 1e3, attention_us / 1e3)
 
 
-def phase_training():
-    """The flagship train step (bench.py:46-72, TrainConfig defaults)."""
+def _trained_stem(model):
+    """The weight that the K1 kernels (forward and dW) train."""
+    net = model.backbone.net
+    if model.backbone.net_name == "vit":
+        return net.patch_embed.weight
+    return net.stem.conv.weight
+
+
+def phase_training(name, warmup, steps):
+    """One path's train step (bench.py:46-72, TrainConfig defaults) on the
+    batch bench.py builds: warm-up steps, timed steps with the launch
+    counters read around them, the checks, one profiled step, and one step
+    from the same state with the plain versions of every kernel."""
     import boosted_detr_torch as bt
-    from boosted_detr_torch.ops import lap as L
-    from boosted_detr_torch.ops import patchify as P
 
-    cfg = bt.ModelConfig(image_size=(RES, RES), backbone="resnet",
-                         compute_dtype="bfloat16", max_objects=32,
-                         matcher="pallas", stem="patchify8",
-                         norm="batchnorm", use_pallas_stem=True,
-                         use_pallas_attention=False)
+    path = PATHS[name]
+    res = path["res"]
+    cfg = _path_config(name, _codec())
     tcfg = bt.TrainConfig(batch_size=BATCH)
     model = bt.DETR(cfg, seed=0)
     state = bt.TrainState.create(model, bt.make_optimizer(
@@ -556,12 +843,13 @@ def phase_training():
     step = bt.make_train_step(model, cfg, tcfg)
     batch = _flagship_batch(cfg, BATCH, model.device)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    _say(f"[training] flagship train step: batch {BATCH} at {RES}x{RES}, "
-         f"bf16, matcher {cfg.matcher}, SGD Nesterov {tcfg.momentum}, "
-         f"clipnorm {tcfg.clipnorm}, {tcfg.lr_schedule}; "
-         f"{TRAIN_WARMUP} warm-up and {TRAIN_STEPS} timed steps")
+    _say(f"[training {name}] train step: batch {BATCH} at {res}x{res}, "
+         f"backbone {cfg.backbone}, fused attention "
+         f"{cfg.use_pallas_attention}, bf16, matcher {cfg.matcher}, SGD "
+         f"Nesterov {tcfg.momentum}, clipnorm {tcfg.clipnorm}, "
+         f"{tcfg.lr_schedule}; {warmup} warm-up and {steps} timed steps")
     t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     _say(f"  warm-up: {time.perf_counter() - t0:.2f} s")
@@ -569,7 +857,7 @@ def phase_training():
     _reset_launches()
     events, auxes = [], []
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -580,10 +868,10 @@ def phase_training():
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = _launches()
-    _say(f"  kernel launches over {TRAIN_STEPS} steps: {launches}")
-    if launches != dict.fromkeys(launches, TRAIN_STEPS):
-        raise AssertionError(f"expected {TRAIN_STEPS} launches of each "
-                             f"kernel, got {launches}")
+    _say(f"  kernel launches over {steps} steps: {launches}")
+    want = {k: n * steps for k, n in path["step"].items()}
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
     step_ms = [a.elapsed_time(b) for a, b in events]
     for i, (ms, aux) in enumerate(zip(step_ms, auxes)):
         vals = {k: v.item() for k, v in aux.items()}
@@ -591,12 +879,12 @@ def phase_training():
             raise AssertionError(f"step {i}: a loss is not finite: {vals}")
         _say(f"  step {i}: {ms:.3f} ms (CUDA events); " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(vals.items())))
-    images_per_s = TRAIN_STEPS * BATCH / wall_s
-    _say(f"  {images_per_s:.2f} images/s over {TRAIN_STEPS} steps (host "
-         f"clock, {wall_s * 1e3 / TRAIN_STEPS:.3f} ms a step); median step "
+    images_per_s = steps * BATCH / wall_s
+    _say(f"  {images_per_s:.2f} images/s over {steps} steps (host "
+         f"clock, {wall_s * 1e3 / steps:.3f} ms a step); median step "
          f"{statistics.median(step_ms):.3f} ms (CUDA events)")
 
-    stem = model.backbone.resnet.stem.conv.weight.grad
+    stem = _trained_stem(model).grad
     if stem is None or not torch.isfinite(stem).all() or stem.abs().sum() == 0:
         raise AssertionError("the stem weight's gradient is missing, not "
                              "finite or zero on the kernel route")
@@ -604,6 +892,15 @@ def phase_training():
          f"after the per-tensor clip")
     after = model.state_dict()
     params = dict(model.named_parameters())
+    if cfg.use_pallas_attention:
+        # every query, key and value projection trains through K3's dq and
+        # dk/dv (the key bias gets a zero gradient, see below)
+        for pname, p in params.items():
+            if pname.endswith(("query_projection.weight",
+                               "key_projection.weight",
+                               "value_projection.weight")):
+                if p.grad is None or p.grad.abs().sum() == 0:
+                    raise AssertionError(f"{pname}: no gradient through K3")
     still = [k for k in params if torch.equal(after[k], before[k])]
     stats = [k for k in after if "running" in k]
     still_stats = [k for k in stats if torch.equal(after[k], before[k])]
@@ -623,19 +920,20 @@ def phase_training():
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    split, busy_ms, wall_ms = _profile_split(prof, wall_us)
+    split, busy_ms, wall_ms, attention_ms = _profile_split(prof, wall_us)
     row = {"images_per_s": images_per_s, "step_ms": step_ms,
            "launches": launches}
     if busy_ms == 0:
         _say("  profiler: no device time recorded; split not measured")
     else:
         row.update(profile_split_ms=split, profile_busy_ms=busy_ms,
-                   profile_wall_ms=wall_ms,
+                   profile_wall_ms=wall_ms, profile_attention_ms=attention_ms,
                    device_busy_share=busy_ms / wall_ms)
         _say(f"  profiler, one step: wall {wall_ms:.3f} ms, device busy "
              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); by phase "
              "(device ms): " + ", ".join(f"{k.split('/')[-1]} {v:.3f}"
-                                         for k, v in split.items()))
+                                         for k, v in split.items())
+             + f"; of which K3 (fwd, dq, dk/dv) {attention_ms:.3f}")
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.is_user_annotation]
@@ -643,56 +941,97 @@ def phase_training():
             _say(f"    {e.self_device_time_total / 1e3:8.3f} ms "
                  f"x{e.count:<4d} {e.key[:90]}")
 
-    # One step from the same state with the plain versions in place of the
-    # kernels: the same dropout bits (the step count seeds them), the same
-    # batch. K1-fwd is bit-exact against its plain version and K2 gives the
-    # same mask, so the losses differ only where cuDNN or cuBLAS take
-    # another algorithm between calls: held to 1e-3 relative, a few bf16
-    # roundings of the activations.
+    # One step from the same state three times: with the kernels, with the
+    # plain versions of every kernel, and with the plain forward versions
+    # but the backward kernels (K1-dW, K3-dq, K3-dkdv). The same dropout
+    # bits (the step count seeds them), the same batch; the step is
+    # otherwise deterministic. K1-fwd is bit-exact against its plain
+    # version and K2 gives the same mask; K3 and K1-dW agree to one rounding
+    # of their results. The losses differ where that rounding reaches them:
+    # held to 1e-3 relative, a few bf16 roundings of the activations.
+    # K3-fwd's roundings, carried through the bf16 forward and live
+    # BatchNorm, move the whole step's gradients by tens of percent (shown,
+    # not held). With the forward the same, the backward is linear in the
+    # cotangent, so the gradients of the third step are held against the
+    # plain step's: all leaves together within 5e-2 of their L2 norm, and
+    # each leaf a backward kernel writes (the stem weight, every query, key
+    # and value projection weight) within 5e-2 of its own.
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     at = state.step
-    state, aux = step(state, batch)
-    kernel_loss = aux["loss"].item()
-    model.load_state_dict(snapshot)
-    state.step = at
-    saved = (P.patchify_conv, P.patchify_conv_dw, L.hungarian_lap)
-    P.patchify_conv = P.patchify_conv_reference
-    P.patchify_conv_dw = P.patchify_conv_dw_reference
-    L.hungarian_lap = L.hungarian_lap_reference
-    try:
-        state, aux = step(state, batch)
-    finally:
-        P.patchify_conv, P.patchify_conv_dw, L.hungarian_lap = saved
-    plain_loss = aux["loss"].item()
+
+    def from_snapshot(plain):
+        nonlocal state
+        model.load_state_dict(snapshot)
+        state.step = at
+        with _plain_versions(plain), _gradients(state, params) as grads:
+            state, aux = step(state, batch)
+        return aux["loss"].item(), grads
+
+    kernel_loss, kernel_grads = from_snapshot(())
+    plain_loss, plain_grads = from_snapshot(tuple(KERNELS))
+    _, backward_grads = from_snapshot(
+        tuple(k for k in KERNELS if k not in _BACKWARD))
     rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     _say(f"  step {at} from one state: loss {kernel_loss:.6f} with the "
          f"kernels, {plain_loss:.6f} with the plain versions (relative "
          f"difference {rel:.3e}, held to 1e-3)")
     if not rel <= 1e-3:
         raise AssertionError("the kernel step's loss is off the plain one")
-    row["loss_rel_diff_plain"] = rel
+    if not kernel_grads.keys() == backward_grads.keys() == plain_grads.keys():
+        raise AssertionError("the steps gave gradients to different "
+                             "parameters")
+    stem = next(k for k, p in params.items() if p is _trained_stem(model))
+    written = [k for k in plain_grads if k == stem or k.endswith((
+        "query_projection.weight", "key_projection.weight",
+        "value_projection.weight"))]
+    leaf = {k: _norm_rel(backward_grads[k], plain_grads[k]) for k in written}
+    worst = max(leaf, key=leaf.get)
+    every = _norm_rel(torch.cat([g.flatten() for g in backward_grads.values()]),
+                      torch.cat([g.flatten() for g in plain_grads.values()]))
+    whole = _norm_rel(torch.cat([g.flatten() for g in kernel_grads.values()]),
+                      torch.cat([g.flatten() for g in plain_grads.values()]))
+    _say(f"  the same step's gradients, plain forward and backward kernels "
+         f"against the plain versions: all {len(plain_grads)} leaves "
+         f"{every:.3e} of their L2 norm, the worst of the {len(leaf)} leaves "
+         f"the backward kernels write {worst} {leaf[worst]:.3e} (each held "
+         f"to 5e-2); the kernel step's against the plain step's {whole:.3e} "
+         f"(not held)")
+    if not (every <= 5e-2 and leaf[worst] <= 5e-2):
+        raise AssertionError("the backward kernels' gradients are off the "
+                             "plain ones")
+    row.update(loss_rel_diff_plain=rel, grad_rel_diff_backward=every,
+               grad_rel_diff_backward_worst_leaf=leaf[worst],
+               grad_rel_diff_step=whole)
     return row
 
 
-def _small_config():
+def _small_configs():
+    """The small float32 models: the ResNet DETR of the CPU tests, the same
+    with the fused attention (2 heads of 32: K3's head dims), and a ViT DETR
+    (patch 16, width 64, 2 blocks of 2 heads)."""
     import boosted_detr_torch as bt
 
-    return bt.ModelConfig(image_size=(64, 64), backbone="resnet",
-                          backbone_width=0.25, stem="patchify8",
-                          use_pallas_stem=True, compute_dtype="float32",
-                          num_encoder_blocks=2, num_decoder_blocks=2,
-                          encoder_dim=64, decoder_dim=64, num_object_preds=16,
-                          num_categories=12, num_attributes=20,
-                          max_objects=8, matcher="pallas", dropout_rate=0.0)
+    resnet = bt.ModelConfig(image_size=(64, 64), backbone="resnet",
+                            backbone_width=0.25, stem="patchify8",
+                            use_pallas_stem=True, compute_dtype="float32",
+                            num_encoder_blocks=2, num_decoder_blocks=2,
+                            encoder_dim=64, decoder_dim=64,
+                            num_object_preds=16, num_categories=12,
+                            num_attributes=20, max_objects=8,
+                            matcher="pallas", dropout_rate=0.0)
+    fused = resnet.replace(use_pallas_attention=True, num_encoder_heads=2,
+                           num_decoder_heads=2)
+    return {"DETR": resnet, "DETR, fused attention": fused,
+            "ViT DETR, fused attention": fused.replace(
+                backbone="vit_p16_d2_w64_h2", backbone_width=1.0)}
 
 
-def phase_small_reference():
-    """A small float32 DETR on the card against the same weights on the CPU,
-    where the port runs the plain versions that the CPU tests hold against
-    the JAX package."""
+def phase_small_reference(label, cfg):
+    """A small float32 model on the card against the same weights on the
+    CPU, where the port runs the plain versions that the CPU tests hold
+    against the JAX package."""
     import boosted_detr_torch as bt
 
-    cfg = _small_config()
     cpu = bt.DETR(cfg, device="cpu", seed=2)
     _randomize_running_stats(cpu, seed=3)
     gpu = bt.DETR(cfg, seed=2)
@@ -701,7 +1040,7 @@ def phase_small_reference():
         -0.05, 1.05, (2, 64, 64, 3)).astype(np.float32)
     want = bt.predict(cpu, images, decode_text=False)
     got = bt.predict(gpu, images, decode_text=False)
-    _say("[small reference] float32 DETR 64x64, card against CPU")
+    _say(f"[small reference] float32 {label} 64x64, card against CPU")
     # float32 throughout: the sums run in another order (cuDNN, cuBLAS and
     # the kernel against oneDNN), ~1e-6 at this size; 1e-4 leaves room.
     for key in ("category", "attribute", "boxes"):
@@ -709,7 +1048,8 @@ def phase_small_reference():
                atol=1e-4, rtol=1e-4, what=key)
 
     # One train step from the same weights and batch: the card through the
-    # kernels (stem forward and dW, K2), the CPU through the plain versions.
+    # kernels (stem forward and dW, K2, K3 where the attention is fused),
+    # the CPU through the plain versions.
     # Dropout is 0 (the CPU and the card draw different bits). With live
     # batch statistics this model amplifies float32 rounding ~2000x at
     # batch 8 (tests/test_torch_train.py), and cuDNN and oneDNN round
@@ -746,22 +1086,18 @@ def phase_small_reference():
                              "card and the CPU")
 
 
-def _kernel_line(rows, train, serving):
-    """The ``kernels`` JSON line: each kernel at the flagship's shape (the
-    first row of its list), with its launches on the main paths."""
-    sources = {"patchify_fwd": ("boosted_detr_torch/csrc/patchify.cu",
-                                "boosted_detr_tpu/ops/pallas_patchify.py:122"),
-               "patchify_dw": ("boosted_detr_torch/csrc/patchify.cu",
-                               "boosted_detr_tpu/ops/pallas_patchify.py:152"),
-               "lap": ("boosted_detr_torch/csrc/lap.cu",
-                       "boosted_detr_tpu/ops/pallas_lap.py:160")}
+def _kernel_line(rows, paths):
+    """The ``kernels`` JSON line: each kernel at its main shape (the first
+    row of its list: the 640px flagship's for K1 and K2, the 1280px
+    encoder's in bf16 for K3), with its launches summed over the main
+    paths."""
     out = []
-    for name, (source, replaces) in sources.items():
+    for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serving["launches"][name] + train["launches"][name],
+            "launches": sum(p["launches"][name] for p in paths),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -783,23 +1119,33 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels()
-    serving = phase_serving()
-    breakdown = phase_breakdown(serving.pop("model"), serving.pop("codec"),
-                                serving.pop("images"),
-                                rows["patchify_fwd"][0]["ms"])
-    train = phase_training()
-    phase_small_reference()
+    report = {}
+    for name in PATHS:
+        serving = phase_serving(name)
+        serving.update(phase_breakdown(
+            name, serving.pop("model"), serving.pop("codec"),
+            serving.pop("images")))
+        torch.cuda.empty_cache()
+        warmup, steps = ((TRAIN_WARMUP, TRAIN_STEPS) if name == "flagship"
+                         else (HR_TRAIN_WARMUP, HR_TRAIN_STEPS))
+        report[name] = {"serving": serving,
+                        "training": phase_training(name, warmup, steps)}
+        torch.cuda.empty_cache()
+    for label, cfg in _small_configs().items():
+        phase_small_reference(label, cfg)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     _say("[report] per-shape kernel rows: " + json.dumps(rows))
-    _say("[report] serving: " + json.dumps(dict(serving, **breakdown)))
-    _say("[report] training: " + json.dumps(train))
+    for name, parts in report.items():
+        for part, row in parts.items():
+            _say(f"[report] {part} {name}: " + json.dumps(row))
     _say(f"[report] {time.perf_counter() - t_start:.1f} s in all")
     _say(card)
-    print(json.dumps(_kernel_line(rows, train, serving)))
+    paths = [row for parts in report.values() for row in parts.values()]
+    print(json.dumps(_kernel_line(rows, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
