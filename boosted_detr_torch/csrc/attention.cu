@@ -4,14 +4,19 @@
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
 //   attn_fwd_kernel  <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
-//   attn_dq_kernel   <- _dq_kernel (:138-163), called by
+//   attn_dq_kernel, attn_dq_mma_kernel
+//                    <- _dq_kernel (:138-163), called by
 //                       _fused_attention_bwd_impl (:202-255, call :233);
-//   attn_dkdv_kernel <- _dkdv_kernel (:166-199), same function, call :257.
+//   attn_dkdv_kernel, attn_dkdv_mma_kernel
+//                    <- _dkdv_kernel (:166-199), same function, call :257.
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
 // bfloat16, with no mask; D is 32 or 64. The arithmetic is the TPU
 // kernels':
 //   - q, k and v are read in their dtype and widened to float32;
-//   - qs = q * scale (scale = 1/sqrt(D)) is formed before the dot;
+//   - the logits are scale * q.k (scale = 1/sqrt(D)); the forward and the
+//     float32 gradient kernels form qs = q * scale before the dot, the
+//     bfloat16 gradient kernels multiply the exact bf16 q and k and scale
+//     the float32 logit (the two differ by float32 rounding only);
 //   - logits, the running max, exp, the denominator and the P.V sums are
 //     float32; out = acc / max(denom, 1e-30) in q's dtype, and
 //     lse = m + log(max(denom, 1e-30)) float32 [BH, Tq];
@@ -24,12 +29,11 @@
 // D = 32, bfloat16): the forward is 4 BH T^2 D = 21.0 GFLOP, 21 us on the
 // bf16 tensor cores (989 TFLOP/s), against 26.6 MB of q, k, v, out and lse,
 // 8 us at 3.35 TB/s; dq (6 BH T^2 D) and dk/dv (8 BH T^2 D) are 32 and
-// 42 us. Operations bound all three. This first version multiplies in
-// float32 on the CUDA cores, whose peak (67 TFLOP/s) puts a floor ~15x
-// above that bound; tensor cores (mma.sync or wgmma on bf16 tiles), TMA
-// and warp specialisation are the later steps toward it.
+// 42 us. Operations bound all three.
 //
-// Design, the same for the three kernels:
+// The forward, and the gradient of float32 inputs, multiply in float32 on
+// the CUDA cores, whose peak (67 TFLOP/s) puts a floor ~15x above that
+// bound (float32 inputs stay there: tensor cores would make them TF32):
 //   - a block owns 64 rows (query rows for the forward and dq, key rows for
 //     dk/dv) and keeps their float32 slices in registers: each thread owns
 //     DPT of the D dims of one row, TPR = D / DPT neighbouring lanes share a
@@ -42,17 +46,57 @@
 //   - the forward takes keys 16 at a time: one max, one exp of the old max
 //     and one rescale of the accumulator per chunk, as the TPU kernel does
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
-//     spilled registers to local memory);
+//     spilled registers to local memory).
+//
+// The gradient of bfloat16 inputs runs on the tensor cores
+// (attn_dq_mma_kernel, attn_dkdv_mma_kernel):
+//   - every product is mma.sync.m16n8k16 on bf16 operands with float32
+//     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q and
+//     dO (dq) or k and v (dk/dv) sit in registers as A fragments for the
+//     whole kernel; the other operand streams through shared memory in
+//     64-row bf16 tiles, which ldmatrix turns into B fragments: plain where
+//     the contraction runs over the head dim (S = Q K^T, dP = dO V^T and
+//     their transposes), .trans where it runs over the tile's rows
+//     (dq += dS K, dv += P^T dO, dk += dS^T Q);
+//   - a tile is taken 16 rows at a time: the 16 x 16 float32 accumulators
+//     of S and dP become p and ds in registers, and are repacked as the A
+//     fragment of the second product (two m16n8 accumulators side by side
+//     have the m16k16 A layout), so p and ds never touch shared or device
+//     memory;
+//   - p and ds stay float32 through the second products on the TPU. One
+//     bf16 rounding of them (2^-9 relative a term) shows in the result
+//     beyond one rounding of it, so each is split into two bf16 values,
+//     hi = bf16(x) and lo = bf16(x - hi) (~16 mantissa bits), and the second
+//     product is issued twice into one accumulator: dq costs 4 and dk/dv 6
+//     tensor-core passes per pair of tiles instead of 3 and 4;
+//   - p = exp(scale s - lse) is one multiply-add and one ex2.approx of the
+//     special-function unit (log2(e) folded into scale and lse; relative
+//     error 2^-22, below the float32 rounding of the logit);
+//   - tiles are staged two deep with cp.async (16 bytes a thread), so that
+//     tile i + 1 loads while tile i multiplies, with one __syncthreads a
+//     tile: after it every thread's copies of tile i have landed and every
+//     thread is done with tile i - 1, whose stage the next copies then
+//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80 or 144
+//     bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
+//     into eight different bank groups, with or without .trans, so no read
+//     conflicts;
+//   - dq and dk are multiplied by scale once, at the end.
+//
+// Common to all:
 //   - the gradient is two kernels, as on the TPU: dq streams over key tiles
 //     and dk/dv over query tiles, so that every sum belongs to one thread
-//     and runs in a fixed order, with no atomics;
-//   - keys past Tk and query rows past Tq are masked (never summed) where
-//     the TPU padded T to its 256/512 blocks and D to 128 lanes, and the
-//     lse is one float32 per row where the TPU kept a lane-replicated
-//     [Tq_pad, 128] tile.
+//     and runs in a fixed order, with no atomics: two launches on the same
+//     inputs give the same bits;
+//   - keys past Tk and query rows past Tq are masked (zero-filled when
+//     staged, p = 0) where the TPU padded T to its 256/512 blocks and D to
+//     128 lanes, and the lse is one float32 per row where the TPU kept a
+//     lane-replicated [Tq_pad, 128] tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -219,12 +263,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPT, int TPR>
+// ---- the gradient of float32 inputs on the CUDA cores ----
+
+template <int DPT, int TPR>
 __global__ void __launch_bounds__(ROWS * TPR)
-attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ g,
+attn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dq, int Tq, int Tk, int tiles, float scale) {
+               float* __restrict__ dq, int Tq, int Tk, int tiles,
+               float scale) {
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
   constexpr int CHUNK = 4;
@@ -236,8 +283,8 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = row < Tq;
   const long long q_row = (static_cast<long long>(bh) * Tq + row) * D;
   const long long r_row = static_cast<long long>(bh) * Tq + row;
-  const T* kb = k + static_cast<long long>(bh) * Tk * D;
-  const T* vb = v + static_cast<long long>(bh) * Tk * D;
+  const float* kb = k + static_cast<long long>(bh) * Tk * D;
+  const float* vb = v + static_cast<long long>(bh) * Tk * D;
 
   float qs[DPT], go[DPT], acc[DPT];
   load_slice<DPT, TPR>(q + (live ? q_row : 0), h, live, scale, qs);
@@ -276,13 +323,14 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (live) store_slice<DPT, TPR>(acc, scale, h, dq + q_row);
 }
 
-template <typename T, int DPT, int TPR>
+template <int DPT, int TPR>
 __global__ void __launch_bounds__(ROWS * TPR)
-attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ g,
+attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ g,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Tq, int Tk, int tiles, float scale) {
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int Tq, int Tk, int tiles,
+                 float scale) {
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
   constexpr int CHUNK = 4;
@@ -342,9 +390,372 @@ attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Dims a thread owns: 32 in the forward and dq (one exp per row and key
-// per thread), 16 in dk/dv, which holds four row slices (k, v and both
-// sums) in registers.
+// ---- the gradient of bfloat16 inputs on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_THREADS = 128;  // 4 warps, 16 of the block's rows each
+constexpr int STEP = 16;          // rows of a staged tile taken at a time
+constexpr int PAD = 8;            // bf16 values (16 bytes) after a staged row
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by the special-function unit (ex2.approx: relative error 2^-22). The
+// gradient kernels fold log2(e) into the logit's scale and the lse, so that
+// p = exp(scale s - lse) is one multiply-add and this.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Starts an asynchronous copy of BYTES (4 or 16) from device to shared
+// memory; zeros are written instead when !live (src is then not read).
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool live) {
+  const int n = live ? BYTES : 0;
+  const uint32_t to = shared_address(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(to), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(to), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most PENDING of this thread's committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Starts the copies of rows [0, n) of the [*, D] bf16 rows at src into a
+// staged tile of pitch D + PAD (zeros for rows [n, TILE)), 16 bytes a thread.
+template <int D>
+__device__ __forceinline__ void stage_async(const bf16* src, int n,
+                                            bf16* dst) {
+  constexpr int PER_ROW = D / 8;  // 16-byte pieces of a row
+  for (int c = threadIdx.x; c < TILE * PER_ROW; c += MMA_THREADS) {
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    const bool live = r < n;
+    copy_async<16>(dst + r * (D + PAD) + col, src + (live ? r * D + col : 0),
+                   live);
+  }
+}
+
+// Starts the copies of n float32 values at src into dst[0, TILE) (zeros past
+// n); `first` is the thread that copies value 0.
+__device__ __forceinline__ void stage_row_stats_async(const float* src, int n,
+                                                      float* dst, int first) {
+  const int i = static_cast<int>(threadIdx.x) - first;
+  if (i >= 0 && i < TILE) copy_async<4>(dst + i, src + (i < n ? i : 0), i < n);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one row address a lane.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_address(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_address(p))
+      : "memory");
+}
+
+// c += a . b: a 16 x 16 (row), b 16 x 8 (col), c 16 x 8 float32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments (16 rows x 16 dims each) of rows r0 and r0 + 8 of the
+// [n_rows, D] bf16 matrix at base, read from device memory; zeros for a row
+// past n_rows. tig = lane % 4.
+template <int D>
+__device__ __forceinline__ void load_a_fragments(const bf16* base, int r0,
+                                                 int n_rows, int tig,
+                                                 uint32_t (&a)[D / 16][4]) {
+  const bool live[2] = {r0 < n_rows, r0 + 8 < n_rows};
+  const uint32_t* row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    row[h] = reinterpret_cast<const uint32_t*>(
+        base + static_cast<long long>(live[h] ? r0 + 8 * h : 0) * D);
+#pragma unroll
+  for (int kb = 0; kb < D / 16; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)  // dims 16 kb + 8 (r / 2) + 2 tig, + 1
+      a[kb][r] = live[r % 2] ? row[r % 2][8 * kb + 4 * (r / 2) + tig] : 0u;
+}
+
+__device__ __forceinline__ uint32_t as_register(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// (x0, x1) as two registers of two bf16 each (x0 in the low half):
+// hi = bf16(x) and lo = bf16(x - hi), so that hi + lo holds ~16 bits of x.
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  hi = as_register(h);
+  lo = as_register(__floats2bfloat162_rn(x0 - back.x, x1 - back.y));
+}
+
+// Two 16 x 8 accumulators side by side as the hi and lo A fragments of a
+// 16 x 16 operand: accumulator j holds columns 8 j + 2 tig, + 1 of rows
+// grp (values 0, 1) and grp + 8 (values 2, 3), which is the A layout.
+__device__ __forceinline__ void split_fragment(const float (&x)[2][4],
+                                               uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    split(x[r / 2][2 * (r % 2)], x[r / 2][2 * (r % 2) + 1], hi[r], lo[r]);
+}
+
+// acc[16 x D] += (hi + lo)[16 x 16] . rows[16 x D], rows being 16 staged rows
+// (pitch D + PAD) taken as B through ldmatrix.trans; t_off is the lane's
+// offset: row lane % 16, column 8 (lane / 16).
+template <int D>
+__device__ __forceinline__ void mma_over_rows(float (&acc)[D / 8][4],
+                                              const uint32_t (&hi)[4],
+                                              const uint32_t (&lo)[4],
+                                              const bf16* rows, int t_off) {
+#pragma unroll
+  for (int nd = 0; nd < D / 8; nd += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, rows + t_off + 8 * nd);
+    mma_bf16(acc[nd], hi, b[0], b[1]);
+    mma_bf16(acc[nd + 1], hi, b[2], b[3]);
+    mma_bf16(acc[nd], lo, b[0], b[1]);
+    mma_bf16(acc[nd + 1], lo, b[2], b[3]);
+  }
+}
+
+// x[16 x 16] = a[16 x D] . rows[16 x D]^T, rows being 16 staged rows taken as
+// B through ldmatrix; b_off is the lane's offset: row lane % 8 + 8 (lane /
+// 16), column 8 ((lane / 8) % 2).
+template <int D>
+__device__ __forceinline__ void mma_over_dims(float (&x)[2][4],
+                                              const uint32_t (&a)[D / 16][4],
+                                              const bf16* rows, int b_off) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int kb = 0; kb < D / 16; ++kb) {
+    uint32_t b[4];
+    ldmatrix_x4(b, rows + b_off + 16 * kb);
+    mma_bf16(x[0], a[kb], b[0], b[1]);
+    mma_bf16(x[1], a[kb], b[2], b[3]);
+  }
+}
+
+// acc (rows r0 and r0 + 8 of a [n_rows, D] matrix) times mul, as bf16.
+template <int D>
+__device__ __forceinline__ void store_accumulator(const float (&acc)[D / 8][4],
+                                                  float mul, bf16* base,
+                                                  int r0, int n_rows,
+                                                  int tig) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= n_rows) continue;
+    __nv_bfloat162* row = reinterpret_cast<__nv_bfloat162*>(
+        base + static_cast<long long>(r0 + 8 * h) * D);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      row[4 * nd + tig] = __floats2bfloat162_rn(acc[nd][2 * h] * mul,
+                                                acc[nd][2 * h + 1] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int Tq, int Tk, int tiles, float scale) {
+  constexpr int PITCH = D + PAD;
+  __shared__ __align__(16) bf16 sk[2][TILE * PITCH];
+  __shared__ __align__(16) bf16 sv[2][TILE * PITCH];
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  // this thread's query rows: r0 and r0 + 8
+  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* kb = k + static_cast<long long>(bh) * Tk * D;
+  const bf16* vb = v + static_cast<long long>(bh) * Tk * D;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
+
+  uint32_t qa[D / 16][4], ga[D / 16][4];
+  load_a_fragments<D>(q + q_base * D, r0, Tq, tig, qa);
+  load_a_fragments<D>(g + q_base * D, r0, Tq, tig, ga);
+  const float scale2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];  // lse times log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = r0 + 8 * h < Tq;
+    row_lse2[h] = live ? lse[q_base + r0 + 8 * h] * LOG2E : 0.f;
+    row_delta[h] = live ? delta[q_base + r0 + 8 * h] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_tiles = (Tk + TILE - 1) / TILE;
+  stage_async<D>(kb, min(TILE, Tk), sk[0]);
+  stage_async<D>(vb, min(TILE, Tk), sv[0]);
+  commit_copies();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % 2, k0 = i * TILE;
+    wait_copies<0>();  // this thread's part of tile i has landed
+    // every thread's part has, and every thread is done with tile i - 1
+    __syncthreads();
+    if (i + 1 < n_tiles) {  // tile i + 1 loads while tile i multiplies
+      const int n = min(TILE, Tk - k0 - TILE);
+      stage_async<D>(kb + static_cast<long long>(k0 + TILE) * D, n, sk[st ^ 1]);
+      stage_async<D>(vb + static_cast<long long>(k0 + TILE) * D, n, sv[st ^ 1]);
+      commit_copies();
+    }
+#pragma unroll
+    for (int c = 0; c < TILE; c += STEP) {
+      if (k0 + c >= Tk) break;  // the same for every thread
+      float s[2][4], dp[2][4];
+      mma_over_dims<D>(s, qa, sk[st] + c * PITCH, b_off);
+      mma_over_dims<D>(dp, ga, sv[st] + c * PITCH, b_off);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // keys past Tk are masked out of p
+          const int key = k0 + c + 8 * j + 2 * tig + e % 2;
+          const float p =
+              key < Tk ? exp2_approx(s[j][e] * scale2 - row_lse2[e / 2]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - row_delta[e / 2]);  // ds
+        }
+      uint32_t hi[4], lo[4];
+      split_fragment(dp, hi, lo);
+      mma_over_rows<D>(acc, hi, lo, sk[st] + c * PITCH, t_off);
+    }
+  }
+  store_accumulator<D>(acc, scale, dq + q_base * D, r0, Tq, tig);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int Tq, int Tk, int tiles,
+                     float scale) {
+  constexpr int PITCH = D + PAD;
+  __shared__ __align__(16) bf16 sq[2][TILE * PITCH];
+  __shared__ __align__(16) bf16 sg[2][TILE * PITCH];  // dO
+  __shared__ __align__(16) float s_lse[2][TILE];
+  __shared__ __align__(16) float s_delta[2][TILE];
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  // this thread's key rows: r0 and r0 + 8
+  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
+  const long long k_base = static_cast<long long>(bh) * Tk;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* qb = q + q_base * D;
+  const bf16* gb = g + q_base * D;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
+
+  const float scale2 = scale * LOG2E;
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a_fragments<D>(k + k_base * D, r0, Tk, tig, ka);
+  load_a_fragments<D>(v + k_base * D, r0, Tk, tig, va);
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+
+  const int n_tiles = (Tq + TILE - 1) / TILE;
+  auto stage_tile = [&](int q0, int st) {
+    const int n = min(TILE, Tq - q0);
+    stage_async<D>(qb + static_cast<long long>(q0) * D, n, sq[st]);
+    stage_async<D>(gb + static_cast<long long>(q0) * D, n, sg[st]);
+    stage_row_stats_async(lse + q_base + q0, n, s_lse[st], 0);
+    stage_row_stats_async(delta + q_base + q0, n, s_delta[st], TILE);
+  };
+  stage_tile(0, 0);
+  commit_copies();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % 2, q0 = i * TILE;
+    wait_copies<0>();
+    __syncthreads();  // tile i has landed; tile i - 1 is consumed
+    if (i + 1 < n_tiles) {
+      stage_tile(q0 + TILE, st ^ 1);
+      commit_copies();
+    }
+#pragma unroll
+    for (int c = 0; c < TILE; c += STEP) {
+      if (q0 + c >= Tq) break;
+      // transposed: rows are this warp's keys, columns the 16 queries
+      float p[2][4], ds[2][4];
+      mma_over_dims<D>(p, ka, sq[st] + c * PITCH, b_off);
+      mma_over_dims<D>(ds, va, sg[st] + c * PITCH, b_off);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = c + 8 * j + 2 * tig;
+        const float2 l = *reinterpret_cast<const float2*>(&s_lse[st][col]);
+        const float2 dl = *reinterpret_cast<const float2*>(&s_delta[st][col]);
+        const float lse2[2] = {l.x * LOG2E, l.y * LOG2E};
+        const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // query rows past Tq are masked out of p
+          const float pe =
+              q0 + col + e % 2 < Tq
+                  ? exp2_approx(p[j][e] * scale2 - lse2[e % 2])
+                  : 0.f;
+          p[j][e] = pe;
+          ds[j][e] = pe * (ds[j][e] - dlt[e % 2]);
+        }
+      }
+      uint32_t hi[4], lo[4];
+      split_fragment(p, hi, lo);
+      mma_over_rows<D>(dv_acc, hi, lo, sg[st] + c * PITCH, t_off);
+      split_fragment(ds, hi, lo);
+      mma_over_rows<D>(dk_acc, hi, lo, sq[st] + c * PITCH, t_off);
+    }
+  }
+  store_accumulator<D>(dk_acc, scale, dk + k_base * D, r0, Tk, tig);
+  store_accumulator<D>(dv_acc, 1.f, dv + k_base * D, r0, Tk, tig);
+}
+
+// Dims a thread of the CUDA-core kernels owns: 32 in the forward and dq (one
+// exp per row and key per thread), 16 in dk/dv, which holds four row slices
+// (k, v and both sums) in registers.
 constexpr int DPT_FWD = 32;
 constexpr int DPT_DQ = 32;
 constexpr int DPT_DKDV = 16;
@@ -369,13 +780,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* delta,
                       void* dq, int BH, int Tq, int Tk, float scale,
                       cudaStream_t stream) {
-  constexpr int TPR = D / DPT_DQ;
   const int tiles = tiles_of(Tq);
-  attn_dq_kernel<T, DPT_DQ, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Tq, Tk, tiles, scale);
+  const float* row_lse = static_cast<const float*>(lse);
+  const float* row_delta = static_cast<const float*>(delta);
+  if constexpr (std::is_same_v<T, bf16>) {
+    attn_dq_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
+        row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, scale);
+  } else {
+    constexpr int TPR = D / DPT_DQ;
+    attn_dq_kernel<DPT_DQ, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
+        row_delta, static_cast<float*>(dq), Tq, Tk, tiles, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -384,13 +803,23 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta,
                         void* dk, void* dv, int BH, int Tq, int Tk,
                         float scale, cudaStream_t stream) {
-  constexpr int TPR = D / DPT_DKDV;
   const int tiles = tiles_of(Tk);
-  attn_dkdv_kernel<T, DPT_DKDV, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, tiles, scale);
+  const float* row_lse = static_cast<const float*>(lse);
+  const float* row_delta = static_cast<const float*>(delta);
+  if constexpr (std::is_same_v<T, bf16>) {
+    attn_dkdv_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
+        row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
+        tiles, scale);
+  } else {
+    constexpr int TPR = D / DPT_DKDV;
+    attn_dkdv_kernel<DPT_DKDV, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
+        row_delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk,
+        tiles, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -398,8 +827,9 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 
 }  // namespace
 
-// One launcher for each (dtype, D) the kernels are built for; any other D
-// is refused with cudaErrorInvalidValue (the wrapper raises before that).
+// One launcher for each (dtype, D) the kernels are built for (the bfloat16
+// dq and dk/dv launchers take the tensor-core kernels); any other D is
+// refused with cudaErrorInvalidValue (the wrapper raises before that).
 #define ATTN_DISPATCH(LAUNCH, D, BF16, ...)                                 \
   do {                                                                      \
     cudaError_t err = cudaErrorInvalidValue;                                \

@@ -23,7 +23,13 @@ nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32
 and D = 64; any other head dim on a CUDA tensor raises. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
-strides. Each ``attention_*`` wrapper runs its plain version
+strides. The forward, and dq and dk/dv of float32 inputs, multiply in
+float32 on the CUDA cores. dq and dk/dv of bfloat16 inputs run on the
+tensor cores: the exact bf16 q.k product is scaled as a float32 logit, and
+p and ds, float32 on the TPU, enter the second products as two bf16 values
+each (hi + lo, ~16 mantissa bits); ``attention_dq_emulation`` and
+``attention_dkdv_emulation`` repeat that arithmetic in plain PyTorch for
+the CPU tests. Each ``attention_*`` wrapper runs its plain version
 (``attention_*_reference``) on CPU tensors only; a CUDA tensor launches
 the kernel or raises, and each launch adds one to the wrapper's
 ``launches``. ``FusedAttentionFn`` is the custom VJP: the forward saves
@@ -35,6 +41,7 @@ runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -119,6 +126,70 @@ def attention_dkdv_reference(q, k, v, g, lse, delta
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+_TILE = 64  # rows of the streamed operand per step of the bf16 kernels
+
+
+def _two_bf16(x: torch.Tensor, split: bool) -> Tuple[torch.Tensor, ...]:
+    """float32 x as the bf16 values that stand for it in a tensor-core
+    product: hi = bf16(x) and, with ``split``, lo = bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool):
+    """What the tensor-core gradient kernels compute, tile by tile: the
+    exact product of the inputs (bf16 on the card) summed in float32, the
+    scale applied to the float32 logit, and (p, ds) as their bf16 parts.
+    Yields (slice of the streamed rows, parts of p, parts of ds), the
+    stream running over 64-row key tiles (dq) or query tiles (dk/dv)."""
+    scale = _scale(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    rows = k.shape[1] if over_keys else q.shape[1]
+    for r0 in range(0, rows, _TILE):
+        tile = slice(r0, r0 + _TILE)
+        qs, ks = (slice(None), tile) if over_keys else (tile, slice(None))
+        s = qf[:, qs] @ kf[:, ks].transpose(1, 2)
+        p = torch.exp(s * scale - lse[:, qs, None])
+        ds = p * (gf[:, qs] @ vf[:, ks].transpose(1, 2)
+                  - delta[:, qs, None])
+        yield tile, _two_bf16(p, split), _two_bf16(ds, split)
+
+
+def attention_dq_emulation(q, k, v, g, lse, delta,
+                           split: bool = True) -> torch.Tensor:
+    """dq by the arithmetic of the tensor-core dq kernel (for the tests; no
+    model calls it): ds enters ``ds @ k`` as bf16 hi + lo, one product
+    each into one float32 sum, and the sum is scaled at the end. With
+    ``split=False`` ds is rounded to one bf16 value instead."""
+    _check(q, k, v)
+    _check_grad(q, g, lse, delta)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for tile, _, ds_parts in _emulated_tiles(q, k, v, g, lse, delta, True,
+                                             split):
+        for part in ds_parts:
+            acc += part @ k[:, tile].float()
+    return (acc * _scale(q.shape[-1])).to(q.dtype)
+
+
+def attention_dkdv_emulation(q, k, v, g, lse, delta, split: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) by the arithmetic of the tensor-core dk/dv kernel (for the
+    tests; no model calls it): p and ds enter ``p^T @ g`` and ``ds^T @ q``
+    as bf16 hi + lo, and dk is scaled at the end."""
+    _check(q, k, v)
+    _check_grad(q, g, lse, delta)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for tile, p_parts, ds_parts in _emulated_tiles(q, k, v, g, lse, delta,
+                                                   False, split):
+        for part in p_parts:
+            dv += part.transpose(1, 2) @ g[:, tile].float()
+        for part in ds_parts:
+            dk += part.transpose(1, 2) @ q[:, tile].float()
+    return (dk * _scale(q.shape[-1])).to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     from boosted_detr_torch.ops import build
 
@@ -154,18 +225,27 @@ def _use_kernel(name: str, q, k, v, *grad) -> bool:
                          f"kernels are built for D in {SUPPORTED_HEAD_DIMS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the kernels take contiguous tensors")
+    # only the tensor-core gradient kernels copy 16 bytes at a time
+    if (grad and q.dtype == torch.bfloat16
+            and any(t.data_ptr() % 16 for t in tensors[:4])):
+        raise ValueError(f"{name}: the bfloat16 gradient kernels copy rows "
+                         f"16 bytes at a time and take q, k, v and g "
+                         f"aligned to that")
     return True
 
 
-def _launch(fn, name: str, device: torch.device, *args):
+def _launch(fn: str, q, k, *pointers):
+    """Launches entry ``fn`` of the library on q's device and current
+    stream; raises if the launch was refused."""
     lib = _library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+        rc = getattr(lib, fn)(*pointers, *_shape_args(q, k), stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.attention_error_string(rc).decode()} "
-                           f"({name})")
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)} "
+                           f"{q.dtype})")
 
 
 def _shape_args(q, k):
@@ -183,9 +263,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return attention_fwd_reference(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("attention_fwd", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
-            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), *_shape_args(q, k))
+    _launch("attention_fwd", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr())
     attention_fwd.launches += 1
     return out, lse
 
@@ -199,10 +278,8 @@ def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
     if not _use_kernel("attention_dq", q, k, v, g, lse, delta):
         return attention_dq_reference(q, k, v, g, lse, delta)
     dq = torch.empty_like(q)
-    _launch("attention_dq", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
-            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), *_shape_args(q, k))
+    _launch("attention_dq", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     attention_dq.launches += 1
     return dq
 
@@ -218,10 +295,9 @@ def attention_dkdv(q, k, v, g, lse, delta
     if not _use_kernel("attention_dkdv", q, k, v, g, lse, delta):
         return attention_dkdv_reference(q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("attention_dkdv", f"q {tuple(q.shape)}, k {tuple(k.shape)} "
-            f"{q.dtype}", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k))
+    _launch("attention_dkdv", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
     attention_dkdv.launches += 1
     return dk, dv
 

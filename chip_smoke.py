@@ -13,10 +13,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), the exact matcher (K2), and the
    fused attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
-   (K3-dkdv) in bf16 and float32; holds each result against the plain
-   PyTorch version on the same inputs, and times kernel, plain version and
-   one PyTorch library call (where one computes the same function) with
-   CUDA events;
+   (K3-dkdv) in bf16 (the gradient on the tensor cores) and float32 (on the
+   CUDA cores); holds each result against the plain PyTorch version on the
+   same inputs, and times kernel, plain version and one PyTorch library
+   call (where one computes the same function) with CUDA events; for K3
+   also the backward alone (delta, dq and dk/dv through the autograd
+   Function) beside the library's;
 3. the main paths, each built from seeded random weights (and random
    running statistics for serving) at full width, every launch counter set
    to 0 just before the path runs and read just after:
@@ -64,6 +66,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 WARMUP, REPEATS = 3, 25
+# cycles of the card's clock (about half a millisecond) that it spins before
+# a launch timed as ``device_ms``
+SPIN_CYCLES = 1_000_000
 REQUESTS, BATCH, RES = 3, 8, 640
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # the 1280px and ViT paths: fewer steps, each several times the 640px one
@@ -92,6 +97,10 @@ KERNELS = {
                        "boosted_detr_torch/csrc/attention.cu",
                        "boosted_detr_tpu/ops/pallas_attention.py:257"),
 }
+# Tensor-core passes over a pair of tiles in the bf16 gradient kernels: the
+# two first products, and each second product twice (p and ds enter as two
+# bf16 values, hi + lo), against 3 and 4 products in the work itself.
+K3_PASSES = {"dq": 4, "dkdv": 6}
 # K3 at the shapes the new main paths give it: (label, BH, Tq, Tk, D)
 K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              ("1280 cross-attention", 64, 96, 1600, 32),
@@ -125,15 +134,21 @@ def _norm_rel(out, ref):
     return ((out - ref).norm() / ref.norm()).item()
 
 
-def _time_ms(fn, flush, repeats=REPEATS):
+def _time_ms(fn, flush, repeats=REPEATS, spin_cycles=0):
     """Median of ``repeats`` launches timed one by one with CUDA events,
     each after a write of a buffer larger than the 50 MB L2, so that every
-    launch finds its inputs in device memory as a fresh request would."""
+    launch finds its inputs in device memory as a fresh request would. The
+    card is idle when ``fn`` starts, so the time holds the host's way
+    through the wrapper to the launch. With ``spin_cycles`` the card first
+    spins that many of its clock cycles, during which the host gets to the
+    launch: the events then bracket the card's time alone."""
     for _ in range(WARMUP):
         fn()
     times = []
     for _ in range(repeats):
         flush.zero_()
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,7 +169,8 @@ def phase_build():
     for name, path in libs.items():
         log = path.with_suffix(".log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 _say(f"  {name}: {line.strip()}")
 
 
@@ -346,7 +362,8 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
     """K3-fwd (with the lse), K3-dq and K3-dkdv at one shape against their
     plain versions; in bf16 also timed, with F.scaled_dot_product_attention
     (forward, and forward + backward) as the library yardstick, which the
-    port never calls. Returns one row per kernel."""
+    port never calls, and the backward alone beside it. Returns one row per
+    kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -371,7 +388,9 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
     # tiles and 4-16-row chunks against cuBLAS): out 1e-5 / 1e-4, the
     # gradients (sums over up to 1600 rows) 1e-4 / 1e-4. bfloat16: the K1
     # gates, one rounding of the result (2**-7) over 1e-5, and 1e-4 for the
-    # gradients' float32 sums. The lse is float32 in both: 1e-5 / 1e-5.
+    # gradients' float32 sums (the tensor-core kernels carry p and ds as
+    # bf16 hi + lo to stay inside it). The lse is float32 in both: 1e-5 /
+    # 1e-5.
     if dtype == torch.float32:
         tol, grad_tol = dict(atol=1e-5, rtol=1e-4), dict(atol=1e-4, rtol=1e-4)
     else:
@@ -404,10 +423,14 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         plain_ms=_time_ms(lambda: A.attention_fwd_reference(q, k, v), flush))
     rows["dq"].update(
         ms=_time_ms(lambda: A.attention_dq(*args), flush),
-        plain_ms=_time_ms(lambda: A.attention_dq_reference(*args), flush))
+        plain_ms=_time_ms(lambda: A.attention_dq_reference(*args), flush),
+        device_ms=_time_ms(lambda: A.attention_dq(*args), flush,
+                           spin_cycles=SPIN_CYCLES))
     rows["dkdv"].update(
         ms=_time_ms(lambda: A.attention_dkdv(*args), flush),
-        plain_ms=_time_ms(lambda: A.attention_dkdv_reference(*args), flush))
+        plain_ms=_time_ms(lambda: A.attention_dkdv_reference(*args), flush),
+        device_ms=_time_ms(lambda: A.attention_dkdv(*args), flush,
+                           spin_cycles=SPIN_CYCLES))
     # The library yardstick on [1, BH, T, D] views (flash attention in
     # bf16): the forward, and the forward with the backward of all three
     # inputs, against the port's forward + delta + dq + dk/dv through its
@@ -428,21 +451,39 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4),
                             (q4, k4, v4), g4)
 
+    # the backward alone, from one kept graph: delta, dq and dk/dv
+    kept = A.fused_attention(*leaves)
+
+    def ours_b():
+        torch.autograd.grad(kept, leaves, g, retain_graph=True)
+
     with torch.no_grad():
         rows["fwd"]["library_ms"] = _time_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4), flush)
     fb = {"kernels_fwd_bwd_ms": _time_ms(ours_fb, flush),
-          "sdpa_fwd_bwd_ms": _time_ms(lib_fb, flush)}
+          "sdpa_fwd_bwd_ms": _time_ms(lib_fb, flush),
+          "kernels_bwd_ms": _time_ms(ours_b, flush)}
+    # SDPA's backward gives dq, dk and dv in one: its time is what the
+    # forward + backward takes beyond the forward
+    fb["sdpa_bwd_ms"] = fb["sdpa_fwd_bwd_ms"] - rows["fwd"]["library_ms"]
     for name in ("fwd", "dq", "dkdv"):
         rows[name].update(fb)
         r = rows[name]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         _say(f"  {what} {name}: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, SDPA "
              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none")
-             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+             f"{100 * r['bound_share']:.1f}% of it reached"
+             + (f", {K3_PASSES[name]} tensor-core passes a tile pair"
+                if name in K3_PASSES else "") + ")"
+             + (f"; {r['device_ms']:.4f} ms with the launch enqueued "
+                "ahead of the card" if "device_ms" in r else ""))
     _say(f"  {what} forward + backward: kernels "
          f"{fb['kernels_fwd_bwd_ms']:.4f} ms, SDPA "
-         f"{fb['sdpa_fwd_bwd_ms']:.4f} ms")
+         f"{fb['sdpa_fwd_bwd_ms']:.4f} ms; backward alone (delta, dq, "
+         f"dk/dv): kernels {fb['kernels_bwd_ms']:.4f} ms, SDPA "
+         f"{fb['sdpa_bwd_ms']:.4f} ms (forward + backward less forward)")
     return rows
 
 
@@ -933,10 +974,18 @@ def phase_training(name, warmup, steps):
              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); by phase "
              "(device ms): " + ", ".join(f"{k.split('/')[-1]} {v:.3f}"
                                          for k, v in split.items())
-             + f"; of which K3 (fwd, dq, dk/dv) {attention_ms:.3f}")
+             + f"; of which K3 (fwd, dq, dk/dv) {attention_ms:.3f} "
+             f"({100 * attention_ms / busy_ms:.1f}%)")
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.is_user_annotation]
+        if attention_ms:
+            row["profile_k3_ms"] = {
+                tag: sum(e.self_device_time_total for e in kernels
+                         if f"attn_{tag}" in e.key) / 1e3
+                for tag in ("fwd", "dq", "dkdv")}
+            _say("  K3 by kernel (device ms): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["profile_k3_ms"].items()))
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
             _say(f"    {e.self_device_time_total / 1e3:8.3f} ms "
                  f"x{e.count:<4d} {e.key[:90]}")
@@ -1094,6 +1143,10 @@ def _kernel_line(rows, paths):
     out = []
     for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]
+        # the gradient kernels' share of their bound, and their time with
+        # the launch enqueued ahead of the card
+        extra = {k: main_row[k] for k in ("bound_share", "device_ms")
+                 if "device_ms" in main_row}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1102,7 +1155,7 @@ def _kernel_line(rows, paths):
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"], **extra})
     return {"kernels": out}
 
 

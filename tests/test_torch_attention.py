@@ -6,10 +6,14 @@ kernel in interpret mode: ``fused_attention`` is called with
 ``interpret=True``, and the JAX MHA, which imports
 ``boosted_detr_tpu.ops.pallas_attention.fused_attention`` at call time
 (layers.py:106), gets it through a monkeypatch of that attribute, as
-tests/test_pallas_attention.py does. Inputs and weights are made with
-numpy from fixed seeds and carried across by ``load_flax_variables``."""
+tests/test_pallas_attention.py does. The arithmetic of the tensor-core
+gradient kernels (bf16 inputs on the card) is held here through its plain
+PyTorch emulation, against the card's gates and against the Pallas
+kernels. Inputs and weights are made with numpy from fixed seeds and
+carried across by ``load_flax_variables``."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +89,31 @@ def _jax(tree):
 
 # ---------------------------------------------------------------- K3 itself
 
+def _k3_inputs(bh, tq, tk, d):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((bh, t, d)).astype(np.float32)
+               for t in (tq, tk, tk))
+    g = rng.standard_normal((bh, tq, d)).astype(np.float32)
+    g_lse = rng.standard_normal((bh, tq)).astype(np.float32)
+    return q, k, v, g, g_lse
+
+
+@functools.cache
+def _pallas_k3(bh, tq, tk, d, dtype):
+    """(out, lse, dq, dk, dv) of fused_attention_with_lse run through the
+    interpreter on ``_k3_inputs``, with a cotangent of both outputs."""
+    jdt = _DT[dtype][1]
+    q, k, v, g, g_lse = _k3_inputs(bh, tq, tk, d)
+    jin = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    (j_out, j_lse), vjp = jax.vjp(
+        lambda *a: jpa.fused_attention_with_lse(*a, interpret=True), *jin)
+    # every JAX result is ready before the port runs: the port's output once
+    # came out 1e-4 off while JAX's asynchronous work was still in flight
+    j_grads = jax.block_until_ready(
+        vjp((jnp.asarray(g, jdt), jnp.asarray(g_lse))))
+    return tuple(np.asarray(a, np.float32) for a in (j_out, j_lse, *j_grads))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,tq,tk,d", [(2, 130, 200, 32),  # one block each
                                         (2, 300, 520, 64),  # straddles both
@@ -93,20 +122,9 @@ def test_k3_matches_the_pallas_kernel(bh, tq, tk, d, dtype):
     """out, lse, and the gradients of a random cotangent of both, the lse's
     included (it folds into delta), against fused_attention_with_lse run
     through the interpreter."""
-    tdt, jdt = _DT[dtype]
-    rng = np.random.default_rng(0)
-    q, k, v = (rng.standard_normal((bh, t, d)).astype(np.float32)
-               for t in (tq, tk, tk))
-    g = rng.standard_normal((bh, tq, d)).astype(np.float32)
-    g_lse = rng.standard_normal((bh, tq)).astype(np.float32)
-
-    jin = [jnp.asarray(a, jdt) for a in (q, k, v)]
-    (j_out, j_lse), vjp = jax.vjp(
-        lambda *a: jpa.fused_attention_with_lse(*a, interpret=True), *jin)
-    # every JAX result is ready before the port runs: the port's output once
-    # came out 1e-4 off while JAX's asynchronous work was still in flight
-    j_grads = jax.block_until_ready(
-        vjp((jnp.asarray(g, jdt), jnp.asarray(g_lse))))
+    tdt = _DT[dtype][0]
+    q, k, v, g, g_lse = _k3_inputs(bh, tq, tk, d)
+    j_out, j_lse, *j_grads = _pallas_k3(bh, tq, tk, d, dtype)
 
     tin = [torch.tensor(a).to(tdt).requires_grad_() for a in (q, k, v)]
     out, lse = ta.fused_attention_with_lse(*tin)
@@ -120,6 +138,79 @@ def test_k3_matches_the_pallas_kernel(bh, tq, tk, d, dtype):
     for name, t, j in zip("qkv", tin, j_grads):
         assert t.grad.dtype == tdt
         _close(t.grad, j, K3_GRAD_TOL[dtype], f"d{name}")
+
+
+# ------------- the arithmetic of the tensor-core gradient kernels (bf16)
+
+# The gates that chip_smoke.py holds the gradient kernels to on the card,
+# against their plain versions: 1e-4 for the float32 sums, then one rounding
+# of the bf16 result (2**-7 relative).
+CARD_GRAD_GATE = dict(atol=1e-4, rtol=2.0 ** -7)
+_EMULATED = [(2, 130, 200, 32), (2, 300, 520, 64), (2, 17, 1000, 32),
+             (2, 1, 200, 32),    # one query row
+             (2, 130, 1, 64),    # one key
+             (2, 96, 1600, 32)]  # the 1280px cross-attention
+
+
+def _bf16_gradient_inputs(bh, tq, tk, d):
+    """bf16 (q, k, v, g, lse, delta) as the Function's backward hands them
+    to the gradient wrappers, from ``_k3_inputs``."""
+    q, k, v, g, g_lse = _k3_inputs(bh, tq, tk, d)
+    q, k, v, g = (torch.tensor(a).bfloat16() for a in (q, k, v, g))
+    out, lse = ta.attention_fwd_reference(q, k, v)
+    delta = (g.float() * out.float()).sum(-1) - torch.tensor(g_lse)
+    return q, k, v, g, lse, delta
+
+
+def _outside(got, want, atol, rtol):
+    """How many values of ``got`` lie outside atol + rtol |want|."""
+    got, want = got.float(), want.float()
+    return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+
+@pytest.mark.parametrize("bh,tq,tk,d", _EMULATED)
+def test_tensor_core_arithmetic_passes_the_card_gates(bh, tq, tk, d):
+    """64-row tiles, the scale on the float32 logit, p and ds as bf16
+    hi + lo, dq and dk scaled at the end: inside the card's gates against
+    the plain versions."""
+    args = _bf16_gradient_inputs(bh, tq, tk, d)
+    dq = ta.attention_dq_emulation(*args)
+    dk, dv = ta.attention_dkdv_emulation(*args)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    for name, got, want in (("dq", dq, ta.attention_dq_reference(*args)),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _outside(got, want, **CARD_GRAD_GATE) == 0, name
+
+
+@pytest.mark.parametrize("bh,tq,tk,d", _EMULATED)
+def test_tensor_core_arithmetic_matches_the_pallas_kernel(bh, tq, tk, d):
+    """The same arithmetic against the gradients of JAX's Pallas kernels in
+    interpret mode, at the tolerance of the plain versions."""
+    args = _bf16_gradient_inputs(bh, tq, tk, d)
+    j_dq, j_dk, j_dv = _pallas_k3(bh, tq, tk, d, "bfloat16")[2:]
+    dk, dv = ta.attention_dkdv_emulation(*args)
+    tol = K3_GRAD_TOL["bfloat16"]
+    _close(ta.attention_dq_emulation(*args), j_dq, tol, "dq")
+    _close(dk, j_dk, tol, "dk")
+    _close(dv, j_dv, tol, "dv")
+
+
+def test_one_bf16_rounding_of_p_and_ds_fails_the_card_gates():
+    """Why p and ds are split: rounded to one bf16 value each before the
+    second products, the decoder self-attention's gradients (96 queries, 96
+    keys) leave the gates that the split passes."""
+    args = _bf16_gradient_inputs(8, 96, 96, 32)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    want = (ta.attention_dq_reference(*args), want_dk, want_dv)
+
+    def outside(split):
+        got = (ta.attention_dq_emulation(*args, split=split),
+               *ta.attention_dkdv_emulation(*args, split=split))
+        return [_outside(a, b, **CARD_GRAD_GATE) for a, b in zip(got, want)]
+
+    assert outside(split=True) == [0, 0, 0]
+    assert all(n > 0 for n in outside(split=False)), outside(split=False)
 
 
 def test_k3_without_lse_matches_fused_attention():

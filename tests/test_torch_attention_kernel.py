@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels of the fused attention
 (boosted_detr_torch/csrc/attention.cu: K3's forward with the lse, dq and
-dk/dv) against their plain PyTorch versions on the card, the autograd
-``FusedAttentionFn`` on the card against its CPU route, and the refusal of
+dk/dv; the gradient of bfloat16 inputs on the tensor cores, of float32
+inputs on the CUDA cores) against their plain PyTorch versions on the card,
+the tensor-core kernels against the plain PyTorch emulation of their
+arithmetic, the autograd ``FusedAttentionFn`` on the card against its CPU
+route, the gradient kernels' repeatability bit for bit, and the refusal of
 a head dim the kernels are not built for. It needs a CUDA card and nvcc,
 and skips without a card. It imports nothing of JAX, so that it runs on a
 machine without it:
@@ -63,6 +66,9 @@ def _assert_close(got, want, dtype, grad=False):
     (3, 300, 520, 64),    # ragged: partial tiles of both
     (2, 17, 1000, 32),    # a tiny query, a partial key tile
     (2, 96, 96, 32),      # the decoder self-attention
+    # lengths that are no multiples of the 16-row step or the 64-row tile
+    (3, 1, 300, 32), (3, 300, 1, 64), (3, 17, 17, 64), (3, 96, 520, 64),
+    (3, 520, 17, 32), (3, 1, 1, 32), (3, 300, 96, 32), (3, 520, 300, 64),
 ])
 def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
     q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype)
@@ -103,6 +109,66 @@ def test_function_gradients_on_the_card_match_the_cpu_route(cuda, dtype):
         _assert_close(got.cpu(), want, dtype, grad=True)
 
 
+def _gradient_args(cuda, bh, tq, tk, d, dtype, seed):
+    """(q, k, v, g, lse, delta) with the plain forward's lse and a delta
+    that holds a cotangent of the lse."""
+    q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype, seed)
+    out, lse = ta.attention_fwd_reference(q, k, v)
+    return q, k, v, g, lse, (g.float() * out.float()).sum(-1) - g_lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
+                                        (5, 300, 520, 32)])
+def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
+    """No atomics and a fixed summation order: two launches on the same
+    inputs give the same bits."""
+    args = _gradient_args(cuda, bh, tq, tk, d, dtype, seed=2)
+    first = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
+    torch.cuda.synchronize()
+    second = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
+    for a, b in zip(first, second):
+        assert a.abs().sum() > 0
+        assert torch.equal(a, b)
+
+
+def _gradient_kernel_names(args):
+    """Names of the device kernels that one dq and one dk/dv call launch."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        ta.attention_dq(*args)
+        ta.attention_dkdv(*args)
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "attn_" in e.key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64])
+def test_float32_gradients_stay_on_the_cuda_cores(cuda, d):
+    """float32 inputs take the float32 kernels (tensor cores would make
+    them TF32 or bf16) and keep their float32 accuracy; bfloat16 inputs
+    take the tensor-core kernels."""
+    args = {dtype: _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
+            for dtype in ("float32", "bfloat16")}
+    ta.attention_dq(*args["float32"])  # built and loaded before the profile
+    names = {dtype: _gradient_kernel_names(a) for dtype, a in args.items()}
+    assert len(names["float32"]) == len(names["bfloat16"]) == 2, names
+    assert not any("mma" in n for n in names["float32"]), names
+    assert all("mma" in n for n in names["bfloat16"]), names
+    # a few float32 ulps of sums over 200-330 rows; one bf16 or TF32
+    # rounding of an operand would be 1e-3 of a term
+    got = (ta.attention_dq(*args["float32"]),
+           *ta.attention_dkdv(*args["float32"]))
+    want = (ta.attention_dq_reference(*args["float32"]),
+            *ta.attention_dkdv_reference(*args["float32"]))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.gpu
 def test_unsupported_head_dim_raises(cuda):
     q = torch.zeros((2, 8, 48), device=cuda)
@@ -112,3 +178,54 @@ def test_unsupported_head_dim_raises(cuda):
     assert ta.attention_fwd.launches == before
     # the CPU route is the plain version, for any head dim
     assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 48)
+
+
+@pytest.mark.gpu
+def test_misaligned_tensor_raises(cuda):
+    """The tensor-core gradient kernels copy rows 16 bytes at a time: a
+    contiguous bfloat16 view that starts 2 bytes into its storage is
+    refused by them, not read out of line. The forward reads value by value
+    and takes it."""
+    args = _gradient_args(cuda, 2, 8, 8, 32, "bfloat16", seed=4)
+    flat = torch.zeros(2 * 8 * 32 + 8, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:1 + 2 * 8 * 32].view(2, 8, 32).copy_(args[0])
+    assert q.is_contiguous() and q.data_ptr() % 16
+    out, lse = ta.attention_fwd(q, *args[1:3])
+    want, want_lse = ta.attention_fwd_reference(*args[:3])
+    _assert_close(out, want, "bfloat16")
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    before = ta.attention_dq.launches, ta.attention_dkdv.launches
+    for kernel in (ta.attention_dq, ta.attention_dkdv):
+        with pytest.raises(ValueError, match="aligned"):
+            kernel(q, *args[1:])
+    assert (ta.attention_dq.launches, ta.attention_dkdv.launches) == before
+
+
+def _one_bf16_ulp(got, want):
+    """The share of equal values, after checking that the others lie one
+    bf16 ulp apart (2**-7 relative at most) or, where a sum cancels, within
+    1e-5 of the largest value: a tenth of what the plain versions' gate
+    allows."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7,
+                               atol=1e-5 * want.abs().max().item())
+    return (got == want).float().mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    (3, 300, 520, 64), (3, 17, 1000, 32),  # ragged
+    (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32)])
+def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
+    """The bfloat16 gradient kernels against the plain PyTorch emulation of
+    their arithmetic (64-row tiles, p and ds as bf16 hi + lo, the scale at
+    the end) on the same inputs: what is left between them is the order of
+    the float32 sums inside a tile and ex2.approx, so nearly every value
+    is the same bf16 and the rest its neighbour."""
+    args = _gradient_args(cuda, bh, tq, tk, d, "bfloat16", seed=5)
+    got = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
+    want = (ta.attention_dq_emulation(*args),
+            *ta.attention_dkdv_emulation(*args))
+    shares = [_one_bf16_ulp(a, b) for a, b in zip(got, want)]
+    print(f"equal to the emulation (dq, dk, dv): {shares}")
+    assert min(shares) >= 0.99, shares
