@@ -2,7 +2,8 @@
 // log-sum-exp, and the two kernels of its gradient.
 //
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
-//   attn_fwd_kernel  <- _attention_kernel (:45-80), called by
+//   attn_fwd_kernel, attn_fwd_mma_kernel
+//                    <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
 //   attn_dq_kernel, attn_dq_mma_kernel
 //                    <- _dq_kernel (:138-163), called by
@@ -12,11 +13,12 @@
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
 // bfloat16, with no mask; D is 32 or 64. The arithmetic is the TPU
 // kernels':
-//   - q, k and v are read in their dtype and widened to float32;
-//   - the logits are scale * q.k (scale = 1/sqrt(D)); the forward and the
-//     float32 gradient kernels form qs = q * scale before the dot, the
-//     bfloat16 gradient kernels multiply the exact bf16 q and k and scale
-//     the float32 logit (the two differ by float32 rounding only);
+//   - q, k and v are read in their dtype; products of bf16 values are exact
+//     in float32;
+//   - the logits are scale * q.k (scale = 1/sqrt(D)); the float32 kernels
+//     form qs = q * scale before the dot, the bfloat16 kernels multiply the
+//     exact bf16 q and k and scale the float32 logit (the two differ by
+//     float32 rounding only);
 //   - logits, the running max, exp, the denominator and the P.V sums are
 //     float32; out = acc / max(denom, 1e-30) in q's dtype, and
 //     lse = m + log(max(denom, 1e-30)) float32 [BH, Tq];
@@ -29,49 +31,61 @@
 // D = 32, bfloat16): the forward is 4 BH T^2 D = 21.0 GFLOP, 21 us on the
 // bf16 tensor cores (989 TFLOP/s), against 26.6 MB of q, k, v, out and lse,
 // 8 us at 3.35 TB/s; dq (6 BH T^2 D) and dk/dv (8 BH T^2 D) are 32 and
-// 42 us. Operations bound all three.
+// 42 us. Operations bound all three. (At D = 32 the special-function unit
+// sets a higher floor than the tensor cores: one ex2 for each of the 164 M
+// pairs of a query and a key, 16 a clock on each of 132 SMs, is about 45
+// us.)
 //
-// The forward, and the gradient of float32 inputs, multiply in float32 on
-// the CUDA cores, whose peak (67 TFLOP/s) puts a floor ~15x above that
-// bound (float32 inputs stay there: tensor cores would make them TF32):
+// Float32 inputs multiply in float32 on the CUDA cores, whose peak (67
+// TFLOP/s) puts a floor ~15x above that bound (they stay there: tensor cores
+// would make them TF32):
 //   - a block owns 64 rows (query rows for the forward and dq, key rows for
 //     dk/dv) and keeps their float32 slices in registers: each thread owns
 //     DPT of the D dims of one row, TPR = D / DPT neighbouring lanes share a
 //     row, and a dot product is summed over them with xor shuffles;
-//   - the other operand streams through shared memory in tiles of 64 rows,
-//     widened to float32 (rows past the end zero-filled); all threads read
-//     the same staged row at a time, in float4 chunks that the TPR threads
-//     of a row take side by side, so the reads broadcast without bank
-//     conflicts;
+//   - the other operand streams through shared memory in tiles of 64 rows
+//     (rows past the end zero-filled); all threads read the same staged row
+//     at a time, in float4 chunks that the TPR threads of a row take side by
+//     side, so the reads broadcast without bank conflicts;
 //   - the forward takes keys 16 at a time: one max, one exp of the old max
 //     and one rescale of the accumulator per chunk, as the TPU kernel does
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
 //     spilled registers to local memory).
 //
-// The gradient of bfloat16 inputs runs on the tensor cores
-// (attn_dq_mma_kernel, attn_dkdv_mma_kernel):
+// bfloat16 inputs run on the tensor cores (attn_fwd_mma_kernel,
+// attn_dq_mma_kernel, attn_dkdv_mma_kernel):
 //   - every product is mma.sync.m16n8k16 on bf16 operands with float32
-//     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q and
-//     dO (dq) or k and v (dk/dv) sit in registers as A fragments for the
-//     whole kernel; the other operand streams through shared memory in
-//     64-row bf16 tiles, which ldmatrix turns into B fragments: plain where
-//     the contraction runs over the head dim (S = Q K^T, dP = dO V^T and
-//     their transposes), .trans where it runs over the tile's rows
-//     (dq += dS K, dv += P^T dO, dk += dS^T Q);
-//   - a tile is taken 16 rows at a time: the 16 x 16 float32 accumulators
-//     of S and dP become p and ds in registers, and are repacked as the A
+//     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q
+//     (forward), q and dO (dq) or k and v (dk/dv) sit in registers as A
+//     fragments for the whole kernel; the other operand streams through
+//     shared memory in 64-row bf16 tiles, which ldmatrix turns into B
+//     fragments: plain where the contraction runs over the head dim
+//     (S = Q K^T, dP = dO V^T and their transposes), .trans where it runs
+//     over the tile's rows (acc += P V, dq += dS K, dv += P^T dO,
+//     dk += dS^T Q);
+//   - the 16 x 16 float32 accumulators of S and dP become p and ds in
+//     registers, 16 rows of the tile at a time, and are repacked as the A
 //     fragment of the second product (two m16n8 accumulators side by side
 //     have the m16k16 A layout), so p and ds never touch shared or device
 //     memory;
 //   - p and ds stay float32 through the second products on the TPU. One
 //     bf16 rounding of them (2^-9 relative a term) shows in the result
-//     beyond one rounding of it, so each is split into two bf16 values,
-//     hi = bf16(x) and lo = bf16(x - hi) (~16 mantissa bits), and the second
-//     product is issued twice into one accumulator: dq costs 4 and dk/dv 6
-//     tensor-core passes per pair of tiles instead of 3 and 4;
-//   - p = exp(scale s - lse) is one multiply-add and one ex2.approx of the
-//     special-function unit (log2(e) folded into scale and lse; relative
-//     error 2^-22, below the float32 rounding of the logit);
+//     beyond one rounding of it, in the forward's output as in the
+//     gradients, so each is split into two bf16 values, hi = bf16(x) and
+//     lo = bf16(x - hi) (~16 mantissa bits), and the second product is
+//     issued twice into one accumulator: the forward costs 3, dq 4 and
+//     dk/dv 6 tensor-core passes per pair of tiles instead of 2, 3 and 4;
+//   - the forward's online softmax works a 64-key tile at a time: S for the
+//     whole tile, the rows' new max (over a thread's 16 keys, then two xor
+//     shuffles over the 4 lanes of a row), one rescale of acc and denom, then
+//     p = 2^(scale2 (s - max)); denom sums the float32 p (each thread its
+//     own keys; the 4 lanes are summed once, at the end). The max is taken
+//     of the unscaled products, so that lse = scale max + log(denom) carries
+//     one rounding. Keys past Tk are masked to -1e30 in the last tile; every
+//     tile starts at a real key, so the max is a real logit;
+//   - the exponentials are one multiply-add and one ex2.approx of the
+//     special-function unit (log2(e) folded into the scale and the lse;
+//     relative error 2^-22, below the float32 rounding of the logit);
 //   - tiles are staged two deep with cp.async (16 bytes a thread), so that
 //     tile i + 1 loads while tile i multiplies, with one __syncthreads a
 //     tile: after it every thread's copies of tile i have landed and every
@@ -80,23 +94,25 @@
 //     bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
 //     into eight different bank groups, with or without .trans, so no read
 //     conflicts;
-//   - dq and dk are multiplied by scale once, at the end.
+//   - dq and dk are multiplied by scale once, at the end;
+//   - what holds them at 11-16% of their bounds at the 1600-token shapes
+//     (PERF.md): mma.sync is not the card's fastest path (wgmma is), a third
+//     or more of the passes are the lo halves, and the float32 work on p and
+//     ds (mask, max, exp, sum, split) shares the issue slots with the MMAs.
 //
 // Common to all:
 //   - the gradient is two kernels, as on the TPU: dq streams over key tiles
 //     and dk/dv over query tiles, so that every sum belongs to one thread
 //     and runs in a fixed order, with no atomics: two launches on the same
-//     inputs give the same bits;
+//     inputs give the same bits (the forward's too);
 //   - keys past Tk and query rows past Tq are masked (zero-filled when
 //     staged, p = 0) where the TPU padded T to its 256/512 blocks and D to
 //     128 lanes, and the lse is one float32 per row where the TPU kept a
 //     lane-replicated [Tq_pad, 128] tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -104,15 +120,6 @@ constexpr int ROWS = 64;  // rows a block owns
 constexpr int TILE = 64;  // rows of the other operand staged per step
 constexpr float NEG = -1e30f;
 constexpr float FLOOR = 1e-30f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void narrow(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void narrow(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(v);
-}
 
 // The row dim of element e of the DPT-dim slice that thread h of a row
 // owns: the slice is DPT / 4 chunks of 4 dims, and its chunk c is chunk
@@ -122,20 +129,20 @@ __device__ __forceinline__ int dim_of(int e, int h) {
   return 4 * ((e / 4) * TPR + h) + (e % 4);
 }
 
-// x = the slice of `row` times mul, widened to float32; zeros when !live.
-template <int DPT, int TPR, typename T>
-__device__ __forceinline__ void load_slice(const T* row, int h, bool live,
+// x = the slice of `row` times mul; zeros when !live.
+template <int DPT, int TPR>
+__device__ __forceinline__ void load_slice(const float* row, int h, bool live,
                                            float mul, float (&x)[DPT]) {
 #pragma unroll
   for (int e = 0; e < DPT; ++e)
-    x[e] = live ? widen(row[dim_of<DPT, TPR>(e, h)]) * mul : 0.f;
+    x[e] = live ? row[dim_of<DPT, TPR>(e, h)] * mul : 0.f;
 }
 
-template <int DPT, int TPR, typename T>
+template <int DPT, int TPR>
 __device__ __forceinline__ void store_slice(const float (&x)[DPT], float mul,
-                                            int h, T* row) {
+                                            int h, float* row) {
 #pragma unroll
-  for (int e = 0; e < DPT; ++e) narrow(x[e] * mul, row + dim_of<DPT, TPR>(e, h));
+  for (int e = 0; e < DPT; ++e) row[dim_of<DPT, TPR>(e, h)] = x[e] * mul;
 }
 
 // The partial dot product of a slice with the same slice of a staged row.
@@ -185,19 +192,21 @@ __device__ __forceinline__ float row_sum(float s) {
   return s;
 }
 
-// Stages rows [0, n) of the [*, D] rows at src into dst as float32 times
-// mul, and zeros for rows [n, TILE).
-template <int D, int NT, typename T>
-__device__ __forceinline__ void stage(const T* src, int n, float mul,
+// Stages rows [0, n) of the [*, D] rows at src into dst times mul, and zeros
+// for rows [n, TILE).
+template <int D, int NT>
+__device__ __forceinline__ void stage(const float* src, int n, float mul,
                                       float* dst) {
   for (int e = threadIdx.x; e < TILE * D; e += NT)
-    dst[e] = e < n * D ? widen(src[e]) * mul : 0.f;
+    dst[e] = e < n * D ? src[e] * mul : 0.f;
 }
 
-template <typename T, int DPT, int TPR>
+// ---- float32 inputs on the CUDA cores ----
+
+template <int DPT, int TPR>
 __global__ void __launch_bounds__(ROWS * TPR)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out,
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
                 float* __restrict__ lse, int Tq, int Tk, int tiles,
                 float scale) {
   constexpr int D = DPT * TPR;
@@ -210,8 +219,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = threadIdx.x % TPR;
   const bool live = row < Tq;
   const long long q_row = (static_cast<long long>(bh) * Tq + row) * D;
-  const T* kb = k + static_cast<long long>(bh) * Tk * D;
-  const T* vb = v + static_cast<long long>(bh) * Tk * D;
+  const float* kb = k + static_cast<long long>(bh) * Tk * D;
+  const float* vb = v + static_cast<long long>(bh) * Tk * D;
 
   float x[DPT], acc[DPT];
   load_slice<DPT, TPR>(q + (live ? q_row : 0), h, live, scale, x);
@@ -258,12 +267,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float d = fmaxf(denom, FLOOR);
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
-      narrow(acc[e] / d, out + q_row + dim_of<DPT, TPR>(e, h));
+      out[q_row + dim_of<DPT, TPR>(e, h)] = acc[e] / d;
     if (h == 0) lse[static_cast<long long>(bh) * Tq + row] = m + logf(d);
   }
 }
-
-// ---- the gradient of float32 inputs on the CUDA cores ----
 
 template <int DPT, int TPR>
 __global__ void __launch_bounds__(ROWS * TPR)
@@ -390,9 +397,7 @@ attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- the gradient of bfloat16 inputs on the tensor cores ----
-
-using bf16 = __nv_bfloat16;
+// ---- bfloat16 inputs on the tensor cores ----
 
 constexpr int MMA_THREADS = 128;  // 4 warps, 16 of the block's rows each
 constexpr int STEP = 16;          // rows of a staged tile taken at a time
@@ -400,41 +405,12 @@ constexpr int PAD = 8;            // bf16 values (16 bytes) after a staged row
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x by the special-function unit (ex2.approx: relative error 2^-22). The
-// gradient kernels fold log2(e) into the logit's scale and the lse, so that
-// p = exp(scale s - lse) is one multiply-add and this.
+// kernels fold log2(e) into the logit's scale (and the lse or the running
+// max), so that p is one multiply-add and this.
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t shared_address(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Starts an asynchronous copy of BYTES (4 or 16) from device to shared
-// memory; zeros are written instead when !live (src is then not read).
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src,
-                                           bool live) {
-  const int n = live ? BYTES : 0;
-  const uint32_t to = shared_address(dst);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(to), "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(to), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most PENDING of this thread's committed groups are in flight.
-template <int PENDING>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // Starts the copies of rows [0, n) of the [*, D] bf16 rows at src into a
@@ -459,34 +435,6 @@ __device__ __forceinline__ void stage_row_stats_async(const float* src, int n,
   if (i >= 0 && i < TILE) copy_async<4>(dst + i, src + (i < n ? i : 0), i < n);
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, one row address a lane.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(shared_address(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(shared_address(p))
-      : "memory");
-}
-
-// c += a . b: a 16 x 16 (row), b 16 x 8 (col), c 16 x 8 float32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The A fragments (16 rows x 16 dims each) of rows r0 and r0 + 8 of the
 // [n_rows, D] bf16 matrix at base, read from device memory; zeros for a row
 // past n_rows. tig = lane % 4.
@@ -505,10 +453,6 @@ __device__ __forceinline__ void load_a_fragments(const bf16* base, int r0,
 #pragma unroll
     for (int r = 0; r < 4; ++r)  // dims 16 kb + 8 (r / 2) + 2 tig, + 1
       a[kb][r] = live[r % 2] ? row[r % 2][8 * kb + 4 * (r / 2) + tig] : 0u;
-}
-
-__device__ __forceinline__ uint32_t as_register(__nv_bfloat162 x) {
-  return *reinterpret_cast<const uint32_t*>(&x);
 }
 
 // (x0, x1) as two registers of two bf16 each (x0 in the low half):
@@ -571,12 +515,13 @@ __device__ __forceinline__ void mma_over_dims(float (&x)[2][4],
   }
 }
 
-// acc (rows r0 and r0 + 8 of a [n_rows, D] matrix) times mul, as bf16.
+// acc (rows r0 and r0 + 8 of a [n_rows, D] matrix) as bf16, row r0 times
+// mul[0] and row r0 + 8 times mul[1].
 template <int D>
 __device__ __forceinline__ void store_accumulator(const float (&acc)[D / 8][4],
-                                                  float mul, bf16* base,
-                                                  int r0, int n_rows,
-                                                  int tig) {
+                                                  const float (&mul)[2],
+                                                  bf16* base, int r0,
+                                                  int n_rows, int tig) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (r0 + 8 * h >= n_rows) continue;
@@ -584,9 +529,19 @@ __device__ __forceinline__ void store_accumulator(const float (&acc)[D / 8][4],
         base + static_cast<long long>(r0 + 8 * h) * D);
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      row[4 * nd + tig] = __floats2bfloat162_rn(acc[nd][2 * h] * mul,
-                                                acc[nd][2 * h + 1] * mul);
+      row[4 * nd + tig] = __floats2bfloat162_rn(acc[nd][2 * h] * mul[h],
+                                                acc[nd][2 * h + 1] * mul[h]);
   }
+}
+
+// The same with one mul for both rows.
+template <int D>
+__device__ __forceinline__ void store_accumulator(const float (&acc)[D / 8][4],
+                                                  float mul, bf16* base,
+                                                  int r0, int n_rows,
+                                                  int tig) {
+  const float both[2] = {mul, mul};
+  store_accumulator<D>(acc, both, base, r0, n_rows, tig);
 }
 
 template <int D>
@@ -753,6 +708,122 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_accumulator<D>(dv_acc, 1.f, dv + k_base * D, r0, Tk, tig);
 }
 
+// The forward of bfloat16 inputs: a block of 4 warps owns 64 query rows, 16
+// a warp, and streams the keys and values in 64-row tiles. Per tile: S = Q K^T
+// for the whole tile, the rows' new running max, one rescale of acc and
+// denom, then 16 keys at a time p = 2^(scale2 (s - max)) in registers,
+// summed as float32 into denom and repacked as hi + lo A fragments for
+// acc += P V.
+// At least 5 (D = 32) and 4 (D = 64) blocks on an SM: 96 and 128 registers.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : 4)
+attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int Tq, int Tk, int tiles,
+                    float scale) {
+  constexpr int PITCH = D + PAD;
+  constexpr int STEPS = TILE / STEP;
+  __shared__ __align__(16) bf16 sk[2][TILE * PITCH];
+  __shared__ __align__(16) bf16 sv[2][TILE * PITCH];
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  // this thread's query rows: r0 and r0 + 8
+  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* kb = k + static_cast<long long>(bh) * Tk * D;
+  const bf16* vb = v + static_cast<long long>(bh) * Tk * D;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
+
+  uint32_t qa[D / 16][4];
+  load_a_fragments<D>(q + q_base * D, r0, Tq, tig, qa);
+  const float scale2 = scale * LOG2E;
+  // per row: the running max of the unscaled q.k, and this thread's share of
+  // the denominator (its 16 of a tile's 64 keys; summed over the row's four
+  // lanes at the end)
+  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_tiles = (Tk + TILE - 1) / TILE;
+  stage_async<D>(kb, min(TILE, Tk), sk[0]);
+  stage_async<D>(vb, min(TILE, Tk), sv[0]);
+  commit_copies();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % 2, k0 = i * TILE;
+    wait_copies<0>();  // this thread's part of tile i has landed
+    // every thread's part has, and every thread is done with tile i - 1
+    __syncthreads();
+    if (i + 1 < n_tiles) {  // tile i + 1 loads while tile i multiplies
+      const int n = min(TILE, Tk - k0 - TILE);
+      stage_async<D>(kb + static_cast<long long>(k0 + TILE) * D, n, sk[st ^ 1]);
+      stage_async<D>(vb + static_cast<long long>(k0 + TILE) * D, n, sv[st ^ 1]);
+      commit_copies();
+    }
+    // keys past Tk are staged as zeros and masked here (in the last tile
+    // only); key k0 is real, so every row's max is a real logit
+    const bool ragged = k0 + TILE > Tk;  // the same for every thread
+    float s[STEPS][2][4];
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int c = 0; c < STEPS; ++c) {
+      mma_over_dims<D>(s[c], qa, sk[st] + c * STEP * PITCH, b_off);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + c * STEP + 8 * j + 2 * tig + e % 2;
+          if (ragged && key >= Tk) s[c][j][e] = NEG;
+          m_new[e / 2] = fmaxf(m_new[e / 2], s[c][j][e]);
+        }
+    }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // over the four lanes of a row
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
+      shift[h] = m_new[h] * scale2;
+      m[h] = m_new[h];
+      denom[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
+#pragma unroll
+    for (int c = 0; c < STEPS; ++c) {
+      if (k0 + c * STEP >= Tk) break;  // the same for every thread
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked key: 2^(-1e30 scale2 - shift) = 0
+          const float p = exp2_approx(fmaf(s[c][j][e], scale2, -shift[e / 2]));
+          s[c][j][e] = p;
+          denom[e / 2] += p;  // the float32 p, not its bf16 parts
+        }
+      uint32_t hi[4], lo[4];
+      split_fragment(s[c], hi, lo);
+      mma_over_rows<D>(acc, hi, lo, sv[st] + c * STEP * PITCH, t_off);
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    denom[h] = fmaxf(denom[h], FLOOR);
+    inv[h] = 1.f / denom[h];
+    if (tig == 0 && r0 + 8 * h < Tq)
+      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
+  }
+  store_accumulator<D>(acc, inv, out + q_base * D, r0, Tq, tig);
+}
+
 // Dims a thread of the CUDA-core kernels owns: 32 in the forward and dq (one
 // exp per row and key per thread), 16 in dk/dv, which holds four row slices
 // (k, v and both sums) in registers.
@@ -766,12 +837,19 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* lse, int BH, int Tq, int Tk,
                        float scale, cudaStream_t stream) {
-  constexpr int TPR = D / DPT_FWD;
   const int tiles = tiles_of(Tq);
-  attn_fwd_kernel<T, DPT_FWD, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  if constexpr (std::is_same_v<T, bf16>) {
+    attn_fwd_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  } else {
+    constexpr int TPR = D / DPT_FWD;
+    attn_fwd_kernel<DPT_FWD, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -828,7 +906,7 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 }  // namespace
 
 // One launcher for each (dtype, D) the kernels are built for (the bfloat16
-// dq and dk/dv launchers take the tensor-core kernels); any other D is
+// launchers take the tensor-core kernels); any other D is
 // refused with cudaErrorInvalidValue (the wrapper raises before that).
 #define ATTN_DISPATCH(LAUNCH, D, BF16, ...)                                 \
   do {                                                                      \

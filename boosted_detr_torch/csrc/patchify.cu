@@ -20,11 +20,19 @@
 // positions, K = 192, N = 128): it must read 39.3 MB of image and write
 // 13.1 MB of output, about 15.7 us at 3.35 TB/s, while its 2.52 GFLOP take
 // about 2.5 us at the 989 TFLOP/s bf16 tensor-core rate. Memory bytes bound
-// it.
+// it, at the ViT patch embed too (P = 16 -> 384: 49.7 MB, 14.8 us, against
+// 7.55 GFLOP, 7.6 us).
 //
-// Design (the first, simple version): one thread block per output row
-// (b, ho) and per slice of BN output channels (blockIdx.y; BN = N up to 128,
-// smaller when shared memory requires it). The block
+// Two kernels. patchify_fwd_mma_kernel (further down, with its design)
+// takes bfloat16 weights on the tensor cores where the patch divides the
+// image, P*C is a multiple of 8, K of 16 and N of 8: the three shapes the
+// models run. patchify_fwd_kernel, the first version, keeps everything
+// else: float32 weights (tensor cores would make them TF32), other patch
+// sizes (the P = 4 stem) and SAME-padded geometries.
+//
+// patchify_fwd_kernel: one thread block per output row (b, ho) and per slice
+// of BN output channels (blockIdx.y; BN = N up to 128, smaller when shared
+// memory requires it). The block
 //   1. reads its P full image rows, which are contiguous in NHWC (P*W*C
 //      float32, 61 KB at the flagship), clips them, rounds them to the
 //      kernel's dtype and stages them in shared memory as float32 (exact),
@@ -32,17 +40,17 @@
 //   2. stages the kernel slice [P*P*C, BN] in shared memory in its own dtype
 //      (48 KB bf16 at the flagship);
 //   3. lets every thread accumulate 4 positions x 4 channels in float32 by
-//      FMA: the patch of position wo is, for each di, the P*C contiguous
-//      values at row di, column wo*P*C, so space-to-depth is only an offset.
-// Each image byte is read from device memory once, each output byte written
-// once; the weights are re-read from L2 by every block. The host computes
-// the shared memory from the geometry and refuses what exceeds the 227 KB a
-// block may use (ops/patchify.py). The products run on the CUDA cores, not
-// the tensor cores: wgmma, TMA and a tiled M loop are the later steps
-// toward the bound.
+//      FMA on the CUDA cores: the patch of position wo is, for each di, the
+//      P*C contiguous values at row di, column wo*P*C, so space-to-depth is
+//      only an offset.
+// Each image byte is read from device memory once per channel slice, each
+// output byte written once; the weights are re-read from L2 by every block.
+// The host computes the shared memory from the geometry and refuses what
+// exceeds the 227 KB a block may use (ops/patchify.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -233,6 +241,329 @@ cudaError_t launch(const float* x, const void* w, void* out, int batch, int H,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The forward on the tensor cores (bfloat16 weights).
+//
+// Every product is mma.sync.m16n8k16 on bf16 operands with float32 sums:
+// bf16 x bf16 is exact in float32, so only the order of the sums differs
+// from the plain version.
+//   - A block takes up to 80 output positions (5 tiles of 16; 48 above 128
+//     channels): R whole output rows (b, ho) where a row is short (Wo = 40
+//     at the ViT patch embed leaves a ragged tile: masked, not padded), or a
+//     segment of a long row (two of 80 at 1280 px). Its 8 warps split the
+//     channels, 8 NB each (N = 128: 16, N = 384: 48), and each keeps the
+//     float32 accumulators of all the block's positions for its channels in
+//     registers (MT x NB x 4 a thread), so that the image is read from
+//     device memory once for all N channels.
+//   - k = (di, dj, c) runs in 8-value chunks, which lie side by side in one
+//     image row when P*C is a multiple of 8 (so a chunk is 16 aligned bytes
+//     once rounded to bf16), and in slabs of 48 k values: 6 chunks, 3 MMA
+//     steps; one image row at P = 16, two at P = 8. The weights do not fit
+//     beside the image at P = 16 -> 384 (590 KB), so both stream slab by
+//     slab, two deep with cp.async: the float32 image rows of slab s + 1
+//     (15 KB) and its [48, channels] weight rows (12 or 37 KB, from L2) load
+//     while slab s multiplies.
+//   - cp.async cannot clip or convert, so a slab's image rows land as they
+//     are and one pass clips them, rounds them to bf16 and lays them out by
+//     position, [m][chunk] with a pitch of 112 bytes: space-to-depth is that
+//     pass's addressing. ldmatrix then reads A fragments with one row
+//     address a lane, and the weight rows (pitch padded by 16 bytes) give B
+//     fragments through ldmatrix.trans; with both pitches an odd number of
+//     16-byte groups, the eight rows of an ldmatrix phase fall into eight
+//     different bank groups.
+//   - Two __syncthreads a slab: after the first every thread's copies of
+//     slab s have landed and every warp is done with slab s - 1; after the
+//     second the patches are whole and the image rows' room is free for the
+//     next copies.
+//   - bf16 outputs go through shared memory (the weight slabs' room) and
+//     leave in 16-byte stores; float32 outputs are stored from the
+//     accumulators, 8 bytes a lane.
+// What holds it at about a third of its bound at the stems: every block
+// reads all the weights again from L2 (48 KB for 80 positions: at 1280 px
+// 123 MB beside the 210 MB of image and output; blocks of 40 positions,
+// twice the weight traffic, took 0.045 ms longer), and the short phases
+// between barriers. At P = 16 -> 384 a block's 37 KB slabs and 128
+// registers leave two blocks on an SM.
+
+constexpr int SLAB = 48;               // k values of one pipeline step
+constexpr int SLAB_CHUNKS = SLAB / 8;  // 8-value chunks of a slab
+constexpr int A_PITCH = SLAB + 8;      // bf16 values: 112 bytes a position
+constexpr int WARPS = THREADS / 32;
+
+// Channels of a block and the pitch of a staged weight row (16 bytes of
+// padding: eight rows fall into eight different 16-byte bank groups).
+__host__ __device__ constexpr int mma_channels(int NB) { return WARPS * NB * 8; }
+__host__ __device__ constexpr int mma_w_pitch(int NB) {
+  return mma_channels(NB) + 8;
+}
+
+// The most image rows that one slab's chunks lie in.
+__host__ __device__ inline int mma_slab_rows(int P, int C) {
+  const int cpr = P * C / 8, chunks = P * cpr;
+  int most = 1;
+  for (int lo = 0; lo < chunks; lo += SLAB_CHUNKS) {
+    const int hi = (lo + SLAB_CHUNKS < chunks ? lo + SLAB_CHUNKS : chunks) - 1;
+    const int n = hi / cpr - lo / cpr + 1;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// Shared memory: the slab's image rows as float32 [R][rows][seg * P * C], the
+// slab's patches as bf16 [16 MT][A_PITCH], the weight slabs [2][SLAB][pitch],
+// and two ints a position (where it starts in the image rows and in `out`).
+__host__ __device__ inline long long mma_smem(int P, int C, int R, int seg,
+                                              int MT, int NB) {
+  return 4LL * R * mma_slab_rows(P, C) * seg * P * C +
+         2LL * 16 * MT * A_PITCH + 2LL * 2 * SLAB * mma_w_pitch(NB) +
+         2LL * 4 * 16 * MT;
+}
+
+__device__ __forceinline__ float clip_unit(float v) {
+  // written so that NaN passes through, as torch.clamp and jnp.clip do
+  return v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+}
+
+// A block takes R output rows (b, ho) by a segment of `seg` positions wo
+// (blockIdx.y) and 64 NB channels (blockIdx.z): at most 16 MT positions.
+// With 16 NB channels a warp, 5 tiles of positions fit into the 85 registers
+// that leave three blocks on an SM; wider blocks take what they need.
+template <int MT, int NB, typename OT>
+__global__ void __launch_bounds__(THREADS, NB == 2 ? 3 : 1)
+patchify_fwd_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+                        OT* __restrict__ out, int H, int W, int C, int P,
+                        int N, int Ho, int Wo, int total_rows, int R, int seg,
+                        int clip01) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NBLK = mma_channels(NB);
+  constexpr int W_PITCH = mma_w_pitch(NB);
+  constexpr int PER_W_ROW = NBLK / 8;  // 16-byte pieces of a weight row
+  const int PC = P * C, K = P * PC, cpr = PC / 8, chunks = K / 8;
+  const int nr = mma_slab_rows(P, C);
+  const int seg_vals = seg * PC;
+  float* raw = reinterpret_cast<float*>(smem);
+  bf16* as = reinterpret_cast<bf16*>(smem + 4LL * R * nr * seg_vals);
+  bf16* ws = as + 16 * MT * A_PITCH;
+  int* raw_at = reinterpret_cast<int*>(ws + 2 * SLAB * W_PITCH);
+  int* out_at = raw_at + 16 * MT;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * R;
+  const int rows_live = min(R, total_rows - row0);
+  const int wo0 = blockIdx.y * seg;
+  const int wlen = min(seg, Wo - wo0);
+  const int m_live = rows_live * wlen;
+  const int n0 = blockIdx.z * NBLK;
+  const int n_slabs = (K + SLAB - 1) / SLAB;
+
+  // Position m of the block is position wo0 + m % wlen of output row
+  // row0 + m / wlen: where its patch starts in the first staged image row,
+  // and which of the [B * Ho * Wo] output positions it is; -1 past the
+  // block's positions. (The divisions are taken once, here.)
+  for (int m = tid; m < 16 * MT; m += THREADS) {
+    const int r = m / wlen, wl = m - r * wlen;
+    raw_at[m] = m < m_live ? r * nr * seg_vals + wl * PC : -1;
+    out_at[m] = m < m_live ? (row0 + r) * Wo + wo0 + wl : -1;
+  }
+
+  // Starts the copies of slab s: the image rows its chunks lie in, as they
+  // are (float32), and its weight rows (zeros past K and N).
+  auto stage = [&](int s) {
+    const int c_lo = s * SLAB_CHUNKS;
+    const int c_hi = min(c_lo + SLAB_CHUNKS, chunks) - 1;
+    const int di_lo = c_lo / cpr, n_di = c_hi / cpr - di_lo + 1;
+    const int per_seg = wlen * PC / 4;  // 16-byte pieces of a row's segment
+    for (int r = 0; r < rows_live; ++r) {
+      const int b = (row0 + r) / Ho, ho = (row0 + r) - b * Ho;
+      for (int dr = 0; dr < n_di; ++dr) {
+        const long long h = static_cast<long long>(b) * H + ho * P + di_lo + dr;
+        const float* src = x + (h * W + wo0 * P) * C;
+        float* dst = raw + (r * nr + dr) * seg_vals;
+        for (int piece = tid; piece < per_seg; piece += THREADS)
+          copy_async<16>(dst + 4 * piece, src + 4 * piece, true);
+      }
+    }
+    bf16* dst = ws + (s % 2) * SLAB * W_PITCH;
+    for (int i = tid; i < SLAB * PER_W_ROW; i += THREADS) {
+      const int kr = i / PER_W_ROW, col = (i % PER_W_ROW) * 8;
+      const int k = s * SLAB + kr;
+      const bool live = k < K && n0 + col < N;
+      copy_async<16>(dst + kr * W_PITCH + col,
+                     w + (live ? static_cast<long long>(k) * N + n0 + col : 0),
+                     live);
+    }
+  };
+
+  // Slab s of the staged image rows as patches: clipped, rounded to bf16,
+  // 8 values (16 bytes) a store; zeros for positions past the block's.
+  // Eight lanes a position, one a chunk (six of them work).
+  auto convert = [&](int s) {
+    const int c = tid % 8;
+    const int ch = s * SLAB_CHUNKS + c;
+    if (c >= SLAB_CHUNKS) return;
+    const int di = ch / cpr, j = ch - di * cpr;
+    const int chunk_at = (di - s * SLAB_CHUNKS / cpr) * seg_vals + 8 * j;
+    for (int m = tid / 8; m < 16 * MT; m += THREADS / 8) {
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (ch < chunks && raw_at[m] >= 0) {
+        const float* src = raw + raw_at[m] + chunk_at;
+        float4 a = *reinterpret_cast<const float4*>(src);
+        float4 b = *reinterpret_cast<const float4*>(src + 4);
+        if (clip01) {
+          a = make_float4(clip_unit(a.x), clip_unit(a.y), clip_unit(a.z),
+                          clip_unit(a.w));
+          b = make_float4(clip_unit(b.x), clip_unit(b.y), clip_unit(b.z),
+                          clip_unit(b.w));
+        }
+        packed = make_uint4(as_register(__floats2bfloat162_rn(a.x, a.y)),
+                            as_register(__floats2bfloat162_rn(a.z, a.w)),
+                            as_register(__floats2bfloat162_rn(b.x, b.y)),
+                            as_register(__floats2bfloat162_rn(b.z, b.w)));
+      }
+      *reinterpret_cast<uint4*>(as + m * A_PITCH + 8 * c) = packed;
+    }
+  };
+
+  float acc[MT][NB][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.f;
+
+  stage(0);
+  commit_copies();
+  for (int s = 0; s < n_slabs; ++s) {
+    wait_copies<0>();  // this thread's part of slab s has landed
+    // every thread's part has, and every warp is done with slab s - 1
+    __syncthreads();
+    convert(s);
+    __syncthreads();  // the patches are whole; the image rows are free
+    if (s + 1 < n_slabs) {  // slab s + 1 loads while slab s multiplies
+      stage(s + 1);
+      commit_copies();
+    }
+    // this lane's ldmatrix rows: k row lane % 16 of the weights, channel
+    // 8 (lane / 16) of a pair of 8-channel blocks; position lane % 16 of a
+    // 16-position tile, chunk lane / 16 of a step's two
+    const bf16* wt = ws + (s % 2) * SLAB * W_PITCH + (lane % 16) * W_PITCH +
+                     warp * NB * 8 + 8 * (lane / 16);
+    const bf16* at = as + (lane % 16) * A_PITCH + 8 * (lane / 16);
+#pragma unroll
+    for (int t = 0; t < SLAB / 16; ++t) {
+      if (s * SLAB + 16 * t >= K) break;  // the same for every thread
+      uint32_t b[NB / 2][4];
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np)
+        ldmatrix_x4_trans(b[np], wt + 16 * t * W_PITCH + 16 * np);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (16 * mt >= m_live) break;
+        uint32_t a[4];
+        ldmatrix_x4(a, at + 16 * mt * A_PITCH + 16 * t);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mma_bf16(acc[mt][nb], a, b[nb / 2][2 * (nb % 2)],
+                   b[nb / 2][2 * (nb % 2) + 1]);
+      }
+    }
+  }
+
+  // Accumulator (mt, nb): positions 16 mt + grp and + 8, channels
+  // 8 (warp NB + nb) + 2 tig and + 1 of the block's.
+  const int grp = lane / 4, tig = lane % 4;
+  if constexpr (std::is_same_v<OT, float>) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * mt + grp + 8 * h;
+        if (m >= m_live) continue;
+        float* dst = out + static_cast<long long>(out_at[m]) * N + n0 +
+                     warp * NB * 8 + 2 * tig;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          if (n0 + warp * NB * 8 + 8 * nb < N)
+            *reinterpret_cast<float2*>(dst + 8 * nb) =
+                make_float2(acc[mt][nb][2 * h], acc[mt][nb][2 * h + 1]);
+      }
+  } else {
+    // through shared memory (the weight slabs' room), for 16-byte stores
+    __syncthreads();  // every warp is done with the last slab
+    bf16* os = ws;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          *reinterpret_cast<__nv_bfloat162*>(
+              os + (16 * mt + grp + 8 * h) * W_PITCH + (warp * NB + nb) * 8 +
+              2 * tig) =
+              __floats2bfloat162_rn(acc[mt][nb][2 * h], acc[mt][nb][2 * h + 1]);
+    __syncthreads();
+    for (int i = tid; i < m_live * PER_W_ROW; i += THREADS) {
+      const int m = i / PER_W_ROW, col = (i % PER_W_ROW) * 8;
+      if (n0 + col < N)
+        *reinterpret_cast<uint4*>(
+            out + static_cast<long long>(out_at[m]) * N + n0 + col) =
+            *reinterpret_cast<const uint4*>(os + m * W_PITCH + col);
+    }
+  }
+}
+
+template <int MT, int NB, typename OT>
+cudaError_t launch_mma(const float* x, const void* w, void* out, int batch,
+                       int H, int W, int C, int P, int N, int Ho, int Wo,
+                       int R, int seg, int clip01, cudaStream_t stream) {
+  auto kernel = patchify_fwd_mma_kernel<MT, NB, OT>;
+  const long long smem = mma_smem(P, C, R, seg, MT, NB);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int total_rows = batch * Ho;
+  const dim3 grid((total_rows + R - 1) / R, (Wo + seg - 1) / seg,
+                  (N + mma_channels(NB) - 1) / mma_channels(NB));
+  kernel<<<grid, THREADS, static_cast<size_t>(smem), stream>>>(
+      x, static_cast<const bf16*>(w), static_cast<OT*>(out), H, W, C, P, N,
+      Ho, Wo, total_rows, R, seg, clip01);
+  return cudaGetLastError();
+}
+
+template <int MT, typename OT>
+cudaError_t launch_mma_channels(int NB, const float* x, const void* w,
+                                void* out, int batch, int H, int W, int C,
+                                int P, int N, int Ho, int Wo, int R, int seg,
+                                int clip01, cudaStream_t stream) {
+  switch (NB) {
+    case 2:
+      return launch_mma<MT, 2, OT>(x, w, out, batch, H, W, C, P, N, Ho, Wo, R,
+                                   seg, clip01, stream);
+    case 6:
+      return launch_mma<MT, 6, OT>(x, w, out, batch, H, W, C, P, N, Ho, Wo, R,
+                                   seg, clip01, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename OT>
+cudaError_t launch_mma_tiles(int MT, int NB, const float* x, const void* w,
+                             void* out, int batch, int H, int W, int C, int P,
+                             int N, int Ho, int Wo, int R, int seg, int clip01,
+                             cudaStream_t stream) {
+  switch (MT) {
+    case 3:
+      return launch_mma_channels<3, OT>(NB, x, w, out, batch, H, W, C, P, N,
+                                        Ho, Wo, R, seg, clip01, stream);
+    case 5:
+      return launch_mma_channels<5, OT>(NB, x, w, out, batch, H, W, C, P, N,
+                                        Ho, Wo, R, seg, clip01, stream);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // ---------------------------------------------------------------------------
 // Weight gradient (K1-dW).
@@ -474,6 +805,37 @@ int patchify_fwd(const void* x, const void* w, void* out, int batch, int H,
   else
     err = launch<float, float>(xf, w, out, batch, H, W, C, P, N, Ho, Wo,
                                pad_top, pad_left, bn, clip01, vec4, smem, s);
+  return static_cast<int>(err);
+}
+
+// Launches the tensor-core forward on `stream` and returns
+// cudaGetLastError(). It takes bfloat16 weights, P dividing H and W, P*C a
+// multiple of 8, P*P*C of 16 and N of 8, x and w aligned to 16 bytes; a
+// block takes R output rows by `seg` positions, at most 16 MT of them (MT 3
+// or 5), and 64 NB channels (NB 2 or 6). `smem_bytes` is the caller's
+// count of the block's shared memory, checked against the kernel's own.
+int patchify_fwd_mma(const void* x, const void* w, void* out, int batch,
+                     int H, int W, int C, int P, int N, int Ho, int Wo, int R,
+                     int seg, int MT, int NB, int out_bf16, int clip01,
+                     long long smem_bytes, void* stream) {
+  if (batch <= 0 || C <= 0 || P <= 0 || N <= 0 || Ho <= 0 || Wo <= 0 ||
+      Ho * P != H || Wo * P != W || (P * C) % 8 != 0 || (P * P * C) % 16 != 0 ||
+      N % 8 != 0 || R <= 0 || seg <= 0 || seg > Wo ||
+      R * seg > 16 * MT || (MT != 3 && MT != 5) ||
+      (NB != 2 && NB != 6) ||
+      static_cast<long long>(batch) * Ho * Wo > 0x7fffffffLL ||
+      (Wo + seg - 1) / seg > 65535 ||
+      (N + mma_channels(NB) - 1) / mma_channels(NB) > 65535 ||
+      smem_bytes != mma_smem(P, C, R, seg, MT, NB))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      out_bf16 ? launch_mma_tiles<__nv_bfloat16>(MT, NB, xf, w, out, batch, H,
+                                                 W, C, P, N, Ho, Wo, R, seg,
+                                                 clip01, s)
+               : launch_mma_tiles<float>(MT, NB, xf, w, out, batch, H, W, C, P,
+                                         N, Ho, Wo, R, seg, clip01, s);
   return static_cast<int>(err);
 }
 

@@ -23,11 +23,20 @@ nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32
 and D = 64; any other head dim on a CUDA tensor raises. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
-strides. The forward, and dq and dk/dv of float32 inputs, multiply in
-float32 on the CUDA cores. dq and dk/dv of bfloat16 inputs run on the
-tensor cores: the exact bf16 q.k product is scaled as a float32 logit, and
-p and ds, float32 on the TPU, enter the second products as two bf16 values
-each (hi + lo, ~16 mantissa bits); ``attention_dq_emulation`` and
+strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
+cores would make them TF32). bfloat16 inputs run on the tensor cores, the
+forward as dq and dk/dv: ``mma.sync`` on bf16 operands with float32 sums, a
+block's 64 rows in registers, the other operand streamed in 64-row tiles
+two deep with ``cp.async`` (16 bytes at a time, so q, k, v and g must be
+aligned to that or the wrapper raises). The exact bf16 q.k product is
+scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
+second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
+bf16 rounding of p moves a tenth of the forward's outputs past one ulp.
+The forward's online softmax takes its max per 64-key tile and sums the
+denominator from the float32 p. On this card operations bound all three
+(4, 6 and 8 BH Tq Tk D); at D = 32 the one ex2 a query-key pair sets a
+floor about twice the forward's tensor-core bound.
+``attention_fwd_emulation``, ``attention_dq_emulation`` and
 ``attention_dkdv_emulation`` repeat that arithmetic in plain PyTorch for
 the CPU tests. Each ``attention_*`` wrapper runs its plain version
 (``attention_*_reference``) on CPU tensors only; a CUDA tensor launches
@@ -127,6 +136,7 @@ def attention_dkdv_reference(q, k, v, g, lse, delta
 
 
 _TILE = 64  # rows of the streamed operand per step of the bf16 kernels
+_LOG2E = 1.4426950408889634
 
 
 def _two_bf16(x: torch.Tensor, split: bool) -> Tuple[torch.Tensor, ...]:
@@ -153,6 +163,38 @@ def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool):
         ds = p * (gf[:, qs] @ vf[:, ks].transpose(1, 2)
                   - delta[:, qs, None])
         yield tile, _two_bf16(p, split), _two_bf16(ds, split)
+
+
+def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, split: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) by the arithmetic of the tensor-core forward kernel (for
+    the tests; no model calls it): the online softmax over 64-key tiles,
+    the running max taken of the exact product of the inputs (bf16 on the
+    card) and the scale (times log2 e) applied inside the exponent,
+    ``denom`` summed from the float32 p, and p entering ``p @ v`` as bf16
+    hi + lo. With ``split=False`` p is rounded to one bf16 value instead."""
+    _check(q, k, v)
+    scale = _scale(q.shape[-1])
+    scale2 = scale * _LOG2E
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full(q.shape[:2] + (1,), -1e30, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[1], _TILE):
+        tile = slice(k0, k0 + _TILE)
+        s = qf @ kf[:, tile].transpose(1, 2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale2)
+        p = torch.exp2(s * scale2 - m_new * scale2)
+        denom = denom * alpha + p.sum(-1, keepdim=True)
+        acc *= alpha
+        for part in _two_bf16(p, split):
+            acc += part @ vf[:, tile]
+        m = m_new
+    denom = denom.clamp_min(_FLOOR)
+    return ((acc * (1.0 / denom)).to(q.dtype),
+            (m * scale + torch.log(denom)).squeeze(-1))
 
 
 def attention_dq_emulation(q, k, v, g, lse, delta,
@@ -225,12 +267,11 @@ def _use_kernel(name: str, q, k, v, *grad) -> bool:
                          f"kernels are built for D in {SUPPORTED_HEAD_DIMS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the kernels take contiguous tensors")
-    # only the tensor-core gradient kernels copy 16 bytes at a time
-    if (grad and q.dtype == torch.bfloat16
+    # the tensor-core kernels copy 16 bytes at a time
+    if (q.dtype == torch.bfloat16
             and any(t.data_ptr() % 16 for t in tensors[:4])):
-        raise ValueError(f"{name}: the bfloat16 gradient kernels copy rows "
-                         f"16 bytes at a time and take q, k, v and g "
-                         f"aligned to that")
+        raise ValueError(f"{name}: the bfloat16 kernels copy rows 16 bytes "
+                         f"at a time and take q, k, v and g aligned to that")
     return True
 
 

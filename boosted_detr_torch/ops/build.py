@@ -3,8 +3,8 @@
 Each source ``boosted_detr_torch/csrc/<name>.cu`` exposes a plain C
 interface. At first use it is compiled with nvcc for Hopper (``sm_90a``)
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
-and loaded with ``ctypes``; the digest covers the source and the flags, so
-an edited source builds anew. Nothing is built when a module is imported:
+and loaded with ``ctypes``; the digest covers the source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source builds anew. Nothing is built when a module is imported:
 the CPU path never calls this. The JAX package has no counterpart: JAX
 compiles its Pallas kernels itself.
 """
@@ -40,9 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b"".join(src.read_bytes() for src in sources)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

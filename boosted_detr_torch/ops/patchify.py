@@ -1,30 +1,43 @@
-"""Patchify-stem convolution: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Patchify-stem convolution: the hand-written Hopper kernels and their
+plain PyTorch versions.
 
 Counterpart of boosted_detr_tpu/ops/pallas_patchify.py: ``patchify_conv``
 (:209-231) with the forward Pallas kernel ``_fwd_kernel``/``_fwd_impl``
-(:83-92, :122-149). The kernel, ``csrc/patchify.cu``, is CUDA C++ for
+(:83-92, :122-149). The kernels, ``csrc/patchify.cu``, are CUDA C++ for
 ``sm_90a``, built by nvcc at first use and loaded with ctypes
-(``ops/build.py``). One thread block takes one output row (b, ho) and a
-slice of up to 128 output channels: it stages its P contiguous image rows
-in shared memory (clipped to [0, 1] and rounded to the weights' dtype),
-stages the [P*P*C_in, slice] kernel beside them, and accumulates every
-output of the row in float32 by FMA. Space-to-depth is only an offset into
-the staged rows, so the image is read from device memory once.
+(``ops/build.py``). The forward has two:
+
+- ``patchify_fwd_mma_kernel`` takes bfloat16 weights on the tensor cores
+  (``mma.sync`` on bf16 operands, float32 sums) where the patch divides the
+  image, ``P * C_in`` is a multiple of 8, k of 16 and ``C_out`` of 8: the
+  three shapes the models run (P = 8 -> 128 at 640 and 1280 px, P = 16 ->
+  384). A block takes up to 80 output positions and all channels (up to
+  384), so the image is read from device memory once; k = (di, dj, c) runs
+  in slabs of 48 values whose image rows and weight rows stream through
+  shared memory two deep with ``cp.async``; one pass clips the rows, rounds
+  them to bf16 and lays them out by position (the space-to-depth), and
+  ``ldmatrix`` feeds the MMAs from there. ``tensor_core_plan`` decides the
+  route and the cut from the shapes alone.
+- ``patchify_fwd_kernel``, the first version, keeps everything else
+  (float32 weights, the P = 4 stem, SAME-padded geometries, misaligned
+  tensors): one block an output row and a slice of up to 128 channels, the
+  P image rows staged as float32 beside the kernel slice, FMA on the CUDA
+  cores; ``_channel_slice`` narrows the slice until a block fits in 227 KB
+  and raises with the geometry when none does.
 
 Bound on an H100 SXM at the flagship shape (x f32 [8, 640, 640, 3], w bf16
 [8, 8, 3, 128], out bf16 [8, 80, 80, 128]): 39.3 MB read plus 13.1 MB
 written is about 15.7 us at 3.35 TB/s, against about 2.5 us for its 2.52
-GFLOP at 989 TFLOP/s, so memory bytes bound it. This first version reads
-each byte once but multiplies on the CUDA cores; the tensor cores (wgmma)
-and TMA are the later steps toward the bound. Shared memory grows with P,
-W and C_in; the wrapper narrows the channel slice until a block fits in
-227 KB and raises with the geometry when none does.
+GFLOP at 989 TFLOP/s, so memory bytes bound it (at P = 16 -> 384 too: 49.7
+MB, 14.8 us, against 7.6 us). bf16 x bf16 products are exact in float32, so
+the tensor-core kernel differs from the plain version by the order of the
+float32 sums only: one bf16 ulp where a sum straddles a rounding boundary.
 
 Where P does not divide H or W, the JAX package takes an ordinary
 SAME-padded convolution instead of its kernel (``supported``, :47-50). Here
-the kernel (and the plain version) compute that same SAME-padded result
-directly, with the padding as zeros, so one path serves every geometry.
+the CUDA-core kernel (and the plain version) compute that same SAME-padded
+result directly, with the padding as zeros, so the wrapper serves every
+geometry.
 
 The weight gradient (``_dw_kernel``/``_dw_impl``, :95-113, :152-175) is
 the second kernel of the same source, ``patchify_conv_dw``: the reduction
@@ -42,7 +55,8 @@ the image needs a gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,6 +161,7 @@ def patchify_conv_dw_reference(x: torch.Tensor, g: torch.Tensor, patch: int,
 SMEM_LIMIT = 232448
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     from boosted_detr_torch.ops import build
 
@@ -154,6 +169,10 @@ def _library() -> ctypes.CDLL:
     lib.patchify_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
                                  + [ctypes.c_void_p])
     lib.patchify_fwd.restype = ctypes.c_int
+    lib.patchify_fwd_mma.argtypes = ([ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 14
+                                     + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.patchify_fwd_mma.restype = ctypes.c_int
     lib.patchify_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.patchify_smem_bytes.restype = ctypes.c_longlong
     lib.patchify_dw.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
@@ -187,6 +206,70 @@ def _channel_slice(lib, p: int, c_in: int, wo: int, c_out: int,
         bn //= 2
 
 
+# The tensor-core forward takes k = (di, dj, c) in slabs of 6 chunks of 8
+# values. Each of a block's 8 warps takes 2 blocks of 8 channels (up to 128
+# channels a block) or 6 (up to 384). A block takes at most 80 output
+# positions (5 tiles of 16) at 2 and 48 (3 tiles) at 6: a warp's
+# accumulators for 5 tiles of 48 channels would leave one block on an SM
+# where 3 tiles leave two, which measured faster at P=16 -> 384.
+MMA_SLAB_CHUNKS = 6
+MMA_POSITIONS = {2: 80, 6: 48}
+
+
+class TensorCorePlan(NamedTuple):
+    """How ``patchify_fwd_mma_kernel`` cuts the work: a block takes ``rows``
+    output rows (b, ho) by ``seg`` positions wo, in ``tiles`` (3 or 5)
+    tiles of 16 positions, and 64 * ``channel_blocks`` channels (2 or 6
+    blocks of 8 for each of its 8 warps); ``smem`` bytes of shared memory."""
+    rows: int
+    seg: int
+    tiles: int
+    channel_blocks: int
+    smem: int
+
+
+def _slab_rows(p: int, c_in: int) -> int:
+    """The most image rows that the chunks of one slab lie in."""
+    per_row = p * c_in // 8
+    chunks = p * per_row
+    return max((min(lo + MMA_SLAB_CHUNKS, chunks) - 1) // per_row
+               - lo // per_row + 1
+               for lo in range(0, chunks, MMA_SLAB_CHUNKS))
+
+
+@functools.lru_cache(maxsize=64)
+def tensor_core_plan(x_shape, w_shape, w_dtype: torch.dtype
+                     ) -> Optional[TensorCorePlan]:
+    """The tensor-core forward's plan for this geometry, or None where the
+    CUDA-core kernel takes it: float32 weights (the tensor cores would make
+    them TF32), a patch that does not divide the image (SAME padding), a
+    patch row ``P * C_in`` that is no multiple of 8 values (an 8-value
+    chunk of k would straddle two image rows), k or channel counts that
+    are no multiples of 16 and 8, or a block over the shared-memory limit.
+    A pure function of the shapes: alignment is the wrapper's to check."""
+    batch, h, width, c_in = x_shape
+    p, c_out = w_shape[0], w_shape[3]
+    pc = p * c_in
+    if (w_dtype != torch.bfloat16 or h % p or width % p or pc % 8
+            or (p * pc) % 16 or c_out % 8 or 0 in (batch, h, width)):
+        return None
+    ho, wo = h // p, width // p
+    channel_blocks = 2 if c_out <= 128 else 6
+    positions = MMA_POSITIONS[channel_blocks]
+    if wo > positions:
+        rows, seg = 1, -(-wo // -(-wo // positions))
+    else:
+        rows, seg = max(1, min(positions // wo, batch * ho)), wo
+    tiles = 3 if rows * seg <= 48 else 5
+    smem = (4 * rows * _slab_rows(p, c_in) * seg * pc
+            + 2 * 16 * tiles * (8 * MMA_SLAB_CHUNKS + 8)
+            + 2 * 2 * 8 * MMA_SLAB_CHUNKS * (64 * channel_blocks + 8)
+            + 2 * 4 * 16 * tiles)
+    if rows * seg > 16 * tiles or smem > SMEM_LIMIT:
+        return None
+    return TensorCorePlan(rows, seg, tiles, channel_blocks, smem)
+
+
 def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
                   out_dtype: Optional[torch.dtype] = None,
                   clip01: bool = False) -> torch.Tensor:
@@ -196,8 +279,9 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
     [0, 1] inside the kernel's read.
 
     A CPU tensor goes to ``patchify_conv_reference``. A CUDA tensor launches
-    the kernel or raises; there is no fallback. Each launch adds one to
-    ``patchify_conv.launches``."""
+    a kernel (the tensor-core one where ``tensor_core_plan`` gives a plan
+    and x and w are aligned to 16 bytes) or raises; there is no fallback.
+    Each launch adds one to ``patchify_conv.launches``."""
     out_dtype = out_dtype or w.dtype
     _check(x, w, out_dtype)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -219,20 +303,31 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
         return out
     w_bf16 = w.dtype == torch.bfloat16
     lib = _library()
-    bn, _ = _channel_slice(lib, p, c_in, wo, c_out, w_bf16)
-    vec4 = _vec4(x, p)
+    # the tensor-core kernel copies 16 bytes at a time
+    plan = (tensor_core_plan(tuple(x.shape), tuple(w.shape), w.dtype)
+            if x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.patchify_fwd(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, width, c_in, p,
-            c_out, ho, wo, top, left, bn, int(w_bf16),
-            int(out_dtype == torch.bfloat16), int(clip01), int(vec4), stream)
+        if plan is not None:
+            how = plan
+            rc = lib.patchify_fwd_mma(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, width,
+                c_in, p, c_out, ho, wo, plan.rows, plan.seg, plan.tiles,
+                plan.channel_blocks, int(out_dtype == torch.bfloat16),
+                int(clip01), plan.smem, stream)
+        else:
+            bn, _ = _channel_slice(lib, p, c_in, wo, c_out, w_bf16)
+            how = f"the CUDA-core kernel, {bn} channels per block"
+            rc = lib.patchify_fwd(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, width,
+                c_in, p, c_out, ho, wo, top, left, bn, int(w_bf16),
+                int(out_dtype == torch.bfloat16), int(clip01),
+                int(_vec4(x, p)), stream)
     if rc != 0:
         raise RuntimeError(
             f"patchify_fwd launch failed: "
             f"{lib.patchify_error_string(rc).decode()} (x {tuple(x.shape)}, "
-            f"w {tuple(w.shape)} {w.dtype}, out {out_dtype}, {bn} channels "
-            f"per block)")
+            f"w {tuple(w.shape)} {w.dtype}, out {out_dtype}; {how})")
     patchify_conv.launches += 1
     return out
 

@@ -1,11 +1,11 @@
 """The hand-written CUDA kernels of the fused attention
 (boosted_detr_torch/csrc/attention.cu: K3's forward with the lse, dq and
-dk/dv; the gradient of bfloat16 inputs on the tensor cores, of float32
-inputs on the CUDA cores) against their plain PyTorch versions on the card,
-the tensor-core kernels against the plain PyTorch emulation of their
-arithmetic, the autograd ``FusedAttentionFn`` on the card against its CPU
-route, the gradient kernels' repeatability bit for bit, and the refusal of
-a head dim the kernels are not built for. It needs a CUDA card and nvcc,
+dk/dv; bfloat16 inputs on the tensor cores, float32 inputs on the CUDA
+cores) against their plain PyTorch versions on the card, the tensor-core
+kernels against the plain PyTorch emulation of their arithmetic, the
+autograd ``FusedAttentionFn`` on the card against its CPU route, the
+kernels' repeatability bit for bit, and the refusal of a head dim the
+kernels are not built for and of a misaligned bfloat16 tensor. It needs a CUDA card and nvcc,
 and skips without a card. It imports nothing of JAX, so that it runs on a
 machine without it:
 
@@ -133,17 +133,45 @@ def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
         assert torch.equal(a, b)
 
 
-def _gradient_kernel_names(args):
-    """Names of the device kernels that one dq and one dk/dv call launch."""
+def _kernel_names(*calls):
+    """Names of the device kernels of the attention that ``calls`` launch."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        ta.attention_dq(*args)
-        ta.attention_dkdv(*args)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     return [e.key for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and "attn_" in e.key]
+
+
+def _gradient_kernel_names(args):
+    """Names of the device kernels that one dq and one dk/dv call launch."""
+    return _kernel_names(lambda: ta.attention_dq(*args),
+                         lambda: ta.attention_dkdv(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64])
+def test_float32_forward_stays_on_the_cuda_cores(cuda, d):
+    """float32 inputs take the float32 forward (tensor cores would make
+    them TF32 or bf16) and keep its float32 accuracy; bfloat16 inputs take
+    the tensor-core forward."""
+    inputs = {dtype: _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
+              for dtype in ("float32", "bfloat16")}
+    ta.attention_fwd(*inputs["float32"])  # built and loaded before the profile
+    names = {dtype: _kernel_names(lambda: ta.attention_fwd(*qkv))
+             for dtype, qkv in inputs.items()}
+    assert len(names["float32"]) == len(names["bfloat16"]) == 1, names
+    assert "attn_fwd_kernel" in names["float32"][0], names
+    assert "attn_fwd_mma_kernel" in names["bfloat16"][0], names
+    out, lse = ta.attention_fwd(*inputs["float32"])
+    want, want_lse = ta.attention_fwd_reference(*inputs["float32"])
+    # a few float32 ulps of sums over 330 keys; one bf16 or TF32 rounding
+    # of an operand would be 1e-3 of a term
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -182,23 +210,33 @@ def test_unsupported_head_dim_raises(cuda):
 
 @pytest.mark.gpu
 def test_misaligned_tensor_raises(cuda):
-    """The tensor-core gradient kernels copy rows 16 bytes at a time: a
-    contiguous bfloat16 view that starts 2 bytes into its storage is
-    refused by them, not read out of line. The forward reads value by value
-    and takes it."""
+    """The tensor-core kernels copy rows 16 bytes at a time: a contiguous
+    bfloat16 view that starts 2 bytes into its storage is refused by the
+    forward, dq and dk/dv, not read out of line. The float32 kernels read
+    value by value and take such a view."""
     args = _gradient_args(cuda, 2, 8, 8, 32, "bfloat16", seed=4)
     flat = torch.zeros(2 * 8 * 32 + 8, dtype=torch.bfloat16, device=cuda)
     q = flat[1:1 + 2 * 8 * 32].view(2, 8, 32).copy_(args[0])
     assert q.is_contiguous() and q.data_ptr() % 16
-    out, lse = ta.attention_fwd(q, *args[1:3])
-    want, want_lse = ta.attention_fwd_reference(*args[:3])
-    _assert_close(out, want, "bfloat16")
-    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
-    before = ta.attention_dq.launches, ta.attention_dkdv.launches
+    before = (ta.attention_fwd.launches, ta.attention_dq.launches,
+              ta.attention_dkdv.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        ta.attention_fwd(q, *args[1:3])
+    with pytest.raises(ValueError, match="aligned"):
+        ta.attention_fwd(args[0], args[1], q)  # 8 keys: v's shape too
     for kernel in (ta.attention_dq, ta.attention_dkdv):
         with pytest.raises(ValueError, match="aligned"):
             kernel(q, *args[1:])
-    assert (ta.attention_dq.launches, ta.attention_dkdv.launches) == before
+    assert (ta.attention_fwd.launches, ta.attention_dq.launches,
+            ta.attention_dkdv.launches) == before
+    flat32 = torch.zeros(2 * 8 * 32 + 4, device=cuda)
+    q32 = flat32[1:1 + 2 * 8 * 32].view(2, 8, 32).copy_(args[0])
+    assert q32.data_ptr() % 16
+    k32, v32 = args[1].float(), args[2].float()
+    out, lse = ta.attention_fwd(q32, k32, v32)
+    want, want_lse = ta.attention_fwd_reference(q32, k32, v32)
+    _assert_close(out, want, "float32")
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
 
 
 def _one_bf16_ulp(got, want):
@@ -229,3 +267,44 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     shares = [_one_bf16_ulp(a, b) for a, b in zip(got, want)]
     print(f"equal to the emulation (dq, dk, dv): {shares}")
     assert min(shares) >= 0.99, shares
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    (3, 300, 520, 64), (3, 17, 1000, 32), (3, 1, 300, 32), (3, 300, 1, 64),
+    (3, 17, 17, 64), (3, 96, 520, 64), (3, 520, 17, 32), (3, 1, 1, 32),
+    (3, 520, 300, 32),  # ragged lengths 1, 17, 96, 300, 520, Tq != Tk
+    (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
+    (4, 96, 96, 32)])
+def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
+    """The bfloat16 forward against the plain PyTorch emulation of its
+    arithmetic (64-key tiles, the scale inside the exponent, the float32 p
+    summed into the denominator, p as bf16 hi + lo in P.V): nearly every
+    value the same bf16, the rest its neighbour; the float32 lse within
+    1e-5."""
+    q, k, v = _inputs(cuda, bh, tq, tk, d, "bfloat16", seed=6)[:3]
+    before = ta.attention_fwd.launches
+    out, lse = ta.attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert ta.attention_fwd.launches == before + 1
+    want, want_lse = ta.attention_fwd_emulation(q, k, v)
+    share = _one_bf16_ulp(out, want)
+    print(f"equal to the emulation (out): {share}")
+    assert share >= 0.99, share
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
+                                        (5, 300, 520, 32)])
+def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
+    """Every sum belongs to one thread and runs in a fixed order: two
+    launches on the same inputs give the same bits."""
+    q, k, v = _inputs(cuda, bh, tq, tk, d, dtype, seed=7)[:3]
+    first = ta.attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    second = ta.attention_fwd(q, k, v)
+    for a, b in zip(first, second):
+        assert a.abs().sum() > 0
+        assert torch.equal(a, b)

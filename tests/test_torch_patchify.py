@@ -42,7 +42,7 @@ def _both(x, w, dtype, clip01):
 
 
 # f32: both sides round nothing, so only the order of the float32 sums over
-# K <= 192 terms of size ~0.1 differs: 1e-5 covers it. bf16: the inputs are
+# K <= 768 terms of size ~0.1 differs: 1e-5 covers it. bf16: the inputs are
 # rounded identically on both sides and both accumulate in float32, so the
 # outputs differ by at most one rounding of the bf16 result (2**-8
 # relative); atol 2e-2 covers one ulp of outputs up to ~4.
@@ -55,6 +55,9 @@ _TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
 @pytest.mark.parametrize("shape,patch,cout", [
     ((2, 32, 32, 3), 8, 16),   # the patchify8 stem, scaled down
     ((1, 16, 24, 3), 4, 8),    # the patchify stem, non-square image
+    # the ViT patch embed, scaled down: P = 16, Wo = 5 (no multiple of the
+    # tensor-core kernel's 16-position tiles), N = 40 (none of 64)
+    ((2, 32, 80, 3), 16, 40),
 ])
 def test_matches_jax_kernel(shape, patch, cout, dtype, clip01):
     x, w = _inputs(shape, patch, cout)
@@ -154,3 +157,52 @@ def test_weight_gradient_exposes_its_float32_sum():
     assert torch.equal(dw, dw32.bfloat16())
     with pytest.raises(ValueError, match="does not fit"):
         tp.patchify_conv_dw(torch.from_numpy(x), g[:, :1], 8, torch.bfloat16)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,dtype,want", [
+    # the three shapes the main paths run: (rows, positions, tiles, blocks)
+    ((8, 640, 640, 3), (8, 8, 3, 128), "bfloat16", (1, 80, 5, 2)),
+    ((8, 1280, 1280, 3), (8, 8, 3, 128), "bfloat16", (1, 80, 5, 2)),
+    ((8, 640, 640, 3), (16, 16, 3, 384), "bfloat16", (1, 40, 3, 6)),
+    ((1, 48, 40, 3), (8, 8, 3, 72), "bfloat16", (6, 5, 3, 2)),
+    ((5, 24, 1600, 3), (8, 8, 3, 72), "bfloat16", (1, 67, 5, 2)),
+    ((5, 24, 1600, 3), (8, 8, 3, 200), "bfloat16", (1, 40, 3, 6)),
+    # the CUDA-core kernel keeps everything else
+    ((8, 640, 640, 3), (8, 8, 3, 128), "float32", None),   # TF32 otherwise
+    ((2, 64, 48, 3), (4, 4, 3, 64), "bfloat16", None),     # P * C_in = 12
+    ((1, 100, 84, 3), (8, 8, 3, 24), "bfloat16", None),    # SAME padding
+    ((1, 64, 64, 3), (8, 8, 3, 20), "bfloat16", None),     # N % 8
+    ((1, 8, 8, 8), (1, 1, 8, 16), "bfloat16", None),       # k = 8, not 16
+    ((1, 16, 16384, 3), (16, 16, 3, 8), "float32", None),
+])
+def test_route_choice_is_a_pure_function_of_the_shapes(x_shape, w_shape,
+                                                       dtype, want):
+    """bfloat16 weights with P dividing the image and P * C_in a multiple
+    of 8 go to the tensor cores, everything else to the CUDA-core kernel;
+    decided from shapes and dtype alone, so it needs no card."""
+    plan = tp.tensor_core_plan(x_shape, w_shape, _DT[dtype][0])
+    if want is None:
+        assert plan is None
+        return
+    assert plan[:4] == want
+    assert plan.rows * plan.seg <= 16 * plan.tiles
+    assert plan.smem <= tp.SMEM_LIMIT
+    if x_shape[2] // w_shape[0] <= tp.MMA_POSITIONS[plan.channel_blocks]:
+        assert plan.seg == x_shape[2] // w_shape[0]  # whole rows
+
+
+def test_tensor_core_plan_counts_the_shared_memory():
+    # 640px stem: 2 image rows of 80 * 24 float32 values a slab, 80
+    # positions of 112 bytes, two weight slabs of 48 rows of 136 bf16, and
+    # two ints a position
+    plan = tp.tensor_core_plan((8, 640, 640, 3), (8, 8, 3, 128),
+                               torch.bfloat16)
+    assert plan.smem == 4 * 2 * 1920 + 80 * 112 + 2 * 48 * 136 * 2 + 80 * 8
+    # P = 16: one image row of 40 * 48 values a slab, 48 positions (40
+    # live), 392-wide weight slabs
+    plan = tp.tensor_core_plan((8, 640, 640, 3), (16, 16, 3, 384),
+                               torch.bfloat16)
+    assert plan.smem == 4 * 1920 + 48 * 112 + 2 * 48 * 392 * 2 + 48 * 8
+    # a block that cannot fit is left to the other kernel, which refuses it
+    assert tp.tensor_core_plan((1, 128, 128 * 80, 48), (128, 128, 48, 8),
+                               torch.bfloat16) is None

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the patchify stem
-(boosted_detr_torch/csrc/patchify.cu: the forward and the weight gradient)
+(boosted_detr_torch/csrc/patchify.cu: the forward, on the tensor cores for
+bfloat16 weights and on the CUDA cores otherwise, and the weight gradient)
 against their plain PyTorch versions on the card, and the stem's gradient
 through ``PatchifyConvFn`` on the kernel route. It needs a CUDA card and
 nvcc, and skips without a card. It imports nothing of JAX, so that it runs
@@ -181,3 +182,97 @@ def test_dw_kernel_refuses_rows_that_do_not_fit(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         tp.patchify_conv_dw(x, g, 16, torch.float32)
     assert tp.patchify_conv_dw.launches == before
+
+
+def _forward_kernel_names(call):
+    """Names of the device kernels of the stem's forward that ``call``
+    launches."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "patchify_fwd" in e.key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,patch,cout", [
+    ((8, 640, 640, 3), 8, 128),     # the flagship stem
+    ((2, 1280, 1280, 3), 8, 128),   # the 1280px stem: two segments a row
+    ((8, 640, 640, 3), 16, 384),    # the ViT patch embed: Wo = 40, two rows
+    ((3, 80, 640, 3), 16, 200),     # a ragged N: 200 of a block's 384
+    ((1, 48, 40, 3), 8, 72),        # 30 positions in one block, N = 72
+    ((5, 24, 1600, 3), 8, 8),       # Wo = 200: segments of 67, 67 and 66
+    ((2, 32, 32, 4), 8, 520),       # P * C_in = 32: slabs straddle rows
+])
+def test_tensor_core_forward(cuda, shape, patch, cout, out_dtype):
+    """bfloat16 weights where the patch divides the image take the
+    tensor-core kernel. bf16 x bf16 products are exact in float32, so only
+    the order of the float32 sums differs from the plain version; the
+    result is held to one rounding of the output dtype."""
+    x, w = _inputs(shape, patch, cout, seed=4)
+    xt = torch.from_numpy(x).to(cuda)
+    wt = torch.from_numpy(w).to(cuda, torch.bfloat16)
+    assert tp.tensor_core_plan(xt.shape, wt.shape, wt.dtype) is not None
+
+    def call():
+        return tp.patchify_conv(xt, wt, out_dtype=_DT[out_dtype], clip01=True)
+
+    out = call()
+    torch.cuda.synchronize()
+    names = _forward_kernel_names(call)
+    assert len(names) == 1 and "patchify_fwd_mma_kernel" in names[0], names
+    ref = tp.patchify_conv_reference(xt, wt, out_dtype=_DT[out_dtype],
+                                     clip01=True)
+    assert out.dtype == _DT[out_dtype] and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), **_TOL[out_dtype])
+    assert torch.equal(out, call())  # a fixed order of sums: the same bits
+    # without the clip the image is only rounded
+    torch.testing.assert_close(
+        tp.patchify_conv(xt, wt, out_dtype=_DT[out_dtype]).float(),
+        tp.patchify_conv_reference(xt, wt, out_dtype=_DT[out_dtype]).float(),
+        **_TOL[out_dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,patch,cout,dtype", [
+    ((2, 640, 640, 3), 8, 128, "float32"),  # float32 weights
+    ((2, 64, 48, 3), 4, 64, "bfloat16"),    # P * C_in = 12: the patchify stem
+    ((1, 100, 84, 3), 8, 24, "bfloat16"),   # SAME padding
+    ((1, 64, 64, 3), 8, 20, "bfloat16"),    # N no multiple of 8
+])
+def test_other_inputs_keep_the_cuda_core_kernel(cuda, shape, patch, cout,
+                                                dtype):
+    x, w = _inputs(shape, patch, cout, seed=5)
+    xt = torch.from_numpy(x).to(cuda)
+    wt = torch.from_numpy(w).to(cuda, _DT[dtype])
+    assert tp.tensor_core_plan(xt.shape, wt.shape, wt.dtype) is None
+    tp.patchify_conv(xt, wt, clip01=True)  # built and loaded
+    names = _forward_kernel_names(
+        lambda: tp.patchify_conv(xt, wt, clip01=True))
+    assert len(names) == 1 and "patchify_fwd_kernel" in names[0], names
+    torch.testing.assert_close(
+        tp.patchify_conv(xt, wt, clip01=True).float(),
+        tp.patchify_conv_reference(xt, wt, clip01=True).float(),
+        **_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_misaligned_image_keeps_the_cuda_core_kernel(cuda):
+    """The tensor-core kernel copies 16 bytes at a time; an image that
+    starts 4 bytes into its storage goes to the kernel that reads value by
+    value."""
+    x, w = _inputs((1, 32, 32, 3), 8, 16, seed=6)
+    flat = torch.zeros(x.size + 4, device=cuda)
+    xt = flat[1:1 + x.size].view(x.shape).copy_(torch.from_numpy(x))
+    wt = torch.from_numpy(w).to(cuda, torch.bfloat16)
+    assert xt.is_contiguous() and xt.data_ptr() % 16
+    tp.patchify_conv(xt, wt)
+    names = _forward_kernel_names(lambda: tp.patchify_conv(xt, wt))
+    assert len(names) == 1 and "patchify_fwd_kernel" in names[0], names
+    torch.testing.assert_close(
+        tp.patchify_conv(xt, wt).float(),
+        tp.patchify_conv_reference(xt, wt).float(), **_TOL["bfloat16"])
