@@ -272,6 +272,15 @@ cudaError_t launch(const float* x, const void* w, void* out, int batch, int H,
 //     fragments through ldmatrix.trans; with both pitches an odd number of
 //     16-byte groups, the eight rows of an ldmatrix phase fall into eight
 //     different bank groups.
+//   - Each MMA step sums its 16 products from zero, and one float32 add
+//     (rounded to nearest) puts them on the running sum. The tensor cores'
+//     own additions truncate: with the running sum passed through them
+//     for all K / 16 steps, the stem's outputs at each path's checked
+//     train step (chip_smoke.py) rounded to another bf16 value than the
+//     plain version's in 658 / 2,695 / 1,734 places (640 / 1280 / P = 16),
+//     58-60% of them nearer zero; summed from zero, 414 / 1,641 / 664,
+//     51-56% nearer zero (probes/loss_check_noise.py, H100 80GB HBM3 at
+//     700 W; each path at its own trained state, which the change moves).
 //   - Two __syncthreads a slab: after the first every thread's copies of
 //     slab s have landed and every warp is done with slab s - 1; after the
 //     second the patches are whole and the image rows' room is free for the
@@ -328,9 +337,10 @@ __device__ __forceinline__ float clip_unit(float v) {
 // A block takes R output rows (b, ho) by a segment of `seg` positions wo
 // (blockIdx.y) and 64 NB channels (blockIdx.z): at most 16 MT positions.
 // With 16 NB channels a warp, 5 tiles of positions fit into the 85 registers
-// that leave three blocks on an SM; wider blocks take what they need.
+// that leave three blocks on an SM; with 48 and 3 tiles (P = 16 -> 384),
+// into the 128 that leave two; wider blocks take what they need.
 template <int MT, int NB, typename OT>
-__global__ void __launch_bounds__(THREADS, NB == 2 ? 3 : 1)
+__global__ void __launch_bounds__(THREADS, NB == 2 ? 3 : (MT <= 3 ? 2 : 1))
 patchify_fwd_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
                         OT* __restrict__ out, int H, int W, int C, int P,
                         int N, int Ho, int Wo, int total_rows, int R, int seg,
@@ -464,9 +474,14 @@ patchify_fwd_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
         uint32_t a[4];
         ldmatrix_x4(a, at + 16 * mt * A_PITCH + 16 * t);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-          mma_bf16(acc[mt][nb], a, b[nb / 2][2 * (nb % 2)],
+        for (int nb = 0; nb < NB; ++nb) {
+          // the step's 16 products from zero, then one float32 add
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(part, a, b[nb / 2][2 * (nb % 2)],
                    b[nb / 2][2 * (nb % 2) + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nb][e] += part[e];
+        }
       }
     }
   }
@@ -583,12 +598,20 @@ cudaError_t launch_mma_tiles(int MT, int NB, const float* x, const void* w,
 // g bf16 [8, 80, 80, 128], dw [192, 128]; M = 51200 positions): 39.3 MB of
 // image and 13.1 MB of g read is about 15.6 us at 3.35 TB/s, against
 // 2.5 GFLOP, about 2.5 us at the bf16 tensor-core rate. Memory bytes bound
-// it.
+// it, at the two other main shapes too: the 1280 stem (x [8, 1280, 1280,
+// 3], g [8, 160, 160, 128]) reads 209.7 MB, 62.6 us, against 10 GFLOP,
+// 10 us; the ViT patch embed (P = 16 -> 384, g [8, 40, 40, 384], dw
+// [768, 384]) moves 50.9 MB, 15.2 us, against 7.55 GFLOP, 7.6 us.
 //
-// Design (the first, simple version). The TPU kernel carries one dW
-// accumulator across its sequential grid; Hopper's blocks run in no order,
-// so the reduction over M is split into two deterministic passes with no
-// atomics:
+// The TPU kernel carries one dW accumulator across its sequential grid;
+// Hopper's blocks run in no order, so every route splits the reduction
+// over M into deterministic passes with no atomics (bitwise repeatable).
+// patchify_dw_mma_kernel (further down, with its design) takes bfloat16
+// weights and g on the tensor cores under the forward's conditions (P
+// divides the image, P*C a multiple of 8, K of 16, N of 8): the three
+// shapes the models run. The first version keeps float32 weights (tensor
+// cores would make the products TF32), the P = 4 stem and SAME-padded
+// geometries:
 //   1. patchify_dw_partial_kernel: block (chunk, k tile, n tile) sums the
 //      positions of a chunk of output rows (b, ho) into a [BK, BN] float32
 //      tile of its chunk's partial. For each row it stages the image rows
@@ -596,13 +619,13 @@ cudaError_t launch_mma_tiles(int MT, int NB, const float* x, const void* w,
 //      contiguous in NHWC, as in the forward: the gather is an offset) and
 //      the g row, both rounded, in shared memory; each thread accumulates
 //      TK x TN outputs by FMA over the row's Wo positions.
-//   2. patchify_dw_reduce_kernel: each thread sums one (k, n) over the
+//   2. patchify_partials_sum_kernel: each thread sums one (k, n) over the
 //      chunks in chunk order and writes the float32 sum and its cast.
 // The host sizes the chunks to give about two blocks per SM. Bytes: the
 // image rows a k tile touches overlap the next tile's by up to one row, and
 // the partials (7.9 MB at the flagship) are written and read once more.
-// The products run on the CUDA cores; tensor cores and TMA are the later
-// steps toward the bound.
+// The products run on the CUDA cores; it stages whole rows, so the host
+// refuses widths whose rows do not fit in shared memory.
 
 constexpr int DW_TK = 4;                    // k values per thread
 constexpr int DW_TN = 8;                    // n values per thread
@@ -721,9 +744,9 @@ patchify_dw_partial_kernel(const float* __restrict__ x,
 
 template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-patchify_dw_reduce_kernel(const float* __restrict__ partial, int chunks,
-                          int KN, float* __restrict__ dw32,
-                          WT* __restrict__ dw) {
+patchify_partials_sum_kernel(const float* __restrict__ partial, int chunks,
+                             int KN, float* __restrict__ dw32,
+                             WT* __restrict__ dw) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= KN) return;
   float s = 0.f;
@@ -756,9 +779,306 @@ cudaError_t launch_dw(const float* x, const void* g, float* partial,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int KN = K * N;
-  patchify_dw_reduce_kernel<WT><<<(KN + THREADS - 1) / THREADS, THREADS, 0,
+  patchify_partials_sum_kernel<WT><<<(KN + THREADS - 1) / THREADS, THREADS, 0,
                                   stream>>>(partial, chunks, KN, dw32,
                                             static_cast<WT*>(dw));
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The weight gradient on the tensor cores (bfloat16 weights and g).
+//
+// Every product is mma.sync.m16n8k16 on bf16 operands with float32 sums.
+// The function rounds both the patches and g to bf16 (the JAX kernel casts
+// g to the weights' dtype, pallas_patchify.py:109), and a product of two
+// bf16 values is exact in float32, so the tensor cores compute the same
+// function: only the order of the float32 sums differs from the plain
+// version. The positions m are the MMA's reduction axis: patches^T [k][m]
+// is A, g [m][n] is B, and dw [k][n] the accumulator.
+//   - A block of 8 warps owns a [192 x 128] tile of dw (4 warps along k,
+//     48 values each, by 2 along n, 64 each) whose float32 accumulators
+//     stay in registers (96 a lane) across a chunk of positions. At P = 8
+//     -> 128 that is all of dw, so the image is read from device memory
+//     once. At P = 16 -> 384 dw is 4 x 3 tiles: a k tile's image rows are
+//     its own (4 of the 16 rows of a patch), so the image is still read
+//     once, while each g value is read by the 4 k tiles of its n tile. The
+//     12 tiles of a chunk are neighbours in blockIdx.x and run together,
+//     so 9.8 MB of g come from device memory and the other 29.5 MB from L2.
+//   - A chunk is a run of stages of up to 80 positions (5 MMA steps of
+//     16): R output rows (b, ho) whole where a row is short (Wo = 40 at
+//     P = 16: two rows), or a segment of a long row, so that no image width
+//     exceeds shared memory. A stage's float32 image rows (the rows its k
+//     tile touches, 61 KB) and its g rows (bf16, 20 KB) land with cp.async
+//     into a ring of two; the next stage's copies are started as soon as
+//     a stage has landed, and run under its conversion and its products.
+//   - cp.async cannot clip or convert, so one pass clips the landed rows,
+//     rounds them to bf16 and lays them out by position, [m][k] with a
+//     pitch of 400 bytes (space-to-depth is its addressing), as the
+//     forward does. g needs no conversion: ldmatrix.trans reads its B
+//     fragments where it landed (pitch 272 bytes), and A fragments of
+//     patches^T come from the [m][k] layout through ldmatrix.trans too.
+//     Both pitches are odd numbers of 16-byte groups: the eight rows of an
+//     ldmatrix phase fall into eight different bank groups.
+//   - The reduction across chunks is deterministic: every block writes its
+//     float32 tile to its chunk's partial, and patchify_partials_sum_kernel
+//     sums the partials in chunk order and casts. With 128 chunks at the
+//     stems the partials are 12.6 MB, which stay in the 50 MB L2 between
+//     the two passes. Measured against a thread-block cluster that sums
+//     its blocks' tiles in rank order through distributed shared memory
+//     and writes one partial a cluster (probes/dw_cluster.py builds that
+//     variant from this source; H100 80GB HBM3 at 700 W, card time a call
+//     at the 640 stem / 1280 stem / P = 16): this kernel 0.047 / 0.122 /
+//     0.091 ms; clusters of 2 0.047 / 0.123 / 0.122; of 4 0.074 / 0.217 /
+//     0.166; of 8 0.074 / 0.219 / 0.168. The partials cost no measurable
+//     time at P = 8, and a cluster must find its SMs free in one GPC at
+//     once (the likely cause of the loss; not measured apart). No cluster
+//     stayed.
+// Shared memory at the main shapes: 2 x 61,440 bytes of image rows, 32,000
+// of patches, 2 x 21,760 of g, 736 of tables: 199,136 bytes, one block an
+// SM, as the 96 accumulators a lane allow anyway. ptxas (sm_90a, CUDA
+// 12.8): 168 registers, no spills.
+
+constexpr int DW_MT = 5;                     // 16-position MMA steps a stage
+constexpr int DW_STAGE = 16 * DW_MT;         // positions a stage
+constexpr int DW_KT = 192;                   // k values of a block's tile
+constexpr int DW_NT = 128;                   // channels of a block's tile
+constexpr int DW_KW = DW_KT / 4 / 16;        // 16-row k tiles of a warp: 3
+constexpr int DW_NW = DW_NT / 2 / 8;         // 8-channel blocks of a warp: 8
+constexpr int DW_CHUNKS = DW_KT / 8;         // 8-value k chunks of a tile
+constexpr int DW_A_PITCH = DW_KT + 8;        // bf16: 400 bytes a position
+constexpr int DW_G_PITCH = DW_NT + 8;        // bf16: 272 bytes a position
+
+// The most image rows (intra-patch offsets di) that one k tile touches.
+__host__ __device__ inline int dw_mma_rows(int P, int C) {
+  const int pc = P * C, K = P * pc;
+  int most = 1;
+  for (int lo = 0; lo < K; lo += DW_KT) {
+    const int hi = (lo + DW_KT < K ? lo + DW_KT : K) - 1;
+    const int n = hi / pc - lo / pc + 1;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// Shared memory: two stages of image rows as float32 [R][rows][seg*P*C],
+// the patches [DW_STAGE][DW_A_PITCH] bf16, two stages of g rows
+// [DW_STAGE][DW_G_PITCH] bf16, and the tables (row and column of each
+// position in a stage, where each k chunk lies in the image rows).
+__host__ __device__ inline long long dw_mma_raw_floats(int P, int C, int R,
+                                                       int seg) {
+  return static_cast<long long>(R) * dw_mma_rows(P, C) * seg * P * C;
+}
+__host__ __device__ inline long long dw_mma_smem(int P, int C, int R,
+                                                 int seg) {
+  return 2LL * 4 * dw_mma_raw_floats(P, C, R, seg) +
+         2LL * DW_STAGE * DW_A_PITCH + 2LL * 2 * DW_STAGE * DW_G_PITCH +
+         4LL * 2 * DW_STAGE + 4LL * DW_CHUNKS;
+}
+
+// Block (tile, chunk): k values k0.. of the tile blockIdx.x % k_tiles,
+// channels n0.. of blockIdx.x / k_tiles, stages chunk * per_chunk.. of the
+// ceil(total_rows / R) x ceil(Wo / seg) stages in position order. Writes
+// its tile of its chunk's partial [K][N].
+__global__ void __launch_bounds__(THREADS, 1)
+patchify_dw_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ g,
+                       float* __restrict__ partial, int H, int W, int C,
+                       int P, int N, int Ho, int Wo, int total_rows, int R,
+                       int seg, int per_chunk, int clip01) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int PC = P * C, K = P * PC;
+  const int nr = dw_mma_rows(P, C);
+  const long long raw_stage = dw_mma_raw_floats(P, C, R, seg);
+  float* raw = reinterpret_cast<float*>(smem);
+  bf16* as = reinterpret_cast<bf16*>(smem + 2 * 4 * raw_stage);
+  bf16* gs = as + DW_STAGE * DW_A_PITCH;
+  int* r_of = reinterpret_cast<int*>(gs + 2 * DW_STAGE * DW_G_PITCH);
+  int* wl_of = r_of + DW_STAGE;
+  int* chunk_at = wl_of + DW_STAGE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k_tiles = (K + DW_KT - 1) / DW_KT;
+  const int k0 = (blockIdx.x % k_tiles) * DW_KT;
+  const int n0 = (blockIdx.x / k_tiles) * DW_NT;
+  const int di_lo = k0 / PC;
+  const int nr_t = (min(k0 + DW_KT, K) - 1) / PC - di_lo + 1;
+  const int n_seg = (Wo + seg - 1) / seg;
+  const int stages = (total_rows + R - 1) / R * n_seg;
+  const int st_begin = blockIdx.y * per_chunk;
+  const int n_st = max(0, min(per_chunk, stages - st_begin));
+  const int seg_vals = seg * PC;
+
+  // Position m of a stage is column wl_of[m] of its row r_of[m] (R for
+  // none); k chunk c starts chunk_at[c] values into a position's image
+  // rows (-1 past K). (The divisions are taken once, here.)
+  for (int m = tid; m < DW_STAGE; m += THREADS) {
+    r_of[m] = m < R * seg ? m / seg : R;
+    wl_of[m] = m % seg;
+  }
+  for (int c = tid; c < DW_CHUNKS; c += THREADS) {
+    const int k = k0 + 8 * c;
+    const int di = k / PC;
+    chunk_at[c] = k < K ? (di - di_lo) * seg_vals + (k - di * PC) : -1;
+  }
+  __syncthreads();
+
+  // Starts the copies of stage st into ring slot buf: the image rows of
+  // its k tile as they are (float32), and its g rows (zeros past the
+  // stage's positions and past N).
+  auto stage = [&](int st, int buf) {
+    const int rg = st / n_seg, row0 = rg * R, wo0 = (st - rg * n_seg) * seg;
+    const int rows_live = min(R, total_rows - row0);
+    const int wlen = min(seg, Wo - wo0);
+    const int pieces = wlen * PC / 4;  // 16-byte pieces of a row's segment
+    float* dst_stage = raw + buf * raw_stage;
+    for (int r = 0; r < rows_live; ++r) {
+      const int b = (row0 + r) / Ho, ho = (row0 + r) - b * Ho;
+      for (int dr = 0; dr < nr_t; ++dr) {
+        const long long h = static_cast<long long>(b) * H + ho * P + di_lo + dr;
+        const float* src = x + (h * W + static_cast<long long>(wo0) * P) * C;
+        float* dst = dst_stage + (r * nr + dr) * seg_vals;
+        for (int piece = tid; piece < pieces; piece += THREADS)
+          copy_async<16>(dst + 4 * piece, src + 4 * piece, true);
+      }
+    }
+    bf16* gdst = gs + buf * DW_STAGE * DW_G_PITCH;
+    for (int i = tid; i < DW_STAGE * (DW_NT / 8); i += THREADS) {
+      const int m = i / (DW_NT / 8), col = (i % (DW_NT / 8)) * 8;
+      const bool live = r_of[m] < rows_live && wl_of[m] < wlen && n0 + col < N;
+      const long long at =
+          live ? (static_cast<long long>(row0 + r_of[m]) * Wo + wo0 +
+                  wl_of[m]) * N + n0 + col
+               : 0;
+      copy_async<16>(gdst + m * DW_G_PITCH + col, g + at, live);
+    }
+  };
+
+  // Stage st's image rows in slot buf as patches: clipped, rounded to
+  // bf16, 8 values (16 bytes) a store; zeros past the stage's positions
+  // and past K.
+  auto convert = [&](int st, int buf) {
+    const int rg = st / n_seg, row0 = rg * R, wo0 = (st - rg * n_seg) * seg;
+    const int rows_live = min(R, total_rows - row0);
+    const int wlen = min(seg, Wo - wo0);
+    const float* src_stage = raw + buf * raw_stage;
+    for (int e = tid; e < DW_STAGE * DW_CHUNKS; e += THREADS) {
+      const int m = e / DW_CHUNKS, c = e - m * DW_CHUNKS;
+      const int r = r_of[m], wl = wl_of[m], ca = chunk_at[c];
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows_live && wl < wlen && ca >= 0) {
+        const float* src = src_stage + r * nr * seg_vals + wl * PC + ca;
+        float4 a = *reinterpret_cast<const float4*>(src);
+        float4 b = *reinterpret_cast<const float4*>(src + 4);
+        if (clip01) {
+          a = make_float4(clip_unit(a.x), clip_unit(a.y), clip_unit(a.z),
+                          clip_unit(a.w));
+          b = make_float4(clip_unit(b.x), clip_unit(b.y), clip_unit(b.z),
+                          clip_unit(b.w));
+        }
+        packed = make_uint4(as_register(__floats2bfloat162_rn(a.x, a.y)),
+                            as_register(__floats2bfloat162_rn(a.z, a.w)),
+                            as_register(__floats2bfloat162_rn(b.x, b.y)),
+                            as_register(__floats2bfloat162_rn(b.z, b.w)));
+      }
+      *reinterpret_cast<uint4*>(as + m * DW_A_PITCH + 8 * c) = packed;
+    }
+  };
+
+  float acc[DW_KW][DW_NW][4];
+#pragma unroll
+  for (int kt = 0; kt < DW_KW; ++kt)
+#pragma unroll
+    for (int nb = 0; nb < DW_NW; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[kt][nb][e] = 0.f;
+
+  const int wk = warp % 4, wn = warp / 4;
+  // this lane's ldmatrix rows: for A (patches^T) position lane % 8 + 8
+  // (lane / 16) of a step, k chunk (lane / 8) % 2 of a 16-value k tile; for
+  // B (g) position lane % 16 of a step, channel block lane / 16 of a pair
+  const bf16* a_at = as + (lane % 8 + 8 * (lane / 16)) * DW_A_PITCH +
+                     wk * DW_KW * 16 + 8 * ((lane / 8) % 2);
+  const int g_off = (lane % 16) * DW_G_PITCH + wn * DW_NW * 8 + 8 * (lane / 16);
+
+  if (n_st > 0) {
+    stage(st_begin, 0);
+    commit_copies();
+  }
+  for (int i = 0; i < n_st; ++i) {
+    const int st = st_begin + i, buf = i % 2;
+    wait_copies<0>();  // this thread's part of stage i has landed
+    // every thread's part has, and every warp is done with stage i - 1
+    __syncthreads();
+    if (i + 1 < n_st) {  // stage i + 1 loads under stage i's work
+      stage(st + 1, 1 - buf);
+      commit_copies();
+    }
+    convert(st, buf);
+    __syncthreads();  // the patches are whole
+    const int rg = st / n_seg, row0 = rg * R, wo0 = (st - rg * n_seg) * seg;
+    const int m_live =
+        (min(R, total_rows - row0) - 1) * seg + min(seg, Wo - wo0);
+    const bf16* gt = gs + buf * DW_STAGE * DW_G_PITCH + g_off;
+#pragma unroll
+    for (int t = 0; t < DW_MT; ++t) {
+      if (16 * t >= m_live) break;  // the same for every thread
+      uint32_t a[DW_KW][4], b[DW_NW / 2][4];
+#pragma unroll
+      for (int kt = 0; kt < DW_KW; ++kt)
+        ldmatrix_x4_trans(a[kt], a_at + 16 * t * DW_A_PITCH + 16 * kt);
+#pragma unroll
+      for (int np = 0; np < DW_NW / 2; ++np)
+        ldmatrix_x4_trans(b[np], gt + 16 * t * DW_G_PITCH + 16 * np);
+#pragma unroll
+      for (int kt = 0; kt < DW_KW; ++kt)
+#pragma unroll
+        for (int nb = 0; nb < DW_NW; ++nb)
+          mma_bf16(acc[kt][nb], a[kt], b[nb / 2][2 * (nb % 2)],
+                   b[nb / 2][2 * (nb % 2) + 1]);
+    }
+  }
+
+  // Accumulator (kt, nb): k rows 16 (3 wk + kt) + grp and + 8, channels
+  // 8 (8 wn + nb) + 2 tig and + 1 of the tile.
+  const int grp = lane / 4, tig = lane % 4;
+  const int kw0 = wk * DW_KW * 16, nw0 = wn * DW_NW * 8;
+  float* dst = partial + static_cast<long long>(blockIdx.y) * K * N;
+#pragma unroll
+  for (int kt = 0; kt < DW_KW; ++kt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + kw0 + 16 * kt + grp + 8 * h;
+      if (k >= K) continue;
+#pragma unroll
+      for (int nb = 0; nb < DW_NW; ++nb) {
+        const int n = n0 + nw0 + 8 * nb + 2 * tig;
+        if (n < N)
+          *reinterpret_cast<float2*>(dst + static_cast<long long>(k) * N + n) =
+              make_float2(acc[kt][nb][2 * h], acc[kt][nb][2 * h + 1]);
+      }
+    }
+}
+
+cudaError_t launch_dw_mma(const float* x, const bf16* g, float* partial,
+                          float* dw32, bf16* dw, int batch, int H, int W,
+                          int C, int P, int N, int Ho, int Wo, int R, int seg,
+                          int chunks, int per_chunk, int clip01,
+                          long long smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      patchify_dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int K = P * P * C;
+  const dim3 grid((K + DW_KT - 1) / DW_KT * ((N + DW_NT - 1) / DW_NT), chunks);
+  patchify_dw_mma_kernel<<<grid, THREADS, static_cast<size_t>(smem), stream>>>(
+      x, g, partial, H, W, C, P, N, Ho, Wo, batch * Ho, R, seg, per_chunk,
+      clip01);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int KN = K * N;
+  patchify_partials_sum_kernel<bf16><<<(KN + THREADS - 1) / THREADS, THREADS,
+                                        0, stream>>>(partial, chunks, KN, dw32,
+                                                     dw);
   return cudaGetLastError();
 }
 
@@ -886,6 +1206,40 @@ int patchify_dw(const void* x, const void* g, void* partial, void* dw32,
         xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
         rows_per_chunk, chunks, clip01, vec4, s);
   return static_cast<int>(err);
+}
+
+// Launches the tensor-core weight gradient and the sum of its partials on
+// `stream` and returns cudaGetLastError(). x [batch, H, W, C] float32 and
+// g [batch, Ho, Wo, N] bfloat16, aligned to 16 bytes; partial
+// [chunks, K, N] float32 scratch, dw32 [K, N] float32 and dw
+// [K, N] bfloat16. P divides H and W, P*C is a multiple of 8, K = P*P*C of
+// 16 and N of 8; a stage is R rows (b, ho) by `seg` positions (R == 1 or
+// seg == Wo, R * seg <= 80); chunk c takes stages c * per_chunk.., and
+// `chunks` cover them all.
+// `smem_bytes` is the caller's count, checked against the kernel's own.
+int patchify_dw_mma(const void* x, const void* g, void* partial, void* dw32,
+                    void* dw, int batch, int H, int W, int C, int P, int N,
+                    int Ho, int Wo, int R, int seg, int chunks, int per_chunk,
+                    int clip01, long long smem_bytes,
+                    void* stream) {
+  const long long K = static_cast<long long>(P) * P * C;
+  const long long stages = (static_cast<long long>(batch) * Ho + R - 1) / R *
+                           ((Wo + seg - 1) / seg);
+  if (batch <= 0 || C <= 0 || P <= 0 || N <= 0 || Ho * P != H ||
+      Wo * P != W || (P * C) % 8 != 0 || K % 16 != 0 || N % 8 != 0 ||
+      R <= 0 || seg <= 0 || seg > Wo || (R > 1 && seg != Wo) ||
+      R * seg > DW_STAGE || chunks <= 0 || per_chunk <= 0 ||
+      static_cast<long long>(chunks) * per_chunk < stages ||
+      chunks > 65535 ||
+      static_cast<long long>(batch) * Ho > 0x7fffffffLL ||
+      K * N > 0x7fffffffLL || smem_bytes != dw_mma_smem(P, C, R, seg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dw_mma(
+      static_cast<const float*>(x), static_cast<const bf16*>(g),
+      static_cast<float*>(partial), static_cast<float*>(dw32),
+      static_cast<bf16*>(dw), batch, H, W, C, P, N, Ho, Wo, R, seg, chunks,
+      per_chunk, clip01, smem_bytes,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* patchify_error_string(int code) {

@@ -40,12 +40,19 @@ result directly, with the padding as zeros, so the wrapper serves every
 geometry.
 
 The weight gradient (``_dw_kernel``/``_dw_impl``, :95-113, :152-175) is
-the second kernel of the same source, ``patchify_conv_dw``: the reduction
-over the M output positions, which the TPU carries across its sequential
-grid, runs in two deterministic passes (per-chunk float32 partials, then
-a sum over the chunks in a fixed order). Its bound at the flagship shape is
-39.3 MB of image and 13.1 MB of g read, about 15.6 us at 3.35 TB/s, against
-about 2.5 us of tensor-core work: memory bytes bound it too.
+``patchify_conv_dw``: the reduction over the M output positions, which the
+TPU carries across its sequential grid, runs in two deterministic passes
+(per-chunk float32 partials, then a sum over the chunks in a fixed order).
+Its bound at the flagship shape is 39.3 MB of image and 13.1 MB of g read,
+about 15.6 us at 3.35 TB/s, against about 2.5 us of tensor-core work:
+memory bytes bound it too. It has two kernels as the forward does:
+``patchify_dw_mma_kernel`` takes bf16 weights and g on the tensor cores
+where ``dw_tensor_core_plan`` gives a plan (the forward's conditions; any
+width: a block owns a [192 x 128] tile of dw in registers over a chunk of
+80-position stages that stream two deep, image rows and g through
+``cp.async``); ``patchify_dw_emulation`` is its order of sums in plain
+torch, for the tests. ``patchify_dw_partial_kernel`` keeps float32
+weights, the P = 4 stem and SAME-padded geometries.
 ``PatchifyConvFn`` is the custom VJP (:178-206): forward through
 ``patchify_conv``, dW through ``patchify_conv_dw``, and dx in plain torch
 (depth-to-space of g times the kernel, zeroed where the clip cut) only when
@@ -161,27 +168,30 @@ def patchify_conv_dw_reference(x: torch.Tensor, g: torch.Tensor, patch: int,
 SMEM_LIMIT = 232448
 
 
+# The C entry points of csrc/patchify.cu: (argument types, result type).
+_SIGNATURES = {
+    "patchify_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
+                     + [ctypes.c_void_p], ctypes.c_int),
+    "patchify_fwd_mma": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+                         + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
+    "patchify_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "patchify_dw": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
+                    + [ctypes.c_void_p], ctypes.c_int),
+    "patchify_dw_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "patchify_dw_mma": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                        + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
+    "patchify_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     from boosted_detr_torch.ops import build
 
     lib = build.load("patchify")
-    lib.patchify_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
-                                 + [ctypes.c_void_p])
-    lib.patchify_fwd.restype = ctypes.c_int
-    lib.patchify_fwd_mma.argtypes = ([ctypes.c_void_p] * 3
-                                     + [ctypes.c_int] * 14
-                                     + [ctypes.c_longlong, ctypes.c_void_p])
-    lib.patchify_fwd_mma.restype = ctypes.c_int
-    lib.patchify_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.patchify_smem_bytes.restype = ctypes.c_longlong
-    lib.patchify_dw.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
-                                + [ctypes.c_void_p])
-    lib.patchify_dw.restype = ctypes.c_int
-    lib.patchify_dw_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.patchify_dw_smem_bytes.restype = ctypes.c_longlong
-    lib.patchify_error_string.argtypes = [ctypes.c_int]
-    lib.patchify_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -351,6 +361,119 @@ def _vec4(x: torch.Tensor, p: int) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+# The tensor-core weight gradient (``patchify_dw_mma_kernel``): a block of
+# 8 warps owns a [192 x 128] tile of dw in registers across a chunk of
+# stages of up to 80 positions. One block fits on an SM (its 96
+# accumulators a lane and 199 KB of shared memory at the main shapes), and
+# the plan aims for one block on each of the H100's 132 SMs.
+DW_MMA_TILE_K, DW_MMA_TILE_N, DW_MMA_STAGE = 192, 128, 80
+DW_MMA_BLOCKS = 132
+
+
+class DwTensorCorePlan(NamedTuple):
+    """How ``patchify_dw_mma_kernel`` cuts the work: stages of ``rows``
+    output rows (b, ho) by ``seg`` positions wo, in position order; chunk c
+    takes stages ``c * per_chunk`` on, ``chunks`` of them for each
+    [192 x 128] tile of dw; ``smem`` bytes of shared memory a block."""
+    rows: int
+    seg: int
+    chunks: int
+    per_chunk: int
+    smem: int
+
+    def stages(self, total_rows: int, wo: int) -> int:
+        return -(-total_rows // self.rows) * -(-wo // self.seg)
+
+    def span(self, st: int, total_rows: int, wo: int) -> Tuple[int, int]:
+        """Stage ``st``'s positions: a run [lo, hi) of the (b, ho, wo)
+        order of the ``total_rows`` output rows of ``wo`` positions."""
+        rg, sg = divmod(st, -(-wo // self.seg))
+        row0, wo0 = rg * self.rows, sg * self.seg
+        if self.rows > 1:  # whole rows
+            return row0 * wo, min(row0 + self.rows, total_rows) * wo
+        return row0 * wo + wo0, row0 * wo + min(wo0 + self.seg, wo)
+
+
+def _dw_tile_rows(p: int, c_in: int) -> int:
+    """The most image rows that the k values of one dw tile lie in."""
+    pc, k = p * c_in, p * p * c_in
+    return max((min(lo + DW_MMA_TILE_K, k) - 1) // pc - lo // pc + 1
+               for lo in range(0, k, DW_MMA_TILE_K))
+
+
+@functools.lru_cache(maxsize=64)
+def dw_tensor_core_plan(x_shape, g_shape, patch: int, w_dtype: torch.dtype
+                        ) -> Optional[DwTensorCorePlan]:
+    """The tensor-core weight gradient's plan for this geometry, or None
+    where the CUDA-core kernel takes it: float32 weights (the tensor cores
+    would make the products TF32), a patch that does not divide the image
+    (SAME padding), ``P * C_in`` no multiple of 8, k or channel counts no
+    multiples of 16 and 8, or a block over the shared-memory limit. Any
+    width is planned: a long row is cut into segments. A pure function of
+    the shapes: g's dtype and alignment are the wrapper's to check."""
+    batch, h, width, c_in = x_shape
+    c_out = g_shape[3]
+    p = patch
+    pc = p * c_in
+    if (w_dtype != torch.bfloat16 or h % p or width % p or pc % 8
+            or (p * pc) % 16 or c_out % 8 or 0 in (batch, h, width, c_out)):
+        return None
+    ho, wo = h // p, width // p
+    if wo > DW_MMA_STAGE:
+        rows, seg = 1, -(-wo // -(-wo // DW_MMA_STAGE))
+    else:
+        rows, seg = max(1, min(DW_MMA_STAGE // wo, batch * ho)), wo
+    smem = (2 * 4 * rows * _dw_tile_rows(p, c_in) * seg * pc
+            + 2 * DW_MMA_STAGE * (DW_MMA_TILE_K + 8)
+            + 2 * 2 * DW_MMA_STAGE * (DW_MMA_TILE_N + 8)
+            + 4 * 2 * DW_MMA_STAGE + 4 * (DW_MMA_TILE_K // 8))
+    if smem > SMEM_LIMIT:
+        return None
+    tiles = -(-p * pc // DW_MMA_TILE_K) * -(-c_out // DW_MMA_TILE_N)
+    stages = -(-batch * ho // rows) * -(-wo // seg)
+    per_chunk = -(-stages // max(1, min(stages, DW_MMA_BLOCKS // tiles)))
+    return DwTensorCorePlan(rows, seg, -(-stages // per_chunk), per_chunk,
+                            smem)
+
+
+def patchify_dw_emulation(x: torch.Tensor, g: torch.Tensor, patch: int,
+                          w_dtype: torch.dtype, *, clip01: bool = False,
+                          plan: Optional[DwTensorCorePlan] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core weight gradient's arithmetic in plain torch, for the
+    tests: each chunk's float32 partial summed in the kernel's order of
+    16-position MMA steps (a step's 16 exact products summed in float32),
+    then the partials summed in chunk order from zero, and the cast.
+    ``plan`` defaults to the kernel's. Returns (dw, dw32) as
+    ``patchify_conv_dw`` does."""
+    _check_dw(x, g, patch, w_dtype)
+    plan = plan or dw_tensor_core_plan(tuple(x.shape), tuple(g.shape),
+                                       patch, w_dtype)
+    if plan is None:
+        raise ValueError(f"patchify_dw_emulation: no tensor-core plan for x "
+                         f"{tuple(x.shape)}, g {tuple(g.shape)}, P={patch}, "
+                         f"{w_dtype}")
+    patches, (b, ho, wo) = _patch_matrix(x, patch, w_dtype, clip01)
+    a = patches.float()
+    c_out = g.shape[-1]
+    gm = g.reshape(-1, c_out).to(w_dtype).float()
+    total = b * ho
+    stages = plan.stages(total, wo)
+    dw32 = torch.zeros((a.shape[1], c_out), dtype=torch.float32,
+                       device=x.device)
+    for c in range(plan.chunks):
+        acc = torch.zeros_like(dw32)
+        for st in range(c * plan.per_chunk,
+                        min((c + 1) * plan.per_chunk, stages)):
+            lo, hi = plan.span(st, total, wo)
+            for t in range(lo, hi, 16):
+                e = min(t + 16, hi)
+                acc = acc + a[t:e].t() @ gm[t:e]
+        dw32 = dw32 + acc
+    dw32 = dw32.reshape(patch, patch, x.shape[-1], c_out)
+    return dw32.to(w_dtype), dw32
+
+
 def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
                      w_dtype: torch.dtype, *, clip01: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,8 +482,10 @@ def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
     ``w_dtype``, its float32 sum before the rounding).
 
     A CPU tensor goes to ``patchify_conv_dw_reference``. A CUDA tensor
-    launches the kernel or raises; there is no fallback. Each launch adds
-    one to ``patchify_conv_dw.launches``."""
+    launches a kernel (the tensor-core one where ``dw_tensor_core_plan``
+    gives a plan, g is bf16 and x and g are aligned to 16 bytes; else the
+    CUDA-core one) or raises; there is no fallback. Each call that
+    launches adds one to ``patchify_conv_dw.launches``."""
     _check_dw(x, g, patch, w_dtype)
     if x.device.type == "cpu" and g.device.type == "cpu":
         return patchify_conv_dw_reference(x, g, patch, w_dtype,
@@ -382,33 +507,51 @@ def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
     if b * ho * wo == 0:
         return dw.zero_().reshape(shape), dw32.zero_().reshape(shape)
     lib = _library()
-    smem = lib.patchify_dw_smem_bytes(patch, c_in, wo)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"patchify_conv_dw: a block needs {smem} bytes of shared memory "
-            f"for P={patch}, C_in={c_in}, Wo={wo}, over the {SMEM_LIMIT}-byte "
-            f"limit")
-    tiles = -(-k // DW_TILE_K) * -(-c_out // DW_TILE_N)
-    rows = b * ho
-    rows_per_chunk = -(-rows // max(1, min(rows, -(-DW_TARGET_BLOCKS
-                                                     // tiles))))
-    chunks = -(-rows // rows_per_chunk)
-    partial = torch.empty((chunks, k, c_out), dtype=torch.float32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.patchify_dw(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw32.data_ptr(),
-            dw.data_ptr(), b, h, width, c_in, patch, c_out, ho, wo, top, left,
-            rows_per_chunk, chunks, int(w_dtype == torch.bfloat16),
-            int(g.dtype == torch.bfloat16), int(clip01),
-            int(_vec4(x, patch)), stream)
+    # the tensor-core kernel takes g as it is (bf16) and copies 16 bytes at
+    # a time
+    plan = (dw_tensor_core_plan(tuple(x.shape), tuple(g.shape), patch,
+                                w_dtype)
+            if g.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and g.data_ptr() % 16 == 0 else None)
+    if plan is not None:
+        partial = torch.empty((plan.chunks, k, c_out),
+                              dtype=torch.float32, device=x.device)
+        how = plan
+        with torch.cuda.device(x.device):
+            rc = lib.patchify_dw_mma(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw32.data_ptr(), dw.data_ptr(), b, h, width, c_in, patch,
+                c_out, ho, wo, plan.rows, plan.seg, plan.chunks,
+                plan.per_chunk, int(clip01), plan.smem,
+                torch.cuda.current_stream().cuda_stream)
+    else:
+        smem = lib.patchify_dw_smem_bytes(patch, c_in, wo)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"patchify_conv_dw: a block needs {smem} bytes of shared "
+                f"memory for P={patch}, C_in={c_in}, Wo={wo}, over the "
+                f"{SMEM_LIMIT}-byte limit")
+        tiles = -(-k // DW_TILE_K) * -(-c_out // DW_TILE_N)
+        rows = b * ho
+        rows_per_chunk = -(-rows // max(1, min(rows, -(-DW_TARGET_BLOCKS
+                                                         // tiles))))
+        chunks = -(-rows // rows_per_chunk)
+        partial = torch.empty((chunks, k, c_out), dtype=torch.float32,
+                              device=x.device)
+        how = f"the CUDA-core kernel, {chunks} chunks of {rows_per_chunk} rows"
+        with torch.cuda.device(x.device):
+            rc = lib.patchify_dw(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw32.data_ptr(), dw.data_ptr(), b, h, width, c_in, patch,
+                c_out, ho, wo, top, left, rows_per_chunk, chunks,
+                int(w_dtype == torch.bfloat16),
+                int(g.dtype == torch.bfloat16), int(clip01),
+                int(_vec4(x, patch)), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"patchify_dw launch failed: "
             f"{lib.patchify_error_string(rc).decode()} (x {tuple(x.shape)}, "
-            f"g {tuple(g.shape)} {g.dtype}, w {w_dtype}, {chunks} chunks of "
-            f"{rows_per_chunk} rows)")
+            f"g {tuple(g.shape)} {g.dtype}, w {w_dtype}; {how})")
     patchify_conv_dw.launches += 1
     return dw.reshape(shape), dw32.reshape(shape)
 

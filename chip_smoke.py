@@ -11,8 +11,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    per source, all at once;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
-   (K1-fwd; bf16 weights on the tensor cores, float32 weights and the P=4
-   stem on the CUDA cores) and weight gradient (K1-dW), the exact matcher
+   (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
+   tensor cores and float32 weights and the P=4 stem on the CUDA cores,
+   the exact matcher
    (K2), and the fused attention's forward with its lse (K3-fwd), dq
    (K3-dq) and dk/dv (K3-dkdv) in bf16 (on the tensor cores) and float32
    (on the CUDA cores); holds each result against the plain PyTorch version
@@ -42,10 +43,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
    and a ViT DETR): one forward, and one train step;
-5. kernel names: which device kernel each forward of phase 2 runs, from a
-   profile (tensor cores for bf16, CUDA cores for float32 and the P=4
-   stem), in a process of its own (``chip_smoke.py kernel-names``); a bf16
-   path's profiled forward is held to the same in phase 3;
+5. kernel names: which device kernel each forward and each weight
+   gradient of phase 2 runs, from a profile (tensor cores for bf16, CUDA
+   cores for float32 and the P=4 stem), in a process of its own
+   (``chip_smoke.py kernel-names``); a bf16 path's profiled forward is
+   held to the same in phase 3;
 6. report: the card's name and power limit, a ``kernels`` JSON line, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -113,6 +115,11 @@ K3_PASSES = {"fwd": 3, "dq": 4, "dkdv": 6}
 K1_CASES = ((8, 128, torch.bfloat16, 0, RES), (8, 128, torch.float32, 1, RES),
             (4, 64, torch.bfloat16, 2, RES), (16, 384, torch.bfloat16, 3, RES),
             (8, 128, torch.bfloat16, 30, HR_RES))
+# K1-dW's cases, as K1_CASES: the 640 stem's first (the ``kernels`` line's
+# row); bf16 on the tensor cores, float32 and the P=4 stem on the CUDA cores.
+DW_CASES = ((8, 128, torch.bfloat16, 4, RES), (8, 128, torch.float32, 5, RES),
+            (4, 64, torch.bfloat16, 6, RES), (16, 384, torch.bfloat16, 7, RES),
+            (8, 128, torch.bfloat16, 31, HR_RES))
 K3_FIRST_SEED = 11  # K3's cases take seeds from here on, bf16 first
 # K3 at the shapes the new main paths give it: (label, BH, Tq, Tk, D)
 K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
@@ -193,7 +200,8 @@ def _expect_kernel(fn, tag, name, what):
         ran = _device_kernels(fn, tag)
         if ran:
             break
-    if len(ran) != 1 or f"{name}<" not in ran[0]:
+    # a template's name is followed by its arguments, a plain one's by (
+    if len(ran) != 1 or not any(f"{name}{c}" in ran[0] for c in "<("):
         raise AssertionError(f"{what}: expected {name}, ran {ran}")
     _say(f"  {what}: ran {name}")
 
@@ -203,9 +211,10 @@ def kernel_names() -> int:
     of its own once its timed phases are over: which device kernel each
     forward of the kernels phase runs, by name from a profile: the
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
-    the P=4 stem. Apart, because a profiler, once used, stays attached to
-    its process, slows every later launch there, and after the paths' long
-    profiles drops kernels of short ones."""
+    the P=4 stem; the same for each weight gradient. Apart, because a
+    profiler, once used, stays attached to its process, slows every later
+    launch there, and after the paths' long profiles drops kernels of
+    short ones."""
     from boosted_detr_torch.ops import attention as A
     from boosted_detr_torch.ops import patchify as P
 
@@ -216,6 +225,15 @@ def kernel_names() -> int:
                        "patchify_fwd", "patchify_fwd_kernel" if plan is None
                        else "patchify_fwd_mma_kernel",
                        _patchify_label(patch, c_out, dtype, res))
+    for patch, c_out, dtype, seed, res in DW_CASES:
+        x, g = _dw_inputs(patch, c_out, dtype, seed, res)
+        plan = P.dw_tensor_core_plan(tuple(x.shape), tuple(g.shape), patch,
+                                     dtype)
+        _expect_kernel(lambda: P.patchify_conv_dw(x, g, patch, dtype,
+                                                  clip01=True),
+                       "patchify_dw", "patchify_dw_partial_kernel"
+                       if plan is None else "patchify_dw_mma_kernel",
+                       _dw_label(patch, c_out, dtype, res))
     seed = K3_FIRST_SEED
     for dtype in (torch.bfloat16, torch.float32):
         for label, bh, tq, tk, d in K3_SHAPES:
@@ -336,22 +354,32 @@ def _bound(n_bytes, ops, dtype):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _dw_case(patch, c_out, dtype, seed, flush, res=RES):
-    """K1-dW: the stem's weight gradient for an output cotangent g in the
-    weights' dtype (the output's, on the stem), as the train step gives it."""
-    from boosted_detr_torch.ops import patchify as P
-
+def _dw_inputs(patch, c_out, dtype, seed, res):
+    """The image and an output cotangent g in the weights' dtype (the
+    output's, on the stem), as the train step gives them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.rand((BATCH, res, res, 3), generator=gen, device="cuda")
     x = x * 1.2 - 0.1
     ho = res // patch
     g = torch.randn((BATCH, ho, ho, c_out), generator=gen,
                     device="cuda").to(dtype)
+    return x, g
+
+
+def _dw_label(patch, c_out, dtype, res):
+    return f"dW {res}px P={patch} -> {c_out} {str(dtype)[6:]}"
+
+
+def _dw_case(patch, c_out, dtype, seed, res, flush):
+    """K1-dW: the stem's weight gradient at one of DW_CASES."""
+    from boosted_detr_torch.ops import patchify as P
+
+    x, g = _dw_inputs(patch, c_out, dtype, seed, res)
     dw, dw32 = P.patchify_conv_dw(x, g, patch, dtype, clip01=True)
     ref, ref32 = P.patchify_conv_dw_reference(x, g, patch, dtype,
                                               clip01=True)
     torch.cuda.synchronize()
-    what = f"dW {res}px P={patch} -> {c_out} {str(dtype)[6:]}"
+    what = _dw_label(patch, c_out, dtype, res)
     # Both sum the same exact products of rounded values in float32, in
     # other orders (the kernel's per-chunk partials against cuBLAS): the
     # float32 sums differ by a few ulps of the sum of the products'
@@ -378,23 +406,41 @@ def _dw_case(patch, c_out, dtype, seed, flush, res=RES):
                       2 * m * k * c_out, dtype))
     # The library yardstick, which the port never calls: cuDNN's weight
     # gradient of the stride-P conv on the clipped image in the weights'
-    # dtype (NCHW views of NHWC data, channels_last).
-    xc = x.clamp(0.0, 1.0).to(dtype).permute(0, 3, 1, 2)
+    # dtype (NCHW views of NHWC data, channels_last). ``library_ms`` times
+    # it on an image clipped and converted beforehand, as in every earlier
+    # run; ``library_full_ms`` times what the kernel computes: clamp,
+    # convert and the weight gradient.
+    def clipped():
+        return x.clamp(0.0, 1.0).to(dtype).permute(0, 3, 1, 2)
+
+    xc = clipped()
     gc = g.permute(0, 3, 1, 2)
     w_size = (c_out, 3, patch, patch)
     lib = torch.nn.grad.conv2d_weight(xc, w_size, gc, stride=patch)
     lib_err = (lib.permute(2, 3, 1, 0).float() - ref32).abs().max().item()
     _say(f"  {what} cuDNN yardstick: max abs err {lib_err:.3e}")
+
+    def kernel():
+        return P.patchify_conv_dw(x, g, patch, dtype, clip01=True)
+
     row.update(
-        ms=_time_ms(lambda: P.patchify_conv_dw(x, g, patch, dtype,
-                                               clip01=True), flush),
+        ms=_time_ms(kernel, flush),
         plain_ms=_time_ms(lambda: P.patchify_conv_dw_reference(
             x, g, patch, dtype, clip01=True), flush),
         library_ms=_time_ms(lambda: torch.nn.grad.conv2d_weight(
-            xc, w_size, gc, stride=patch), flush))
+            xc, w_size, gc, stride=patch), flush),
+        library_full_ms=_time_ms(lambda: torch.nn.grad.conv2d_weight(
+            clipped(), w_size, gc, stride=patch), flush),
+        device_ms=_time_ms(kernel, flush, spin_cycles=SPIN_CYCLES))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     _say(f"  {what}: kernel {row['ms']:.4f} ms, plain "
-         f"{row['plain_ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms, "
-         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+         f"{row['plain_ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms (with "
+         f"the clamp and the conversion {row['library_full_ms']:.4f} ms), "
+         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+         f"{100 * row['bound_share']:.1f}% of it reached); "
+         f"{row['device_ms']:.4f} ms with the launch enqueued ahead of the "
+         f"card ({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
+         f"bound)")
     return row
 
 
@@ -417,6 +463,13 @@ def _lap_case(b, o, p, seed, flush, edges=False):
     L.hungarian_lap_reference.relaxations = 0
     want = L.hungarian_lap_reference(cost, n)
     relaxations = L.hungarian_lap_reference.relaxations
+    # the Dijkstra steps of each problem alone: the kernel gives a problem
+    # one warp, so the longest problem's chain of steps bounds its time
+    steps = []
+    for i in range(b):
+        L.hungarian_lap_reference.relaxations = 0
+        L.hungarian_lap_reference(cost[i:i + 1], n[i:i + 1])
+        steps.append(L.hungarian_lap_reference.relaxations)
     torch.cuda.synchronize()
     what = f"LAP [{b}, {o}, {p}]" + (" n=0 and n=O" if edges else "")
     mask = got.cpu().numpy()
@@ -443,7 +496,7 @@ def _lap_case(b, o, p, seed, flush, edges=False):
     # subtractions and a compare for the relaxation, a compare for the
     # argmin, the dual or distance update).
     row = {"shape": what, "max_abs_err": max_abs,
-           "relaxations": relaxations}
+           "relaxations": relaxations, "longest_steps": max(steps)}
     row.update(_bound(2 * cost.numel() * 4 + n.numel() * 4,
                       relaxations * (p + o + 1) * 6, torch.float32))
 
@@ -456,10 +509,14 @@ def _lap_case(b, o, p, seed, flush, edges=False):
     row.update(ms=_time_ms(lambda: L.hungarian_lap(cost, n), flush),
                plain_ms=_time_ms(lambda: L.hungarian_lap_reference(cost, n),
                                  flush, repeats=5),
-               library_ms=None, scipy_host_ms=_host_ms(host))
-    _say(f"  {what}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-         f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
-         f"{relaxations} Dijkstra steps); no PyTorch call computes a LAP; "
+               library_ms=None, scipy_host_ms=_host_ms(host),
+               device_ms=_time_ms(lambda: L.hungarian_lap(cost, n), flush,
+                                  spin_cycles=SPIN_CYCLES))
+    _say(f"  {what}: kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms "
+         f"with the launch enqueued ahead of the card), plain "
+         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+         f"({row['bound_by']}, {relaxations} Dijkstra steps, the longest "
+         f"problem {row['longest_steps']}); no PyTorch call computes a LAP; "
          f"note: scipy on the host, D2H copy included, "
          f"{row['scipy_host_ms']:.4f} ms")
     return row
@@ -612,11 +669,7 @@ def phase_kernels():
     rows = {"patchify_fwd": [_patchify_case(*case, flush)
                              for case in K1_CASES]}
     _say("[kernels] patchify_conv_dw against patchify_conv_dw_reference")
-    rows["patchify_dw"] = [_dw_case(8, 128, bf16, 4, flush),
-                           _dw_case(8, 128, torch.float32, 5, flush),
-                           _dw_case(4, 64, bf16, 6, flush),
-                           _dw_case(16, 384, bf16, 7, flush),
-                           _dw_case(8, 128, bf16, 31, flush, res=HR_RES)]
+    rows["patchify_dw"] = [_dw_case(*case, flush) for case in DW_CASES]
     _say("[kernels] hungarian_lap against hungarian_lap_reference and scipy")
     rows["lap"] = [_lap_case(8, 32, 96, 8, flush),
                    _lap_case(8, 32, 96, 9, flush, edges=True),
@@ -1100,6 +1153,11 @@ def phase_training(name, warmup, steps):
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.is_user_annotation]
+        row["profile_k1_dw_ms"] = sum(
+            e.self_device_time_total for e in kernels
+            if "patchify_dw" in e.key or "patchify_partials" in e.key) / 1e3
+        _say(f"  K1-dW (both passes): {row['profile_k1_dw_ms']:.3f} device "
+             f"ms of the step")
         if attention_ms:
             row["profile_k3_ms"] = {
                 tag: sum(e.self_device_time_total for e in kernels
@@ -1264,10 +1322,12 @@ def _kernel_line(rows, paths):
     out = []
     for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]
-        # the redesigned kernels' share of their bound and their time with
-        # the launch enqueued ahead of the card; K1-fwd's whole library call
+        # the share of the bound and the time with the launch enqueued
+        # ahead of the card; K1's whole library calls; K2's longest chain
+        # of Dijkstra steps
         extra = {k: main_row[k]
-                 for k in ("bound_share", "device_ms", "library_full_ms")
+                 for k in ("bound_share", "device_ms", "library_full_ms",
+                           "longest_steps")
                  if k in main_row}
         out.append({
             "name": name, "route": "cuda", "source": source,

@@ -206,3 +206,120 @@ def test_tensor_core_plan_counts_the_shared_memory():
     # a block that cannot fit is left to the other kernel, which refuses it
     assert tp.tensor_core_plan((1, 128, 128 * 80, 48), (128, 128, 48, 8),
                                torch.bfloat16) is None
+
+
+# The tensor-core weight gradient's arithmetic (``patchify_dw_emulation``)
+# against JAX's ``_dw_kernel`` in interpret mode, through the gradient of
+# ``patchify_conv`` as above, with bf16 weights: P=8 -> 128 at Wo = 75
+# (ragged 16-position steps, 7 stages of one row) and P=16 -> 384 (two
+# stages: 5 rows, then 1). The kernel's plan takes a chunk a stage; the
+# emulation also runs the stages as one chunk, and as chunks of 2 (a
+# ragged last one at P=8).
+_EMULATED_DW = {8: ((1, 56, 600, 3), 128), 16: ((2, 48, 240, 3), 384)}
+_jax_dw_cache = {}
+
+
+def _jax_dw(patch):
+    """(x, g, JAX's bf16 dW) at the patch's shape, computed once."""
+    if patch not in _jax_dw_cache:
+        shape, cout = _EMULATED_DW[patch]
+        x, w = _inputs(shape, patch, cout, seed=6)
+        g = np.random.default_rng(7).standard_normal(
+            (shape[0], shape[1] // patch, shape[2] // patch, cout)).astype(
+                np.float32)
+
+        def loss(wj):
+            out = jp.patchify_conv(jnp.asarray(x), wj, clip01=True)
+            return jnp.sum(out.astype(jnp.float32) * g)
+
+        dw = jax.grad(loss)(jnp.asarray(w).astype(jnp.bfloat16))
+        _jax_dw_cache[patch] = (x, g, np.array(jnp.asarray(dw, jnp.float32)))
+    return _jax_dw_cache[patch]
+
+
+@pytest.mark.parametrize("per_chunk", [1, 2, 8])
+@pytest.mark.parametrize("patch", [8, 16])
+def test_dw_emulation_matches_jax_kernel(patch, per_chunk):
+    x, g, ref_dw = _jax_dw(patch)
+    shape, cout = _EMULATED_DW[patch]
+    xt = torch.from_numpy(x)
+    gt = torch.from_numpy(g).bfloat16()  # the cotangent of a bf16 output
+    plan = tp.dw_tensor_core_plan(shape, gt.shape, patch, torch.bfloat16)
+    stages = plan.stages(gt.shape[0] * gt.shape[1], gt.shape[2])
+    assert plan.per_chunk == 1 and plan.chunks == stages > 1
+    plan = plan._replace(per_chunk=per_chunk,
+                         chunks=-(-stages // per_chunk))
+    dw, dw32 = tp.patchify_dw_emulation(xt, gt, patch, torch.bfloat16,
+                                        clip01=True, plan=plan)
+    ref, ref32 = tp.patchify_conv_dw_reference(xt, gt, patch, torch.bfloat16,
+                                               clip01=True)
+    # the chip's gate: the float32 sums within 1e-5 of the summed
+    # |products| plus 1e-6, and each cast within one bf16 ulp more
+    patches, _ = tp._patch_matrix(xt, patch, torch.bfloat16, True)
+    scale = (patches.float().abs().t()
+             @ gt.reshape(-1, cout).float().abs()).reshape(dw32.shape)
+    bound = 1e-5 * scale + 1e-6
+    assert ((dw32 - ref32).abs() <= bound).all()
+    for want in (torch.from_numpy(ref_dw), ref.float()):
+        assert ((dw.float() - want).abs()
+                <= bound + 2.0 ** -7 * want.abs()).all()
+
+
+@pytest.mark.parametrize("x_shape,g_shape,patch,want", [
+    # the three shapes the main paths run: (rows, seg, chunks, per_chunk)
+    ((8, 640, 640, 3), (8, 80, 80, 128), 8, (1, 80, 128, 5)),
+    ((8, 1280, 1280, 3), (8, 160, 160, 128), 8, (1, 80, 128, 20)),
+    ((8, 640, 640, 3), (8, 40, 40, 384), 16, (2, 40, 11, 15)),
+    # a width whose rows the CUDA-core kernel cannot stage
+    ((1, 16, 4096, 3), (1, 1, 256, 8), 16, (1, 64, 4, 1)),
+])
+def test_dw_plan_covers_every_position_once(x_shape, g_shape, patch, want):
+    plan = tp.dw_tensor_core_plan(x_shape, g_shape, patch, torch.bfloat16)
+    assert (plan.rows, plan.seg, plan.chunks, plan.per_chunk) == want
+    assert plan.smem <= tp.SMEM_LIMIT
+    assert plan.rows * plan.seg <= tp.DW_MMA_STAGE
+    total, wo = g_shape[0] * g_shape[1], g_shape[2]
+    seen = torch.zeros(total * wo, dtype=torch.int32)
+    for c in range(plan.chunks):
+        for st in range(c * plan.per_chunk,
+                        min((c + 1) * plan.per_chunk,
+                            plan.stages(total, wo))):
+            lo, hi = plan.span(st, total, wo)
+            assert 0 < hi - lo <= plan.rows * plan.seg
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("x_shape,g_shape,patch,dtype", [
+    ((8, 640, 640, 3), (8, 80, 80, 128), 8, torch.float32),  # TF32 else
+    ((2, 64, 48, 3), (2, 16, 12, 64), 4, torch.bfloat16),    # P * C_in = 12
+    ((1, 100, 84, 3), (1, 13, 11, 24), 8, torch.bfloat16),   # SAME padding
+    ((1, 64, 64, 3), (1, 8, 8, 20), 8, torch.bfloat16),      # N % 8
+])
+def test_dw_plan_leaves_the_rest_to_the_cuda_core_kernel(x_shape, g_shape,
+                                                         patch, dtype):
+    assert tp.dw_tensor_core_plan(x_shape, g_shape, patch, dtype) is None
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each C entry point of csrc/patchify.cu takes the arguments its
+    ctypes signature passes: a pointer, an int or a long long each."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(tp.__file__).resolve().parents[1] / "csrc"
+           / "patchify.cu").read_text()
+    c_types = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+               "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    results = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+               "const char*": ctypes.c_char_p}
+    exported = src[src.index('extern "C" {'):]
+    found = {}
+    for ret, name, params in re.findall(
+            r"^(int|long long|const char\*) (\w+)\(([^)]*)\)\s*\{", exported,
+            flags=re.M):
+        args = [c_types[" ".join(p.split()[:-1])]
+                for p in params.replace("\n", " ").split(",")]
+        found[name] = (args, results[ret])
+    assert found == tp._SIGNATURES

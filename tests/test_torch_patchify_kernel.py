@@ -184,17 +184,22 @@ def test_dw_kernel_refuses_rows_that_do_not_fit(cuda):
     assert tp.patchify_conv_dw.launches == before
 
 
-def _forward_kernel_names(call):
-    """Names of the device kernels of the stem's forward that ``call``
-    launches."""
+def _kernel_names(call, tag):
+    """Names of the device kernels with ``tag`` in their name that ``call``
+    launches, from a profile (one that recorded nothing is taken again,
+    twice)."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        call()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "patchify_fwd" in e.key]
+    for _ in range(3):
+        with torch.profiler.profile(activities=activities) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and tag in e.key]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.gpu
@@ -223,7 +228,7 @@ def test_tensor_core_forward(cuda, shape, patch, cout, out_dtype):
 
     out = call()
     torch.cuda.synchronize()
-    names = _forward_kernel_names(call)
+    names = _kernel_names(call, "patchify_fwd")
     assert len(names) == 1 and "patchify_fwd_mma_kernel" in names[0], names
     ref = tp.patchify_conv_reference(xt, wt, out_dtype=_DT[out_dtype],
                                      clip01=True)
@@ -251,8 +256,8 @@ def test_other_inputs_keep_the_cuda_core_kernel(cuda, shape, patch, cout,
     wt = torch.from_numpy(w).to(cuda, _DT[dtype])
     assert tp.tensor_core_plan(xt.shape, wt.shape, wt.dtype) is None
     tp.patchify_conv(xt, wt, clip01=True)  # built and loaded
-    names = _forward_kernel_names(
-        lambda: tp.patchify_conv(xt, wt, clip01=True))
+    names = _kernel_names(
+        lambda: tp.patchify_conv(xt, wt, clip01=True), "patchify_fwd")
     assert len(names) == 1 and "patchify_fwd_kernel" in names[0], names
     torch.testing.assert_close(
         tp.patchify_conv(xt, wt, clip01=True).float(),
@@ -271,8 +276,99 @@ def test_misaligned_image_keeps_the_cuda_core_kernel(cuda):
     wt = torch.from_numpy(w).to(cuda, torch.bfloat16)
     assert xt.is_contiguous() and xt.data_ptr() % 16
     tp.patchify_conv(xt, wt)
-    names = _forward_kernel_names(lambda: tp.patchify_conv(xt, wt))
+    names = _kernel_names(lambda: tp.patchify_conv(xt, wt),
+                          "patchify_fwd")
     assert len(names) == 1 and "patchify_fwd_kernel" in names[0], names
     torch.testing.assert_close(
         tp.patchify_conv(xt, wt).float(),
         tp.patchify_conv_reference(xt, wt).float(), **_TOL["bfloat16"])
+
+
+def _dw_gate(dw, dw32, ref, ref32, patches, g):
+    """The chip's K1-dW gate: float32 sums within 1e-5 of the summed
+    |products| plus 1e-6, each bf16 cast within one ulp (2**-7) more."""
+    scale = (patches.float().abs().t()
+             @ g.reshape(-1, g.shape[-1]).float().abs()).reshape(dw32.shape)
+    bound = 1e-5 * scale + 1e-6
+    assert ((dw32 - ref32).abs() <= bound).all()
+    assert ((dw.float() - ref.float()).abs()
+            <= bound + 2.0 ** -7 * ref.float().abs()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,patch,cout", [
+    ((8, 640, 640, 3), 8, 128),    # the flagship stem
+    ((1, 1280, 1280, 3), 8, 128),  # the 1280px stem, batch 1: two segments
+    ((8, 640, 640, 3), 16, 384),   # the ViT patch embed: 4 x 3 tiles
+    ((3, 56, 600, 3), 8, 72),      # Wo = 75: ragged steps; ragged N
+    ((2, 32, 32, 4), 8, 520),      # P * C_in = 32: a ragged second k tile
+])
+def test_tensor_core_dw(cuda, shape, patch, cout):
+    """bfloat16 weights and g where the patch divides the image take the
+    tensor-core weight gradient: against the plain version and the
+    emulation under the chip's gate, by kernel name, and bitwise
+    repeatable."""
+    xt, gt = _dw_case(cuda, shape, patch, cout, "bfloat16", True, seed=8)
+    plan = tp.dw_tensor_core_plan(xt.shape, gt.shape, patch, torch.bfloat16)
+    assert plan is not None
+
+    def call():
+        return tp.patchify_conv_dw(xt, gt, patch, torch.bfloat16, clip01=True)
+
+    before = tp.patchify_conv_dw.launches
+    dw, dw32 = call()
+    torch.cuda.synchronize()
+    assert tp.patchify_conv_dw.launches == before + 1
+    names = _kernel_names(call, "patchify_dw")
+    assert len(names) == 1 and "patchify_dw_mma_kernel" in names[0], names
+    patches, _ = tp._patch_matrix(xt, patch, torch.bfloat16, True)
+    ref, ref32 = tp.patchify_conv_dw_reference(xt, gt, patch, torch.bfloat16,
+                                               clip01=True)
+    _dw_gate(dw, dw32, ref, ref32, patches, gt)
+    emu, emu32 = tp.patchify_dw_emulation(xt, gt, patch, torch.bfloat16,
+                                          clip01=True, plan=plan)
+    _dw_gate(dw, dw32, emu, emu32, patches, gt)
+    again, again32 = call()
+    assert torch.equal(dw32, again32) and torch.equal(dw, again)
+
+
+@pytest.mark.gpu
+def test_tensor_core_dw_takes_any_width(cuda):
+    # P=16 at W=4096: rows the CUDA-core kernel cannot stage (its float32
+    # route refuses them, test_dw_kernel_refuses_rows_that_do_not_fit);
+    # the tensor-core kernel cuts them into segments of 64 positions
+    xt, gt = _dw_case(cuda, (1, 16, 4096, 3), 16, 8, "bfloat16", True)
+    before = tp.patchify_conv_dw.launches
+    dw, dw32 = tp.patchify_conv_dw(xt, gt, 16, torch.bfloat16, clip01=True)
+    torch.cuda.synchronize()
+    assert tp.patchify_conv_dw.launches == before + 1
+    ref, ref32 = tp.patchify_conv_dw_reference(xt, gt, 16, torch.bfloat16,
+                                               clip01=True)
+    patches, _ = tp._patch_matrix(xt, 16, torch.bfloat16, True)
+    _dw_gate(dw, dw32, ref, ref32, patches, gt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,patch,cout,w_dtype,g_dtype", [
+    ((2, 640, 640, 3), 8, 128, "float32", "float32"),   # float32 weights
+    ((2, 640, 640, 3), 8, 128, "bfloat16", "float32"),  # g not bf16
+    ((2, 64, 48, 3), 4, 64, "bfloat16", "bfloat16"),    # P * C_in = 12
+    ((1, 100, 84, 3), 8, 24, "bfloat16", "bfloat16"),   # SAME padding
+])
+def test_other_dw_inputs_keep_the_cuda_core_kernel(cuda, shape, patch, cout,
+                                                   w_dtype, g_dtype):
+    xt, gt = _dw_case(cuda, shape, patch, cout, g_dtype, True, seed=9)
+    w_dt = _DT[w_dtype]
+
+    def call():
+        return tp.patchify_conv_dw(xt, gt, patch, w_dt, clip01=True)
+
+    dw, dw32 = call()
+    names = _kernel_names(call, "patchify_dw")
+    assert len(names) == 1 and "patchify_dw_partial_kernel" in names[0], names
+    ref, ref32 = tp.patchify_conv_dw_reference(xt, gt, patch, w_dt,
+                                               clip01=True)
+    patches, _ = tp._patch_matrix(xt, patch, w_dt, True)
+    g_r = gt.to(w_dt)
+    _dw_gate(dw, dw32, ref if w_dt == torch.bfloat16 else ref32, ref32,
+             patches, g_r)
