@@ -20,25 +20,60 @@ deterministically, with the lowest index winning a tie in the argmin
 (``torch.min`` over a dim returns the first minimum, as ``jnp.argmin``
 does). It is also the port's ``matcher="hungarian"`` solver.
 
-The kernel, ``csrc/lap.cu``, is CUDA C++ for ``sm_90a``: one warp per
-problem, the C columns spread over the 32 lanes, the cost rows in shared
-memory, a warp-shuffle argmin. It repeats the plain version's float32
-arithmetic operation for operation, so the two give the same mask, ties
-included.
+The kernel, ``csrc/lap.cu``, is CUDA C++ for ``sm_90a``: one warp solves
+each problem, the C columns spread over its 32 lanes in a number of slots
+fitted to C, the row duals in registers, the cost rows in shared memory, a
+``redux.sync`` argmin. It repeats the plain version's float32 arithmetic
+operation for operation, so the two give the same mask, ties included.
+``kernel_plan`` says which shapes it takes: O <= 120 rows (the TPU
+kernel's limit) and C <= 1024 columns, where the cost rows and two ints a
+column slot fit in the 227 KB of shared memory a block may use.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 _INF = 1e30
 _BIG = 1e9
-# The kernel holds at most 8 columns in each of its 32 lanes.
-MAX_COLUMNS = 256
-# The most shared memory one thread block may use on an H100 (227 KB).
+WARP = 32
+# The kernel's limits, as csrc/lap.cu states them: the rows it takes (4
+# row slots a lane), the columns a lane may hold (it takes the fewest that
+# hold C), and the most shared memory one thread block may use on an H100.
+MAX_OBJECTS = 120
+SLOT_CHOICES = (5, 8, 12, 16, 24, 32)
 SMEM_LIMIT = 232448
+
+
+class LapPlan(NamedTuple):
+    """How the kernel solves a problem of O rows and P columns."""
+    slots: int  # columns a lane holds: 32 * slots >= P + O + 1
+    smem: int   # shared memory a problem takes, in bytes
+
+
+def kernel_plan(o: int, p: int) -> LapPlan:
+    """The kernel's plan for O rows and P columns; raises ValueError,
+    naming the limit, for a shape the kernel does not take."""
+    if o < 1 or p < 1:
+        raise ValueError(f"hungarian_lap: O={o} and P={p} must be positive")
+    if o > MAX_OBJECTS:
+        raise ValueError(f"hungarian_lap: the kernel takes O <= "
+                         f"{MAX_OBJECTS} rows, got O={o}")
+    columns = p + o + 1
+    slots = next((s for s in SLOT_CHOICES if columns <= WARP * s), 0)
+    if not slots:
+        raise ValueError(f"hungarian_lap: the kernel takes P + O + 1 <= "
+                         f"{WARP * SLOT_CHOICES[-1]} columns, got P={p}, "
+                         f"O={o}")
+    smem = 4 * (o * p + 2 * WARP * slots)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"hungarian_lap: a problem needs {smem} bytes of "
+                         f"shared memory at O={o}, P={p}, over the "
+                         f"{SMEM_LIMIT}-byte limit")
+    return LapPlan(slots, smem)
 
 
 def _check(cost: torch.Tensor, num_objects: torch.Tensor):
@@ -116,6 +151,7 @@ def hungarian_lap_reference(cost: torch.Tensor, num_objects: torch.Tensor
             active = j0 != virt
             if not bool(active.any()):
                 break
+            hungarian_lap_reference.augmentation_steps += int(active.sum())
             j1 = way[lanes, j0]
             m_j1 = match[lanes, j1]
             at_j0 = (col_ids[None, :] == j0[:, None]) & active[:, None]
@@ -127,8 +163,10 @@ def hungarian_lap_reference(cost: torch.Tensor, num_objects: torch.Tensor
 
 
 # Dijkstra steps taken, summed over the problems: each relaxes the C columns
-# of one problem. A measurement counts the work its data needed with it.
+# of one problem; and the steps of the walks back along ``way``. A
+# measurement counts the work its data needed with them.
 hungarian_lap_reference.relaxations = 0
+hungarian_lap_reference.augmentation_steps = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -160,20 +198,13 @@ def hungarian_lap(cost: torch.Tensor, num_objects: torch.Tensor
         raise ValueError(f"hungarian_lap: cost on {cost.device}; it must be "
                          f"on a CUDA device or on the CPU")
     b, o, p = cost.shape
-    if p + o + 1 > MAX_COLUMNS:
-        raise ValueError(f"hungarian_lap: the kernel takes P + O + 1 <= "
-                         f"{MAX_COLUMNS} columns, got P={p}, O={o}")
+    if b * o * p == 0:
+        return torch.empty((b, o, p), dtype=torch.float32, device=cost.device)
+    kernel_plan(o, p)
     cost = cost.detach().float().contiguous()
     n = num_objects.to(device=cost.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, o, p), dtype=torch.float32, device=cost.device)
-    if out.numel() == 0:
-        return out
     lib = _library()
-    smem = lib.lap_smem_bytes(o, p)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"hungarian_lap: a problem needs {smem} bytes of "
-                         f"shared memory at O={o}, P={p}, over the "
-                         f"{SMEM_LIMIT}-byte limit")
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lap_solve(cost.data_ptr(), n.data_ptr(), out.data_ptr(), b,

@@ -13,10 +13,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
    tensor cores and float32 weights and the P=4 stem on the CUDA cores,
-   the exact matcher
-   (K2), and the fused attention's forward with its lse (K3-fwd), dq
-   (K3-dq) and dk/dv (K3-dkdv) in bf16 (on the tensor cores) and float32
-   (on the CUDA cores); holds each result against the plain PyTorch version
+   the exact matcher (K2; also at 300 queries, 120 objects and 1023
+   columns, each against its serial-chain yardstick), and the fused
+   attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
+   (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
+   cores); holds each result against the plain PyTorch version
    on the same inputs, and times kernel, plain version and one PyTorch
    library call (where one computes the same function) with CUDA events;
    for K3 also the backward alone (delta, dq and dk/dv through the autograd
@@ -120,6 +121,17 @@ K1_CASES = ((8, 128, torch.bfloat16, 0, RES), (8, 128, torch.float32, 1, RES),
 DW_CASES = ((8, 128, torch.bfloat16, 4, RES), (8, 128, torch.float32, 5, RES),
             (4, 64, torch.bfloat16, 6, RES), (16, 384, torch.bfloat16, 7, RES),
             (8, 128, torch.bfloat16, 31, HR_RES))
+# K2's cases: (B, O, P, seed, edges); the flagship's first (the ``kernels``
+# line's row), then four boosted blocks folded into one launch, 300 queries,
+# the most rows the kernel takes, and the most columns.
+K2_CASES = ((8, 32, 96, 8, False), (8, 32, 96, 9, True),
+            (32, 32, 96, 10, True), (8, 32, 300, 40, True),
+            (4, 120, 300, 41, True), (2, 32, 990, 42, True))
+# K2's yardstick, the serial chain of the kernel's first design counted
+# from its source (PERF.md, section 6): cycles of one Dijkstra step and of
+# one step of the walk back, at the H100 SXM's top SM clock.
+K2_CHAIN_CYCLES = {"dijkstra": 370, "augmentation": 100}
+K2_CHAIN_HZ = 1.98e9
 K3_FIRST_SEED = 11  # K3's cases take seeds from here on, bf16 first
 # K3 at the shapes the new main paths give it: (label, BH, Tq, Tk, D)
 K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
@@ -444,7 +456,19 @@ def _dw_case(patch, c_out, dtype, seed, res, flush):
     return row
 
 
-def _lap_case(b, o, p, seed, flush, edges=False):
+def _lap_inputs(b, o, p, seed, edges=False):
+    """K2's inputs as numpy arrays: tie-free random costs [b, o, p] and
+    object counts [b] from 1 to o (with ``edges``: 0 in the first problem
+    and o in the last)."""
+    rng = np.random.default_rng(seed)
+    cost = rng.uniform(0.0, 10.0, (b, o, p)).astype(np.float32)
+    n = rng.integers(1, o + 1, (b,)).astype(np.int32)
+    if edges:  # no objects, and every row taking part
+        n[0], n[-1] = 0, o
+    return cost, n
+
+
+def _lap_case(b, o, p, seed, flush, edges):
     """K2 on tie-free random costs: valid masks at scipy's total cost, and
     the plain version's mask (the same float32 arithmetic, step for
     step)."""
@@ -452,25 +476,30 @@ def _lap_case(b, o, p, seed, flush, edges=False):
 
     from boosted_detr_torch.ops import lap as L
 
-    rng = np.random.default_rng(seed)
-    cost_np = rng.uniform(0.0, 10.0, (b, o, p)).astype(np.float32)
-    n_np = rng.integers(1, o + 1, (b,)).astype(np.int32)
-    if edges:  # no objects, and every row taking part
-        n_np[0], n_np[-1] = 0, o
+    cost_np, n_np = _lap_inputs(b, o, p, seed, edges)
     cost = torch.from_numpy(cost_np).cuda()
     n = torch.from_numpy(n_np).cuda()
     got = L.hungarian_lap(cost, n)
     L.hungarian_lap_reference.relaxations = 0
     want = L.hungarian_lap_reference(cost, n)
     relaxations = L.hungarian_lap_reference.relaxations
-    # the Dijkstra steps of each problem alone: the kernel gives a problem
-    # one warp, so the longest problem's chain of steps bounds its time
+    # the Dijkstra and walk-back steps of each problem alone: the kernel
+    # gives a problem one warp, so the longest problem's chain of steps
+    # bounds its time
     steps = []
     for i in range(b):
         L.hungarian_lap_reference.relaxations = 0
+        L.hungarian_lap_reference.augmentation_steps = 0
         L.hungarian_lap_reference(cost[i:i + 1], n[i:i + 1])
-        steps.append(L.hungarian_lap_reference.relaxations)
+        steps.append((L.hungarian_lap_reference.relaxations,
+                      L.hungarian_lap_reference.augmentation_steps))
     torch.cuda.synchronize()
+
+    def chain_cycles(counts):
+        return (K2_CHAIN_CYCLES["dijkstra"] * counts[0]
+                + K2_CHAIN_CYCLES["augmentation"] * counts[1])
+
+    longest = max(steps, key=chain_cycles)
     what = f"LAP [{b}, {o}, {p}]" + (" n=0 and n=O" if edges else "")
     mask = got.cpu().numpy()
     for i in range(b):
@@ -496,7 +525,10 @@ def _lap_case(b, o, p, seed, flush, edges=False):
     # subtractions and a compare for the relaxation, a compare for the
     # argmin, the dual or distance update).
     row = {"shape": what, "max_abs_err": max_abs,
-           "relaxations": relaxations, "longest_steps": max(steps)}
+           "relaxations": relaxations,
+           "longest_steps": max(s[0] for s in steps),
+           "longest_augmentation_steps": longest[1],
+           "chain_ms": chain_cycles(longest) / K2_CHAIN_HZ * 1e3}
     row.update(_bound(2 * cost.numel() * 4 + n.numel() * 4,
                       relaxations * (p + o + 1) * 6, torch.float32))
 
@@ -512,13 +544,16 @@ def _lap_case(b, o, p, seed, flush, edges=False):
                library_ms=None, scipy_host_ms=_host_ms(host),
                device_ms=_time_ms(lambda: L.hungarian_lap(cost, n), flush,
                                   spin_cycles=SPIN_CYCLES))
+    row["chain_share"] = row["chain_ms"] / row["device_ms"]
     _say(f"  {what}: kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms "
          f"with the launch enqueued ahead of the card), plain "
          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
          f"({row['bound_by']}, {relaxations} Dijkstra steps, the longest "
-         f"problem {row['longest_steps']}); no PyTorch call computes a LAP; "
-         f"note: scipy on the host, D2H copy included, "
-         f"{row['scipy_host_ms']:.4f} ms")
+         f"problem {row['longest_steps']}); serial-chain yardstick "
+         f"{row['chain_ms']:.4f} ms ({longest[0]} Dijkstra and {longest[1]} "
+         f"walk-back steps; {100 * row['chain_share']:.1f}% of the card "
+         f"time); no PyTorch call computes a LAP; note: scipy on the host, "
+         f"D2H copy included, {row['scipy_host_ms']:.4f} ms")
     return row
 
 
@@ -671,9 +706,8 @@ def phase_kernels():
     _say("[kernels] patchify_conv_dw against patchify_conv_dw_reference")
     rows["patchify_dw"] = [_dw_case(*case, flush) for case in DW_CASES]
     _say("[kernels] hungarian_lap against hungarian_lap_reference and scipy")
-    rows["lap"] = [_lap_case(8, 32, 96, 8, flush),
-                   _lap_case(8, 32, 96, 9, flush, edges=True),
-                   _lap_case(32, 32, 96, 10, flush, edges=True)]
+    rows["lap"] = [_lap_case(b, o, p, seed, flush, edges)
+                   for b, o, p, seed, edges in K2_CASES]
     _say("[kernels] attention_fwd, attention_dq and attention_dkdv against "
          "their plain versions")
     for name in ("attention_fwd", "attention_dq", "attention_dkdv"):
@@ -1324,10 +1358,10 @@ def _kernel_line(rows, paths):
         main_row = rows[name][0]
         # the share of the bound and the time with the launch enqueued
         # ahead of the card; K1's whole library calls; K2's longest chain
-        # of Dijkstra steps
+        # of Dijkstra steps and its serial-chain yardstick
         extra = {k: main_row[k]
                  for k in ("bound_share", "device_ms", "library_full_ms",
-                           "longest_steps")
+                           "longest_steps", "chain_ms", "chain_share")
                  if k in main_row}
         out.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,0 +1,156 @@
+"""The exact matcher at the widened shapes, and the kernel's admission rule.
+
+The plain solver (``hungarian_lap_reference``, the arithmetic the CUDA
+kernel repeats) against the Pallas kernel run through the interpreter and
+against scipy at shapes past the old 256-column cap; and
+``kernel_plan`` (which shapes the kernel takes, how many column slots a
+lane holds, its shared memory) against the C source
+``boosted_detr_torch/csrc/lap.cu``, which states the same rule. Costs are
+random floats, so they are tie-free and the optimal assignment is unique.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment
+
+from boosted_detr_torch.ops import lap as tlap
+from boosted_detr_tpu.ops.pallas_lap import hungarian_lap_pallas
+
+torch.set_num_threads(2)
+
+SOURCE = (Path(tlap.__file__).resolve().parents[1] / "csrc"
+          / "lap.cu").read_text()
+
+
+@pytest.mark.parametrize("b,o,p", [(2, 32, 300), (2, 120, 140)])
+def test_plain_solver_gives_the_pallas_kernels_mask_at_wide_shapes(b, o, p):
+    rng = np.random.default_rng(o + p)
+    cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
+    n = np.array([o, o // 3], np.int32)
+    ours = tlap.hungarian_lap_reference(torch.from_numpy(cost),
+                                        torch.from_numpy(n)).numpy()
+    ref = np.asarray(hungarian_lap_pallas(jnp.asarray(cost), jnp.asarray(n),
+                                          interpret=True))
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_plain_solver_is_optimal_at_100_by_300():
+    rng = np.random.default_rng(100)
+    b, o, p = 2, 100, 300
+    cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
+    n = np.array([o, 37], np.int32)
+    mask = tlap.hungarian_lap_reference(torch.from_numpy(cost),
+                                        torch.from_numpy(n)).numpy()
+    for i in range(b):
+        ni = int(n[i])
+        np.testing.assert_array_equal(mask[i, ni:], 0.0)
+        np.testing.assert_array_equal(mask[i, :ni].sum(1), 1.0)
+        assert (mask[i].sum(0) <= 1).all()
+        r, c = linear_sum_assignment(cost[i, :ni])
+        # rtol 1e-5, atol 1e-3: the JAX kernel test's tolerance
+        assert np.isclose((mask[i] * cost[i]).sum(), cost[i][r, c].sum(),
+                          rtol=1e-5, atol=1e-3)
+
+
+def _constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
+
+
+def _c_plan(o, p):
+    """The C source's rule, read from its text: ``slots_for``'s choices,
+    ``lap_solve``'s limits and ``lap_smem_bytes``'s formula."""
+    warp = _constant("WARP")
+    choices = [int(s) for s in re.search(
+        r"constexpr int SLOT_CHOICES\[\] = \{([^}]*)\};", SOURCE)
+        .group(1).split(",")]
+    slots = next((s for s in choices if p + o + 1 <= warp * s), 0)
+    body = re.search(r"long long lap_smem_bytes\(int O, int P\) \{\s*"
+                     r"return ([^;]*);", SOURCE).group(1)
+    expr = (body.replace("4LL", "4").replace("static_cast<long long>(O)", "O")
+            .replace("slots_for(O, P)", "slots").replace("WARP", str(warp)))
+    smem = eval(expr, {}, {"O": o, "P": p, "slots": slots})  # noqa: S307
+    takes = (0 < o <= _constant("MAX_OBJECTS") and p > 0 and slots > 0
+             and smem <= _constant("SMEM_LIMIT"))
+    return takes, slots, smem
+
+
+@pytest.mark.parametrize("o,p", [
+    (32, 96), (32, 300), (120, 300), (32, 990), (100, 120), (4, 8),
+    (1, 1), (120, 1), (31, 96), (32, 127), (33, 126), (64, 64),
+    (120, 400), (120, 420), (120, 480), (121, 8), (32, 991), (32, 992),
+    (1, 1022), (1, 1023), (60, 800), (100, 480), (128, 100)])
+def test_kernel_plan_is_the_c_sources_rule(o, p):
+    takes, slots, smem = _c_plan(o, p)
+    if not takes:
+        with pytest.raises(ValueError, match="hungarian_lap: "):
+            tlap.kernel_plan(o, p)
+        return
+    plan = tlap.kernel_plan(o, p)
+    assert (plan.slots, plan.smem) == (slots, smem)
+    assert plan.smem <= tlap.SMEM_LIMIT
+    assert tlap.SLOT_CHOICES == tuple(
+        int(s) for s in re.search(r"SLOT_CHOICES\[\] = \{([^}]*)\}",
+                                  SOURCE).group(1).split(","))
+    assert (tlap.MAX_OBJECTS, tlap.SMEM_LIMIT) == (
+        _constant("MAX_OBJECTS"), _constant("SMEM_LIMIT"))
+
+
+@pytest.mark.parametrize("b,o,p,slots", [
+    (8, 32, 96, 5),     # the flagship: C = 129
+    (32, 32, 96, 5),    # four boosted blocks folded into one launch
+    (8, 32, 300, 12),   # num_object_preds=300: C = 333
+    (4, 120, 300, 16),  # C = 421
+    (2, 32, 990, 32),   # C = 1023
+    (2, 100, 120, 8),   # C = 221
+])
+def test_kernel_plan_at_the_main_and_widened_shapes(b, o, p, slots):
+    plan = tlap.kernel_plan(o, p)
+    assert plan.slots == slots
+    assert 32 * plan.slots >= p + o + 1 > 32 * max(
+        [s for s in tlap.SLOT_CHOICES if s < plan.slots], default=0)
+
+
+@pytest.mark.parametrize("o,p,limit", [
+    (121, 8, "O <= 120 rows"),
+    (32, 992, "P \\+ O \\+ 1 <= 1024 columns"),
+    (120, 480, "bytes of shared memory"),
+])
+def test_kernel_plan_names_the_limit(o, p, limit):
+    with pytest.raises(ValueError, match=limit):
+        tlap.kernel_plan(o, p)
+
+
+def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
+    """Each C entry point of csrc/lap.cu takes the arguments the wrapper's
+    ctypes signature passes, and returns what it reads."""
+    c_types = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+               "int": ctypes.c_int}
+    results = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+               "const char*": ctypes.c_char_p}
+    exported = SOURCE[SOURCE.index('extern "C" {'):]
+    exported = exported[:exported.index("#ifdef LAP_PHASES")]
+    found = {}
+    for ret, name, params in re.findall(
+            r"^(int|long long|const char\*) (\w+)\(([^)]*)\)\s*\{", exported,
+            flags=re.M):
+        args = [c_types[" ".join(q.split()[:-1])]
+                for q in params.replace("\n", " ").split(",")]
+        found[name] = (args, results[ret])
+
+    class FakeLibrary:
+        def __init__(self):
+            for fn in found:
+                setattr(self, fn, type("Fn", (), {})())
+
+    from boosted_detr_torch.ops import build
+    lib = FakeLibrary()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    tlap._library()
+    assert {fn: (getattr(lib, fn).argtypes, getattr(lib, fn).restype)
+            for fn in found} == found

@@ -51,7 +51,11 @@ def _check_optimal(mask, cost, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,o,p", [(8, 32, 96),    # the flagship
                                    (32, 32, 96),   # four blocks folded
-                                   (3, 4, 8), (2, 100, 120)])
+                                   (3, 4, 8), (2, 100, 120),
+                                   (8, 32, 300),   # num_object_preds=300
+                                   (4, 120, 300),  # the most rows
+                                   (2, 32, 990),   # C = 1023
+                                   (3, 7, 33)])    # O * P % 4 != 0
 def test_kernel_matches_plain_version(cuda, b, o, p):
     rng = np.random.default_rng(b * 1000 + o)
     cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
@@ -82,6 +86,28 @@ def test_kernel_on_mixed_scales_and_ties(cuda):
 
 
 @pytest.mark.gpu
+def test_kernel_ties_minus_zero_with_plus_zero(cuda):
+    # the float compare holds -0.0 == +0.0, so the lowest column wins the
+    # tie (torch.min's rule), whichever sign it has; an argmin on the raw
+    # bits would take the -0.0
+    for row in ([1.0, 0.0, 5.0, -0.0], [1.0, -0.0, 5.0, 0.0]):
+        cost = np.array([[row]], np.float32)
+        got, want = _solve_both(cuda, cost, np.array([1], np.int32))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[0, 0], [0.0, 1.0, 0.0, 0.0])
+    # signed zeros all over: ties in every step, a mask equal to the plain
+    # version's on the CPU
+    rng = np.random.default_rng(12)
+    cost = rng.choice(np.array([-0.0, 0.0, 1.0, 2.0], np.float32),
+                      (4, 12, 20))
+    n = np.array([12, 5, 0, 9], np.int32)
+    got, _ = _solve_both(cuda, cost, n)
+    _check_optimal(got, cost, n)
+    np.testing.assert_array_equal(got, lap.hungarian_lap_reference(
+        torch.from_numpy(cost), torch.from_numpy(n)).numpy())
+
+
+@pytest.mark.gpu
 def test_kernel_ends_on_nan_costs(cuda):
     cost = torch.full((2, 3, 4), float("nan"), device=cuda)
     out = lap.hungarian_lap(cost, torch.tensor([3, 1], device=cuda))
@@ -91,8 +117,71 @@ def test_kernel_ends_on_nan_costs(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_cannot_hold(cuda):
-    cost = torch.zeros((1, 40, 216), device=cuda)  # 257 columns
     before = lap.hungarian_lap.launches
-    with pytest.raises(ValueError, match="columns"):
-        lap.hungarian_lap(cost, torch.tensor([1], device=cuda))
+    for (o, p), limit in (((121, 8), "rows"),       # O > 120
+                          ((32, 992), "columns"),   # C = 1025
+                          ((120, 480), "shared memory")):  # 236,544 bytes
+        cost = torch.zeros((1, o, p), device=cuda)
+        with pytest.raises(ValueError, match=limit):
+            lap.hungarian_lap(cost, torch.tensor([1], device=cuda))
     assert lap.hungarian_lap.launches == before
+
+
+@pytest.mark.gpu
+def test_library_states_the_wrappers_plan(cuda):
+    lib = lap._library()
+    for o in (1, 7, 32, 33, 100, 120):
+        for p in (1, 8, 96, 120, 300, 480, 990):
+            try:
+                plan = lap.kernel_plan(o, p)
+            except ValueError:
+                continue
+            assert lib.lap_smem_bytes(o, p) == plan.smem
+
+
+@pytest.mark.gpu
+def test_train_step_with_300_queries_on_the_kernel(cuda):
+    """num_object_preds=300, max_objects=32, matcher="pallas": C = 333,
+    past the first kernel's 256 columns. One train step of a small float32
+    model on the card through the kernel, against the same step from the
+    same weights with the plain solver on the card
+    (matcher="hungarian"): the same mask, so the same losses."""
+    import boosted_detr_torch as bt
+
+    cfg = bt.ModelConfig(image_size=(64, 64), backbone="resnet",
+                         backbone_width=0.25, stem="patchify8",
+                         use_pallas_stem=False, compute_dtype="float32",
+                         num_encoder_blocks=1, num_decoder_blocks=1,
+                         encoder_dim=32, decoder_dim=32,
+                         num_object_preds=300, num_categories=12,
+                         num_attributes=20, max_objects=32,
+                         matcher="pallas", dropout_rate=0.0)
+    rng = np.random.default_rng(5)
+    batch = {
+        "image": rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32),
+        "category_ids": rng.integers(2, 12, (4, 32)).astype(np.int32),
+        "attribute_ids": rng.integers(0, 20, (4, 32, 4)).astype(np.int32),
+        "bbox": rng.uniform(0.05, 0.45, (4, 32, 4)).astype(np.float32),
+        "num_objects": np.array([32, 1, 17, 0], np.int32),
+    }
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    tcfg = bt.TrainConfig(batch_size=4)
+    weights = bt.DETR(cfg, seed=2).state_dict()
+    losses = {}
+    for matcher, launched in (("pallas", 1), ("hungarian", 0)):
+        model = bt.DETR(cfg.replace(matcher=matcher), seed=2)
+        model.load_state_dict(weights)
+        state = bt.TrainState.create(model, bt.make_optimizer(
+            tcfg, model.parameters(), d_model=cfg.decoder_dim))
+        before = lap.hungarian_lap.launches
+        _, aux = bt.make_train_step(model, cfg.replace(matcher=matcher),
+                                    tcfg)(state, batch)
+        torch.cuda.synchronize()
+        assert lap.hungarian_lap.launches == before + launched
+        losses[matcher] = {k: v.item() for k, v in aux.items()}
+    for k, want in losses["hungarian"].items():
+        assert np.isfinite(want)
+        # one forward, the same mask: only run-to-run differences of the
+        # card's float32 sums, if any
+        assert abs(losses["pallas"][k] - want) <= 1e-5 * max(abs(want),
+                                                             1e-6)
