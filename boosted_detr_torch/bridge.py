@@ -17,6 +17,11 @@ Flax scope names, so a leaf at ``a/b/kernel`` lands at ``a.b.weight``:
 - ``positional_encoding``, ``positional_embedding`` (the ViT's) and
   ``object_queries`` keep their names.
 
+``BoostedDETR``'s scopes are the Flax ones and map by the same rules:
+``encoder_{i}`` (or ``encoder_shared``), ``decoder_prep``,
+``decoder_block_{i}``, ``category_head_{i}``, ``attribute_head_{i}`` and
+``box_head_{i}``, beside ``backbone`` and ``neck``.
+
 The ViT backbone's leaves follow the same rules: ``vit/patch_embed``
 (``kernel``, ``bias``: the patchify kernel's route and the plain conv's
 share the tree), ``vit/positional_embedding``, ``vit/block_i/{ln1, ln2,

@@ -17,9 +17,12 @@ Fields the port reads with a meaning of its own:
 - ``matcher="pallas"``: the exact matcher through the hand-written CUDA
   kernel (ops/lap.py) on CUDA tensors.
 
-``TrainConfig`` fields the port does not implement yet keep their names and
-defaults; the code that reads them raises ``NotImplementedError`` when they
-are set (``agc_clip``, ``train_block``, ``mesh_shape``).
+``TrainConfig.train_block`` is staged boosted training (train/steps.py:
+the focused forward and loss with intermediate losses; the frozen leaves
+are the optimizer's ``trainable_mask``). ``TrainConfig`` fields the port
+does not implement yet keep their names and defaults; the code that reads
+them raises ``NotImplementedError`` when they are set (``agc_clip``,
+``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -126,7 +129,7 @@ class TrainConfig:
     optimizer: str = "sgd"  # sgd | adamw
     weight_decay: float = 0.0
     loss_weights: LossWeights = dataclasses.field(default_factory=LossWeights)
-    train_block: Optional[int] = None  # not ported (the boosted model)
+    train_block: Optional[int] = None  # staged boosted training
     freeze_bn_stats: bool = False
     use_intermediate_losses: bool = False
     intermediate_loss_avg: bool = False

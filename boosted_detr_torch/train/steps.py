@@ -6,7 +6,19 @@ Nesterov momentum, or AdamW, with the learning rate set each step from the
 schedule), ``targets_from_batch``, ``compute_losses`` (with the L-block
 fold), ``make_update_step`` (with EMA), ``resolve_loss_weights``,
 ``make_train_step``, ``make_eval_step``, ``make_predict_step`` and the
-serving entry point ``predict``.
+serving entry point ``predict`` (with early exit); ``with_ema_params``; and
+staged training: ``boosted_block_mask``, ``apply_trainable_mask``, the
+``trainable_mask`` of ``make_optimizer`` and ``TrainConfig.train_block``.
+
+Staged freezing is optax's ``multi_transform`` with ``set_to_zero``
+(steps.py:129-136) in torch terms: the optimizer holds only the trained
+leaves, so the frozen ones get no update, no momentum, no weight decay and
+no clip, and stay bit for bit the same; and a train step computes
+gradients only for the leaves its optimizer holds (the others are set to
+``requires_grad=False`` for the step and put back after it), so a staged
+step does no backward work for a frozen backbone, as XLA drops that work.
+BatchNorm running statistics of frozen modules still update in train mode,
+as Flax's mutable ``batch_stats`` do.
 
 JAX's steps are pure functions of a state; here the state holds the model
 and the optimizer, and a train step updates them in place. Every step sets
@@ -22,8 +34,10 @@ few microseconds a step when no profiler runs.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+import inspect
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +46,7 @@ from torch.profiler import record_function
 
 from boosted_detr_torch.config import LossWeights, ModelConfig, TrainConfig
 from boosted_detr_torch.data.codec import TextCodec
+from boosted_detr_torch.models import early_exit
 from boosted_detr_torch.ops import matching
 from boosted_detr_torch.train import schedules
 
@@ -55,6 +70,21 @@ class TrainState:
                   if ema else None)
         return cls(step=0, model=model, optimizer=optimizer,
                    ema_params=shadow)
+
+
+def with_ema_params(state: TrainState) -> TrainState:
+    """A state whose model is a copy of ``state.model`` holding the EMA
+    weights (for eval or export); ``state`` is left as it is, and a train
+    step made for its model refuses the copy. Raises if the state was
+    created without EMA."""
+    if state.ema_params is None:
+        raise ValueError("this TrainState has no EMA shadow; set "
+                         "TrainConfig.ema_decay > 0 before compile()")
+    model = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(state.ema_params[name])
+    return dataclasses.replace(state, model=model)
 
 
 def clip_by_per_variable_norm(grads: List[torch.Tensor],
@@ -101,16 +131,42 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
 
-def make_optimizer(cfg: TrainConfig, params, d_model: int = 256
+NamedParams = Iterable[Tuple[str, torch.Tensor]]
+
+
+def _masked(params, trainable_mask: Optional[Mapping[str, bool]]
+            ) -> List[torch.Tensor]:
+    """The tensors of ``params``; with a mask, ``params`` are (name, tensor)
+    pairs, as ``named_parameters()`` gives them, and only those the mask
+    marks True are kept."""
+    params = list(params)
+    if trainable_mask is None:
+        return [p[1] if isinstance(p, tuple) else p for p in params]
+    if not all(isinstance(p, tuple) for p in params):
+        raise ValueError("a trainable_mask needs named parameters: pass "
+                         "model.named_parameters()")
+    names = [name for name, _ in params]
+    odd = sorted(set(names) ^ set(trainable_mask))
+    if odd:
+        raise KeyError("the trainable_mask and the parameters name "
+                       f"different leaves: {odd[:8]}")
+    return [p for name, p in params if trainable_mask[name]]
+
+
+def make_optimizer(cfg: TrainConfig, params, d_model: int = 256,
+                   trainable_mask: Optional[Mapping[str, bool]] = None
                    ) -> Optimizer:
     """SGD(momentum, Nesterov) or AdamW over ``params``, behind per-tensor
-    clipnorm and the learning-rate schedule."""
+    clipnorm and the learning-rate schedule. ``trainable_mask`` ({name:
+    bool}, e.g. ``boosted_block_mask``; ``params`` then are
+    ``model.named_parameters()``) is staged freezing: the optimizer holds
+    the leaves marked True only."""
     if cfg.agc_clip:
         raise NotImplementedError(_LATER.format(
             "agc_clip", "the other backbones, skipinit"))
     schedule = schedules.make_schedule(cfg.lr_schedule, cfg.learning_rate,
                                        cfg.warmup_steps, d_model)
-    params = list(params)
+    params = _masked(params, trainable_mask)
     if cfg.optimizer == "sgd":
         inner = torch.optim.SGD(params, lr=cfg.learning_rate,
                                 momentum=cfg.momentum, dampening=0.0,
@@ -122,6 +178,32 @@ def make_optimizer(cfg: TrainConfig, params, d_model: int = 256
     else:
         raise ValueError(f"unknown optimizer '{cfg.optimizer}'")
     return Optimizer(inner, schedule, cfg.clipnorm)
+
+
+def boosted_block_mask(model: nn.Module, k: int) -> Dict[str, bool]:
+    """Staged boosting's trainable mask, {parameter name: bool}: only weak
+    learner k's leaves (``encoder_k``, ``decoder_block_k``, ``*_head_k``)
+    and the shared ``decoder_prep`` queries train; everything else,
+    backbone included, freezes (steps.py:113-126). Decided by top-level
+    scope."""
+    wanted = {f"encoder_{k}", f"decoder_block_{k}", f"category_head_{k}",
+              f"attribute_head_{k}", f"box_head_{k}", "decoder_prep"}
+    return {name: name.split(".")[0] in wanted
+            for name, _ in model.named_parameters()}
+
+
+def apply_trainable_mask(optimizer: Optimizer, params: NamedParams,
+                         trainable_mask: Mapping[str, bool]) -> Optimizer:
+    """``optimizer`` (any torch optimizer inside) rebuilt over the leaves
+    of ``params`` that ``trainable_mask`` marks True, with a fresh state
+    and its settings, schedule, clip and count: the leaves marked False get
+    no update (steps.py:129-136)."""
+    cls = type(optimizer.inner)
+    accepted = inspect.signature(cls).parameters
+    inner = cls(_masked(params, trainable_mask),
+                **{k: v for k, v in optimizer.inner.defaults.items()
+                   if k in accepted})
+    return dataclasses.replace(optimizer, inner=inner)
 
 
 def targets_from_batch(batch: Dict[str, torch.Tensor], num_categories: int,
@@ -208,10 +290,21 @@ def make_update_step(loss_fn: Callable, ema_decay: float = 0.0) -> Callable:
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
-        state.optimizer.zero_grad()
-        loss, aux = loss_fn(state.model, batch, generator)
-        with record_function("train_step/backward"):
-            loss.backward()
+        state.model.zero_grad(set_to_none=True)
+        # gradients for the leaves the optimizer trains only (staged
+        # freezing); the flags are put back after the backward
+        trained = {id(p) for p in state.optimizer.params}
+        frozen = [p for p in state.model.parameters()
+                  if p.requires_grad and id(p) not in trained]
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            loss, aux = loss_fn(state.model, batch, generator)
+            with record_function("train_step/backward"):
+                loss.backward()
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
         with record_function("train_step/optimizer"):
             state.optimizer.step()
         if state.ema_params is not None and ema_decay > 0.0:
@@ -253,29 +346,47 @@ def make_train_step(model: nn.Module, model_cfg: ModelConfig,
     ``bbox`` [B, O, 4] COCO and ``num_objects`` [B], on the model's device.
     Without a generator, the dropout bits of step ``s`` come from a
     generator seeded with ``(train_cfg.seed, s)``, as JAX folds the step
-    into its key."""
-    if train_cfg.train_block is not None:
-        raise NotImplementedError(_LATER.format(
-            "train_block", "the boosted model"))
+    into its key.
+
+    ``train_cfg.train_block = k`` with intermediate losses takes the loss
+    of block ``min(k, n - 1)`` alone, and a ``BoostedDETR`` without a
+    focused layer runs its forward only up to that block
+    (steps.py:264-275, :295-298). Without intermediate losses it changes
+    nothing here. Which leaves train is the optimizer's: staged training
+    builds it with ``trainable_mask=boosted_block_mask(model, k)``."""
     if train_cfg.mesh_shape is not None:
         raise NotImplementedError(_LATER.format(
             "mesh_shape", "parallel/"))
     weights = resolve_loss_weights(model_cfg, train_cfg)
     intermediate = train_cfg.use_intermediate_losses
+    loss_block = train_cfg.train_block if intermediate else None
+    focus = None
+    if (loss_block is not None  # a BoostedDETR with no focused layer
+            and getattr(model, "focused_training_layer", False) is None):
+        # later blocks are downstream of block k: the same gradients from
+        # a forward that stops at k
+        focus = min(loss_block, model.config.num_decoder_blocks - 1)
+
+    def forward(model, image, **kw):
+        if focus is None:
+            return model(image, return_intermediate=intermediate, **kw)
+        with model.focused(focus):
+            return model(image, return_intermediate=intermediate, **kw)
 
     def loss_fn(model, batch, generator):
         with record_function("train_step/forward"):
             if train_cfg.freeze_bn_stats:
                 # running statistics, no dropout: the JAX train=False forward
                 _set_mode(model, False)
-                outs = model(batch["image"],
-                             return_intermediate=intermediate)
+                outs = forward(model, batch["image"])
             else:
                 _set_mode(model, True)
-                outs = model(batch["image"],
-                             return_intermediate=intermediate,
-                             generator=generator)
+                outs = forward(model, batch["image"], generator=generator)
         preds_list = outs if intermediate else [outs]
+        if loss_block is not None:
+            # the focused block's cumulative loss alone; a focused model's
+            # list holds that block only
+            preds_list = [preds_list[min(loss_block, len(preds_list) - 1)]]
         with record_function("train_step/loss_and_matching"):
             loss, aux = compute_losses(preds_list, batch, model_cfg, weights)
         if (intermediate and train_cfg.intermediate_loss_avg
@@ -316,17 +427,19 @@ def make_eval_step(model: nn.Module, model_cfg: ModelConfig,
     return eval_step
 
 
-def make_predict_step(model: nn.Module) -> Callable:
+def make_predict_step(model: nn.Module,
+                      return_intermediate: bool = False) -> Callable:
     """Inference forward (the JAX ``train=False``): a function from an
-    image tensor on the model's device to the raw probability/box tensors.
-    It runs ``model`` in eval mode and puts back the mode it found."""
+    image tensor on the model's device to the raw probability/box tensors
+    (every block's with ``return_intermediate``). It runs ``model`` in eval
+    mode and puts back the mode it found."""
 
-    def predict_step(image: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def predict_step(image: torch.Tensor):
         was_training = model.training
         _set_mode(model, False)
         try:
             with torch.inference_mode():
-                return model(image)
+                return model(image, return_intermediate=return_intermediate)
         finally:
             _set_mode(model, was_training)
 
@@ -334,15 +447,34 @@ def make_predict_step(model: nn.Module) -> Callable:
 
 
 def predict(model: nn.Module, images: np.ndarray,
-            codec: Optional[TextCodec] = None, decode_text: bool = True):
+            codec: Optional[TextCodec] = None, decode_text: bool = True,
+            early_exit_threshold: Optional[float] = None):
     """Images [B, H, W, 3] in [0, 1] -> (category_strings,
     attribute_strings, boxes) through ``codec``, or the raw probability dict
-    of numpy arrays when ``decode_text`` is False or there is no codec."""
+    of numpy arrays when ``decode_text`` is False or there is no codec.
+
+    ``early_exit_threshold`` (``model.config.early_exit_threshold`` when
+    None) is adaptive-depth inference, as the JAX trainer's ``predict``
+    (trainer.py:427-470): the full forward with every block's output, then
+    per image the earliest block that meets
+    ``model.config.early_exit_criterion`` (``stability_select`` or
+    ``adaptive_select``, models/early_exit.py), with the category output
+    renormalized; the raw dict then holds ``exit_block`` [B] too."""
     device = _device_of(model)
     image = torch.from_numpy(np.asarray(images, np.float32)).to(device)
-    preds = make_predict_step(model)(image)
+    threshold = (early_exit_threshold if early_exit_threshold is not None
+                 else model.config.early_exit_threshold)
+    if threshold is None:
+        preds = make_predict_step(model)(image)
+    else:
+        select = (early_exit.stability_select
+                  if model.config.early_exit_criterion == "stability"
+                  else early_exit.adaptive_select)
+        outs = make_predict_step(model, return_intermediate=True)(image)
+        with torch.inference_mode():
+            preds, exit_block = select(outs, threshold)
+        preds = dict(preds, exit_block=exit_block)
     preds = {k: v.cpu().numpy() for k, v in preds.items()}
     if decode_text and codec is not None:
         return codec.decode_predictions(preds)
     return preds
-

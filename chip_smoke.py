@@ -40,10 +40,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      tokens: K3 in every attention, against the plain K1 and K3 versions);
    - the same two for the ViT-p16 backbone at 640x640 (width 384, depth 8,
      6 heads: K1 at P=16 -> 384 and K3 in the ViT blocks and in DETR);
+   - the boosted ensemble (``BoostedDETR``) at the 640 flagship's widths:
+     serving as above, plus one early-exit request (stability criterion)
+     and one incremental request (all 4 weak learners), each held against
+     the full forward; the joint train step with intermediate losses (the
+     4 blocks' matching folded into one K2 launch at [32, 32, 96]) as
+     above; then staged steps that train weak learner 1 alone (the frozen
+     backbone's weight gradient is never launched; every frozen parameter
+     held bit for bit);
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
-   and a ViT DETR): one forward, and one train step;
+   a ViT DETR, and a boosted ensemble with carried queries and the fused
+   attention): one forward, and one train step;
 5. kernel names: which device kernel each forward and each weight
    gradient of phase 2 runs, from a profile (tensor cores for bf16, CUDA
    cores for float32 and the P=4 stem), in a process of its own
@@ -779,8 +788,20 @@ def _expect(**per_run):
 
 _K3 = ("attention_fwd", "attention_dq", "attention_dkdv")
 _BACKWARD = ("patchify_dw", "attention_dq", "attention_dkdv")
+# Leaves whose gradient is too small to move a float32 weight in a few
+# steps: a key-projection bias shifts all of one query's logits alike, which
+# softmax ignores (every path); with fresh queries, every boosted block's
+# self-attention sees the shared object queries, all zero at the start and
+# a few 1e-5 apart after a few steps, whose logits are equal to float32
+# precision (the boosted path).
+_ZERO_GRADIENT = ("key_projection.bias",)
+_FRESH_SELF_ATTENTION = ("self_attention.attention.query_projection.weight",
+                         "self_attention.attention.key_projection.weight")
 # The paths: label, ModelConfig keywords, launches per forward (serving) and
-# per train step, and the kernels the plain comparison swaps out.
+# per train step, and the kernels the plain comparison swaps out; the
+# boosted path also names its model, its TrainConfig keywords, its matcher
+# problem, its parameter count (the JAX model's, by jax.eval_shape), the
+# weak learner its staged steps train and their launches.
 PATHS = {
     "flagship": dict(
         res=RES, cfg=dict(backbone="resnet", stem="patchify8"),
@@ -802,7 +823,25 @@ PATHS = {
         step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=19,
                      attention_dq=19, attention_dkdv=19),
         serving_plain=("patchify_fwd",) + _K3),
+    # 4 weak learners (a 1-block encoder, a decoder block and three heads
+    # of hidden width 256 each); the intermediate losses fold the 4 blocks'
+    # matching into one K2 launch
+    "boosted": dict(
+        res=RES, cfg=dict(backbone="resnet", stem="patchify8",
+                          early_exit_criterion="stability"),
+        model="BoostedDETR", train=dict(use_intermediate_losses=True),
+        params=29_334_520, lap_shape=(4 * BATCH, 32, 96),
+        forward=_expect(patchify_fwd=1),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1),
+        serving_plain=("patchify_fwd",),
+        train_block=1, staged=_expect(patchify_fwd=1, lap=1),
+        may_stay=_FRESH_SELF_ATTENTION),
 }
+# the boosted path's early-exit request (PERF.md: the stability criterion
+# at tau 1.5, the README's recommendation) and its incremental request
+# (confidence 1.1: no image exits, all 4 weak learners run)
+EXIT_TAU, INCREMENTAL_THRESHOLD = 1.5, 1.1
+STAGED_STEPS = 3
 
 
 def _randomize_running_stats(model, seed):
@@ -852,6 +891,14 @@ def _path_config(name, codec):
                           **path["cfg"])
 
 
+def _build(path, cfg, **kw):
+    """The path's model (``DETR`` unless it names another) on cuda, the
+    entry point's default."""
+    import boosted_detr_torch as bt
+
+    return getattr(bt, path.get("model", "DETR"))(cfg, **kw)
+
+
 def phase_serving(name):
     """One path's serving: the model in eval mode with random running
     statistics, a warm-up request, then REQUESTS requests through
@@ -863,14 +910,17 @@ def phase_serving(name):
     codec = _codec()
     cfg = _path_config(name, codec)
     t0 = time.perf_counter()
-    model = bt.DETR(cfg, seed=0)  # on cuda: the entry point's default
+    model = _build(path, cfg, seed=0)
     model.eval()  # a server holds its model in eval mode
     _randomize_running_stats(model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
-    _say(f"[serving {name}] DETR {res}x{res}, backbone {cfg.backbone}, "
-         f"fused attention {cfg.use_pallas_attention}, {n_params} "
-         f"parameters, built in {time.perf_counter() - t0:.1f} s on "
-         f"{model.device}")
+    _say(f"[serving {name}] {type(model).__name__} {res}x{res}, backbone "
+         f"{cfg.backbone}, fused attention {cfg.use_pallas_attention}, "
+         f"{n_params} parameters, built in {time.perf_counter() - t0:.1f} s "
+         f"on {model.device}")
+    if n_params != path.get("params", n_params):
+        raise AssertionError(f"{n_params} parameters, the JAX model has "
+                             f"{path['params']}")
     rng = np.random.default_rng(0)
     requests = [rng.uniform(0.0, 1.0, (BATCH, res, res, 3)).astype(np.float32)
                 for _ in range(REQUESTS)]
@@ -894,6 +944,8 @@ def phase_serving(name):
     _say(f"  {REQUESTS * BATCH / total_s:.2f} images/s over {REQUESTS} "
          f"requests (host clock, H2D copy and text decode included)")
 
+    # the boosted ensemble's outputs are sums over its n weak learners
+    n = cfg.num_decoder_blocks if path.get("model") == "BoostedDETR" else 1
     words = set(codec.category_vocab)
     attrs = set(codec.attribute_vocab[2:])
     for cats, atts, boxes in results:
@@ -902,15 +954,15 @@ def phase_serving(name):
         assert all(_known_attributes(a, attrs) for a in atts.ravel())
         assert boxes.shape == (BATCH, cfg.num_object_preds, 4)
         assert np.isfinite(boxes).all()
-        assert ((boxes > -1.0) & (boxes < 2.0)).all()
+        assert ((boxes > -n) & (boxes < 2 * n)).all()
 
     raw = bt.predict(model, requests[0], codec, decode_text=False)
     sums = raw["category"].sum(-1)
-    if not np.allclose(sums, 1.0, atol=1e-5):
+    if not np.allclose(sums, n, atol=1e-5 * n):
         raise AssertionError(f"softmax rows sum to {sums.min()}..{sums.max()}")
-    assert ((raw["attribute"] >= 0) & (raw["attribute"] <= 1)).all()
-    _say("  outputs: categories and attributes from the vocabulary, softmax "
-         "rows sum to 1, boxes in (-1, 2)")
+    assert ((raw["attribute"] >= 0) & (raw["attribute"] <= n)).all()
+    _say(f"  outputs: categories and attributes from the vocabulary, "
+         f"{n} softmax a row summed to {n}, boxes in ({-n}, {2 * n})")
 
     # The same model with the path's kernels on their plain versions on the
     # card: the stem (K1-fwd) and K3 where it runs. Each agrees to one bf16
@@ -938,6 +990,81 @@ def phase_serving(name):
             "latency_ms": latencies, "launches": launches,
             "plain_norm_rel_err": rel_errs,
             "model": model, "codec": codec, "images": requests[0]}
+
+
+def _counted(fn, want, what):
+    """``fn()`` with the launch counters set to 0 just before it and read
+    just after, held to ``want``; returns (result, ms on the host clock,
+    launches)."""
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    if launches != want:
+        raise AssertionError(f"{what}: expected {want}, got {launches}")
+    return out, ms, launches
+
+
+def phase_early_exit(name, model, images):
+    """The boosted path's early-exit serving: one request through
+    ``predict(early_exit_threshold=EXIT_TAU)`` (the config's stability
+    criterion), each image's output held against the full forward's output
+    at the block it reports, renormalized; and one incremental request
+    (``make_incremental_predict`` at confidence INCREMENTAL_THRESHOLD, which
+    no image reaches) held within 1e-5 against the full forward's last
+    block, renormalized. Both run the stem once (K1-fwd) and are counted."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.models import early_exit
+    from boosted_detr_torch.train.steps import make_predict_step
+
+    path = PATHS[name]
+    x = torch.from_numpy(images).cuda()
+    outs = make_predict_step(model, return_intermediate=True)(x)
+    preds, ms, launches = _counted(
+        lambda: bt.predict(model, images, decode_text=False,
+                           early_exit_threshold=EXIT_TAU),
+        path["forward"], "early-exit request")
+    exits = preds["exit_block"]
+    _say(f"[early exit {name}] one request of {BATCH} at stability tau "
+         f"{EXIT_TAU}: {ms:.2f} ms (host clock), exit blocks {exits.tolist()}"
+         f", launches {launches}")
+
+    def renormalized(out):
+        cat = out["category"].float()
+        return dict(out, category=cat / cat.sum(-1, keepdim=True).clamp_min(
+            1e-9))
+
+    want = {k: torch.stack([renormalized(outs[int(e)])[k][b]
+                            for b, e in enumerate(exits)]).cpu()
+            for k in ("category", "attribute", "boxes")}
+    worst = max(_close(torch.from_numpy(preds[k]), want[k], atol=1e-6,
+                       rtol=0.0, what=f"early exit {k} against the full "
+                       f"forward at each image's exit block")
+                for k in want)
+    row = {"early_exit_ms": ms, "exit_block": exits.tolist(),
+           "early_exit_max_abs_err": worst, "early_exit_launches": launches}
+
+    incremental = early_exit.make_incremental_predict(
+        model, INCREMENTAL_THRESHOLD, "confidence")
+    (preds, blocks_run), ms, launches = _counted(
+        lambda: incremental(x), path["forward"], "incremental request")
+    _say(f"[early exit {name}] incremental request at confidence "
+         f"{INCREMENTAL_THRESHOLD}: {blocks_run} of "
+         f"{model.config.num_decoder_blocks} blocks run, {ms:.2f} ms (host "
+         f"clock, one readback a block), launches {launches}")
+    if blocks_run != model.config.num_decoder_blocks:
+        raise AssertionError("the incremental request stopped early")
+    last = renormalized(outs[-1])
+    worst = max(_close(preds[k], last[k], atol=1e-5, rtol=0.0,
+                       what=f"incremental {k} against the full forward")
+                for k in ("category", "attribute", "boxes"))
+    row.update(incremental_ms=ms, blocks_run=blocks_run,
+               incremental_max_abs_err=worst,
+               incremental_launches=launches)
+    return row
 
 
 def _host_ms(fn, repeats=5):
@@ -1085,21 +1212,26 @@ def phase_training(name, warmup, steps):
     path = PATHS[name]
     res = path["res"]
     cfg = _path_config(name, _codec())
-    tcfg = bt.TrainConfig(batch_size=BATCH)
-    model = bt.DETR(cfg, seed=0)
+    tcfg = bt.TrainConfig(batch_size=BATCH, **path.get("train", {}))
+    model = _build(path, cfg, seed=0)
     state = bt.TrainState.create(model, bt.make_optimizer(
         tcfg, model.parameters(), d_model=cfg.decoder_dim))
     step = bt.make_train_step(model, cfg, tcfg)
     batch = _flagship_batch(cfg, BATCH, model.device)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    _say(f"[training {name}] train step: batch {BATCH} at {res}x{res}, "
-         f"backbone {cfg.backbone}, fused attention "
+    _say(f"[training {name}] train step of {type(model).__name__}: batch "
+         f"{BATCH} at {res}x{res}, backbone {cfg.backbone}, fused attention "
          f"{cfg.use_pallas_attention}, bf16, matcher {cfg.matcher}, SGD "
          f"Nesterov {tcfg.momentum}, clipnorm {tcfg.clipnorm}, "
-         f"{tcfg.lr_schedule}; {warmup} warm-up and {steps} timed steps")
+         f"{tcfg.lr_schedule}, intermediate losses "
+         f"{tcfg.use_intermediate_losses}; {warmup} warm-up and {steps} "
+         "timed steps")
     t0 = time.perf_counter()
-    for _ in range(warmup):
-        state, _ = step(state, batch)
+    for i in range(warmup):
+        with _lap_shapes() as shapes:
+            state, _ = step(state, batch)
+        if i == 0:
+            _expect_lap_shapes(shapes, path, "the train step")
     torch.cuda.synchronize()
     _say(f"  warm-up: {time.perf_counter() - t0:.2f} s")
 
@@ -1155,20 +1287,16 @@ def phase_training(name, warmup, steps):
     still_stats = [k for k in stats if torch.equal(after[k], before[k])]
     _say(f"  changed: {len(params) - len(still)} of {len(params)} "
          f"parameters, {len(stats) - len(still_stats)} of {len(stats)} "
-         f"running statistics; unchanged: {still + still_stats}")
-    # A key-projection bias shifts all of one query's logits alike, which
-    # softmax ignores: its gradient is zero up to rounding, and it may stay.
-    if still_stats or any(not k.endswith("key_projection.bias")
-                          for k in still):
+         f"running statistics; unchanged: {still + still_stats}; their "
+         "last gradients' L2 norms: " + ", ".join(
+             f"{params[k].grad.float().norm().item():.3e}"
+             if params[k].grad is not None else "none" for k in still))
+    may_stay = _ZERO_GRADIENT + path.get("may_stay", ())
+    if still_stats or any(not k.endswith(may_stay)
+                          or params[k].grad is None for k in still):
         raise AssertionError("a parameter or running statistic did not move")
 
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us = _profiled(lambda: step(state, batch))
     split, busy_ms, wall_ms, attention_ms = _profile_split(prof, wall_us)
     row = {"images_per_s": images_per_s, "step_ms": step_ms,
            "launches": launches}
@@ -1264,13 +1392,147 @@ def phase_training(name, warmup, steps):
     row.update(loss_rel_diff_plain=rel, grad_rel_diff_backward=every,
                grad_rel_diff_backward_worst_leaf=leaf[worst],
                grad_rel_diff_step=whole)
+    if "train_block" in path:
+        model.load_state_dict(snapshot)
+        staged = phase_staged(name, model, cfg, tcfg, batch, at)
+        row.update(staged)
+        row["launches"] = {k: v + staged["staged_launches"][k]
+                           for k, v in launches.items()}
+        _say(f"  staged step {staged['staged_step_ms_median']:.3f} ms "
+             f"against the joint step's {statistics.median(step_ms):.3f} ms "
+             f"(medians, CUDA events)")
+    return row
+
+
+def _profiled(fn):
+    """One call of ``fn`` under torch.profiler: (the profile, its wall
+    time in us)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+@contextlib.contextmanager
+def _lap_shapes():
+    """The shapes of the cost tensors the matching loss hands to its
+    solver (K2 on the card) while the block runs."""
+    from boosted_detr_torch.ops import matching as M
+
+    solve = M.solve_matching
+    shapes = []
+
+    def spy(cost, num_objects, method="hungarian"):
+        shapes.append(tuple(cost.shape))
+        return solve(cost, num_objects, method)
+
+    M.solve_matching = spy
+    try:
+        yield shapes
+    finally:
+        M.solve_matching = solve
+
+
+def _expect_lap_shapes(shapes, path, what, key="lap_shape"):
+    _say(f"  {what}: K2 problem {shapes}")
+    if key in path and shapes != [path[key]]:
+        raise AssertionError(f"{what}: expected one K2 launch at "
+                             f"{path[key]}, got {shapes}")
+
+
+def phase_staged(name, model, cfg, tcfg, batch, at):
+    """Staged training from the joint steps' state: the optimizer holds
+    weak learner ``k``'s leaves and ``decoder_prep`` alone
+    (``boosted_block_mask``), the forward stops at block k and the loss is
+    its own (``train_block`` with intermediate losses). A warm-up step,
+    STAGED_STEPS timed steps counted (K1-dW never: the backbone is frozen
+    and gets no gradient; K2 at [8, 32, 96]) and one profiled step; then
+    every frozen parameter is held bit for bit and block k's must have
+    moved."""
+    import boosted_detr_torch as bt
+
+    path = PATHS[name]
+    k = path["train_block"]
+    staged_cfg = tcfg.replace(train_block=k)
+    mask = bt.boosted_block_mask(model, k)
+    state = bt.TrainState.create(model, bt.make_optimizer(
+        staged_cfg, model.named_parameters(), d_model=cfg.decoder_dim,
+        trainable_mask=mask))
+    state.step = at
+    step = bt.make_train_step(model, cfg, staged_cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _say(f"[staged {name}] train_block={k}: {sum(mask.values())} of "
+         f"{len(mask)} parameters train (weak learner {k} and "
+         "decoder_prep); 1 warm-up step, "
+         f"{STAGED_STEPS} timed steps")
+    with _lap_shapes() as shapes:
+        state, _ = step(state, batch)
+    _expect_lap_shapes(shapes, {"lap_shape": (BATCH, 32, 96)},
+                       "the staged step")
+    events = []
+
+    def timed():
+        nonlocal state
+        for _ in range(STAGED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, aux = step(state, batch)
+            end.record()
+            events.append((start, end, aux))
+
+    want = {n: c * STAGED_STEPS for n, c in path["staged"].items()}
+    _, _, launches = _counted(timed, want, "staged steps")
+    step_ms = [a.elapsed_time(b) for a, b, _ in events]
+    for i, (ms, (_, _, aux)) in enumerate(zip(step_ms, events)):
+        vals = {key: v.item() for key, v in aux.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"staged step {i}: a loss is not finite")
+        _say(f"  staged step {i}: {ms:.3f} ms (CUDA events); loss "
+             f"{vals['loss']:.4f}")
+    _say(f"  kernel launches over {STAGED_STEPS} staged steps: {launches}")
+    frozen = [n for n in mask if not mask[n]]
+    changed = [n for n in frozen
+               if not torch.equal(model.get_parameter(n), before[n])]
+    graded = [n for n in frozen if model.get_parameter(n).grad is not None]
+    trained = [n for n in mask if mask[n]]
+    still = [n for n in trained
+             if torch.equal(model.get_parameter(n), before[n])
+             and not n.endswith(_ZERO_GRADIENT + path.get("may_stay", ()))]
+    _say(f"  frozen parameters: {len(frozen)}, {len(changed)} changed, "
+         f"{len(graded)} with a gradient; trained: {len(trained)}, "
+         f"{len(still)} unchanged")
+    if changed or graded or still:
+        raise AssertionError(f"staged step: frozen changed {changed[:4]}, "
+                             f"frozen with a gradient {graded[:4]}, trained "
+                             f"unchanged {still[:4]}")
+    prof, wall_us = _profiled(lambda: step(state, batch))
+    split, busy_ms, wall_ms, _ = _profile_split(prof, wall_us)
+    row = {"staged_step_ms": step_ms,
+           "staged_step_ms_median": statistics.median(step_ms),
+           "staged_launches": launches}
+    if busy_ms:
+        row.update(staged_profile_split_ms=split,
+                   staged_profile_busy_ms=busy_ms,
+                   staged_profile_wall_ms=wall_ms)
+        _say(f"  profiler, one staged step: wall {wall_ms:.3f} ms, device "
+             f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); by "
+             "phase (device ms): " + ", ".join(
+                 f"{key.split('/')[-1]} {v:.3f}" for key, v in split.items()))
+    else:
+        _say("  profiler: no device time recorded; split not measured")
     return row
 
 
 def _small_configs():
-    """The small float32 models: the ResNet DETR of the CPU tests, the same
-    with the fused attention (2 heads of 32: K3's head dims), and a ViT DETR
-    (patch 16, width 64, 2 blocks of 2 heads)."""
+    """The small float32 models, {label: (model, config)}: the ResNet DETR
+    of the CPU tests, the same with the fused attention (2 heads of 32:
+    K3's head dims), a ViT DETR (patch 16, width 64, 2 blocks of 2 heads),
+    and a boosted ensemble with carried queries and the fused attention."""
     import boosted_detr_torch as bt
 
     resnet = bt.ModelConfig(image_size=(64, 64), backbone="resnet",
@@ -1283,20 +1545,23 @@ def _small_configs():
                             matcher="pallas", dropout_rate=0.0)
     fused = resnet.replace(use_pallas_attention=True, num_encoder_heads=2,
                            num_decoder_heads=2)
-    return {"DETR": resnet, "DETR, fused attention": fused,
-            "ViT DETR, fused attention": fused.replace(
-                backbone="vit_p16_d2_w64_h2", backbone_width=1.0)}
+    return {"DETR": ("DETR", resnet),
+            "DETR, fused attention": ("DETR", fused),
+            "ViT DETR, fused attention": ("DETR", fused.replace(
+                backbone="vit_p16_d2_w64_h2", backbone_width=1.0)),
+            "BoostedDETR, carried queries, fused attention": (
+                "BoostedDETR", fused.replace(boosted_queries="carry"))}
 
 
-def phase_small_reference(label, cfg):
+def phase_small_reference(label, model_name, cfg):
     """A small float32 model on the card against the same weights on the
     CPU, where the port runs the plain versions that the CPU tests hold
     against the JAX package."""
     import boosted_detr_torch as bt
 
-    cpu = bt.DETR(cfg, device="cpu", seed=2)
+    cpu = getattr(bt, model_name)(cfg, device="cpu", seed=2)
     _randomize_running_stats(cpu, seed=3)
-    gpu = bt.DETR(cfg, seed=2)
+    gpu = getattr(bt, model_name)(cfg, seed=2)
     gpu.load_state_dict(cpu.state_dict())
     images = np.random.default_rng(4).uniform(
         -0.05, 1.05, (2, 64, 64, 3)).astype(np.float32)
@@ -1393,6 +1658,14 @@ def main() -> int:
     report = {}
     for name in PATHS:
         serving = phase_serving(name)
+        if name == "boosted":
+            extra = phase_early_exit(name, serving["model"],
+                                     serving["images"])
+            serving.update(extra)
+            serving["launches"] = {
+                k: v + extra["early_exit_launches"][k]
+                + extra["incremental_launches"][k]
+                for k, v in serving["launches"].items()}
         serving.update(phase_breakdown(
             name, serving.pop("model"), serving.pop("codec"),
             serving.pop("images")))
@@ -1402,8 +1675,8 @@ def main() -> int:
         report[name] = {"serving": serving,
                         "training": phase_training(name, warmup, steps)}
         torch.cuda.empty_cache()
-    for label, cfg in _small_configs().items():
-        phase_small_reference(label, cfg)
+    for label, (model_name, cfg) in _small_configs().items():
+        phase_small_reference(label, model_name, cfg)
     phase_kernel_names()
 
     card = subprocess.run(

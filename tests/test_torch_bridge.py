@@ -150,7 +150,8 @@ def test_port_imports_nothing_of_jax():
     scanned = {str(f.relative_to(ROOT / "boosted_detr_torch"))
                for f in files[:-1]}
     assert {"ops/boxes.py", "ops/losses.py", "ops/lap.py", "ops/matching.py",
-            "train/schedules.py", "train/steps.py"} <= scanned
+            "train/schedules.py", "train/steps.py", "models/boosted.py",
+            "models/early_exit.py"} <= scanned
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in _BANNED]

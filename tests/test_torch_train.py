@@ -463,9 +463,9 @@ def test_predict_between_train_steps_changes_nothing(reference):
 
 def test_options_not_ported_raise():
     model = bt.DETR(PORT_CFG, device="cpu")
-    for kw in (dict(train_block=0), dict(mesh_shape={"data": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bt.make_train_step(model, PORT_CFG, bt.TrainConfig(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bt.make_train_step(model, PORT_CFG,
+                           bt.TrainConfig(mesh_shape={"data": 2}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bt.make_optimizer(bt.TrainConfig(agc_clip=0.01), model.parameters())
     other = bt.DETR(PORT_CFG, device="cpu")
