@@ -27,6 +27,15 @@ The ViT backbone's leaves follow the same rules: ``vit/patch_embed``
 share the tree), ``vit/positional_embedding``, ``vit/block_i/{ln1, ln2,
 attn, mlp_in, mlp_out}``, ``vit/ln_final`` and ``vit/reduce``.
 
+So do the other backbones and norms: a depthwise or grouped Conv
+``kernel`` [kh, kw, in / groups, out] (depthwise: [kh, kw, 1, C]) becomes
+OIHW [out, in / groups, kh, kw] by the same transpose; GroupNorm's
+``norm/gn/{scale,bias}`` -> ``norm.gn.{weight,bias}``; the
+weight-standardised conv's ``conv/gain`` and ``BottleneckBlock``'s scalar
+``skip_gain`` (shape ``()``) and the squeeze-excite ``se/{reduce,expand}/
+{kernel,bias}`` keep their names. A model with no BatchNorm (``skipinit``,
+``groupnorm``) has no ``batch_stats`` collection.
+
 It raises on a Flax leaf with no counterpart and on a port entry left
 unfilled, so a renamed module cannot slip through with its random init.
 
@@ -54,6 +63,12 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             yield from _leaves(value, path + (str(key),))
         else:
             yield path + (str(key),), np.asarray(value)
+
+
+def _contiguous(value: np.ndarray) -> np.ndarray:
+    """A C-contiguous copy that keeps a 0-d leaf (``skip_gain``) 0-d:
+    ``np.ascontiguousarray`` alone returns it with shape (1,)."""
+    return np.ascontiguousarray(value).reshape(value.shape)
 
 
 def _map_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray
@@ -94,8 +109,8 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
             if tuple(value.shape) != tuple(state[key].shape):
                 raise ValueError(f"Flax leaf {where} {value.shape} does not "
                                  f"fit '{key}' {tuple(state[key].shape)}")
-            filled[key] = torch.from_numpy(
-                np.ascontiguousarray(value)).to(state[key].dtype)
+            filled[key] = torch.from_numpy(_contiguous(value)).to(
+                state[key].dtype)
     missing = sorted(set(state) - set(filled))
     if missing:
         raise KeyError(f"{len(missing)} entries of {type(model).__name__} "
@@ -133,5 +148,5 @@ def to_flax_layout(model: nn.Module, tensors: Mapping[str, torch.Tensor]
         node = out.setdefault(collection, {})
         for scope in scopes:
             node = node.setdefault(scope, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = _contiguous(value)
     return out

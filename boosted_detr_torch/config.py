@@ -19,10 +19,11 @@ Fields the port reads with a meaning of its own:
 
 ``TrainConfig.train_block`` is staged boosted training (train/steps.py:
 the focused forward and loss with intermediate losses; the frozen leaves
-are the optimizer's ``trainable_mask``). ``TrainConfig`` fields the port
-does not implement yet keep their names and defaults; the code that reads
-them raises ``NotImplementedError`` when they are set (``agc_clip``,
-``mesh_shape``).
+are the optimizer's ``trainable_mask``); ``TrainConfig.agc_clip`` is the
+adaptive gradient clip of the norm-free (``skipinit``) backbone, first in
+the optimizer's chain (train/steps.py). The one ``TrainConfig`` field the
+port does not implement yet, ``mesh_shape``, keeps its name and default;
+the train step raises ``NotImplementedError`` when it is set.
 """
 
 from __future__ import annotations
@@ -124,7 +125,7 @@ class TrainConfig:
     momentum: float = 0.9
     nesterov: bool = True
     clipnorm: float = 0.1  # per tensor, Keras ``clipnorm``
-    agc_clip: float = 0.0  # not ported (the skipinit backbone)
+    agc_clip: float = 0.0  # adaptive gradient clip (skipinit backbone)
     ema_decay: float = 0.0
     optimizer: str = "sgd"  # sgd | adamw
     weight_decay: float = 0.0

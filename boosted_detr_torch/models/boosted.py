@@ -140,15 +140,17 @@ class BoostedDETR(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Union[Dict[str, torch.Tensor],
                            List[Dict[str, torch.Tensor]]]:
-        """``generator`` draws the dropout bits in training mode, where it
-        is required when ``dropout_rate > 0``; in eval mode it is unused."""
+        """``generator`` draws the dropout and stochastic-depth bits in
+        training mode, where it is required when ``dropout_rate > 0`` or
+        the backbone is ``efficientnet_b4``; in eval mode it is unused."""
         cfg = self.config
         if not self.training:
             generator = None
-        elif generator is None and cfg.dropout_rate > 0.0:
-            raise ValueError("the training forward draws dropout from an "
-                             "explicit generator; pass generator=")
-        feats = self.neck(self.backbone(image))
+        elif generator is None and (cfg.dropout_rate > 0.0
+                                    or self.backbone.needs_generator):
+            raise ValueError("the training forward draws its random bits "
+                             "from an explicit generator; pass generator=")
+        feats = self.neck(self.backbone(image, generator))
         b, r, c, d = feats.shape
         focused = self.focused_training_layer
         mode = cfg.boosted_queries

@@ -9,8 +9,9 @@ forward maps NHWC float32 images in [0, 1] to probabilities: ``category``
 ``model.eval()`` gives the JAX ``train=False`` forward: BatchNorm uses the
 running statistics and there is no dropout. ``model.train()`` gives the
 ``train=True`` forward: BatchNorm normalises with the batch statistics and
-updates its running ones, and dropout draws its bits from the
-``generator`` the caller passes (the train step makes one per step).
+updates its running ones, and dropout (and the B4 backbone's stochastic
+depth) draws its bits from the ``generator`` the caller passes (the train
+step makes one per step).
 
 ``use_pallas_attention`` sends every attention of the model (encoder,
 decoder self- and cross-attention, ViT blocks) through the fused K3
@@ -104,7 +105,7 @@ class DETR(nn.Module):
 
     def encode(self, image, generator=None):
         """Backbone + neck + transformer encoder -> (tokens, positional)."""
-        feats = self.neck(self.backbone(image))
+        feats = self.neck(self.backbone(image, generator))
         return self.encoder(feats, generator)
 
     def apply_heads(self, decoder_features) -> Dict[str, torch.Tensor]:
@@ -116,13 +117,15 @@ class DETR(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Union[Dict[str, torch.Tensor],
                            List[Dict[str, torch.Tensor]]]:
-        """``generator`` draws the dropout bits in training mode, where it
-        is required when ``dropout_rate > 0``; in eval mode it is unused."""
+        """``generator`` draws the dropout and stochastic-depth bits in
+        training mode, where it is required when ``dropout_rate > 0`` or
+        the backbone is ``efficientnet_b4``; in eval mode it is unused."""
         if not self.training:
             generator = None
-        elif generator is None and self.config.dropout_rate > 0.0:
-            raise ValueError("the training forward draws dropout from an "
-                             "explicit generator; pass generator=")
+        elif generator is None and (self.config.dropout_rate > 0.0
+                                    or self.backbone.needs_generator):
+            raise ValueError("the training forward draws its random bits "
+                             "from an explicit generator; pass generator=")
         tokens, pos = self.encode(image, generator)
         enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
         outputs: List[Dict[str, torch.Tensor]] = []

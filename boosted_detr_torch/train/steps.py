@@ -3,8 +3,9 @@
 Counterpart of boosted_detr_tpu/train/steps.py:25-339: ``TrainState``, the
 per-tensor ``clip_by_per_variable_norm``, ``make_optimizer`` (SGD with
 Nesterov momentum, or AdamW, with the learning rate set each step from the
-schedule), ``targets_from_batch``, ``compute_losses`` (with the L-block
-fold), ``make_update_step`` (with EMA), ``resolve_loss_weights``,
+schedule, behind the adaptive gradient clip of ``agc_clip`` and the
+per-tensor clipnorm), ``targets_from_batch``, ``compute_losses`` (with the
+L-block fold), ``make_update_step`` (with EMA), ``resolve_loss_weights``,
 ``make_train_step``, ``make_eval_step``, ``make_predict_step`` and the
 serving entry point ``predict`` (with early exit); ``with_ema_params``; and
 staged training: ``boosted_block_mask``, ``apply_trainable_mask``, the
@@ -100,23 +101,71 @@ def clip_by_per_variable_norm(grads: List[torch.Tensor],
         g.mul_(scale.to(g.dtype))
 
 
+def unitwise_dims(name: str, p: torch.Tensor) -> Optional[Tuple[int, ...]]:
+    """The dims over which optax's ``unitwise_norm`` sums for the leaf
+    ``name``, in the port's layout, or None where the AGC mask leaves it
+    alone (a leaf whose Flax ndim is below 2: ``skip_gain``, biases, norm
+    scales and gains; steps.py:88-99).
+
+    Trap: optax works in Flax's layout. A Dense kernel [in, out] sums over
+    axis 0 (in), an HWIO conv kernel over (0, 1, 2), any other 2-D leaf (a
+    [T, D] embedding) over axis 0, and a leaf with at most one axis longer
+    than 1 over all of it. So the port's Linear weight [out, in] sums over
+    dim 1 and its OIHW conv weight over (1, 2, 3), while an embedding, in
+    the same layout on both sides, sums over dim 0."""
+    if p.dim() < 2:
+        return None
+    if p.squeeze().dim() <= 1:
+        return tuple(range(p.dim()))
+    weight = name.split(".")[-1] == "weight"  # a transposed Flax kernel
+    if p.dim() == 2:
+        return (1,) if weight else (0,)
+    if p.dim() == 4 and weight:
+        return (1, 2, 3)
+    raise ValueError(f"no unit-wise norm for {name} {tuple(p.shape)}")
+
+
+def adaptive_grad_clip(units: List[Tuple[torch.Tensor, Tuple[int, ...]]],
+                       clip: float) -> None:
+    """optax ``adaptive_grad_clip(clip)`` (NFNet AGC) in place on each
+    parameter's gradient: per unit, where ``||g|| >= max_norm = clip *
+    max(||p||, 1e-3)``, ``g * max_norm / max(||g||, 1e-6)``; ``units`` pairs
+    each parameter with its ``unitwise_dims``. Norms in float32."""
+    for p, dims in units:
+        g = p.grad
+        if g is None:
+            continue
+        g_norm = g.float().square().sum(dims, keepdim=True).sqrt()
+        p_norm = p.detach().float().square().sum(dims, keepdim=True).sqrt()
+        max_norm = clip * p_norm.clamp_min(1e-3)
+        clipped = g * (max_norm / g_norm.clamp_min(1e-6))
+        g.copy_(torch.where(g_norm < max_norm, g, clipped))
+
+
 @dataclasses.dataclass
 class Optimizer:
-    """The JAX package's optax chain: per-tensor clipnorm, then SGD with
-    Nesterov momentum (``dampening=0``, the same trace as optax's) or AdamW
-    with optax's defaults; the learning rate is ``schedule(count)`` with
-    ``count`` from 0, as optax counts."""
+    """The JAX package's optax chain: the adaptive gradient clip on the
+    ``agc`` units when ``agc_clip`` is set, per-tensor clipnorm, then SGD
+    with Nesterov momentum (``dampening=0``, the same trace as optax's) or
+    AdamW with optax's defaults; the learning rate is ``schedule(count)``
+    with ``count`` from 0, as optax counts."""
 
     inner: torch.optim.Optimizer
     schedule: Callable[[int], float]
     clipnorm: float
     count: int = 0
+    agc_clip: float = 0.0
+    agc: Tuple[Tuple[torch.Tensor, Tuple[int, ...]], ...] = ()
 
     @property
     def params(self) -> List[torch.Tensor]:
         return [p for group in self.inner.param_groups for p in group["params"]]
 
     def step(self) -> None:
+        if self.agc_clip:
+            held = {id(p) for p in self.params}
+            adaptive_grad_clip([u for u in self.agc if id(u[0]) in held],
+                               self.agc_clip)
         if self.clipnorm:
             clip_by_per_variable_norm(
                 [p.grad for p in self.params if p.grad is not None],
@@ -160,12 +209,20 @@ def make_optimizer(cfg: TrainConfig, params, d_model: int = 256,
     clipnorm and the learning-rate schedule. ``trainable_mask`` ({name:
     bool}, e.g. ``boosted_block_mask``; ``params`` then are
     ``model.named_parameters()``) is staged freezing: the optimizer holds
-    the leaves marked True only."""
-    if cfg.agc_clip:
-        raise NotImplementedError(_LATER.format(
-            "agc_clip", "the other backbones, skipinit"))
+    the leaves marked True only. ``cfg.agc_clip > 0`` puts the adaptive
+    gradient clip first in the chain, on the leaves of Flax ndim >= 2
+    (``unitwise_dims``); it reads each leaf's layout from its name, so
+    ``params`` then are ``model.named_parameters()`` too."""
     schedule = schedules.make_schedule(cfg.lr_schedule, cfg.learning_rate,
                                        cfg.warmup_steps, d_model)
+    params = list(params)
+    agc = ()
+    if cfg.agc_clip:
+        if not all(isinstance(p, tuple) for p in params):
+            raise ValueError("agc_clip reads each leaf's layout from its "
+                             "name: pass model.named_parameters()")
+        agc = tuple((p, dims) for name, p in params
+                    if (dims := unitwise_dims(name, p)) is not None)
     params = _masked(params, trainable_mask)
     if cfg.optimizer == "sgd":
         inner = torch.optim.SGD(params, lr=cfg.learning_rate,
@@ -177,7 +234,8 @@ def make_optimizer(cfg: TrainConfig, params, d_model: int = 256,
                                   weight_decay=cfg.weight_decay)
     else:
         raise ValueError(f"unknown optimizer '{cfg.optimizer}'")
-    return Optimizer(inner, schedule, cfg.clipnorm)
+    return Optimizer(inner, schedule, cfg.clipnorm, agc_clip=cfg.agc_clip,
+                     agc=agc)
 
 
 def boosted_block_mask(model: nn.Module, k: int) -> Dict[str, bool]:

@@ -466,8 +466,6 @@ def test_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bt.make_train_step(model, PORT_CFG,
                            bt.TrainConfig(mesh_shape={"data": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bt.make_optimizer(bt.TrainConfig(agc_clip=0.01), model.parameters())
     other = bt.DETR(PORT_CFG, device="cpu")
     state = bt.TrainState.create(
         other, bt.make_optimizer(bt.TrainConfig(), other.parameters()))

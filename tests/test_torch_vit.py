@@ -178,8 +178,12 @@ def test_vit_leaves_bridge_both_ways():
 
 
 def test_unported_backbones_still_raise():
-    for name in ("efficientnet_lite", "tiny", "vitp32"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.EncoderBackbone(name, image_size=(64, 64))
+    # every backbone name JAX's EncoderBackbone knows builds now; a name
+    # that is not one (exact-prefix match: "vitp32" is no ViT) raises
+    # ValueError, as JAX's does
+    for name, net in (("efficientnet_lite", "effnet"), ("tiny", "tiny")):
+        assert tb.EncoderBackbone(name, image_size=(64, 64)).net_name == net
+    with pytest.raises(ValueError, match="unknown backbone 'vitp32'"):
+        tb.EncoderBackbone("vitp32", image_size=(64, 64))
     with pytest.raises(ValueError, match="image_size"):
         tb.EncoderBackbone("vit")
