@@ -36,6 +36,16 @@ weight-standardised conv's ``conv/gain`` and ``BottleneckBlock``'s scalar
 {kernel,bias}`` keep their names. A model with no BatchNorm (``skipinit``,
 ``groupnorm``) has no ``batch_stats`` collection.
 
+``DETRPanoptic``'s tree maps by the same rules: ``detr/...`` lands on
+the ``detr.`` prefix, beside ``panoptic_attention/{query,key}_projection``,
+``panoptic_neck/{down0,down1,down2}/{conv,norm}``,
+``panoptic_neck/{up2,up1,up0}/{deconv,norm}`` and
+``panoptic_neck/mask_conv``; the pre-trainer's (``DETRMultiClassifier``)
+is ``detr/<trunk>`` and ``classifier_head``. One rule of its own: a
+ConvTranspose ``deconv/kernel`` [kh, kw, in, out], which Flax correlates
+unflipped, becomes torch's ``conv_transpose2d`` weight [in, out, kh, kw]
+with the spatial axes flipped.
+
 It raises on a Flax leaf with no counterpart and on a port entry left
 unfilled, so a renamed module cannot slip through with its random init.
 
@@ -76,6 +86,11 @@ def _map_leaf(collection: str, path: Tuple[str, ...], value: np.ndarray
     *scopes, leaf = path
     if collection == "batch_stats":
         name = _STATS.get(leaf, leaf)
+    elif leaf == "kernel" and scopes[-1:] == ["deconv"]:
+        if value.ndim != 4:
+            raise ValueError(f"kernel {'/'.join(path)} has rank {value.ndim}")
+        # ConvTranspose HWIO, unflipped -> conv_transpose2d [in, out, kh, kw]
+        name, value = "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
     elif leaf == "kernel":
         name = "weight"
         if value.ndim == 2:  # Dense [in, out] -> [out, in]
@@ -137,6 +152,9 @@ def to_flax_layout(model: nn.Module, tensors: Mapping[str, torch.Tensor]
         collection = "params"
         if name in _STAT_LEAVES:
             collection, leaf = "batch_stats", _STAT_LEAVES[name]
+        elif name == "weight" and scopes[-1:] == ["deconv"]:
+            # conv_transpose2d [in, out, kh, kw] -> HWIO, unflipped
+            leaf, value = "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
         elif name == "weight" and value.ndim == 2:  # Linear -> Dense kernel
             leaf, value = "kernel", value.T
         elif name == "weight" and value.ndim == 4:  # OIHW -> HWIO

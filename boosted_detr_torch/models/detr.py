@@ -55,9 +55,15 @@ class DETR(nn.Module):
     """DETR on ``device`` (default ``cuda``; raises without a GPU unless
     ``device="cpu"``), with parameters drawn from ``seed`` through a
     ``torch.Generator`` in the Flax initialisers' distributions. Trained
-    weights come from ``bridge.load_flax_variables``."""
+    weights come from ``bridge.load_flax_variables``.
 
-    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0):
+    ``heads=False`` builds the trunk alone (backbone, neck, encoder,
+    decoder prep and blocks), as the classifier pre-trainer's ``detr``
+    subtree holds it: Flax creates the heads' leaves only when they are
+    called, and the pre-trainer never calls them."""
+
+    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0,
+                 heads: bool = True):
         super().__init__()
         device = _resolve_device(device)
         self.config = cfg = config
@@ -86,16 +92,17 @@ class DETR(nn.Module):
                 cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
                 self_attention=(i > 0), encoder_dim=cfg.encoder_dim,
                 dropout_rate=cfg.dropout_rate, use_pallas=pallas))
-        hidden = cfg.resolved_head_hidden_dim
-        self.category_head = SingleClassPredictionHead(
-            cfg.decoder_dim, cfg.num_categories, hidden, cfg.num_object_preds,
-            cfg.norm, dtype)
-        self.attribute_head = MultiClassPredictionHead(
-            cfg.decoder_dim, cfg.num_attributes, hidden, cfg.num_object_preds,
-            cfg.norm, dtype)
-        self.box_head = BoxPredictionHead(
-            cfg.decoder_dim, cfg.decoder_dim, cfg.num_object_preds, cfg.norm,
-            dtype)
+        if heads:
+            hidden = cfg.resolved_head_hidden_dim
+            self.category_head = SingleClassPredictionHead(
+                cfg.decoder_dim, cfg.num_categories, hidden,
+                cfg.num_object_preds, cfg.norm, dtype)
+            self.attribute_head = MultiClassPredictionHead(
+                cfg.decoder_dim, cfg.num_attributes, hidden,
+                cfg.num_object_preds, cfg.norm, dtype)
+            self.box_head = BoxPredictionHead(
+                cfg.decoder_dim, cfg.decoder_dim, cfg.num_object_preds,
+                cfg.norm, dtype)
         layers.reset_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
@@ -113,6 +120,33 @@ class DETR(nn.Module):
                 "attribute": self.attribute_head(decoder_features),
                 "boxes": self.box_head(decoder_features)}
 
+    def training_generator(self, generator: Optional[torch.Generator]
+                           ) -> Optional[torch.Generator]:
+        """The generator a forward draws from: None in eval mode; in
+        training mode ``generator``, which is required when
+        ``dropout_rate > 0`` or the backbone is ``efficientnet_b4``."""
+        if not self.training:
+            return None
+        if generator is None and (self.config.dropout_rate > 0.0
+                                  or self.backbone.needs_generator):
+            raise ValueError("the training forward draws its random bits "
+                             "from an explicit generator; pass generator=")
+        return generator
+
+    def decode(self, image: torch.Tensor, return_intermediate: bool,
+               generator: Optional[torch.Generator]):
+        """The trunk: yields ``(tokens, positional, decoder features)``
+        after each decoder block whose output is wanted (every block's with
+        ``return_intermediate``, else the last one's)."""
+        tokens, pos = self.encode(image, generator)
+        enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
+        n = self.num_decoder_blocks
+        for i in range(n):
+            dec = getattr(self, f"decoder_block_{i}")(enc_value, dec, enc_key,
+                                                      generator)
+            if return_intermediate or i == n - 1:
+                yield tokens, pos, dec
+
     def forward(self, image: torch.Tensor, *, return_intermediate: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Union[Dict[str, torch.Tensor],
@@ -120,19 +154,7 @@ class DETR(nn.Module):
         """``generator`` draws the dropout and stochastic-depth bits in
         training mode, where it is required when ``dropout_rate > 0`` or
         the backbone is ``efficientnet_b4``; in eval mode it is unused."""
-        if not self.training:
-            generator = None
-        elif generator is None and (self.config.dropout_rate > 0.0
-                                    or self.backbone.needs_generator):
-            raise ValueError("the training forward draws its random bits "
-                             "from an explicit generator; pass generator=")
-        tokens, pos = self.encode(image, generator)
-        enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
-        outputs: List[Dict[str, torch.Tensor]] = []
-        n = self.num_decoder_blocks
-        for i in range(n):
-            dec = getattr(self, f"decoder_block_{i}")(enc_value, dec, enc_key,
-                                                      generator)
-            if return_intermediate or i == n - 1:
-                outputs.append(self.apply_heads(dec))
+        generator = self.training_generator(generator)
+        outputs = [self.apply_heads(dec) for _, _, dec in
+                   self.decode(image, return_intermediate, generator)]
         return outputs if return_intermediate else outputs[-1]

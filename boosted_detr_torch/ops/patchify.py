@@ -32,6 +32,12 @@ GFLOP at 989 TFLOP/s, so memory bytes bound it (at P = 16 -> 384 too: 49.7
 MB, 14.8 us, against 7.6 us). bf16 x bf16 products are exact in float32, so
 the tensor-core kernel differs from the plain version by the order of the
 float32 sums only: one bf16 ulp where a sum straddles a rounding boundary.
+On the geometries that kernel takes, the plain version sums as it does
+(``mma_step_sums``: each 16-wide MMA step summed exactly and rounded toward
+zero, as the tensor cores' additions truncate, the steps added in k order
+in float32): at the 640 stem that leaves 3 of 6,553,600 bf16 outputs on
+another value than the kernel's, against 383 for one float32 matmul
+(probes/k1_sum_order.py, H100 80GB HBM3 at 700 W).
 
 Where P does not divide H or W, the JAX package takes an ordinary
 SAME-padded convolution instead of its kernel (``supported``, :47-50). Here
@@ -103,13 +109,42 @@ def patchify_conv_reference(x: torch.Tensor, w: torch.Tensor, *,
                             clip01: bool = False) -> torch.Tensor:
     """The plain PyTorch version of the kernel, with the same arithmetic:
     clip, round to ``w.dtype``, SAME zero padding, space-to-depth by
-    reshape/permute, float32 matmul of the rounded values, cast."""
+    reshape/permute, the float32 sum of the rounded values' products,
+    cast. Where the tensor-core kernel takes the geometry
+    (``tensor_core_plan``) the sum is taken in its order
+    (``mma_step_sums``); elsewhere it is one float32 matmul."""
     out_dtype = out_dtype or w.dtype
     _check(x, w, out_dtype)
     p, c_out = w.shape[0], w.shape[3]
     patches, (b, ho, wo) = _patch_matrix(x, p, w.dtype, clip01)
-    out = patches.float() @ w.reshape(-1, c_out).float()
+    w2 = w.reshape(-1, c_out)
+    if tensor_core_plan(tuple(x.shape), tuple(w.shape), w.dtype) is None:
+        out = patches.float() @ w2.float()
+    else:
+        out = mma_step_sums(patches, w2)
     return out.reshape(b, ho, wo, c_out).to(out_dtype)
+
+
+MMA_K = 16  # k values of one mma.sync.m16n8k16 step
+
+
+def mma_step_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` ([M, K] x [K, N] bf16, K a multiple of 16) summed as
+    ``patchify_fwd_mma_kernel`` sums it: each MMA step's 16 products from
+    zero, exactly (in float64, where bf16 products and their sums of 16
+    are exact) and rounded toward zero to float32, as the tensor cores'
+    additions truncate; then the steps added in k order, float32 rounded
+    to nearest. Float32 [M, N]."""
+    a64, b64 = a.double(), b.double()
+    acc = None
+    for s in range(0, a.shape[1], MMA_K):
+        exact = a64[:, s:s + MMA_K] @ b64[s:s + MMA_K]
+        part = exact.float()
+        over = part.double().abs() > exact.abs()  # rounded away from zero
+        part = torch.where(over, torch.nextafter(part, torch.zeros_like(
+            part)), part)
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def _patch_matrix(x: torch.Tensor, p: int, dtype: torch.dtype, clip01: bool):

@@ -7,7 +7,9 @@ schedule, behind the adaptive gradient clip of ``agc_clip`` and the
 per-tensor clipnorm), ``targets_from_batch``, ``compute_losses`` (with the
 L-block fold), ``make_update_step`` (with EMA), ``resolve_loss_weights``,
 ``make_train_step``, ``make_eval_step``, ``make_predict_step`` and the
-serving entry point ``predict`` (with early exit); ``with_ema_params``; and
+serving entry point ``predict`` (with early exit); ``seeded_step``, the
+wrapper the panoptic and pre-training steps share with the train step
+(the state check and the step's dropout generator); ``with_ema_params``; and
 staged training: ``boosted_block_mask``, ``apply_trainable_mask``, the
 ``trainable_mask`` of ``make_optimizer`` and ``TrainConfig.train_block``.
 
@@ -382,7 +384,7 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _set_mode(model: nn.Module, training: bool) -> None:
+def set_mode(model: nn.Module, training: bool) -> None:
     """``model.train(training)`` when the root module is in the other mode:
     the walk over every submodule costs ~0.7 ms of host time at the
     flagship, which a host-bound step would pay on every call."""
@@ -390,7 +392,7 @@ def _set_mode(model: nn.Module, training: bool) -> None:
         model.train(training)
 
 
-def _check_state(state: TrainState, model: nn.Module) -> None:
+def check_state(state: TrainState, model: nn.Module) -> None:
     if state.model is not model:
         raise ValueError("the state holds another model than the one this "
                          "step was made for")
@@ -435,10 +437,10 @@ def make_train_step(model: nn.Module, model_cfg: ModelConfig,
         with record_function("train_step/forward"):
             if train_cfg.freeze_bn_stats:
                 # running statistics, no dropout: the JAX train=False forward
-                _set_mode(model, False)
+                set_mode(model, False)
                 outs = forward(model, batch["image"])
             else:
-                _set_mode(model, True)
+                set_mode(model, True)
                 outs = forward(model, batch["image"], generator=generator)
         preds_list = outs if intermediate else [outs]
         if loss_block is not None:
@@ -455,14 +457,23 @@ def make_train_step(model: nn.Module, model_cfg: ModelConfig,
                    for k, v in aux.items()}
         return loss, aux
 
-    update = make_update_step(loss_fn, ema_decay=train_cfg.ema_decay)
+    return seeded_step(model, train_cfg.seed, make_update_step(
+        loss_fn, ema_decay=train_cfg.ema_decay))
+
+
+def seeded_step(model: nn.Module, seed: int, update: Callable) -> Callable:
+    """``update`` (from ``make_update_step``) as the step of ``model``:
+    ``train_step(state, batch, generator=None)`` refuses a state holding
+    another model, and without a generator draws the dropout bits of step
+    ``s`` from a generator seeded with ``(seed, s)``, as JAX folds the step
+    into its key."""
 
     def train_step(state: TrainState, batch, generator=None):
-        _check_state(state, model)
+        check_state(state, model)
         if generator is None:
             generator = torch.Generator(device=_device_of(state.model))
             generator.manual_seed(int(np.random.SeedSequence(
-                [train_cfg.seed, state.step]).generate_state(1)[0]))
+                [seed, state.step]).generate_state(1)[0]))
         return update(state, batch, generator)
 
     return train_step
@@ -474,8 +485,8 @@ def make_eval_step(model: nn.Module, model_cfg: ModelConfig,
     weights = resolve_loss_weights(model_cfg, train_cfg)
 
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        _check_state(state, model)
-        _set_mode(model, False)
+        check_state(state, model)
+        set_mode(model, False)
         with torch.no_grad():
             outs = state.model(batch["image"])
             loss, aux = compute_losses([outs], batch, model_cfg, weights)
@@ -494,12 +505,12 @@ def make_predict_step(model: nn.Module,
 
     def predict_step(image: torch.Tensor):
         was_training = model.training
-        _set_mode(model, False)
+        set_mode(model, False)
         try:
             with torch.inference_mode():
                 return model(image, return_intermediate=return_intermediate)
         finally:
-            _set_mode(model, was_training)
+            set_mode(model, was_training)
 
     return predict_step
 

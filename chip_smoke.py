@@ -21,7 +21,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    on the same inputs, and times kernel, plain version and one PyTorch
    library call (where one computes the same function) with CUDA events;
    for K3 also the backward alone (delta, dq and dk/dv through the autograd
-   Function) beside the library's;
+   Function) beside the library's; then the matchers that are not kernels
+   (the auction, the greedy matcher and scipy's on the host) on CUDA
+   tensors against K2;
 3. the main paths, each built from seeded random weights (and random
    running statistics for serving) at full width, every launch counter set
    to 0 just before the path runs and read just after:
@@ -61,14 +63,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      at 560: no hand-written kernel in their forward, K2 in their step;
      each path with a parameter count pins it to the JAX model's
      (``jax.eval_shape`` on the CPU);
+   - the panoptic model (``DETRPanoptic``, mask size 96) and the
+     classifier pre-trainer (``DETRMultiClassifier`` over the 82
+     categories) on the 640 flagship's config, as
+     benchmarks/run_benchmarks.py:219-269 trains them: the panoptic
+     requests served raw with their masks, segmented, one decoded to
+     text; its step the detection and mask losses on one K2 assignment,
+     on a batch with box masks; the pre-trainer's requests its class
+     probabilities, its step the classifier loss after every block (no
+     K2);
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
    a ViT DETR, a boosted ensemble with carried queries and the fused
    attention, an EfficientNet-lite DETR, a narrow B4 DETR with stochastic
    depth drawn from one CPU generator on both sides, a tiny DETR with
-   GroupNorm, a conv7 ResNet DETR, and a norm-free DETR trained with the
-   adaptive gradient clip): one forward, and one train step;
+   GroupNorm, a conv7 ResNet DETR, a norm-free DETR trained with the
+   adaptive gradient clip, a DETRPanoptic, a DETRMultiClassifier, and the
+   ResNet DETR with the auction and with the greedy matcher): one forward,
+   and one train step with the model's own step builder;
 5. kernel names: which device kernel each forward and each weight
    gradient of phase 2 runs, from a profile (tensor cores for bf16, CUDA
    cores for float32 and the P=4 stem), in a process of its own
@@ -756,6 +769,76 @@ def phase_kernels():
     return rows
 
 
+# the matchers phase's problems: (B, O, P, seed), the flagship's and 300
+# queries
+MATCHER_CASES = ((8, 32, 96, 50), (8, 32, 300, 51))
+
+
+def phase_matchers():
+    """The approximate matchers and the host oracle on CUDA tensors, held
+    against K2 on tie-free random costs (n = 0 in the first problem and O
+    in the last): ``auction_lap``'s total cost within ``n * eps`` of K2's
+    (its bound, eps = 1e-2 * spread / (n + 1) as the auction takes it, plus
+    1e-4 relative for the float32 sums); ``greedy_lap`` unshuffled and
+    shuffled by a generator a valid assignment (each active row one
+    prediction, each prediction at most one row, the padded rows empty);
+    ``hungarian_host`` K2's mask bit for bit. None of them is a kernel;
+    their host-clock times are shown beside K2's."""
+    from boosted_detr_torch.ops import lap as L
+    from boosted_detr_torch.ops import matching as M
+
+    _say("[matchers] auction_lap, greedy_lap and hungarian_host against K2 "
+         "on CUDA tensors")
+    rows = []
+    for b, o, p, seed in MATCHER_CASES:
+        cost_np, n_np = _lap_inputs(b, o, p, seed, edges=True)
+        cost = torch.from_numpy(cost_np).cuda()
+        n = torch.from_numpy(n_np).cuda()
+        exact = L.hungarian_lap(cost, n)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        masks = {"auction": M.auction_lap(cost, n),
+                 "greedy": M.greedy_lap(cost, n),
+                 "greedy shuffled": M.greedy_lap(cost, n, generator=gen),
+                 "host": M.hungarian_host(cost, n)}
+        what = f"[{b}, {o}, {p}]"
+        for label, mask in masks.items():
+            m = mask.cpu().numpy()
+            if mask.device != cost.device:
+                raise AssertionError(f"{label} {what}: mask on {mask.device}")
+            for i in range(b):
+                ni = int(n_np[i])
+                if not ((m[i, :ni].sum(1) == 1).all() and (m[i, ni:] == 0)
+                        .all() and (m[i].sum(0) <= 1).all()):
+                    raise AssertionError(f"{label} {what}: problem {i} is "
+                                         "not a valid assignment")
+        totals = {k: (v * cost).sum(dim=(1, 2)).cpu().numpy().astype(
+            np.float64) for k, v in dict(masks, K2=exact).items()}
+        spread = np.array([np.ptp(cost_np[i, :max(int(n_np[i]), 1)])
+                           for i in range(b)])
+        slack = n_np * 1e-2 * np.maximum(spread, 1e-6) / (n_np + 1.0)
+        over = totals["auction"] - totals["K2"]
+        if not (over <= slack + 1e-4 * totals["K2"] + 1e-6).all():
+            raise AssertionError(f"auction {what}: {over} over K2's cost, "
+                                 f"bound n*eps {slack}")
+        if not torch.equal(masks["host"], exact):
+            raise AssertionError(f"hungarian_host {what}: not K2's mask")
+        greedy_over = totals["greedy"] - totals["K2"]
+        times = {k: _host_ms(fn) for k, fn in (
+            ("auction_ms", lambda: M.auction_lap(cost, n)),
+            ("greedy_ms", lambda: M.greedy_lap(cost, n)),
+            ("host_ms", lambda: M.hungarian_host(cost, n)),
+            ("k2_ms", lambda: L.hungarian_lap(cost, n)))}
+        _say(f"  {what}: all four valid; auction over K2's cost by at most "
+             f"{over.max():.4e} (bound n*eps up to {slack.max():.4e}); "
+             f"greedy over it by up to {greedy_over.max():.4e} (not held); "
+             f"hungarian_host K2's mask bit for bit; host clock: " + ", ".join(
+                 f"{k[:-3]} {v:.3f} ms" for k, v in times.items()))
+        rows.append(dict(shape=what, auction_over=float(over.max()),
+                         auction_bound=float(slack.max()),
+                         greedy_over=float(greedy_over.max()), **times))
+    return rows
+
+
 def _wrapper(name):
     """A kernel's module and the names of its wrapper and plain version."""
     module, wrapper, plain = KERNELS[name][:3]
@@ -892,7 +975,34 @@ PATHS = {
                           norm="batchnorm", use_pallas_stem=False),
         params=8_751_998, forward=_expect(), step=_expect(lap=1),
         serving_plain=()),
+    # benchmarks/run_benchmarks.py:219-269 (bench_other_models): the 640
+    # flagship's config with the panoptic mask head at mask_size 96 (its
+    # attention maps over the 20x20 grid, a U-Net at 96x96, float32 mask
+    # logits), trained on the detection loss plus the matched mask loss,
+    # one K2 assignment for both; served raw (masks [8, 96, 96, 96]), then
+    # segmented
+    "panoptic": dict(
+        res=RES, cfg=dict(backbone="resnet", stem="patchify8",
+                          norm="batchnorm"),
+        model="DETRPanoptic", model_kw=lambda cfg: dict(mask_size=MASK_SIZE),
+        builder="panoptic", serve="panoptic", params=29_118_270,
+        lap_shape=(BATCH, 32, 96), forward=_expect(patchify_fwd=1),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1),
+        serving_plain=("patchify_fwd",)),
+    # the same source's classifier pre-trainer: the trunk (no detection
+    # heads) and a multi-label classifier head over the 82 categories,
+    # applied after every decoder block; no matching, so no K2
+    "pretrainer": dict(
+        res=RES, cfg=dict(backbone="resnet", stem="patchify8",
+                          norm="batchnorm"),
+        model="DETRMultiClassifier",
+        model_kw=lambda cfg: dict(num_classifier_classes=cfg.num_categories),
+        builder="pretrain", serve="classifier", params=27_926_354,
+        forward=_expect(patchify_fwd=1),
+        step=_expect(patchify_fwd=1, patchify_dw=1),
+        serving_plain=("patchify_fwd",)),
 }
+MASK_SIZE = 96
 # the boosted path's early-exit request (PERF.md: the stability criterion
 # at tau 1.5, the README's recommendation) and its incremental request
 # (confidence 1.1: no image exits, all 4 weak learners run)
@@ -958,11 +1068,41 @@ def _path_config(name, codec):
 
 
 def _build(path, cfg, **kw):
-    """The path's model (``DETR`` unless it names another) on cuda, the
-    entry point's default."""
+    """The path's model (``DETR`` unless it names another, with its
+    keywords) on cuda, the entry point's default."""
     import boosted_detr_torch as bt
 
+    kw = dict(path.get("model_kw", lambda cfg: {})(cfg), **kw)
     return getattr(bt, path.get("model", "DETR"))(cfg, **kw)
+
+
+def _serve(path, model, images, codec):
+    """One request of a path as its user makes it: text through ``predict``
+    and the codec (detection); the raw dict with ``masks`` through
+    ``predict(decode_text=False)`` and its panoptic segments
+    (``serve="panoptic"``); the class probabilities [B, 1, C] through
+    ``make_predict_step`` (``serve="classifier"``)."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.train import metrics
+    from boosted_detr_torch.train.steps import make_predict_step
+
+    kind = path.get("serve", "text")
+    if kind == "text":
+        return bt.predict(model, images, codec)
+    if kind == "panoptic":
+        raw = bt.predict(model, images, decode_text=False)
+        return raw, metrics.detr_panoptic_segments(raw)
+    x = torch.from_numpy(images).to(model.device)
+    return make_predict_step(model)(x).cpu().numpy()
+
+
+def _raw(path, model, images):
+    """The request's raw outputs as a dict of numpy arrays."""
+    import boosted_detr_torch as bt
+
+    if path.get("serve") == "classifier":
+        return {"classes": _serve(path, model, images, None)}
+    return bt.predict(model, images, decode_text=False)
 
 
 def phase_serving(name):
@@ -993,13 +1133,13 @@ def phase_serving(name):
     requests = [rng.uniform(0.0, 1.0, (BATCH, res, res, 3)).astype(np.float32)
                 for _ in range(REQUESTS)]
 
-    bt.predict(model, requests[0], codec)  # warm-up: cuDNN and cuBLAS plans
+    _serve(path, model, requests[0], codec)  # warm-up: cuDNN, cuBLAS plans
     torch.cuda.synchronize()
     _reset_launches()
     results, latencies = [], []
     for images in requests:
         t0 = time.perf_counter()
-        results.append(bt.predict(model, images, codec))
+        results.append(_serve(path, model, images, codec))
         latencies.append((time.perf_counter() - t0) * 1e3)
     launches = _launches()
     _say(f"  kernel launches over {REQUESTS} requests: {launches}")
@@ -1010,13 +1150,44 @@ def phase_serving(name):
         _say(f"  request {i}: {BATCH} images in {ms:.2f} ms")
     total_s = sum(latencies) / 1e3
     _say(f"  {REQUESTS * BATCH / total_s:.2f} images/s over {REQUESTS} "
-         f"requests (host clock, H2D copy and text decode included)")
-
+         f"requests (host clock, H2D copy and host postprocess included)")
+    kind = path.get("serve", "text")
+    if kind == "classifier":
+        texts = []
+        for probs in results:
+            if probs.shape != (BATCH, 1, cfg.num_categories) or not (
+                    np.isfinite(probs).all() and (probs >= 0).all()
+                    and (probs <= 1).all()):
+                raise AssertionError(f"class probabilities {probs.shape} "
+                                     "off [0, 1] or not finite")
+        _say(f"  outputs: class probabilities [{BATCH}, 1, "
+             f"{cfg.num_categories}] in [0, 1]")
+    elif kind == "panoptic":
+        s = MASK_SIZE
+        for raw, segments in results:
+            masks = raw["masks"]
+            if (masks.shape != (BATCH, cfg.num_object_preds, s, s)
+                    or not np.isfinite(masks).all()):
+                raise AssertionError(f"masks {masks.shape} not [{BATCH}, "
+                                     f"{cfg.num_object_preds}, {s}, {s}] or "
+                                     "not finite")
+            for canvas, cats in segments:
+                if (canvas.shape != (s, s) or canvas.max() >= len(cats)
+                        or canvas.min() < -1 or (cats < 1).any()
+                        or (cats >= cfg.num_categories).any()):
+                    raise AssertionError("a panoptic canvas is off")
+        kept = [len(cats) for _, cats in results[0][1]]
+        _say(f"  outputs: masks [{BATCH}, {cfg.num_object_preds}, {s}, {s}] "
+             f"finite; panoptic segments of request 0 per image {kept}")
+        # one request's text through the codec
+        texts = [codec.decode_predictions(results[0][0])]
+    else:
+        texts = results
     # the boosted ensemble's outputs are sums over its n weak learners
     n = cfg.num_decoder_blocks if path.get("model") == "BoostedDETR" else 1
     words = set(codec.category_vocab)
     attrs = set(codec.attribute_vocab[2:])
-    for cats, atts, boxes in results:
+    for cats, atts, boxes in texts:
         assert cats.shape == atts.shape == (BATCH, cfg.num_object_preds)
         assert set(cats.ravel()) <= words
         assert all(_known_attributes(a, attrs) for a in atts.ravel())
@@ -1024,13 +1195,15 @@ def phase_serving(name):
         assert np.isfinite(boxes).all()
         assert ((boxes > -n) & (boxes < 2 * n)).all()
 
-    raw = bt.predict(model, requests[0], codec, decode_text=False)
-    sums = raw["category"].sum(-1)
-    if not np.allclose(sums, n, atol=1e-5 * n):
-        raise AssertionError(f"softmax rows sum to {sums.min()}..{sums.max()}")
-    assert ((raw["attribute"] >= 0) & (raw["attribute"] <= n)).all()
-    _say(f"  outputs: categories and attributes from the vocabulary, "
-         f"{n} softmax a row summed to {n}, boxes in ({-n}, {2 * n})")
+    raw = _raw(path, model, requests[0])
+    if kind != "classifier":
+        sums = raw["category"].sum(-1)
+        if not np.allclose(sums, n, atol=1e-5 * n):
+            raise AssertionError(f"softmax rows sum to {sums.min()}.."
+                                 f"{sums.max()}")
+        assert ((raw["attribute"] >= 0) & (raw["attribute"] <= n)).all()
+        _say(f"  outputs: categories and attributes from the vocabulary, "
+             f"{n} softmax a row summed to {n}, boxes in ({-n}, {2 * n})")
 
     # The same model with the path's kernels on their plain versions on the
     # card: the stem (K1-fwd) and K3 where it runs. Each agrees to one bf16
@@ -1040,18 +1213,20 @@ def phase_serving(name):
     # logit of a few units) moves a probability by about 1%. Each output is
     # held as a whole to 5e-2 of its own L2 norm (a category probability is
     # ~0.012 on average, so a flat bound would not see a wrong K3), and
-    # each value to 5e-2.
+    # each value to 5e-2. The panoptic mask logits (float32 from a bf16
+    # U-Net, a few units large) each to 5e-2 plus 5e-2 of their own size.
     swapped = path["serving_plain"]
     rel_errs = {}
     if not swapped:
         _say("  no hand-written kernel in this forward: no plain comparison")
     else:
         with _plain_versions(swapped):
-            plain = bt.predict(model, requests[0], codec, decode_text=False)
-    for key in ("category", "attribute", "boxes") if swapped else ():
+            plain = _raw(path, model, requests[0])
+    for key in sorted(set(raw) - {"exit_block"}) if swapped else ():
         got, want = torch.from_numpy(raw[key]), torch.from_numpy(plain[key])
         what = f"serving {key}, kernels vs plain {'/'.join(swapped)}"
-        _close(got, want, atol=5e-2, rtol=0.0, what=what)
+        _close(got, want, atol=5e-2, rtol=5e-2 if key == "masks" else 0.0,
+               what=what)
         rel_errs[key] = _norm_rel(got, want)
         _say(f"  {what}: L2 norm of the difference {rel_errs[key]:.3e} of "
              f"the plain output's (held to 5e-2)")
@@ -1153,19 +1328,32 @@ def phase_breakdown(name, model, codec, images):
     images, the forward on the card, the text decode on the host, and the
     forward's kernels by device time (torch.profiler), with the shares of
     the stem kernel (K1) and the attention kernels (K3)."""
+    from boosted_detr_torch.train import metrics
     from boosted_detr_torch.train.steps import make_predict_step
 
     step = make_predict_step(model)
     x = torch.from_numpy(images).cuda()
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    raw = {k: v.cpu().numpy() for k, v in step(x).items()}
+    kind = PATHS[name].get("serve", "text")
+    out = step(x)
     row = {"h2d_ms": _host_ms(lambda: torch.from_numpy(images).cuda()),
-           "forward_ms": _time_ms(lambda: step(x), flush),
-           "decode_ms": _host_ms(lambda: codec.decode_predictions(raw))}
+           "forward_ms": _time_ms(lambda: step(x), flush), "decode_ms": None}
+    post = "no host postprocess (class probabilities)"
+    if kind != "classifier":
+        raw = {k: v.cpu().numpy() for k, v in out.items()}
+
+        def decode():
+            codec.decode_predictions(raw)
+            if kind == "panoptic":
+                metrics.detr_panoptic_segments(raw)
+
+        row["decode_ms"] = _host_ms(decode)
+        what = ("text decode and panoptic segments" if kind == "panoptic"
+                else "text decode")
+        post = f"{what} {row['decode_ms']:.3f} ms (host clock)"
     _say(f"[breakdown {name}] one request of {BATCH}: H2D copy "
          f"{row['h2d_ms']:.3f} ms (host clock), forward "
-         f"{row['forward_ms']:.3f} ms (CUDA events), text decode "
-         f"{row['decode_ms']:.3f} ms (host clock)")
+         f"{row['forward_ms']:.3f} ms (CUDA events), {post}")
     n = 5
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -1232,6 +1420,31 @@ def _flagship_batch(cfg, batch_size, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def _path_batch(path, model, cfg, batch_size, device):
+    """``_flagship_batch``, with ``masks`` from the boxes
+    (``masks_from_boxes``) at the model's mask size for a panoptic path."""
+    from boosted_detr_torch.models.panoptic import masks_from_boxes
+
+    batch = _flagship_batch(cfg, batch_size, device)
+    if path.get("builder") == "panoptic":
+        batch["masks"] = masks_from_boxes(batch["bbox"], batch["num_objects"],
+                                          model.mask_size)
+    return batch
+
+
+def _step_builder(path, model, cfg, tcfg):
+    """The path's train step: ``make_train_step`` (detection),
+    ``make_panoptic_train_step`` or ``make_pretrain_step``."""
+    import boosted_detr_torch as bt
+
+    builder = path.get("builder")
+    if builder == "panoptic":
+        return bt.make_panoptic_train_step(model, tcfg)
+    if builder == "pretrain":
+        return bt.make_pretrain_step(model)
+    return bt.make_train_step(model, cfg, tcfg)
+
+
 _PHASES = ("train_step/forward", "train_step/loss_and_matching",
            "train_step/backward", "train_step/optimizer")
 
@@ -1271,9 +1484,9 @@ def _trained_stem(model):
     ``skipinit`` the weight-standardised conv's ``gain``, whose gradient
     comes from K1-dW's through the standardisation), the plain stem conv's
     weight where it is not (the EfficientNets)."""
-    net = model.backbone.net
-    conv = (net.patch_embed if model.backbone.net_name == "vit"
-            else net.stem.conv)
+    backbone = getattr(model, "detr", model).backbone
+    net = backbone.net
+    conv = net.patch_embed if backbone.net_name == "vit" else net.stem.conv
     names = {id(p): n for n, p in model.named_parameters()}
     return {names[id(p)]: p for p in (conv.weight, conv.gain)
             if p is not None}
@@ -1295,10 +1508,11 @@ def phase_training(name, warmup, steps):
     n_params = sum(p.numel() for p in model.parameters())
     state = bt.TrainState.create(model, bt.make_optimizer(
         tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
-    step = bt.make_train_step(model, cfg, tcfg)
-    batch = _flagship_batch(cfg, BATCH, model.device)
+    step = _step_builder(path, model, cfg, tcfg)
+    batch = _path_batch(path, model, cfg, BATCH, model.device)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    _say(f"[training {name}] train step of {type(model).__name__}: batch "
+    _say(f"[training {name}] {path.get('builder', 'detection')} train step "
+         f"of {type(model).__name__}: batch "
          f"{BATCH} at {res}x{res}, backbone {cfg.backbone}, norm {cfg.norm}, "
          f"{n_params} parameters, fused attention "
          f"{cfg.use_pallas_attention}, bf16, matcher {cfg.matcher}, SGD "
@@ -1618,15 +1832,19 @@ def phase_staged(name, model, cfg, tcfg, batch, at):
 
 
 def _small_configs():
-    """The small float32 models, {label: (model, config, TrainConfig
-    keywords)}: the ResNet DETR of the CPU tests, the same with the fused
+    """The small float32 models, {label: (path-style entry, config,
+    TrainConfig keywords)}: the ResNet DETR of the CPU tests, the same with
+    the fused
     attention (2 heads of 32: K3's head dims), a ViT DETR (patch 16, width
     64, 2 blocks of 2 heads), a boosted ensemble with carried queries and
     the fused attention; and one for each other backbone and norm: an
     EfficientNet-lite DETR, a narrow B4 DETR (width 0.25: 1.4 x 0.25 of
     B4's widths, stochastic depth on), a tiny DETR with GroupNorm, a conv7
     ResNet DETR, and a norm-free ResNet DETR (K1 on standardised weights)
-    trained with the adaptive gradient clip."""
+    trained with the adaptive gradient clip; a DETRPanoptic (mask size 32)
+    trained with its panoptic step, a DETRMultiClassifier (12 classes)
+    trained with its pre-train step, and the ResNet DETR with the
+    ``auction`` and with the ``greedy`` matcher."""
     import boosted_detr_torch as bt
 
     resnet = bt.ModelConfig(image_size=(64, 64), backbone="resnet",
@@ -1639,43 +1857,56 @@ def _small_configs():
                             matcher="pallas", dropout_rate=0.0)
     fused = resnet.replace(use_pallas_attention=True, num_encoder_heads=2,
                            num_decoder_heads=2)
-    return {"DETR": ("DETR", resnet, {}),
-            "DETR, fused attention": ("DETR", fused, {}),
-            "ViT DETR, fused attention": ("DETR", fused.replace(
+    detr, boosted = {}, dict(model="BoostedDETR")
+    panoptic = dict(model="DETRPanoptic", builder="panoptic",
+                    model_kw=lambda cfg: dict(mask_size=32))
+    pretrainer = dict(model="DETRMultiClassifier", builder="pretrain",
+                      serve="classifier", model_kw=lambda cfg: dict(
+                          num_classifier_classes=cfg.num_categories))
+    return {"DETR": (detr, resnet, {}),
+            "DETR, fused attention": (detr, fused, {}),
+            "ViT DETR, fused attention": (detr, fused.replace(
                 backbone="vit_p16_d2_w64_h2", backbone_width=1.0), {}),
             "BoostedDETR, carried queries, fused attention": (
-                "BoostedDETR", fused.replace(boosted_queries="carry"), {}),
-            "EfficientNet-lite DETR": ("DETR", resnet.replace(
+                boosted, fused.replace(boosted_queries="carry"), {}),
+            "EfficientNet-lite DETR": (detr, resnet.replace(
                 backbone="efficientnet_lite"), {}),
-            "EfficientNet-B4 DETR, width 0.25": ("DETR", resnet.replace(
+            "EfficientNet-B4 DETR, width 0.25": (detr, resnet.replace(
                 backbone="efficientnet_b4"), {}),
-            "tiny DETR, GroupNorm": ("DETR", resnet.replace(
+            "tiny DETR, GroupNorm": (detr, resnet.replace(
                 backbone="tiny", norm="groupnorm"), {}),
-            "ResNet conv7 DETR": ("DETR", resnet.replace(
+            "ResNet conv7 DETR": (detr, resnet.replace(
                 stem="conv7", use_pallas_stem=False), {}),
-            "skipinit DETR, AGC 0.05": ("DETR", resnet.replace(
-                norm="skipinit"), dict(agc_clip=0.05))}
+            "skipinit DETR, AGC 0.05": (detr, resnet.replace(
+                norm="skipinit"), dict(agc_clip=0.05)),
+            "DETRPanoptic, mask size 32": (panoptic, resnet, {}),
+            "DETRMultiClassifier, 12 classes": (pretrainer, resnet, {}),
+            "DETR, auction matcher": (detr, resnet.replace(
+                matcher="auction"), {}),
+            "DETR, greedy matcher": (detr, resnet.replace(
+                matcher="greedy"), {})}
 
 
-def phase_small_reference(label, model_name, cfg, train_kw):
+def phase_small_reference(label, path, cfg, train_kw):
     """A small float32 model on the card against the same weights on the
     CPU, where the port runs the plain versions that the CPU tests hold
-    against the JAX package."""
+    against the JAX package. ``path`` names the model, its keywords, its
+    step builder and how it serves, as an entry of PATHS does."""
     import boosted_detr_torch as bt
 
-    cpu = getattr(bt, model_name)(cfg, device="cpu", seed=2)
+    cpu = _build(path, cfg, device="cpu", seed=2)
     _randomize_running_stats(cpu, seed=3)
     _randomize_skip_gains(cpu, seed=7)
-    gpu = getattr(bt, model_name)(cfg, seed=2)
+    gpu = _build(path, cfg, seed=2)
     gpu.load_state_dict(cpu.state_dict())
     images = np.random.default_rng(4).uniform(
         -0.05, 1.05, (2, 64, 64, 3)).astype(np.float32)
-    want = bt.predict(cpu, images, decode_text=False)
-    got = bt.predict(gpu, images, decode_text=False)
+    want = _raw(path, cpu, images)
+    got = _raw(path, gpu, images)
     _say(f"[small reference] float32 {label} 64x64, card against CPU")
     # float32 throughout: the sums run in another order (cuDNN, cuBLAS and
     # the kernel against oneDNN), ~1e-6 at this size; 1e-4 leaves room.
-    for key in ("category", "attribute", "boxes"):
+    for key in sorted(want):
         _close(torch.from_numpy(got[key]), torch.from_numpy(want[key]),
                atol=1e-4, rtol=1e-4, what=key)
 
@@ -1691,12 +1922,13 @@ def phase_small_reference(label, model_name, cfg, train_kw):
     # 2e-5 absolute (a tenth of the largest single-value update, lr 1e-3 x
     # 1.9 x the 0.1 clip), the running statistics to 1e-4.
     tcfg = bt.TrainConfig(batch_size=8, **train_kw)
-    batches = {dev: _flagship_batch(cfg, 8, dev) for dev in ("cpu", "cuda")}
+    batches = {dev: _path_batch(path, cpu, cfg, 8, dev)
+               for dev in ("cpu", "cuda")}
     results = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
         state = bt.TrainState.create(model, bt.make_optimizer(
             tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
-        _, aux = bt.make_train_step(model, cfg, tcfg)(
+        _, aux = _step_builder(path, model, cfg, tcfg)(
             state, batches[dev], torch.Generator().manual_seed(5))
         results[dev] = ({k: v.item() for k, v in aux.items()},
                         {k: v.cpu() for k, v in model.state_dict().items()})
@@ -1764,6 +1996,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels()
+    matchers = phase_matchers()
     report = {}
     for name in PATHS:
         serving = phase_serving(name)
@@ -1784,8 +2017,8 @@ def main() -> int:
         report[name] = {"serving": serving,
                         "training": phase_training(name, warmup, steps)}
         torch.cuda.empty_cache()
-    for label, (model_name, cfg, train_kw) in _small_configs().items():
-        phase_small_reference(label, model_name, cfg, train_kw)
+    for label, (path, cfg, train_kw) in _small_configs().items():
+        phase_small_reference(label, path, cfg, train_kw)
     phase_kernel_names()
 
     card = subprocess.run(
@@ -1793,6 +2026,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     _say("[report] per-shape kernel rows: " + json.dumps(rows))
+    _say("[report] matchers: " + json.dumps(matchers))
     for name, parts in report.items():
         for part, row in parts.items():
             _say(f"[report] {part} {name}: " + json.dumps(row))

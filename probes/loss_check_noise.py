@@ -8,6 +8,8 @@ This script reaches the same state by the same steps and reads, there:
 
 - the loss with the kernels, with the plain versions, and with each
   kernel of the step alone on its plain version (which kernel moves it);
+- how many object rows the matcher assigns to another prediction in the
+  plain step than in the kernel step (a discrete change of the loss);
 - the stem's forward (K1-fwd) against its plain version on that step's
   own input: how many outputs differ, how many of those lie nearer zero
   than the plain version's, and by how much;
@@ -58,35 +60,50 @@ def _one_ulp(out, count, seed):
 
 def path_readings(name, draws):
     import boosted_detr_torch as bt
+    from boosted_detr_torch.ops import matching as M
     from boosted_detr_torch.ops import patchify as P
 
     warmup, steps = ((cs.TRAIN_WARMUP, cs.TRAIN_STEPS) if name == "flagship"
                      else (cs.HR_TRAIN_WARMUP, cs.HR_TRAIN_STEPS))
+    path = cs.PATHS[name]
     cfg = cs._path_config(name, cs._codec())
-    tcfg = bt.TrainConfig(batch_size=cs.BATCH)
-    model = bt.DETR(cfg, seed=0)
+    tcfg = bt.TrainConfig(batch_size=cs.BATCH, **path.get("train", {}))
+    # chip_smoke's model, optimizer, step builder and batch for the path
+    model = cs._build(path, cfg, seed=0)
+    cs._randomize_skip_gains(model, seed=6)
     state = bt.TrainState.create(model, bt.make_optimizer(
-        tcfg, model.parameters(), d_model=cfg.decoder_dim))
-    step = bt.make_train_step(model, cfg, tcfg)
-    batch = cs._flagship_batch(cfg, cs.BATCH, model.device)
+        tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
+    step = cs._step_builder(path, model, cfg, tcfg)
+    batch = cs._path_batch(path, model, cfg, cs.BATCH, model.device)
     # chip_smoke's warm-up, timed and profiled steps
     for _ in range(warmup + steps + 1):
         state, _ = step(state, batch)
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     at = state.step
 
+    masks = {}  # the assignment of the last step of each kind
+
     def loss(plain=(), stem=None):
         nonlocal state
         model.load_state_dict(snapshot)
         state.step = at
         saved = P.patchify_conv_reference
+        solve = M.solve_matching
+
+        def recording_solver(cost, num_objects, method="hungarian"):
+            mask = solve(cost, num_objects, method)
+            masks[plain, stem is None] = mask.clone()
+            return mask
+
         if stem is not None:
             P.patchify_conv_reference = stem
+        M.solve_matching = recording_solver
         try:
             with cs._plain_versions(plain):
                 state, aux = step(state, batch)
         finally:
             P.patchify_conv_reference = saved
+            M.solve_matching = solve
         return aux["loss"].item()
 
     # the stem's input on the kernel step
@@ -111,6 +128,12 @@ def path_readings(name, draws):
     in_step = [k for k, n in cs.PATHS[name]["step"].items() if n]
     row["rel_with_only_this_plain"] = {
         k: _rel(loss((k,)), plain_loss) for k in in_step}
+    if ((), True) in masks:
+        # the matched prediction of each object row, kernel step against
+        # the plain one: a row that moved is a discrete change of the loss
+        moved = (masks[(), True] != masks[tuple(cs.KERNELS), True]).any(-1)
+        row["assignment_rows_moved"] = int(moved.sum())
+        row["assignment_rows"] = int(masks[(), True].amax(-1).sum())
 
     got = kernel(seen["x"], seen["w"], **seen["kw"])
     want = P.patchify_conv_reference(seen["x"], seen["w"], **seen["kw"])

@@ -104,9 +104,17 @@ def test_dispatch_and_launch_count():
     for name in ("pallas", "hungarian_pallas"):
         np.testing.assert_array_equal(tm.solve_matching(cost, n, name), plain)
     assert tlap.hungarian_lap.launches == before  # CPU: the plain version
+    # the approximate matchers and the host oracle: valid assignments of
+    # the first n rows; the oracle at the exact solver's total cost
     for name in ("auction", "greedy", "hungarian_host"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.solve_matching(cost, n, name)
+        mask = tm.solve_matching(cost, n, name).numpy()
+        for i, ni in enumerate(n.tolist()):
+            np.testing.assert_array_equal(mask[i].sum(1), [1] * ni + [0] * (
+                4 - ni))
+            assert (mask[i].sum(0) <= 1).all()
+    np.testing.assert_allclose(
+        (tm.solve_matching(cost, n, "hungarian_host") * cost).sum((1, 2)),
+        (plain * cost).sum((1, 2)), rtol=1e-6)
     with pytest.raises(ValueError, match="unknown matcher"):
         tm.solve_matching(cost, n, "nope")
     with pytest.raises(ValueError):

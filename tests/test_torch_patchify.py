@@ -323,3 +323,45 @@ def test_ctypes_signatures_match_the_c_entry_points():
                 for p in params.replace("\n", " ").split(",")]
         found[name] = (args, results[ret])
     assert found == tp._SIGNATURES
+
+
+@pytest.mark.parametrize("patch,c_out", [(8, 128), (16, 384)])
+def test_plain_version_sums_in_the_tensor_core_order(patch, c_out):
+    """On a tensor-core geometry the plain forward is ``mma_step_sums``:
+    each 16-wide step of k exact and rounded toward zero (never above the
+    exact sum in magnitude, within one float32 ulp of it), the steps added
+    in k order; the result within float32 rounding of the exact sum. On a
+    geometry the CUDA-core kernel takes it stays one float32 matmul."""
+    rng = np.random.default_rng(patch)
+    x = torch.from_numpy(rng.uniform(-0.1, 1.1, (2, 2 * patch, 3 * patch, 3))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((patch, patch, 3, c_out))
+                          * 0.1).astype(np.float32)).bfloat16()
+    assert tp.tensor_core_plan(tuple(x.shape), tuple(w.shape), w.dtype)
+    out = tp.patchify_conv_reference(x, w, out_dtype=torch.float32,
+                                     clip01=True)
+    patches, _ = tp._patch_matrix(x, patch, torch.bfloat16, True)
+    a, b = patches.double(), w.reshape(-1, c_out).double()
+    acc = torch.zeros(a.shape[0], c_out, dtype=torch.float32)
+    for s in range(0, a.shape[1], tp.MMA_K):
+        exact = a[:, s:s + tp.MMA_K] @ b[s:s + tp.MMA_K]
+        part = tp.mma_step_sums(patches[:, s:s + tp.MMA_K],
+                                w.reshape(-1, c_out)[s:s + tp.MMA_K])
+        assert (part.double().abs() <= exact.abs()).all()
+        ulp = torch.nextafter(part.abs(), torch.full_like(part, np.inf)) \
+            - part.abs()
+        assert ((exact - part.double()).abs() <= ulp.double()).all()
+        acc = acc + part
+    np.testing.assert_array_equal(out.reshape(acc.shape).numpy(),
+                                  acc.numpy())
+    exact = (a @ b).float().reshape(out.shape)
+    np.testing.assert_allclose(out.numpy(), exact.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # float32 weights: the CUDA-core kernel's geometry, one matmul
+    w32 = w.float()
+    assert tp.tensor_core_plan(tuple(x.shape), tuple(w32.shape),
+                               w32.dtype) is None
+    patches32, _ = tp._patch_matrix(x, patch, torch.float32, True)
+    np.testing.assert_array_equal(
+        tp.patchify_conv_reference(x, w32, clip01=True).reshape(-1, c_out)
+        .numpy(), (patches32 @ w32.reshape(-1, c_out)).numpy())
