@@ -19,11 +19,27 @@ loss's assignment; mask targets from ``data/masks.py``, segments and
 Panoptic Quality from ``train/metrics.py``); ``DETRMultiClassifier``
 pre-trains the trunk as a multi-label classifier
 (``make_pretrain_step``); ``load_pretrained_backbone`` imports a ResNet
-from an npz or a torchvision state dict. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+from an npz or a torchvision state dict.
+
+The training loop as users run it: a dataset (``SyntheticShapes`` and the
+COCO-format loaders of ``data/datasets.py``), ``Pipeline.batches`` (padded
+numpy batches, the native JPEG loader), ``prefetch_to_device`` (pinned
+memory and a side stream), augmentation on the card (``augment_batch``) or
+whole batches rendered there (``make_batch_fn``), then ``Trainer``:
+``compile``, ``fit`` (NaN guard ``NaNLossError``, validation, CSV and
+TensorBoard logs, checkpoints), ``evaluate`` and ``predict``;
+``train/profiling.py`` traces and meters it; ``default_params`` and
+``from_yaml`` build configs. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 from boosted_detr_torch.bridge import load_flax_variables, to_flax_layout
-from boosted_detr_torch.config import LossWeights, ModelConfig, TrainConfig
+from boosted_detr_torch.config import (LossWeights, ModelConfig, TrainConfig,
+                                       default_params, from_yaml)
+from boosted_detr_torch.data.augment import augment_batch
+from boosted_detr_torch.data.datasets import SyntheticShapes
+from boosted_detr_torch.data.device_synth import make_batch_fn
+from boosted_detr_torch.data.pipeline import Pipeline, prefetch_to_device
 from boosted_detr_torch.models.boosted import BoostedDETR
 from boosted_detr_torch.models.detr import DETR
 from boosted_detr_torch.models.panoptic import (DETRPanoptic,
@@ -36,12 +52,14 @@ from boosted_detr_torch.train.steps import (TrainState, apply_trainable_mask,
                                             boosted_block_mask,
                                             make_optimizer, make_train_step,
                                             predict, with_ema_params)
+from boosted_detr_torch.train.trainer import NaNLossError, Trainer
 
 __all__ = ["BoostedDETR", "DETR", "DETRMultiClassifier", "DETRPanoptic",
-           "LossWeights", "ModelConfig", "TrainConfig", "TrainState",
-           "apply_trainable_mask", "boosted_block_mask",
-           "load_flax_variables", "load_pretrained_backbone",
-           "make_optimizer", "make_panoptic_eval_step",
-           "make_panoptic_train_step", "make_pretrain_step",
-           "make_train_step", "predict", "to_flax_layout",
-           "with_ema_params"]
+           "LossWeights", "ModelConfig", "NaNLossError", "Pipeline",
+           "SyntheticShapes", "TrainConfig", "TrainState", "Trainer",
+           "apply_trainable_mask", "augment_batch", "boosted_block_mask",
+           "default_params", "from_yaml", "load_flax_variables",
+           "load_pretrained_backbone", "make_batch_fn", "make_optimizer",
+           "make_panoptic_eval_step", "make_panoptic_train_step",
+           "make_pretrain_step", "make_train_step", "predict",
+           "prefetch_to_device", "to_flax_layout", "with_ema_params"]

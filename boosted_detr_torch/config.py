@@ -24,12 +24,15 @@ adaptive gradient clip of the norm-free (``skipinit``) backbone, first in
 the optimizer's chain (train/steps.py). The one ``TrainConfig`` field the
 port does not implement yet, ``mesh_shape``, keeps its name and default;
 the train step raises ``NotImplementedError`` when it is set.
+
+``Filepaths``, ``from_yaml`` (dotted overrides, as the CLI gives them) and
+``default_params`` are the helpers of config.py:224-287.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 PAD_TOKEN = "<PAD>"
 OOV_TOKEN = "<OOV>"
@@ -141,3 +144,66 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class Filepaths:
+    """Path conventions (config.py:224-241 of the JAX package): plain fields
+    with the ``default_params()`` accessor."""
+
+    model_name: str = "custom_DETR"
+    dataset_name: str = "COCO"
+    archive_base_dir: str = "/tmp/datasets/archive"
+    local_base_dir: str = "/tmp/datasets/local"
+    checkpoint_load_dir: str = "/tmp/checkpoints"
+    checkpoint_save_dir: str = "/tmp/checkpoints"
+    model_files_dir: str = ""
+    tfrec_files_dir: str = "/tmp/tfrecords"
+
+    def default_params(self, value: Optional[str] = None):
+        params = dataclasses.asdict(self)
+        return params[value] if value is not None else params
+
+
+def from_yaml(path: str, **cli_overrides: Any) -> Tuple[ModelConfig,
+                                                        TrainConfig]:
+    """A YAML file with optional ``model`` and ``train`` sections, overlaid
+    by ``cli_overrides`` with dotted keys such as ``model.encoder_dim=512``
+    or ``train.batch_size=16`` (config.py:244-268). PyYAML is imported
+    here, not with the module."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    model_kw = dict(raw.get("model", {}))
+    train_kw = dict(raw.get("train", {}))
+    for key, val in cli_overrides.items():
+        section, _, name = key.partition(".")
+        if section == "model":
+            model_kw[name] = val
+        elif section == "train":
+            train_kw[name] = val
+        else:
+            raise KeyError(f"override '{key}' must start with model./train.")
+    if "image_size" in model_kw:
+        model_kw["image_size"] = tuple(model_kw["image_size"])
+    if "loss_weights" in train_kw:
+        train_kw["loss_weights"] = LossWeights(**train_kw["loss_weights"])
+    return ModelConfig(**model_kw), TrainConfig(**train_kw)
+
+
+def default_params(dataset_name: str = "COCO", **overrides: Any
+                   ) -> ModelConfig:
+    """A ``ModelConfig`` whose vocabulary sizes are ``dataset_name``'s
+    (``data/vocabularies.py``) with <PAD> and <OOV>, then ``overrides``
+    (config.py:276-287)."""
+    from boosted_detr_torch.data import vocabularies
+
+    vocab = vocabularies.vocab_dict(dataset_name)
+    cfg = ModelConfig(
+        num_categories=len(vocab["category"]) + 2,  # + PAD + OOV
+        num_attributes=len(vocab["attribute"]) + 2,
+    )
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

@@ -518,7 +518,8 @@ def make_predict_step(model: nn.Module,
 def predict(model: nn.Module, images: np.ndarray,
             codec: Optional[TextCodec] = None, decode_text: bool = True,
             early_exit_threshold: Optional[float] = None):
-    """Images [B, H, W, 3] in [0, 1] -> (category_strings,
+    """Images [B, H, W, 3] in [0, 1] (numpy, or a tensor on any device)
+    -> (category_strings,
     attribute_strings, boxes) through ``codec``, or the raw probability dict
     of numpy arrays when ``decode_text`` is False or there is no codec.
 
@@ -530,7 +531,10 @@ def predict(model: nn.Module, images: np.ndarray,
     ``adaptive_select``, models/early_exit.py), with the category output
     renormalized; the raw dict then holds ``exit_block`` [B] too."""
     device = _device_of(model)
-    image = torch.from_numpy(np.asarray(images, np.float32)).to(device)
+    if isinstance(images, torch.Tensor):
+        image = images.to(device, torch.float32)
+    else:
+        image = torch.from_numpy(np.asarray(images, np.float32)).to(device)
     threshold = (early_exit_threshold if early_exit_threshold is not None
                  else model.config.early_exit_threshold)
     if threshold is None:

@@ -72,6 +72,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      on a batch with box masks; the pre-trainer's requests its class
      probabilities, its step the classifier loss after every block (no
      K2);
+   - the trainer: the training loop as users run it, on the 640
+     flagship's config: SyntheticShapes' hard preset through ``Pipeline``
+     and ``prefetch_to_device`` into ``Trainer.fit`` with ``augment_batch``
+     on the card as its ``batch_fn``, validation, a CSV log and
+     checkpoints (host-fed), and ``make_batch_fn`` rendering every batch
+     on the card (device-fed); gates: launches per fit step, eval step and
+     predict forward, the Trainer's step against ``make_train_step``'s and
+     ``scan_steps=2`` against 1 bit for bit, a restored Trainer and one
+     further step bit for bit, ``rasterize`` and the augmentations on the
+     card against the CPU, prefetched batches against the iterator's, the
+     NaN guard, ``evaluate``, ``predict`` and ``evaluate_map``; reports the
+     fit step's time and device-busy share on both routes, the pinned and
+     pageable copies of one batch and the time to render one;
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
@@ -1954,6 +1967,369 @@ def phase_small_reference(label, path, cfg, train_kw):
                              "card and the CPU")
 
 
+# The trainer phase: the training loop as users run it, on the 640
+# flagship's config. Host-fed: SyntheticShapes' hard preset -> Pipeline ->
+# prefetch_to_device -> Trainer.fit with augment_batch on the card as its
+# batch_fn, validation and a CSV log; device-fed: make_batch_fn renders
+# each batch on the card.
+TRAINER_IMAGES, TRAINER_VAL_IMAGES = 24, 16
+TRAINER_EPOCHS, TRAINER_STEPS = 2, 3  # steps_per_epoch
+DEVICE_FED_STEPS = 3
+
+
+def _synthetic_codec():
+    """The flagship's vocabulary sizes (80 categories, 294 attributes, each
+    list with <PAD> and <OOV>: 28,824,190 parameters) with SyntheticShapes'
+    words first, so that its colors are categories 2-7 and its size and
+    aspect words attributes 2-6, as the device renderer numbers them; the
+    rest are COCO's categories and Fashionpedia's attributes."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.data import vocabularies
+    from boosted_detr_torch.data.codec import TextCodec
+
+    own = bt.SyntheticShapes().get_vocab()
+    full = {"category": vocabularies.vocab_dict("COCO")["category"],
+            "attribute": vocabularies.vocab_dict("Fashionpedia")["attribute"]}
+    vocab = {k: own[k] + [w for w in full[k] if w not in own[k]][
+        :len(full[k]) - len(own[k])] for k in full}
+    return TextCodec(vocab)
+
+
+class _Rows:
+    """The rows of a split where pandas is missing: ``Pipeline.batches``
+    reads a frame through ``to_dict("records")`` alone."""
+
+    def __init__(self, rows):
+        self._rows = rows
+
+    def to_dict(self, orient):
+        if orient != "records":
+            raise ValueError(orient)
+        return [dict(r) for r in self._rows]
+
+
+def _frames(ds):
+    """(train, val) frames of ``ds``, through pandas where it is installed,
+    else the same rows through ``_Rows``; and which of the two."""
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        return _Rows(ds.rows("train")), _Rows(ds.rows("val")), "rows"
+    return ds.dataframes("train"), ds.dataframes("val"), "pandas"
+
+
+def _same_state(a, b, what):
+    """Raises unless two train states are equal bit for bit: the step, the
+    optimizer's count and momentum, every parameter and buffer (BatchNorm's
+    running statistics included) and the EMA shadow."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.inner.state_dict(), b.optimizer.inner.state_dict()
+    bad += [f"momentum {i}" for i in oa["state"]
+            if not all(torch.equal(v, ob["state"][i][k])
+                       for k, v in oa["state"][i].items())]
+    if (a.step, a.optimizer.count) != (b.step, b.optimizer.count):
+        bad.append(f"step {a.step}/{b.step}, count "
+                   f"{a.optimizer.count}/{b.optimizer.count}")
+    _say(f"  {what}: {len(sa)} entries and {len(oa['state'])} momentum "
+         f"buffers, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"{what}: {bad[:8]}")
+
+
+def _timed_steps(trainer):
+    """Wraps the trainer's step: the host clock at each step's start (the
+    intervals between starts hold the feed, the step and its loss
+    read-back) and, checked on each call, that every batch tensor lies on
+    the card."""
+    starts = []
+    step = trainer._train_step
+
+    def timed(state, batch):
+        starts.append(time.perf_counter())
+        off = [k for k, v in batch.items() if not v.is_cuda]
+        if off:
+            raise AssertionError(f"batch entries off the card: {off}")
+        return step(state, batch)
+
+    trainer._train_step = timed
+    return starts
+
+
+def _step_intervals(starts, per_epoch):
+    """Milliseconds between successive step starts within each epoch."""
+    out = []
+    for e in range(0, len(starts), per_epoch):
+        chunk = starts[e:e + per_epoch]
+        out += [(b - a) * 1e3 for a, b in zip(chunk, chunk[1:])]
+    return out
+
+
+def _busy_share(fn):
+    prof, wall_us = _profiled(fn)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation)
+    return busy_us / 1e3, wall_us / 1e3
+
+
+def phase_trainer():
+    """The port's training loop through its user entry points on the 640
+    flagship's config (PATHS["flagship"], 28,824,190 parameters, batch 8,
+    bf16, 32 objects, K1 on, K2 exact, K3 off), with the gates of the
+    trainer path: launches per fit step, eval step and predict forward;
+    the Trainer's step against make_train_step's; scan_steps; save and
+    restore; rasterize and the augmentations on the card against the CPU;
+    prefetched batches against the iterator's; the NaN guard; evaluate,
+    predict and evaluate_map. Reports the fit step's time on the host-fed
+    and the device-fed routes, the device-busy share of one profiled fit
+    step on each, the pinned and pageable copies of one batch, and the
+    time to render one batch on the card."""
+    import tempfile
+
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.data import augment, device_synth
+    from boosted_detr_torch.train import metrics
+
+    path = PATHS["flagship"]
+    codec = _synthetic_codec()
+    cfg = _path_config("flagship", codec)
+    row = {}
+    ds = bt.SyntheticShapes.hard(num_images=TRAINER_IMAGES, image_size=RES,
+                                 num_val_images=TRAINER_VAL_IMAGES)
+    train_rows, val_rows, source = _frames(ds)
+    how = ("a pandas DataFrame" if source == "pandas" else
+           "a list of dicts behind to_dict (pandas is not installed here)")
+    _say(f"[trainer] SyntheticShapes.hard({TRAINER_IMAGES} images, "
+         f"{TRAINER_VAL_IMAGES} val) at {RES}x{RES}; rows through {how}")
+    row["rows_from"] = source
+    pipe = bt.Pipeline((RES, RES), cfg.max_objects, codec, dataset=ds)
+    host = list(pipe.batches(train_rows, BATCH, epoch=0))
+    val = list(pipe.batches(val_rows, BATCH, shuffle=False))
+
+    def model_of(seed):
+        model = _build(path, cfg, seed=seed)
+        n = sum(p.numel() for p in model.parameters())
+        if n != 28_824_190:
+            raise AssertionError(f"{n} parameters, not the flagship's")
+        return model
+
+    def trainer_of(seed, **train_kw):
+        tcfg = bt.TrainConfig(batch_size=BATCH, **train_kw)
+        return bt.Trainer(model_of(seed), cfg, tcfg, codec=codec).compile()
+
+    # gate 7: prefetch_to_device yields the iterator's batches bit for bit
+    got = list(bt.prefetch_to_device(iter(host), size=2))
+    for i, (g, w) in enumerate(zip(got, host)):
+        for k, v in w.items():
+            if v.dtype.kind in "biuf" and not torch.equal(
+                    g[k].cpu(), torch.from_numpy(v)):
+                raise AssertionError(f"prefetched batch {i} {k} differs")
+    if len(got) != len(host):
+        raise AssertionError(f"{len(got)} prefetched of {len(host)}")
+    _say(f"  prefetch_to_device: {len(got)} batches equal to the "
+         "iterator's bit for bit (pinned, side stream)")
+    image = host[0]["image"]
+    pinned = torch.from_numpy(image).pin_memory()
+    row["h2d_pageable_ms"] = _host_ms(lambda: torch.from_numpy(image).cuda())
+    row["h2d_pinned_ms"] = _host_ms(lambda: pinned.cuda(non_blocking=True))
+    _say(f"  H2D copy of one batch's images ({image.nbytes} bytes): "
+         f"pageable {row['h2d_pageable_ms']:.3f} ms, pinned "
+         f"{row['h2d_pinned_ms']:.3f} ms (host clock, medians of 5)")
+
+    # gate 5: rasterize on the card equals the CPU's for one scene
+    gen = torch.Generator().manual_seed(21)
+    scenes = [device_synth.sample_scene(gen, 8, 2, (0.04, 0.6),
+                                        cfg.max_objects)
+              for _ in range(BATCH)]
+    scene = {k: torch.stack([sc[k] for sc in scenes]) for k in scenes[0]}
+    bg = torch.stack([device_synth.draw_background(gen, RES)
+                      for _ in range(BATCH)])
+    want = device_synth.rasterize(bg, scene, RES)
+    got = device_synth.rasterize(bg.cuda(), {k: v.cuda() for k, v in
+                                             scene.items()}, RES).cpu()
+    if not torch.equal(got, want):
+        raise AssertionError("rasterize on the card differs from the CPU's")
+    _say(f"  rasterize: {BATCH} scenes of {cfg.max_objects} slots at {RES}, "
+         "the card's equal to the CPU's bit for bit")
+
+    # gate 6: the pure augmentations with the same draws, card against CPU
+    draws = augment.draw_augmentations(torch.Generator().manual_seed(22),
+                                       BATCH)
+    cpu_batch = {k: torch.from_numpy(host[0][k]) for k in ("image", "bbox")}
+    cpu_batch["masks"] = device_synth.scene_masks(scene, MASK_SIZE)
+    want = augment.apply_augmentations(cpu_batch, draws)
+    got = augment.apply_augmentations(
+        {k: v.cuda() for k, v in cpu_batch.items()},
+        {k: v.cuda() for k, v in draws.items()})
+    for k in ("image", "bbox", "masks"):
+        _close(got[k], want[k], atol=1e-6, rtol=0.0,
+               what=f"augmentation {k}, card against CPU, same draws")
+
+    # gate 2: the Trainer's first step is make_train_step's, bit for bit
+    b0 = {k: v for k, v in host[0].items() if k in bt.Trainer.BATCH_KEYS}
+    single = trainer_of(0)
+    loss = single.fit([b0])["loss"][0]
+    model = model_of(0)
+    tcfg = bt.TrainConfig(batch_size=BATCH)
+    direct = bt.TrainState.create(model, bt.make_optimizer(
+        tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
+    direct, aux = bt.make_train_step(model, cfg, tcfg)(
+        direct, {k: torch.from_numpy(v).cuda() for k, v in b0.items()})
+    _say(f"  the Trainer's first step: loss {loss!r}, make_train_step's "
+         f"{aux['loss'].item()!r}")
+    if loss != aux["loss"].item():
+        raise AssertionError("the Trainer's step loss differs")
+    _same_state(single.state, direct, "the Trainer's step against "
+                "make_train_step's")
+    del model, direct
+
+    # gate 3: scan_steps=2 equals scan_steps=1 over 2 steps
+    b1 = {k: v for k, v in host[1].items() if k in bt.Trainer.BATCH_KEYS}
+    grouped = trainer_of(0)
+    h2 = grouped.fit([b0, b1], scan_steps=2)
+    h1 = single.fit([b1])  # single has taken b0 already
+    # the epoch's mean loss, summed in the same order as fit sums it
+    _say(f"  scan_steps=2: epoch loss {h2['loss'][0]!r}; scan_steps=1: "
+         f"{(loss + h1['loss'][0]) / 2!r}")
+    if h2["loss"][0] != (loss + h1["loss"][0]) / 2:
+        raise AssertionError(f"scan_steps: losses {h2} against {loss}, {h1}")
+    _same_state(grouped.state, single.state, "scan_steps=2 against 1")
+
+    # gate 8: a batch whose image holds a NaN raises NaNLossError
+    bad = dict(b1, image=b1["image"].copy())
+    bad["image"][0, 0, 0, 0] = np.nan
+    try:
+        grouped.fit([bad])
+    except bt.NaNLossError as exc:
+        _say(f"  NaN guard: NaNLossError ({exc})")
+    else:
+        raise AssertionError("a NaN image did not raise NaNLossError")
+    del grouped, single
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn):
+        _reset_launches()
+        out = fn()
+        got = _launches()
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the host-fed route, with checkpoints every epoch
+        ckpt = os.path.join(tmp, "checkpoints")
+        trainer = trainer_of(0, checkpoint_dir=ckpt, keep_checkpoints=2)
+        aug = torch.Generator(device="cuda").manual_seed(23)
+        starts = _timed_steps(trainer)
+        log = os.path.join(tmp, "fit.csv")
+        t0 = time.perf_counter()
+        history, got = counted(lambda: trainer.fit(
+            lambda: bt.prefetch_to_device(pipe.batches(train_rows, BATCH)),
+            epochs=TRAINER_EPOCHS, steps_per_epoch=TRAINER_STEPS,
+            batch_fn=lambda b: augment.augment_batch(aug, b),
+            validation_batches=lambda: pipe.batches(val_rows, BATCH,
+                                                    shuffle=False),
+            log_path=log, log_every=1))
+        fit_s = time.perf_counter() - t0
+        steps = TRAINER_EPOCHS * TRAINER_STEPS
+        evals = TRAINER_EPOCHS * len(val)
+        want = {k: steps * path["step"][k] + evals * (k in ("patchify_fwd",
+                                                            "lap"))
+                for k in KERNELS}
+        _say(f"  host-fed fit, {TRAINER_EPOCHS} epochs of {TRAINER_STEPS} "
+             f"steps and {len(val)} validation batches: {fit_s:.2f} s; "
+             f"losses {history['loss']}, val {history['val_loss']}; "
+             f"launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError("host-fed fit: launch counts")
+        if not np.all(np.isfinite(history["loss"] + history["val_loss"])):
+            raise AssertionError(f"host-fed fit: {history}")
+        with open(log) as f:
+            logged = sum(1 for _ in f) - 1
+        if logged != steps:
+            raise AssertionError(f"{logged} CSV rows for {steps} steps")
+        row["host_fed_step_ms"] = _step_intervals(starts, TRAINER_STEPS)
+        _say(f"  host-fed fit step (host clock between step starts: the "
+             f"feed, the step and its loss read-back): "
+             f"{row['host_fed_step_ms']} ms, median "
+             f"{statistics.median(row['host_fed_step_ms']):.3f}")
+
+        # gate 4: a new Trainer whose compile restores equals this one, and
+        # one further step from each is equal
+        restored = trainer_of(1, checkpoint_dir=ckpt, keep_checkpoints=2)
+        _say(f"  checkpoints {sorted(os.listdir(ckpt))}; restored at step "
+             f"{restored.state.step}")
+        _same_state(restored.state, trainer.state, "restored against saved")
+        restored.fit([b0])
+        trainer.fit([b0])
+        _same_state(restored.state, trainer.state, "one step further")
+        del restored
+
+        # gate 9: evaluate, predict and evaluate_map through the Trainer
+        ev, got = counted(lambda: trainer.evaluate(val))
+        _say(f"  evaluate over {len(val)} batches: {ev}; launches {got}")
+        if not np.isfinite(ev["loss"]) or got != _expect(
+                patchify_fwd=len(val), lap=len(val)):
+            raise AssertionError("evaluate")
+        (cats, atts, boxes), got = counted(
+            lambda: trainer.predict(val[0]["image"]))
+        words = set(codec.category_vocab)
+        _say(f"  predict: {len(cats)} images decoded, first "
+             f"{list(cats[0][:4])}; launches {got}")
+        if (len(cats) != BATCH or got != path["forward"]
+                or not all(c in words for c in np.asarray(cats).ravel())
+                or not np.isfinite(boxes).all()):
+            raise AssertionError("predict")
+        result, got = counted(lambda: metrics.evaluate_map(trainer, val))
+        _say(f"  evaluate_map: mAP {result['mAP']!r}, mAP50 "
+             f"{result['mAP50']!r}; launches {got}")
+        if not np.isfinite(result["mAP"]) or got != _expect(
+                patchify_fwd=len(val)):
+            raise AssertionError("evaluate_map")
+        # one profiled fit step, its feed included
+        busy, wall = _busy_share(lambda: trainer.fit(
+            lambda: bt.prefetch_to_device(pipe.batches(train_rows, BATCH)),
+            steps_per_epoch=1,
+            batch_fn=lambda b: augment.augment_batch(aug, b)))
+        row["host_fed_busy_share"] = busy / wall
+        _say(f"  profiled host-fed fit step: wall {wall:.3f} ms, device "
+             f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the device-fed route: batches rendered on the card
+    render = bt.make_batch_fn(RES, BATCH, cfg.max_objects, pool_size=None)
+    row["render_ms"] = _host_ms(lambda: render(100))
+    _say(f"  make_batch_fn: one batch of {BATCH} at {RES} rendered on the "
+         f"card in {row['render_ms']:.3f} ms (host clock, median of 5)")
+    trainer = trainer_of(0)
+    # one step first, outside the count and the clock: the memory the
+    # earlier models freed is allocated again there
+    trainer.fit(range(1), batch_fn=render)
+    starts = _timed_steps(trainer)
+    history, got = counted(lambda: trainer.fit(
+        range(1, 1 + DEVICE_FED_STEPS), batch_fn=render))
+    want = {k: DEVICE_FED_STEPS * n for k, n in path["step"].items()}
+    _say(f"  device-fed fit, {DEVICE_FED_STEPS} steps: loss "
+         f"{history['loss']}; launches {got} (expected {want})")
+    if got != want or not np.isfinite(history["loss"]).all():
+        raise AssertionError("device-fed fit")
+    row["device_fed_step_ms"] = _step_intervals(starts, DEVICE_FED_STEPS)
+    _say(f"  device-fed fit step: {row['device_fed_step_ms']} ms, median "
+         f"{statistics.median(row['device_fed_step_ms']):.3f}")
+    busy, wall = _busy_share(lambda: trainer.fit(range(1), batch_fn=render))
+    row["device_fed_busy_share"] = busy / wall
+    _say(f"  profiled device-fed fit step: wall {wall:.3f} ms, device busy "
+         f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    row["launches"] = launches
+    _say(f"  trainer phase launches (host- and device-fed fit, evaluate, "
+         f"predict, evaluate_map): {launches}")
+    return row
+
+
 def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
@@ -2017,6 +2393,8 @@ def main() -> int:
         report[name] = {"serving": serving,
                         "training": phase_training(name, warmup, steps)}
         torch.cuda.empty_cache()
+    report["trainer"] = {"training": phase_trainer()}
+    torch.cuda.empty_cache()
     for label, (path, cfg, train_kw) in _small_configs().items():
         phase_small_reference(label, path, cfg, train_kw)
     phase_kernel_names()

@@ -4,7 +4,10 @@ imports JAX or the JAX package."""
 
 import ast
 import dataclasses
+import os
 import pathlib
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -143,6 +146,47 @@ def _imports(path):
             yield node.args[0].value
 
 
+# The training loop's modules: each imports with torch, numpy and scipy
+# alone (the optional host packages are imported where they are used).
+_HOST_MODULES = {
+    "config.py": "boosted_detr_torch.config",
+    "data/datasets.py": "boosted_detr_torch.data.datasets",
+    "data/pipeline.py": "boosted_detr_torch.data.pipeline",
+    "data/tfrecord.py": "boosted_detr_torch.data.tfrecord",
+    "data/grain_loader.py": "boosted_detr_torch.data.grain_loader",
+    "data/augment.py": "boosted_detr_torch.data.augment",
+    "data/device_synth.py": "boosted_detr_torch.data.device_synth",
+    "native/__init__.py": "boosted_detr_torch.native",
+    "native/lap_binding.py": "boosted_detr_torch.native.lap_binding",
+    "native/imgload_binding.py": "boosted_detr_torch.native.imgload_binding",
+    "train/profiling.py": "boosted_detr_torch.train.profiling",
+    "train/trainer.py": "boosted_detr_torch.train.trainer",
+    "utils/visualize.py": "boosted_detr_torch.utils.visualize",
+}
+_OPTIONAL = ("pandas", "tensorflow", "grain", "PIL", "cv2", "matplotlib",
+             "yaml", "requests", "tensorboard")
+
+
+def test_new_modules_import_without_the_optional_host_packages():
+    """In a fresh interpreter whose ``sys.modules`` entries for the
+    optional packages are None (an import of any of them raises), every
+    module of the training loop and the package's names import."""
+    code = "\n".join([
+        "import sys",
+        f"for name in {_OPTIONAL!r}:",
+        "    sys.modules[name] = None",
+        "import importlib",
+        f"for m in {sorted(_HOST_MODULES.values())!r}:",
+        "    importlib.import_module(m)",
+        "import boosted_detr_torch as bt",
+        "assert bt.Trainer and bt.Pipeline and bt.SyntheticShapes",
+        "print('imported')"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0 and "imported" in out.stdout, out.stderr
+
+
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "boosted_detr_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -153,7 +197,7 @@ def test_port_imports_nothing_of_jax():
             "train/schedules.py", "train/steps.py", "models/boosted.py",
             "models/early_exit.py", "models/panoptic.py",
             "models/pretrainer.py", "models/pretrained.py", "data/masks.py",
-            "train/metrics.py"} <= scanned
+            "train/metrics.py"} | set(_HOST_MODULES) <= scanned
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in _BANNED]
