@@ -31,35 +31,62 @@ TensorBoard logs, checkpoints), ``evaluate`` and ``predict``;
 ``train/profiling.py`` traces and meters it; ``default_params`` and
 ``from_yaml`` build configs. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
+
+The user's front door, as in the JAX package: ``api`` (the Keras-shaped
+``api.DETR``, ``api.BoostedDETR``, ``api.DETRPanoptic`` and
+``api.DETR_MultiClassifier``, text in and text out, and ``load_model``),
+the command line (``python -m boosted_detr_torch.cli train|evaluate|
+export``) and ``serving`` (``export_serving`` writes a ``torch.export``
+artifact that keeps the forward kernels as registered ops;
+``load_serving`` serves it without the model code). Names are imported at
+first use.
 """
 
-from boosted_detr_torch.bridge import load_flax_variables, to_flax_layout
-from boosted_detr_torch.config import (LossWeights, ModelConfig, TrainConfig,
-                                       default_params, from_yaml)
-from boosted_detr_torch.data.augment import augment_batch
-from boosted_detr_torch.data.datasets import SyntheticShapes
-from boosted_detr_torch.data.device_synth import make_batch_fn
-from boosted_detr_torch.data.pipeline import Pipeline, prefetch_to_device
-from boosted_detr_torch.models.boosted import BoostedDETR
-from boosted_detr_torch.models.detr import DETR
-from boosted_detr_torch.models.panoptic import (DETRPanoptic,
-                                                make_panoptic_eval_step,
-                                                make_panoptic_train_step)
-from boosted_detr_torch.models.pretrained import load_pretrained_backbone
-from boosted_detr_torch.models.pretrainer import (DETRMultiClassifier,
-                                                  make_pretrain_step)
-from boosted_detr_torch.train.steps import (TrainState, apply_trainable_mask,
-                                            boosted_block_mask,
-                                            make_optimizer, make_train_step,
-                                            predict, with_ema_params)
-from boosted_detr_torch.train.trainer import NaNLossError, Trainer
+import importlib
 
-__all__ = ["BoostedDETR", "DETR", "DETRMultiClassifier", "DETRPanoptic",
-           "LossWeights", "ModelConfig", "NaNLossError", "Pipeline",
-           "SyntheticShapes", "TrainConfig", "TrainState", "Trainer",
-           "apply_trainable_mask", "augment_batch", "boosted_block_mask",
-           "default_params", "from_yaml", "load_flax_variables",
-           "load_pretrained_backbone", "make_batch_fn", "make_optimizer",
-           "make_panoptic_eval_step", "make_panoptic_train_step",
-           "make_pretrain_step", "make_train_step", "predict",
-           "prefetch_to_device", "to_flax_layout", "with_ema_params"]
+# Each exported name and the module that defines it, imported at first use,
+# so that importing the package (as a serving process does to load an
+# artifact, serving.py) loads neither the models nor the trainer.
+_EXPORTS = {
+    "load_flax_variables": "bridge", "to_flax_layout": "bridge",
+    "LossWeights": "config", "ModelConfig": "config",
+    "TrainConfig": "config", "default_params": "config",
+    "from_yaml": "config",
+    "augment_batch": "data.augment",
+    "SyntheticShapes": "data.datasets",
+    "make_batch_fn": "data.device_synth",
+    "Pipeline": "data.pipeline", "prefetch_to_device": "data.pipeline",
+    "BoostedDETR": "models.boosted",
+    "DETR": "models.detr",
+    "DETRPanoptic": "models.panoptic",
+    "make_panoptic_eval_step": "models.panoptic",
+    "make_panoptic_train_step": "models.panoptic",
+    "load_pretrained_backbone": "models.pretrained",
+    "DETRMultiClassifier": "models.pretrainer",
+    "make_pretrain_step": "models.pretrainer",
+    "TrainState": "train.steps", "apply_trainable_mask": "train.steps",
+    "boosted_block_mask": "train.steps", "make_optimizer": "train.steps",
+    "make_train_step": "train.steps", "predict": "train.steps",
+    "with_ema_params": "train.steps",
+    "NaNLossError": "train.trainer", "Trainer": "train.trainer",
+    "load_model": "api",
+    "load_serving": "serving",
+}
+_SUBMODULES = ("api", "serving")
+
+__all__ = sorted(list(_EXPORTS) + ["api", "serving"])
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(
+        f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -20,7 +20,10 @@ p^T dO``. ``delta`` is one plain torch pass, as JAX leaves it to XLA.
 
 The kernels, ``csrc/attention.cu``, are CUDA C++ for ``sm_90a``, built by
 nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32
-and D = 64; any other head dim on a CUDA tensor raises. They take
+and D = 64. A smaller head dim is padded with zeros to the next of the
+two, the launch given the true 1/sqrt(D) and the outputs sliced back
+(``_padded``), as the TPU kernel pads D; a head dim over 64 on a CUDA
+tensor raises. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
 strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
@@ -44,7 +47,12 @@ the kernel or raises, and each launch adds one to the wrapper's
 ``launches``. ``FusedAttentionFn`` is the custom VJP: the forward saves
 (q, k, v, out, lse) and the backward runs dq and dk/dv through the same
 wrappers, so the CPU tests reach the same lse-rebuilt backward the card
-runs.
+runs. The forward is the registered op ``boosted_detr::attention_fwd``
+(``torch.library.custom_op``), so that ``torch.export`` keeps it in an
+exported program (serving.py): the checks, the padding, the alignment
+test and the launch run in its body at call time, and its fake gives
+out and lse from symbolic sizes. The backward wrappers are not exported
+and stay plain functions.
 """
 
 from __future__ import annotations
@@ -146,13 +154,13 @@ def _two_bf16(x: torch.Tensor, split: bool) -> Tuple[torch.Tensor, ...]:
     return (hi, (x - hi).bfloat16().float()) if split else (hi,)
 
 
-def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool):
+def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool,
+                    scale: float):
     """What the tensor-core gradient kernels compute, tile by tile: the
     exact product of the inputs (bf16 on the card) summed in float32, the
     scale applied to the float32 logit, and (p, ds) as their bf16 parts.
     Yields (slice of the streamed rows, parts of p, parts of ds), the
     stream running over 64-row key tiles (dq) or query tiles (dk/dv)."""
-    scale = _scale(q.shape[-1])
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     rows = k.shape[1] if over_keys else q.shape[1]
     for r0 in range(0, rows, _TILE):
@@ -166,16 +174,19 @@ def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool):
 
 
 def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, split: bool = True
+                            v: torch.Tensor, split: bool = True,
+                            scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) by the arithmetic of the tensor-core forward kernel (for
     the tests; no model calls it): the online softmax over 64-key tiles,
     the running max taken of the exact product of the inputs (bf16 on the
     card) and the scale (times log2 e) applied inside the exponent,
     ``denom`` summed from the float32 p, and p entering ``p @ v`` as bf16
-    hi + lo. With ``split=False`` p is rounded to one bf16 value instead."""
+    hi + lo. With ``split=False`` p is rounded to one bf16 value instead.
+    ``scale`` (1/sqrt(D) by default) is the one the launch is given: a
+    head dim padded with zeros keeps the true one (``_padded``)."""
     _check(q, k, v)
-    scale = _scale(q.shape[-1])
+    scale = _scale(q.shape[-1]) if scale is None else scale
     scale2 = scale * _LOG2E
     qf, kf, vf = (t.float() for t in (q, k, v))
     m = torch.full(q.shape[:2] + (1,), -1e30, device=q.device)
@@ -197,38 +208,43 @@ def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
             (m * scale + torch.log(denom)).squeeze(-1))
 
 
-def attention_dq_emulation(q, k, v, g, lse, delta,
-                           split: bool = True) -> torch.Tensor:
+def attention_dq_emulation(q, k, v, g, lse, delta, split: bool = True,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """dq by the arithmetic of the tensor-core dq kernel (for the tests; no
     model calls it): ds enters ``ds @ k`` as bf16 hi + lo, one product
     each into one float32 sum, and the sum is scaled at the end. With
-    ``split=False`` ds is rounded to one bf16 value instead."""
+    ``split=False`` ds is rounded to one bf16 value instead; ``scale`` as
+    the forward's emulation takes it."""
     _check(q, k, v)
     _check_grad(q, g, lse, delta)
+    scale = _scale(q.shape[-1]) if scale is None else scale
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for tile, _, ds_parts in _emulated_tiles(q, k, v, g, lse, delta, True,
-                                             split):
+                                             split, scale):
         for part in ds_parts:
             acc += part @ k[:, tile].float()
-    return (acc * _scale(q.shape[-1])).to(q.dtype)
+    return (acc * scale).to(q.dtype)
 
 
-def attention_dkdv_emulation(q, k, v, g, lse, delta, split: bool = True
+def attention_dkdv_emulation(q, k, v, g, lse, delta, split: bool = True,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) by the arithmetic of the tensor-core dk/dv kernel (for the
     tests; no model calls it): p and ds enter ``p^T @ g`` and ``ds^T @ q``
-    as bf16 hi + lo, and dk is scaled at the end."""
+    as bf16 hi + lo, and dk is scaled at the end; ``scale`` as the
+    forward's emulation takes it."""
     _check(q, k, v)
     _check_grad(q, g, lse, delta)
+    scale = _scale(q.shape[-1]) if scale is None else scale
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
     for tile, p_parts, ds_parts in _emulated_tiles(q, k, v, g, lse, delta,
-                                                   False, split):
+                                                   False, split, scale):
         for part in p_parts:
             dv += part.transpose(1, 2) @ g[:, tile].float()
         for part in ds_parts:
             dk += part.transpose(1, 2) @ q[:, tile].float()
-    return (dk * _scale(q.shape[-1])).to(k.dtype), dv.to(v.dtype)
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
@@ -262,26 +278,47 @@ def _use_kernel(name: str, q, k, v, *grad) -> bool:
     if grad:
         _check_grad(q, *grad)
     d = q.shape[-1]
-    if d not in SUPPORTED_HEAD_DIMS:
+    if d > SUPPORTED_HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head dim D={d} is not supported; the "
-                         f"kernels are built for D in {SUPPORTED_HEAD_DIMS}")
+                         f"kernels are built for D in {SUPPORTED_HEAD_DIMS} "
+                         f"and take smaller ones padded with zeros")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the kernels take contiguous tensors")
-    # the tensor-core kernels copy 16 bytes at a time
-    if (q.dtype == torch.bfloat16
-            and any(t.data_ptr() % 16 for t in tensors[:4])):
-        raise ValueError(f"{name}: the bfloat16 kernels copy rows 16 bytes "
-                         f"at a time and take q, k, v and g aligned to that")
     return True
 
 
-def _launch(fn: str, q, k, *pointers):
+def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """[BH, T, D] tensors with D padded with zeros to the smallest head dim
+    the kernels are built for (as the TPU kernel pads D,
+    pallas_attention.py:86); as they are where D is one. Zero columns add
+    nothing to q.k, to the rows' sums of g * out (delta) or to the lse,
+    and the padded columns of out, dq, dk and dv come out zero."""
+    d = tensors[0].shape[-1]
+    padded = next(n for n in SUPPORTED_HEAD_DIMS if n >= d)
+    if padded == d:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, padded - d))
+                 for t in tensors)
+
+
+def _check_aligned(name: str, q, *tensors):
+    # the tensor-core kernels copy 16 bytes at a time
+    if (q.dtype == torch.bfloat16
+            and any(t.data_ptr() % 16 for t in (q,) + tensors)):
+        raise ValueError(f"{name}: the bfloat16 kernels copy rows 16 bytes "
+                         f"at a time and take q, k, v and g aligned to that")
+
+
+def _launch(fn: str, q, k, scale: float, *pointers):
     """Launches entry ``fn`` of the library on q's device and current
-    stream; raises if the launch was refused."""
+    stream, with the logits' ``scale``; raises if the launch was
+    refused."""
     lib = _library()
+    bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(*pointers, *_shape_args(q, k), stream)
+        rc = getattr(lib, fn)(*pointers, bh, tq, k.shape[1], d,
+                              int(q.dtype == torch.bfloat16), scale, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.attention_error_string(rc).decode()} "
@@ -289,28 +326,47 @@ def _launch(fn: str, q, k, *pointers):
                            f"{q.dtype})")
 
 
-def _shape_args(q, k):
-    bh, tq, d = q.shape
-    return (bh, tq, k.shape[1], d, int(q.dtype == torch.bfloat16),
-            _scale(d))
+def _sliced(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the forward kernel; CPU tensors take
-    ``attention_fwd_reference``. Each launch adds one to
-    ``attention_fwd.launches``."""
-    if not _use_kernel("attention_fwd", q, k, v):
-        return attention_fwd_reference(q, k, v)
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("attention_fwd", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr())
-    attention_fwd.launches += 1
-    return out, lse
+    """(out, lse) of the forward kernel through the registered op
+    ``boosted_detr::attention_fwd``, which ``torch.export`` keeps in its
+    graph; CPU tensors take ``attention_fwd_reference``. Each launch adds
+    one to ``attention_fwd.launches``, in an exported program too."""
+    return torch.ops.boosted_detr.attention_fwd(q, k, v)
 
 
 attention_fwd.launches = 0
+
+
+@torch.library.custom_op("boosted_detr::attention_fwd", mutates_args=())
+def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The body of ``boosted_detr::attention_fwd``: the checks, the
+    padding of D, the alignment test and the launch run here, at call
+    time."""
+    if not _use_kernel("attention_fwd", q, k, v):
+        return attention_fwd_reference(q, k, v)
+    d = q.shape[-1]
+    qp, kp, vp = _padded(q, k, v)
+    _check_aligned("attention_fwd", qp, kp, vp)
+    out = torch.empty_like(qp)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch("attention_fwd", qp, kp, _scale(d), qp.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), out.data_ptr(), lse.data_ptr())
+    attention_fwd.launches += 1
+    return _sliced(out, d), lse
+
+
+@_attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v):
+    """out [BH, Tq, D] in q's dtype and lse [BH, Tq] float32, from the
+    (possibly symbolic) sizes alone."""
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
@@ -318,11 +374,15 @@ def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
     Each launch adds one to ``attention_dq.launches``."""
     if not _use_kernel("attention_dq", q, k, v, g, lse, delta):
         return attention_dq_reference(q, k, v, g, lse, delta)
+    d = q.shape[-1]
+    q, k, v, g = _padded(q, k, v, g)
+    _check_aligned("attention_dq", q, k, v, g)
     dq = torch.empty_like(q)
-    _launch("attention_dq", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    _launch("attention_dq", q, k, _scale(d), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr())
     attention_dq.launches += 1
-    return dq
+    return _sliced(dq, d)
 
 
 attention_dq.launches = 0
@@ -335,12 +395,15 @@ def attention_dkdv(q, k, v, g, lse, delta
     ``attention_dkdv.launches``."""
     if not _use_kernel("attention_dkdv", q, k, v, g, lse, delta):
         return attention_dkdv_reference(q, k, v, g, lse, delta)
+    d = q.shape[-1]
+    q, k, v, g = _padded(q, k, v, g)
+    _check_aligned("attention_dkdv", q, k, v, g)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("attention_dkdv", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr())
+    _launch("attention_dkdv", q, k, _scale(d), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
     attention_dkdv.launches += 1
-    return dk, dv
+    return _sliced(dk, d), _sliced(dv, d)
 
 
 attention_dkdv.launches = 0

@@ -63,6 +63,12 @@ weights, the P = 4 stem and SAME-padded geometries.
 ``patchify_conv``, dW through ``patchify_conv_dw``, and dx in plain torch
 (depth-to-space of g times the kernel, zeroed where the clip cut) only when
 the image needs a gradient.
+
+The forward is the registered op ``boosted_detr::patchify_fwd``
+(``torch.library.custom_op``): ``torch.export`` keeps it in the exported
+program as one node (serving.py), whose body picks the route and launches
+at call time, and its fake gives the output's shape from symbolic sizes.
+The weight gradient is not exported and stays a plain wrapper.
 """
 
 from __future__ import annotations
@@ -323,11 +329,27 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
     ``out_dtype`` (default ``w.dtype``). ``clip01`` clamps the image to
     [0, 1] inside the kernel's read.
 
-    A CPU tensor goes to ``patchify_conv_reference``. A CUDA tensor launches
-    a kernel (the tensor-core one where ``tensor_core_plan`` gives a plan
-    and x and w are aligned to 16 bytes) or raises; there is no fallback.
-    Each launch adds one to ``patchify_conv.launches``."""
+    Calls the registered op ``boosted_detr::patchify_fwd``, so that
+    ``torch.export`` keeps the call in its graph. Its body, run on real
+    tensors at call time, takes ``patchify_conv_reference`` for CPU tensors
+    and launches a kernel for CUDA tensors (the tensor-core one where
+    ``tensor_core_plan`` gives a plan and x and w are aligned to 16 bytes)
+    or raises; there is no fallback. Each launch adds one to
+    ``patchify_conv.launches``, in an exported program too."""
     out_dtype = out_dtype or w.dtype
+    _check(x, w, out_dtype)
+    return torch.ops.boosted_detr.patchify_fwd(x, w, out_dtype, clip01)
+
+
+patchify_conv.launches = 0
+
+
+@torch.library.custom_op("boosted_detr::patchify_fwd", mutates_args=())
+def _patchify_fwd_op(x: torch.Tensor, w: torch.Tensor,
+                     out_dtype: torch.dtype, clip01: bool) -> torch.Tensor:
+    """The body of ``boosted_detr::patchify_fwd``: everything that reads a
+    concrete shape or a pointer (the plan, the alignment, the route) runs
+    here, at call time."""
     _check(x, w, out_dtype)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return patchify_conv_reference(x, w, out_dtype=out_dtype,
@@ -377,7 +399,13 @@ def patchify_conv(x: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
-patchify_conv.launches = 0
+@_patchify_fwd_op.register_fake
+def _patchify_fwd_fake(x, w, out_dtype, clip01):
+    """The output's shape from the (possibly symbolic) sizes alone."""
+    p = w.shape[0]
+    return x.new_empty((x.shape[0], (x.shape[1] + p - 1) // p,
+                        (x.shape[2] + p - 1) // p, w.shape[3]),
+                       dtype=out_dtype)
 
 
 # Blocks the weight gradient's first pass aims for: two per SM of an H100.

@@ -34,8 +34,9 @@ What differs from JAX, and why:
   for bit, since the step's dropout generator comes from ``(seed, step)``.
   ``torch.save`` writes before it returns, so ``save(wait=False)`` waits
   too.
-- ``export_serving`` (a StableHLO artifact in JAX) and ``mesh_shape`` are
-  not ported (ROADMAP.md, Queue 1 items 4 and 5).
+- ``export_serving`` writes a ``torch.export`` program where JAX writes
+  StableHLO (serving.py). ``mesh_shape`` is not ported (ROADMAP.md, Queue
+  1 item 5).
 
 ``device`` is ``cuda`` unless the caller passes another; the model must
 lie there.
@@ -363,10 +364,13 @@ class Trainer:
             n += 1
         return {k: v / max(n, 1) for k, v in sums.items()}
 
-    def export_serving(self, path: str) -> str:
-        raise NotImplementedError(
-            "Trainer.export_serving is not ported yet (ROADMAP.md, Queue 1 "
-            "item 4: api, cli and serving)")
+    def export_serving(self, path: str, **kwargs) -> str:
+        """Write a standalone ``torch.export`` serving artifact (weights in
+        the program, symbolic batch, the forward kernels kept as registered
+        ops): see boosted_detr_torch.serving, whose keywords this takes."""
+        from boosted_detr_torch import serving
+
+        return serving.export_serving(self, path, **kwargs)
 
     def export_inference_fn(self):
         """A serving callable with the current weights: images ->

@@ -85,6 +85,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      NaN guard, ``evaluate``, ``predict`` and ``evaluate_map``; reports the
      fit step's time and device-busy share on both routes, the pinned and
      pageable copies of one batch and the time to render one;
+   - api_serving: the user's front door on the 640 flagship's config:
+     ``api.DETR`` compiled and fitted (3 steps on SyntheticShapes.hard
+     frames), ``save`` and ``load_model`` bit for bit, ``export_serving``
+     (a ``torch.export`` program that keeps K1-fwd and K3-fwd as registered
+     ops) and ``load_serving``, 3 requests to the artifact (K1-fwd counted
+     once each inside it; raw outputs against the live model at 5e-2, the
+     decoded text equal); ``api.BoostedDETR`` early-exit artifacts in both
+     criteria (full depth at the default threshold, a middle threshold's
+     exit blocks as ``predict``'s) and an EMA artifact; a ViT-p16 artifact
+     (K3-fwd 19 a request); the CLI's train, evaluate and export in this
+     process (K2 in its steps); reports each export's seconds and
+     ``model.pt2`` size and an artifact request's host time beside the
+     live request's;
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
@@ -110,6 +123,7 @@ is float32. Without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -191,7 +205,9 @@ K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              ("ViT-p16 blocks", 48, 1600, 1600, 64),
              ("ViT config's DETR encoder", 64, 400, 400, 32),
              ("ViT config's DETR cross-attention", 64, 96, 400, 32),
-             ("ragged", 16, 300, 520, 64))
+             ("ragged", 16, 300, 520, 64),
+             # encoder_dim=384 over 8 heads: D = 48, padded with zeros to 64
+             ("D=48 (encoder_dim 384, 8 heads) at 640", 64, 400, 400, 48))
 
 
 def _say(*parts):
@@ -2330,6 +2346,281 @@ def phase_trainer():
     return row
 
 
+API_FIT_STEPS = 3
+CLI_IMAGES = 16  # two CLI train steps of 8
+FLAGSHIP_PARAMS = 28_824_190
+
+
+def _api_kw(name, codec):
+    """A path's ModelConfig as the user API's keywords (the API takes the
+    vocabulary sizes from its codec)."""
+    return {k: v for k, v in dataclasses.asdict(_path_config(
+        name, codec)).items() if k not in ("num_categories", "num_attributes")}
+
+
+def _same_weights(a, b, what):
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    _say(f"  {what}: {len(sa)} entries (weights and running statistics), "
+         f"{len(bad)} differ")
+    if bad or sa.keys() != sb.keys():
+        raise AssertionError(f"{what}: {bad[:8]}")
+
+
+def _held(got, want, what, atol=5e-2):
+    """Each raw output of an artifact against the live model's, at the
+    serving phases' gate; returns the largest difference."""
+    worst = 0.0
+    for k in want:
+        worst = max(worst, _close(torch.from_numpy(np.asarray(got[k],
+                                                              np.float32)),
+                                  torch.from_numpy(np.asarray(want[k],
+                                                              np.float32)),
+                                  atol=atol, rtol=0.0, what=f"{what} {k}"))
+    return worst
+
+
+def _middle(values):
+    """A threshold in the widest gap between per-image values (clear of
+    rounding), so that some images fall on each side."""
+    v = np.sort(np.asarray(values, np.float64))
+    i = int(np.argmax(np.diff(v)))
+    return float(v[i] + (v[i + 1] - v[i]) / 2)
+
+
+def phase_api_serving():
+    """The user path through the port's front door on the 640 flagship's
+    config: ``api.DETR`` built, compiled and fitted on SyntheticShapes.hard
+    frames, ``save`` and ``load_model`` (bit for bit), ``export_serving``
+    and ``load_serving``, requests to the artifact (K1-fwd counted in it;
+    outputs and text against the live model); ``api.BoostedDETR``
+    early-exit artifacts in both criteria and an EMA artifact; a ViT-p16
+    artifact with K3 in it; and the CLI's train, evaluate and export in
+    this process. Reports each export's seconds and size and an artifact
+    request's host time beside the live request's."""
+    import tempfile
+
+    import boosted_detr_torch as bt
+    from boosted_detr_torch import api, cli, serving
+    from boosted_detr_torch.models import early_exit
+    from boosted_detr_torch.train.steps import make_predict_step
+
+    codec = _synthetic_codec()
+    vocab = codec.vocab_dict
+    row = {"export_s": {}, "pt2_bytes": {}}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn, want, what):
+        out, ms, got = _counted(fn, want, what)
+        for k, v in got.items():
+            launches[k] += v
+        return out, ms
+
+    def export(trainer, path, label, **kw):
+        t0 = time.perf_counter()
+        serving.export_serving(trainer, path, **kw)
+        row["export_s"][label] = time.perf_counter() - t0
+        row["pt2_bytes"][label] = os.path.getsize(os.path.join(
+            path, serving.PROGRAM))
+        _say(f"  export {label}: {row['export_s'][label]:.2f} s, "
+             f"model.pt2 {row['pt2_bytes'][label]} bytes")
+        return serving.load_serving(path)
+
+    ds = bt.SyntheticShapes.hard(num_images=API_FIT_STEPS * BATCH,
+                                 image_size=RES, num_val_images=BATCH)
+    train_rows, val_rows, _ = _frames(ds)
+    tmp = tempfile.mkdtemp(prefix="api_serving_")
+    try:
+        # 1. build, compile, fit
+        model = api.DETR(vocab_dict=vocab, **_api_kw("flagship", codec))
+        n = sum(p.numel() for p in model.module.parameters())
+        if n != FLAGSHIP_PARAMS:
+            raise AssertionError(f"{n} parameters, not the flagship's")
+        pipe = model.make_pipeline(dataset=ds)
+        batches = list(pipe.batches(train_rows, BATCH, epoch=0))
+        images = [b["image"] for b in pipe.batches(val_rows, BATCH,
+                                                   shuffle=False)]
+        requests = (images * REQUESTS)[:REQUESTS]
+        model.compile(sample_batch=batches[0],
+                      train_config=bt.TrainConfig(batch_size=BATCH))
+        step = PATHS["flagship"]["step"]
+        history, ms = counted(lambda: model.fit(batches),
+                              {k: API_FIT_STEPS * v for k, v in step.items()},
+                              "api.DETR.fit")
+        _say(f"[api_serving] api.DETR ({n} parameters) fit {API_FIT_STEPS} "
+             f"steps in {ms:.1f} ms: loss {history['loss']}")
+        if not np.isfinite(history["loss"]).all():
+            raise AssertionError("api fit: a loss is not finite")
+
+        # 2. save and load_model: bit for bit
+        saved = os.path.join(tmp, "saved")
+        model.save(saved)
+        loaded = api.load_model(saved)
+        _same_weights(loaded.module, model.module, "load_model against save")
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. the artifact: K1 once a request, outputs and text as the live
+        # model's
+        served = export(loaded.trainer, os.path.join(tmp, "flagship"),
+                        "flagship")
+        if served.meta["platforms"] != ["cuda"]:
+            raise AssertionError(f"meta {served.meta}")
+        forward = PATHS["flagship"]["forward"]
+        worst, texts_equal = 0.0, 0
+        for i, x in enumerate(requests):
+            got, _ = counted(lambda: served(x, decode_text=False), forward,
+                             f"artifact request {i}")
+            worst = max(worst, _held(got, loaded(x, training=True),
+                                     f"artifact request {i}"))
+            cats, atts, boxes, extras = served(x)
+            want = loaded(x)
+            if extras or not (np.array_equal(cats, want[0])
+                              and np.array_equal(atts, want[1])):
+                raise AssertionError(f"request {i}: decoded text differs")
+            texts_equal += len(cats)
+        row["artifact_max_abs_diff"] = worst
+        row["artifact_request_ms"] = _host_ms(lambda: served(requests[0]))
+        row["live_request_ms"] = _host_ms(lambda: loaded(requests[0]))
+        _say(f"  {REQUESTS} artifact requests of {BATCH}: K1-fwd once "
+             f"each; raw outputs against the live model's: largest "
+             f"difference {worst:.3e} (held to 5e-2); decoded text equal on "
+             f"{texts_equal} images; request {row['artifact_request_ms']:.3f}"
+             f" ms, live predict {row['live_request_ms']:.3f} ms (host "
+             "clock, medians of 5)")
+        del served, loaded
+        torch.cuda.empty_cache()
+
+        # 4. the boosted ensemble: early-exit artifacts, then EMA
+        n_blocks = 4
+        x = requests[0]
+        for criterion in ("confidence", "stability"):
+            boosted = api.BoostedDETR(
+                vocab_dict=vocab, **dict(_api_kw("boosted", codec),
+                                         early_exit_criterion=criterion))
+            # Adam at a constant rate, so that one step moves the weights
+            # and the EMA shadow (decay 0.5) lies half way back
+            trainer = boosted.compile(train_config=bt.TrainConfig(
+                batch_size=BATCH, ema_decay=0.5, optimizer="adamw",
+                lr_schedule="constant", clipnorm=0.0))
+            _randomize_running_stats(boosted.module, seed=1)
+            served = export(trainer, os.path.join(tmp, criterion),
+                            f"boosted early exit ({criterion})",
+                            early_exit=True, exit_criterion=criterion)
+            full, _ = counted(lambda: served(x, decode_text=False),
+                              forward, f"early exit {criterion}, full depth")
+            if not (full["exit_block"] == n_blocks - 1).all():
+                raise AssertionError(f"{criterion}: full-depth threshold "
+                                     f"exits at {full['exit_block']}")
+            live = boosted(x, training=True)
+            cat = live["category"].astype(np.float64)
+            live["category"] = cat / np.maximum(cat.sum(-1, keepdims=True),
+                                                1e-9)
+            worst = _held({k: full[k] for k in live}, live,
+                          f"early exit {criterion} at full depth")
+            blocks = make_predict_step(boosted.module,
+                                       return_intermediate=True)(
+                torch.from_numpy(x).cuda())
+            values = (early_exit.block_confidence(blocks[0]) if criterion
+                      == "confidence" else early_exit.prediction_delta(
+                          blocks[0], blocks[1]))
+            tau = _middle(values.cpu().numpy())
+            got, _ = counted(lambda: served(x, decode_text=False,
+                                            threshold=tau), forward,
+                             f"early exit {criterion} at {tau}")
+            want = boosted(x, training=True, early_exit_threshold=tau)
+            if not np.array_equal(got["exit_block"], want["exit_block"]):
+                raise AssertionError(f"{criterion} at {tau}: exit blocks "
+                                     f"{got['exit_block']} against predict's "
+                                     f"{want['exit_block']}")
+            worst = max(worst, _held(got, {k: want[k] for k in (
+                "category", "attribute", "boxes")},
+                f"early exit {criterion} at {tau}"))
+            row[f"early_exit_{criterion}"] = {
+                "threshold": tau, "exit_block": got["exit_block"].tolist(),
+                "max_abs_diff": worst}
+            _say(f"  early exit ({criterion}): full depth exits at block "
+                 f"{n_blocks - 1} everywhere; at {tau:.6f} exit blocks "
+                 f"{got['exit_block'].tolist()}, predict's the same; largest "
+                 f"difference {worst:.3e}")
+            if criterion == "stability":
+                # one step, so that the EMA shadow leaves the live weights
+                counted(lambda: boosted.fit(batches[:1]),
+                        PATHS["boosted"]["step"], "api.BoostedDETR.fit")
+                served = export(trainer, os.path.join(tmp, "ema"),
+                                "boosted EMA", use_ema=True)
+                got, _ = counted(lambda: served(x, decode_text=False),
+                                 forward, "EMA artifact")
+                ema = trainer.predict(x, decode_text=False, use_ema=True)
+                live = trainer.predict(x, decode_text=False)
+                worst = _held(got, ema, "EMA artifact")
+                moved = float(np.abs(ema["boxes"] - live["boxes"]).max())
+                if not served.meta["ema_weights"] or not worst < moved:
+                    raise AssertionError(f"EMA artifact: the EMA weights "
+                                         f"moved the boxes by {moved}")
+                row["ema_max_abs_diff"] = worst
+                _say(f"  EMA artifact: the EMA predict's outputs, largest "
+                     f"difference {worst:.3e}; the live weights' boxes "
+                     f"{moved:.3e} away")
+            del served, boosted, trainer
+            torch.cuda.empty_cache()
+
+        # 5. ViT-p16 with K3: 19 launches a request, as the live forward
+        vit = api.DETR(vocab_dict=vocab, **_api_kw("vit_p16", codec))
+        vit.compile()
+        _randomize_running_stats(vit.module, seed=1)
+        served = export(vit.trainer, os.path.join(tmp, "vit"), "vit_p16")
+        vit_forward = PATHS["vit_p16"]["forward"]
+        worst = 0.0
+        for i, x in enumerate(requests):
+            got, _ = counted(lambda: served(x, decode_text=False),
+                             vit_forward, f"ViT artifact request {i}")
+            worst = max(worst, _held(got, vit(x, training=True),
+                                     f"ViT artifact request {i}"))
+        row["vit_artifact_max_abs_diff"] = worst
+        row["vit_artifact_request_ms"] = _host_ms(lambda: served(x))
+        row["vit_live_request_ms"] = _host_ms(lambda: vit(x))
+        _say(f"  ViT-p16 artifact: {REQUESTS} requests, K1-fwd 1 and K3-fwd "
+             f"{vit_forward['attention_fwd']} each; largest difference "
+             f"{worst:.3e}; request {row['vit_artifact_request_ms']:.3f} ms,"
+             f" live {row['vit_live_request_ms']:.3f} ms")
+        del served, vit
+        torch.cuda.empty_cache()
+
+        # 6. the CLI in this process
+        cli_dir = os.path.join(tmp, "cli")
+        args = ["--synthetic", "--synthetic-images", str(CLI_IMAGES)]
+        steps = CLI_IMAGES // 8
+        rc, _ = counted(lambda: cli.main(
+            ["train", *args, "--set", "model.matcher='pallas'",
+             "--log-csv", os.path.join(cli_dir, "log.csv"),
+             "--save", os.path.join(cli_dir, "model")]),
+            _expect(lap=steps), "cli train")
+        rc2, _ = counted(lambda: cli.main(
+            ["evaluate", *args, "--load", os.path.join(cli_dir, "model")]),
+            _expect(), "cli evaluate")
+        rc3 = cli.main(["export", "--load", os.path.join(cli_dir, "model"),
+                        "--out", os.path.join(cli_dir, "artifact")])
+        if (rc, rc2, rc3) != (0, 0, 0):
+            raise AssertionError(f"cli exit codes {rc}, {rc2}, {rc3}")
+        served = serving.load_serving(os.path.join(cli_dir, "artifact"))
+        cats, _, boxes, _ = served(np.random.default_rng(0).uniform(
+            0.0, 1.0, (1, 64, 64, 3)).astype(np.float32))
+        if served.meta["platforms"] != ["cuda"] or not np.isfinite(
+                boxes).all() or cats.shape[0] != 1:
+            raise AssertionError("the CLI's artifact")
+        _say(f"  cli: train ({steps} steps, K2 {steps} launches), evaluate "
+             "and export on the card, exit codes 0; the artifact serves "
+             f"{cats.shape[1]} slots an image")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["launches"] = launches
+    _say(f"  api_serving phase launches: {launches}")
+    return row
+
+
 def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
@@ -2394,6 +2685,8 @@ def main() -> int:
                         "training": phase_training(name, warmup, steps)}
         torch.cuda.empty_cache()
     report["trainer"] = {"training": phase_trainer()}
+    torch.cuda.empty_cache()
+    report["api_serving"] = {"serving": phase_api_serving()}
     torch.cuda.empty_cache()
     for label, (path, cfg, train_kw) in _small_configs().items():
         phase_small_reference(label, path, cfg, train_kw)

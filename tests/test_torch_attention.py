@@ -267,6 +267,44 @@ def test_one_bf16_rounding_of_p_fails_the_forward_gate():
     assert outside[False] > want.numel() // 50, outside
 
 
+@pytest.mark.parametrize("bh,tq,tk", [(2, 130, 200), (2, 96, 400)])
+def test_padded_head_dim_arithmetic_matches_the_pallas_kernel(bh, tq, tk):
+    """D = 48 (``encoder_dim=384, num_encoder_heads=8``), which the kernels
+    take padded with zeros to 64 and the true 1/sqrt(48): the tensor-core
+    arithmetic on the padded tensors, sliced back, inside the card's gates
+    against the plain versions at D = 48 and against JAX's Pallas kernels
+    in interpret mode (which pad D themselves)."""
+    d = 48
+    scale = 1.0 / d ** 0.5
+    q, k, v, g, lse, delta = _bf16_gradient_inputs(bh, tq, tk, d)
+    qp, kp, vp, gp = ta._padded(q, k, v, g)
+    assert qp.shape == (bh, tq, 64) and not qp[..., d:].any()
+    out, p_lse = ta.attention_fwd_emulation(qp, kp, vp, scale=scale)
+    padded = (qp, kp, vp, gp, lse, delta)
+    dq = ta.attention_dq_emulation(*padded, scale=scale)
+    dk, dv = ta.attention_dkdv_emulation(*padded, scale=scale)
+    for t in (out, dq, dk, dv):
+        assert not t[..., d:].any()  # the padded columns come out zero
+    out, dq, dk, dv = (t[..., :d] for t in (out, dq, dk, dv))
+
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    args = (q, k, v, g, lse, delta)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    assert _outside(out, want, **CARD_OUT_GATE) == 0
+    assert _outside(p_lse, want_lse, **CARD_LSE_GATE) == 0
+    for name, got, ref in (("dq", dq, ta.attention_dq_reference(*args)),
+                           ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert _outside(got, ref, **CARD_GRAD_GATE) == 0, name
+
+    j_out, j_lse, j_dq, j_dk, j_dv = _pallas_k3(bh, tq, tk, d, "bfloat16")
+    _close(out, j_out, K3_TOL["bfloat16"], "out")
+    _close(p_lse, j_lse, K3_TOL["float32"], "lse")
+    tol = K3_GRAD_TOL["bfloat16"]
+    _close(dq, j_dq, tol, "dq")
+    _close(dk, j_dk, tol, "dk")
+    _close(dv, j_dv, tol, "dv")
+
+
 def test_k3_without_lse_matches_fused_attention():
     rng = np.random.default_rng(1)
     q, k, v = (rng.standard_normal((3, t, 32)).astype(np.float32)

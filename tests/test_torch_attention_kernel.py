@@ -69,6 +69,9 @@ def _assert_close(got, want, dtype, grad=False):
     # lengths that are no multiples of the 16-row step or the 64-row tile
     (3, 1, 300, 32), (3, 300, 1, 64), (3, 17, 17, 64), (3, 96, 520, 64),
     (3, 520, 17, 32), (3, 1, 1, 32), (3, 300, 96, 32), (3, 520, 300, 64),
+    # head dims padded with zeros to 64 and 32 (encoder_dim=384 over 8
+    # heads: D = 48)
+    (4, 400, 400, 48), (3, 96, 520, 48), (3, 130, 200, 16),
 ])
 def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
     q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype)
@@ -199,13 +202,15 @@ def test_float32_gradients_stay_on_the_cuda_cores(cuda, d):
 
 @pytest.mark.gpu
 def test_unsupported_head_dim_raises(cuda):
-    q = torch.zeros((2, 8, 48), device=cuda)
+    """Head dims up to 64 are padded to a built one; over 64 the kernels
+    refuse."""
+    q = torch.zeros((2, 8, 96), device=cuda)
     before = ta.attention_fwd.launches
-    with pytest.raises(ValueError, match="D=48"):
+    with pytest.raises(ValueError, match="D=96"):
         ta.fused_attention(q, q, q)
     assert ta.attention_fwd.launches == before
     # the CPU route is the plain version, for any head dim
-    assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 48)
+    assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 96)
 
 
 @pytest.mark.gpu

@@ -295,7 +295,7 @@ def test_predict_evaluate_and_map_through_the_trainer():
     assert 0.0 <= result["mAP"] <= 1.0
 
 
-def test_what_the_trainer_refuses():
+def test_what_the_trainer_refuses(tmp_path):
     cfg = _cfg()
     model = bt.DETR(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="compile"):
@@ -303,8 +303,20 @@ def test_what_the_trainer_refuses():
     with pytest.raises(ValueError, match="image"):
         bt.Trainer(model, cfg, bt.TrainConfig(), device="cpu").compile(
             sample_batch={"image": np.zeros((1, 16, 16, 3))})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _trainer().export_serving("/nowhere")
+    # export_serving exports and serves (tests/test_torch_serving.py holds
+    # the artifact against JAX's); it refuses a platform it has no program
+    # for
+    trainer = _trainer()
+    path = trainer.export_serving(str(tmp_path / "artifact"),
+                                  platforms="cpu")
+    image = _batches(1)[0]["image"]
+    served = bt.load_serving(path)(image, decode_text=False)
+    want = trainer.predict(image, decode_text=False)
+    for k, v in want.items():
+        np.testing.assert_array_equal(served[k], v, err_msg=k)
+    with pytest.raises(ValueError, match="platforms"):
+        trainer.export_serving(str(tmp_path / "tpu"), platforms=("cpu",
+                                                                 "tpu"))
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         _trainer(tcfg=bt.TrainConfig(mesh_shape={"data": 2}))
     with pytest.raises(ValueError, match="lies on"):
