@@ -35,6 +35,7 @@ from boosted_detr_torch.models.boosted import BoostedDETR as _BoostedModule
 from boosted_detr_torch.models.detr import DETR as _DETRModule
 from boosted_detr_torch.models.detr import _resolve_device
 from boosted_detr_torch.models.panoptic import DETRPanoptic as _PanopticModule
+from boosted_detr_torch.parallel.mesh import world_rank
 from boosted_detr_torch.train.trainer import Trainer
 
 
@@ -164,9 +165,9 @@ class _ModelBase:
         """Save config, vocabulary and weights to a directory (the Keras
         ``save_model`` equivalent): ``model_config.json`` with JAX's keys
         and the port's ``weights`` (the state dict, BatchNorm statistics
-        and the EMA shadow included)."""
+        and the EMA shadow included). Across processes every rank calls
+        it: rank 0 writes and every rank waits for the files."""
         trainer = self._require_trainer()
-        os.makedirs(path, exist_ok=True)
         meta = {"class": type(self).__name__,
                 "vocab_dict": self._vocab_dict,
                 "full_config": dataclasses.asdict(self.config),
@@ -178,8 +179,10 @@ class _ModelBase:
             # module-level knob outside ModelConfig (DETRPanoptic): a saved
             # custom mask resolution must survive load_model()
             meta["mask_size"] = self.module.mask_size
-        with open(os.path.join(path, "model_config.json"), "w") as f:
-            json.dump(meta, f, indent=2)
+        if world_rank() == 0:
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, "model_config.json"), "w") as f:
+                json.dump(meta, f, indent=2)
         trainer.save_weights(os.path.join(path, "weights"))
 
     # -- inference: text in/out (reference model.py:226-233) --

@@ -20,15 +20,20 @@ configs (``config.from_yaml`` and dotted overrides) over the port:
               Queue 1 item 6) and exits 2.
 
 ``train`` and ``evaluate`` run on ``--device`` (``cuda`` by default; pass
-``--device cpu`` on a machine without a card). ``train --coordinator``
-(a multi-host launch in JAX) raises ``NotImplementedError``: the port's
-``parallel/`` is ROADMAP.md, Queue 1 item 5.
+``--device cpu`` on a machine without a card). ``train --coordinator
+HOST:PORT --num-processes N --process-id R`` is one process of a run
+across N (one command each, parallel/multiprocess.py): the process group
+is ``nccl`` on a card and ``gloo`` on the CPU unless ``--backend`` names
+one, ``batch_size`` is per process, each process reads its stride of the
+data, and every process prints the same ``final loss:``; rank 0 saves.
 
 Examples:
   python -m boosted_detr_torch.cli train --synthetic --epochs 50 \\
       --set model.encoder_dim=64 --set train.batch_size=8
   python -m boosted_detr_torch.cli train --config cfg.yaml \\
       --dataset fashionpedia --data-dir /data/fashionpedia
+  python -m boosted_detr_torch.cli train --synthetic \\
+      --coordinator host0:1234 --num-processes 2 --process-id $RANK
 """
 
 from __future__ import annotations
@@ -121,16 +126,25 @@ def _build_model(args, vocab):
 
 
 def cmd_train(args) -> int:
+    feed = {"process_index": 0, "process_count": 1}
     if getattr(args, "coordinator", None):
-        raise NotImplementedError(
-            "train --coordinator (a multi-host launch) is not ported yet: "
-            "the port's parallel/ is ROADMAP.md, Queue 1 item 5")
+        # one process of a multi-process run: batch_size is per process,
+        # the global batch batch_size * num_processes
+        from boosted_detr_torch.parallel import multiprocess
+
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator needs --num-processes and "
+                             "--process-id")
+        multiprocess.initialize(args.coordinator, args.num_processes,
+                                args.process_id, backend=args.backend,
+                                device=args.device)
+        feed = multiprocess.feed_info()
     dataset, df, vocab = _build_data(args)
     model, tcfg = _build_model(args, vocab)
     pipe = model.make_pipeline(dataset=dataset if args.synthetic else None)
 
     def batches():
-        return pipe.batches(df, batch_size=tcfg.batch_size, seed=0)
+        return pipe.batches(df, batch_size=tcfg.batch_size, seed=0, **feed)
 
     sample = next(batches())
     model.compile(sample_batch=sample, train_config=tcfg)
@@ -164,7 +178,7 @@ def cmd_train(args) -> int:
                                         shuffle=False,
                                         drop_remainder=False))
         print(f"val mAP: {result['mAP']:.4f}  mAP50: {result['mAP50']:.4f}")
-    if args.save:
+    if args.save:  # every rank: rank 0 writes behind a barrier
         model.save(args.save)
         print(f"saved model to {args.save}")
     return 0
@@ -276,9 +290,13 @@ def main(argv=None) -> int:
     t.add_argument("--eval-map", action="store_true")
     t.add_argument("--save", help="directory to save the whole model")
     t.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="multi-host launch (not ported yet)")
+                   help="this process's rendezvous for a run across "
+                        "--num-processes processes (torch.distributed)")
     t.add_argument("--num-processes", type=int)
     t.add_argument("--process-id", type=int)
+    t.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="the process group's backend (default: nccl on a "
+                        "card, gloo on the CPU)")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")

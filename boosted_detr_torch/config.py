@@ -21,9 +21,11 @@ Fields the port reads with a meaning of its own:
 the focused forward and loss with intermediate losses; the frozen leaves
 are the optimizer's ``trainable_mask``); ``TrainConfig.agc_clip`` is the
 adaptive gradient clip of the norm-free (``skipinit``) backbone, first in
-the optimizer's chain (train/steps.py). The one ``TrainConfig`` field the
-port does not implement yet, ``mesh_shape``, keeps its name and default;
-the train step raises ``NotImplementedError`` when it is set.
+the optimizer's chain (train/steps.py). ``TrainConfig.mesh_shape``
+({"data": D, "model": M}; every rank of the process group on 'data' when
+None) is the mesh of a run across processes (parallel/mesh.py): the train
+and eval steps compute the global batch's step, the Trainer places each
+process's rows of it.
 
 ``Filepaths``, ``from_yaml`` (dotted overrides, as the CLI gives them) and
 ``default_params`` are the helpers of config.py:224-287.
@@ -138,7 +140,7 @@ class TrainConfig:
     use_intermediate_losses: bool = False
     intermediate_loss_avg: bool = False
     seed: int = 0
-    mesh_shape: Optional[Dict[str, int]] = None  # not ported (multi-GPU)
+    mesh_shape: Optional[Dict[str, int]] = None  # parallel/mesh.py
     checkpoint_dir: Optional[str] = None
     keep_checkpoints: int = 3
 

@@ -39,6 +39,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from boosted_detr_torch.parallel import mesh as mesh_lib
+
 SHRINK_MEAN, SHRINK_STD = 0.5, 0.7
 CONTRAST = (0.8, 1.2)
 BRIGHTNESS = 0.1
@@ -61,13 +63,19 @@ def _shrink(generator: torch.Generator, shape) -> torch.Tensor:
 def draw_augmentations(generator: torch.Generator, batch_size: int
                        ) -> Dict[str, torch.Tensor]:
     """Every random number ``apply_augmentations`` needs for a batch, drawn
-    on the generator's device (see the module's docstring)."""
+    on the generator's device (see the module's docstring). Under data
+    parallelism (the Trainer's loop augmenting this rank's rows) each draw
+    is the global batch's, this rank's rows kept."""
     b = batch_size
-    return {"shrink": _shrink(generator, (b, 2)),
-            "shift": _uniform(generator, (b, 2)),
-            "contrast": _uniform(generator, (b,), *CONTRAST),
-            "brightness": _uniform(generator, (b,), -BRIGHTNESS, BRIGHTNESS),
-            "saturation": _uniform(generator, (b,), *SATURATION)}
+
+    def draw(fn, shape, *args):
+        return mesh_lib.draw_global(lambda s: fn(generator, s, *args), shape)
+
+    return {"shrink": draw(_shrink, (b, 2)),
+            "shift": draw(_uniform, (b, 2)),
+            "contrast": draw(_uniform, (b,), *CONTRAST),
+            "brightness": draw(_uniform, (b,), -BRIGHTNESS, BRIGHTNESS),
+            "saturation": draw(_uniform, (b,), *SATURATION)}
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -298,13 +298,20 @@ def prefetch_to_device(iterator, size: int = 2, sharding=None,
     is queued. An exception raised by the iterator is raised here, in the
     consumer. Closing the generator stops the thread.
 
-    ``sharding`` (a per-host feed for a mesh axis) is not ported."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5: parallel/)")
+    ``sharding=mesh.batch_sharding(mesh)``: each batch of ``iterator`` is
+    the global batch, and this rank's rows of it are copied (on the same
+    pinned side-stream route), as a ``mesh.ShardedBatch`` the Trainer
+    takes as it is; the device is then the mesh's unless ``device`` names
+    one."""
     from boosted_detr_torch.models.detr import _resolve_device
+    from boosted_detr_torch.parallel import mesh as mesh_lib
 
+    if sharding is not None:
+        if not isinstance(sharding, mesh_lib.BatchSharding):
+            raise TypeError("prefetch_to_device takes sharding="
+                            "mesh.batch_sharding(mesh), not "
+                            f"{type(sharding).__name__}")
+        device = sharding.mesh.device if device is None else device
     device = _resolve_device(device)
     on_card = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -323,8 +330,15 @@ def prefetch_to_device(iterator, size: int = 2, sharding=None,
         stream = torch.cuda.Stream(device) if on_card else None
         try:
             for item in iterator:
-                moved = {k: _to_tensor(v, device, stream)
-                         for k, v in item.items()}
+                if sharding is not None:
+                    n = len(next(iter(item.values())))
+                    rows = sharding.rows(n)
+                    moved = mesh_lib.ShardedBatch(
+                        {k: _to_tensor(v[rows], device, stream)
+                         for k, v in item.items()}, n)
+                else:
+                    moved = {k: _to_tensor(v, device, stream)
+                             for k, v in item.items()}
                 event = None
                 if on_card:
                     event = torch.cuda.Event()

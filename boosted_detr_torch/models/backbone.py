@@ -38,6 +38,7 @@ from boosted_detr_torch.models.layers import (_INITS, Dense, LayerNorm,
                                               variance_scaling_)
 from boosted_detr_torch.ops import patchify
 from boosted_detr_torch.ops.patchify import same_padding
+from boosted_detr_torch.parallel import mesh as mesh_lib
 
 
 class BatchNorm(nn.Module):
@@ -60,7 +61,14 @@ class BatchNorm(nn.Module):
       is written out here; cuDNN's bf16 batch norm is not called.
     A module called several times in one training forward (a head under
     ``return_intermediate``) updates its running statistics each time, as
-    Flax's mutable collection does."""
+    Flax's mutable collection does.
+
+    Under data parallelism (an active mesh with more than one rank on
+    'data') the training statistics are the global batch's, as JAX's on a
+    global array: the float32 sum and sum of squares are summed over the
+    data group (differentiably: their gradients are summed too) and divided
+    by the global count, so every rank normalises alike and updates its
+    running statistics alike."""
 
     momentum = 0.99
 
@@ -84,8 +92,16 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            shard = mesh_lib.data_shard()
+            if shard is None:
+                mean = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                count = xf.numel() // xf.shape[-1] * shard[1]
+                sums = mesh_lib.all_reduce_sum(torch.stack(
+                    [xf.sum(axes), (xf * xf).sum(axes)]), shard[2]) / count
+                mean = sums[0]
+                var = (sums[1] - mean * mean).clamp_min(0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean
@@ -477,12 +493,15 @@ def _stochastic_depth(y: torch.Tensor, rate: float,
     ``generator`` is None (eval) or ``rate`` is 0. The bits come from
     ``generator``, so they differ from JAX's; they are drawn on the
     generator's device, so one CPU generator gives a model on the card the
-    bits it gives the same model on the CPU."""
+    bits it gives the same model on the CPU. Under data parallelism they
+    are the global batch's, this rank's rows."""
     if generator is None or rate == 0.0:
         return y
     keep = 1.0 - rate
-    mask = torch.rand((y.shape[0], 1, 1, 1), generator=generator,
-                      device=generator.device) < keep
+    mask = mesh_lib.draw_global(
+        lambda shape: torch.rand(shape, generator=generator,
+                                 device=generator.device),
+        (y.shape[0], 1, 1, 1)) < keep
     return y * (mask.to(y.device, y.dtype) / keep)
 
 
@@ -702,7 +721,8 @@ class ViTBlock(nn.Module):
         self.ln1 = LayerNorm(dim, 1e-6)
         self.attn = MultiheadAttention(dim, num_heads, dtype,
                                        use_pallas=use_pallas,
-                                       qk_norm=qk_norm)
+                                       qk_norm=qk_norm,
+                                       post_softmax_mask=False)
         self.ln2 = LayerNorm(dim, 1e-6)
         self.mlp_in = Dense(dim, 4 * dim)
         self.mlp_out = Dense(4 * dim, dim)

@@ -79,7 +79,7 @@ class BoostedDETR(nn.Module):
         def encoder(depth):
             return layers.ImageEncoder(
                 cfg.grid_size, cfg.encoder_dim, depth, cfg.num_encoder_heads,
-                eps, dtype, cfg.dropout_rate, pallas)
+                eps, dtype, cfg.dropout_rate, pallas, cfg.post_softmax_mask)
 
         if cfg.boosted_shared_encoder:
             self.encoder_shared = encoder(cfg.num_encoder_blocks)
@@ -93,7 +93,8 @@ class BoostedDETR(nn.Module):
             self.add_module(f"decoder_block_{i}", layers.DecoderBlock(
                 cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
                 self_attention=(i > 0), encoder_dim=cfg.encoder_dim,
-                dropout_rate=cfg.dropout_rate, use_pallas=pallas))
+                dropout_rate=cfg.dropout_rate, use_pallas=pallas,
+                post_softmax_mask=cfg.post_softmax_mask))
             self.add_module(f"category_head_{i}", SingleClassPredictionHead(
                 cfg.decoder_dim, cfg.num_categories, hidden,
                 cfg.num_object_preds, cfg.norm, dtype))

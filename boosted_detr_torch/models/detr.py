@@ -82,7 +82,8 @@ class DETR(nn.Module):
                                  cfg.encoder_dim, cfg.norm, dtype)
         self.encoder = layers.ImageEncoder(
             cfg.grid_size, cfg.encoder_dim, cfg.num_encoder_blocks,
-            cfg.num_encoder_heads, eps, dtype, cfg.dropout_rate, pallas)
+            cfg.num_encoder_heads, eps, dtype, cfg.dropout_rate, pallas,
+            cfg.post_softmax_mask)
         self.decoder_prep = layers.DecoderPrep(cfg.num_object_preds,
                                                cfg.decoder_dim, dtype)
         self.num_decoder_blocks = cfg.num_decoder_blocks
@@ -91,7 +92,8 @@ class DETR(nn.Module):
             self.add_module(f"decoder_block_{i}", layers.DecoderBlock(
                 cfg.decoder_dim, cfg.num_decoder_heads, eps, dtype,
                 self_attention=(i > 0), encoder_dim=cfg.encoder_dim,
-                dropout_rate=cfg.dropout_rate, use_pallas=pallas))
+                dropout_rate=cfg.dropout_rate, use_pallas=pallas,
+                post_softmax_mask=cfg.post_softmax_mask))
         if heads:
             hidden = cfg.resolved_head_hidden_dim
             self.category_head = SingleClassPredictionHead(

@@ -20,8 +20,15 @@ on the card), with the TPU kernel's numerics: q scaled before the dot and
 the probabilities kept in float32 through P.V, where the plain route
 divides the logits and casts the probabilities to the compute dtype
 first. ``qk_norm`` is the per-head bias-free LayerNorm of q and k that the
-ViT blocks may use. The attention mask is not ported: no ported path
-passes one.
+ViT blocks may use. An attention ``mask`` (1 = keep) multiplies the
+probabilities after the softmax without renormalising them
+(``post_softmax_mask``, the reference's rule) or masks the logits before
+it; a masked attention takes the plain route.
+
+Under tensor parallelism (parallel/sharding.py) a split ``Dense`` sums
+over the mesh's 'model' group as its side of the Megatron pair needs, and
+a split MHA runs its local heads. Dropout draws its bits for the global
+batch under data parallelism (``mesh.draw_global``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boosted_detr_torch.ops import attention
+from boosted_detr_torch.parallel import mesh as mesh_lib
 
 # Flax's truncated-normal variance scaling divides the std by the std of a
 # unit normal truncated to [-2, 2].
@@ -64,12 +72,14 @@ def dropout(x: torch.Tensor, rate: float,
     """Flax ``nn.Dropout(rate)``: keeps each value with probability
     ``1 - rate`` and scales the kept ones by dividing by ``1 - rate`` in
     ``x``'s dtype; the identity when ``generator`` is None or ``rate`` is
-    0. The bits come from ``generator``, so they differ from JAX's."""
+    0. The bits come from ``generator``, so they differ from JAX's; under
+    data parallelism they are the global batch's, this rank's rows."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    keep = mesh_lib.draw_global(
+        lambda shape: torch.rand(shape, generator=generator,
+                                 device=x.device), x.shape) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -83,7 +93,15 @@ def reset_parameters(module: nn.Module,
 
 class Dense(nn.Module):
     """Flax ``nn.Dense``: ``x @ kernel + bias`` in the given dtype. The
-    weight is stored as torch's ``[out, in]``."""
+    weight is stored as torch's ``[out, in]``.
+
+    ``tp_split`` (set by ``parallel.sharding.shard_module``) is None, or
+    ("column", group): this rank's output features, the input's gradient
+    summed over the group; or ("row", group): this rank's input features,
+    the partial products summed over the group in float32, then the bias
+    added once."""
+
+    tp_split = None
 
     def __init__(self, in_features: int, out_features: int,
                  init: str = "lecun_normal"):
@@ -100,8 +118,17 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        if self.tp_split is None:
+            return F.linear(x.to(dtype), self.weight.to(dtype),
+                            self.bias.to(dtype))
+        kind, group = self.tp_split
+        if kind == "column":
+            x = mesh_lib.sum_backward(x, group)
+            return F.linear(x.to(dtype), self.weight.to(dtype),
+                            self.bias.to(dtype))
+        partial = F.linear(x.to(dtype), self.weight.to(dtype)).float()
+        return (mesh_lib.sum_forward(partial, group).to(dtype)
+                + self.bias.to(dtype))
 
 
 class LayerNorm(nn.Module):
@@ -147,7 +174,7 @@ def trig_positional_init(num_positions: int, dim: int) -> np.ndarray:
 
 
 class MultiheadAttention(nn.Module):
-    """MHA of layers.py:58-140, with no mask.
+    """MHA of layers.py:58-140.
 
     The plain route (layers.py:120-140) is tensor code on purpose, not
     ``scaled_dot_product_attention``:
@@ -163,17 +190,25 @@ class MultiheadAttention(nn.Module):
     K3 kernels on the card), unfolds and casts to the compute dtype before
     the output projection. ``qk_norm`` (layers.py:91-102) normalises q and
     k over head_dim in float32 (eps 1e-6, scale only) on either route.
+
+    ``mask`` (broadcastable to the logits [B, H, Tq, Tk], 1 = keep) sends
+    the call down the plain route (layers.py:104). With
+    ``post_softmax_mask`` it multiplies the float32 probabilities after
+    the softmax, with no renormalisation (the reference's quirk,
+    layers.py:130-133); without, the masked logits become -1e30 before it
+    (:125-126).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  kv_dim: Optional[int] = None, use_pallas: bool = False,
-                 qk_norm: bool = False):
+                 qk_norm: bool = False, post_softmax_mask: bool = True):
         super().__init__()
         kv_dim = kv_dim or dim
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.post_softmax_mask = post_softmax_mask
         proj = self.head_dim * num_heads
         self.query_projection = Dense(dim, proj, "glorot_normal")
         self.key_projection = Dense(kv_dim, proj, "glorot_normal")
@@ -185,7 +220,7 @@ class MultiheadAttention(nn.Module):
             self.q_norm = self.k_norm = None
         self.output_projection = Dense(proj, dim, "glorot_normal")
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, mask=None):
         dt = self.dtype
 
         def split(x):  # [B, T, H*D] -> [B, H, T, D]
@@ -200,7 +235,7 @@ class MultiheadAttention(nn.Module):
             q = self.q_norm(q).to(dt)
             k = self.k_norm(k).to(dt)
         b, _, tq, _ = q.shape
-        if self.use_pallas:
+        if self.use_pallas and mask is None:
             def fold(x):  # [B, H, T, D] -> contiguous [B*H, T, D]
                 return x.reshape(b * self.num_heads, x.shape[2],
                                  self.head_dim).contiguous()
@@ -210,7 +245,12 @@ class MultiheadAttention(nn.Module):
         else:
             logits = q.float() @ k.float().transpose(-1, -2)
             logits = logits / math.sqrt(self.head_dim)
+            if mask is not None and not self.post_softmax_mask:
+                logits = torch.where(mask.bool(), logits,
+                                     logits.new_tensor(-1e30))
             probs = torch.softmax(logits, dim=-1)
+            if mask is not None and self.post_softmax_mask:
+                probs = probs * mask.to(probs.dtype)
             out = probs.to(dt).float() @ v.float()  # [B, H, Tq, D], f32 sums
         out = out.transpose(1, 2).reshape(b, tq, -1).to(dt)
         return self.output_projection(out, dt)
@@ -222,17 +262,19 @@ class AttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, kv_dim: Optional[int] = None,
-                 dropout_rate: float = 0.1, use_pallas: bool = False):
+                 dropout_rate: float = 0.1, use_pallas: bool = False,
+                 post_softmax_mask: bool = True):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
-        self.attention = MultiheadAttention(dim, num_heads, dtype, kv_dim,
-                                            use_pallas)
+        self.attention = MultiheadAttention(
+            dim, num_heads, dtype, kv_dim, use_pallas,
+            post_softmax_mask=post_softmax_mask)
         self.layer_norm = LayerNorm(dim, eps)
 
-    def forward(self, query, key, value, generator=None):
-        attn = dropout(self.attention(query, key, value), self.dropout_rate,
-                       generator)
+    def forward(self, query, key, value, generator=None, mask=None):
+        attn = dropout(self.attention(query, key, value, mask),
+                       self.dropout_rate, generator)
         x = query.float() + attn.float()
         return self.layer_norm(x).to(self.dtype)
 
@@ -268,11 +310,11 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, dropout_rate: float = 0.1,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, post_softmax_mask: bool = True):
         super().__init__()
-        self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                             dropout_rate=dropout_rate,
-                                             use_pallas=use_pallas)
+        self.self_attention = AttentionBlock(
+            dim, num_heads, eps, dtype, dropout_rate=dropout_rate,
+            use_pallas=use_pallas, post_softmax_mask=post_softmax_mask)
         self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
     def forward(self, features, positional, generator=None):
@@ -288,7 +330,8 @@ class ImageEncoder(nn.Module):
 
     def __init__(self, grid: tuple, dim: int, num_blocks: int,
                  num_heads: int, eps: float, dtype: torch.dtype,
-                 dropout_rate: float = 0.1, use_pallas: bool = False):
+                 dropout_rate: float = 0.1, use_pallas: bool = False,
+                 post_softmax_mask: bool = True):
         super().__init__()
         self.grid = tuple(grid)
         self.dim = dim
@@ -297,7 +340,8 @@ class ImageEncoder(nn.Module):
             torch.empty(grid[0] * grid[1], dim))
         for i in range(num_blocks):
             self.add_module(f"block_{i}", EncoderBlock(
-                dim, num_heads, eps, dtype, dropout_rate, use_pallas))
+                dim, num_heads, eps, dtype, dropout_rate, use_pallas,
+                post_softmax_mask))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -349,18 +393,19 @@ class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, eps: float,
                  dtype: torch.dtype, self_attention: bool = True,
                  encoder_dim: Optional[int] = None,
-                 dropout_rate: float = 0.1, use_pallas: bool = False):
+                 dropout_rate: float = 0.1, use_pallas: bool = False,
+                 post_softmax_mask: bool = True):
         super().__init__()
         if self_attention:
-            self.self_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                                 dropout_rate=dropout_rate,
-                                                 use_pallas=use_pallas)
+            self.self_attention = AttentionBlock(
+                dim, num_heads, eps, dtype, dropout_rate=dropout_rate,
+                use_pallas=use_pallas, post_softmax_mask=post_softmax_mask)
         else:
             self.self_attention = None
-        self.cross_attention = AttentionBlock(dim, num_heads, eps, dtype,
-                                              kv_dim=encoder_dim,
-                                              dropout_rate=dropout_rate,
-                                              use_pallas=use_pallas)
+        self.cross_attention = AttentionBlock(
+            dim, num_heads, eps, dtype, kv_dim=encoder_dim,
+            dropout_rate=dropout_rate, use_pallas=use_pallas,
+            post_softmax_mask=post_softmax_mask)
         self.ffn = FeedForwardBlock(dim, eps, dtype, dropout_rate)
 
     def forward(self, encoder_value, decoder_features, encoder_key,

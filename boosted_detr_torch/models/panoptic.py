@@ -46,6 +46,7 @@ from boosted_detr_torch.models import layers
 from boosted_detr_torch.models.backbone import Conv
 from boosted_detr_torch.models.detr import _DTYPES, DETR, _resolve_device
 from boosted_detr_torch.ops import losses as loss_ops
+from boosted_detr_torch.parallel import mesh as mesh_lib
 
 # Flax's LayerNorm default, which the panoptic blocks keep
 _LN_EPS = 1e-6
@@ -265,7 +266,7 @@ def mask_loss(mask_logits: torch.Tensor, target_masks: torch.Tensor,
     (object, prediction) pair, DICE plus the sigmoid focal loss (meaned
     over the pixels) between the prediction's mask logits [B, P, H, W] and
     the object's target [B, O, H, W], divided by ``1 + sum(num_objects)``
-    over the batch."""
+    over the batch (the global batch under data parallelism)."""
     matched = torch.einsum("bop,bphw->bohw", assignment_mask.float(),
                            mask_logits.float())
     row_has = assignment_mask.amax(dim=-1)  # [B, O]
@@ -273,7 +274,7 @@ def mask_loss(mask_logits: torch.Tensor, target_masks: torch.Tensor,
     focal = loss_ops.sigmoid_focal_elementwise(
         target_masks.float(), torch.sigmoid(matched)).mean(
             dim=(-2, -1)) * row_has
-    total_num = 1.0 + num_objects.reshape(-1).sum().float()
+    total_num = 1.0 + mesh_lib.data_sum(num_objects)
     return (dice_weight * d.sum(-1) + focal_weight * focal.sum(-1)) \
         / total_num
 
@@ -322,26 +323,31 @@ def make_panoptic_train_step(model: DETRPanoptic, train_cfg,
             return panoptic_losses(model, train_cfg, preds, batch,
                                    dice_weight, focal_weight)
 
+    mesh = mesh_lib.make_mesh(train_cfg.mesh_shape, device=model.device)
     return steps_lib.seeded_step(model, train_cfg.seed,
                                  steps_lib.make_update_step(
-                                     loss_fn, ema_decay=train_cfg.ema_decay))
+                                     loss_fn, ema_decay=train_cfg.ema_decay,
+                                     mesh=mesh))
 
 
 def make_panoptic_eval_step(model: DETRPanoptic, train_cfg,
                             dice_weight: float = 1.0,
                             focal_weight: float = 1.0):
     """Validation (panoptic.py:223-234): the panoptic loss at ``train=False``
-    with no update; returns the aux dict with ``loss``."""
+    with no update; returns the aux dict with ``loss`` (the global batch's
+    across processes)."""
     from boosted_detr_torch.train import steps as steps_lib
+
+    mesh = mesh_lib.make_mesh(train_cfg.mesh_shape, device=model.device)
 
     def eval_step(state, batch) -> Dict[str, torch.Tensor]:
         steps_lib.check_state(state, model)
         steps_lib.set_mode(model, False)
-        with torch.no_grad():
+        with torch.no_grad(), mesh:
             preds = state.model(batch["image"])
             total, aux = panoptic_losses(model, train_cfg, preds, batch,
                                          dice_weight, focal_weight)
-        aux["loss"] = total
-        return aux
+            aux["loss"] = total
+            return mesh_lib.global_metrics(aux, mesh)
 
     return eval_step

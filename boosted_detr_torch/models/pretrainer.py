@@ -95,7 +95,7 @@ def pretrain_loss(preds_list: List[torch.Tensor],
     return {"loss": total.sum(), "accuracy": accuracy}
 
 
-def make_pretrain_step(model: DETRMultiClassifier):
+def make_pretrain_step(model: DETRMultiClassifier, mesh=None):
     """The pre-training step (pretrainer.py:100-124): the training forward
     with every block's output (always intermediate), ``pretrain_loss``,
     then the backward and the optimizer the state holds (the port's
@@ -103,8 +103,15 @@ def make_pretrain_step(model: DETRMultiClassifier):
     clip, as JAX's ``state.tx``). ``train_step(state, batch,
     generator=None) -> (state, aux)``, the batch with ``image`` and
     ``category_ids``; the generator draws the dropout bits (without one,
-    step ``s`` seeds its own from ``(TrainConfig().seed, s)``)."""
+    step ``s`` seeds its own from ``(TrainConfig().seed, s)``). Across
+    processes the step runs under ``mesh`` (every rank on 'data' when
+    None) and computes the global batch's step, its ``accuracy`` the
+    global batch's too."""
+    from boosted_detr_torch.parallel import mesh as mesh_lib
     from boosted_detr_torch.train import steps as steps_lib
+
+    if mesh is None:
+        mesh = mesh_lib.make_mesh(device=model.device)
 
     def loss_fn(model, batch, generator):
         with record_function("train_step/forward"):
@@ -117,7 +124,8 @@ def make_pretrain_step(model: DETRMultiClassifier):
         return metrics["loss"], {"accuracy": metrics["accuracy"]}
 
     return steps_lib.seeded_step(model, TrainConfig().seed,
-                                 steps_lib.make_update_step(loss_fn))
+                                 steps_lib.make_update_step(loss_fn,
+                                                            mesh=mesh))
 
 
 def _copy_trunk(dst: nn.Module, src: nn.Module, trunk: nn.Module) -> None:

@@ -24,6 +24,7 @@ import torch
 from boosted_detr_torch.config import LossWeights
 from boosted_detr_torch.ops import lap
 from boosted_detr_torch.ops import losses as loss_ops
+from boosted_detr_torch.parallel import mesh as mesh_lib
 
 _NEG = -1e30
 _INF = 1e30
@@ -191,8 +192,9 @@ def matching_loss(category_onehot: torch.Tensor,
     ``total``/``category``/``attribute``/``box``/``exist`` and ``iou``.
 
     Normalisation is batch-global: the matched sums are divided by
-    ``1 + sum(num_objects)`` over the whole batch; the exist term is meaned
-    over the predictions and divided by ``1 + P``."""
+    ``1 + sum(num_objects)`` over the whole batch (the global batch under
+    data parallelism, ``mesh.data_sum``); the exist term is meaned over
+    the predictions and divided by ``1 + P``."""
     cat_preds = cat_preds.float()
     attribute_preds = attribute_preds.float()
     box_preds = box_preds.float()
@@ -210,7 +212,7 @@ def matching_loss(category_onehot: torch.Tensor,
     mask = solve_matching(total_cost, num_objects, matcher)
     assigned = mask.amax(dim=-2)  # [B, P]: predictions that won an object
 
-    total_num_objects = 1.0 + num_objects.sum().float()
+    total_num_objects = 1.0 + mesh_lib.data_sum(num_objects)
     num_preds_per_batch = 1.0 + float(p_count)
 
     def reduce(cost):

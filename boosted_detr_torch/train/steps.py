@@ -13,6 +13,17 @@ wrapper the panoptic and pre-training steps share with the train step
 staged training: ``boosted_block_mask``, ``apply_trainable_mask``, the
 ``trainable_mask`` of ``make_optimizer`` and ``TrainConfig.train_block``.
 
+Across processes (``TrainConfig.mesh_shape``, or every rank of the process
+group on 'data' without one; parallel/mesh.py) a step computes what one
+process computes on the global batch, as JAX's pjit does: its batch is
+this rank's rows, its forward and loss run under the mesh (BatchNorm's
+statistics, the loss normalisers and the random draws are the global
+batch's), the gradients are summed over the 'data' group before the
+optimizer (the loss is a global sum, so a sum and not DDP's mean), the
+clips of tensor-parallel leaves take their norms over the 'model' group,
+and the returned losses and metrics are the global batch's. Every rank
+then holds the same parameters bit for bit.
+
 Staged freezing is optax's ``multi_transform`` with ``set_to_zero``
 (steps.py:129-136) in torch terms: the optimizer holds only the trained
 leaves, so the frozen ones get no update, no momentum, no weight decay and
@@ -37,6 +48,7 @@ few microseconds a step when no profiler runs.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import inspect
@@ -51,10 +63,8 @@ from boosted_detr_torch.config import LossWeights, ModelConfig, TrainConfig
 from boosted_detr_torch.data.codec import TextCodec
 from boosted_detr_torch.models import early_exit
 from boosted_detr_torch.ops import matching
+from boosted_detr_torch.parallel import mesh as mesh_lib
 from boosted_detr_torch.train import schedules
-
-_LATER = "TrainConfig.{} is not ported yet (ROADMAP.md, Queue 1: {})"
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -91,13 +101,22 @@ def with_ema_params(state: TrainState) -> TrainState:
 
 
 def clip_by_per_variable_norm(grads: List[torch.Tensor],
-                              max_norm: float) -> None:
+                              max_norm: float, splits=None) -> None:
     """Keras ``clipnorm``: scales EACH gradient tensor in place by
     ``min(1, max_norm / max(||g||, 1e-12))``, its own L2 norm in float32
-    (not the global norm that ``clip_grad_norm_`` clips)."""
+    (not the global norm that ``clip_grad_norm_`` clips). ``splits``
+    gives each gradient's ``tp_split`` ((dim, group) of a tensor-parallel
+    slice, or None): the squared norms of slices are summed over their
+    group first, since JAX clips the whole tensor."""
     if not grads:
         return
-    norms = torch._foreach_norm([g.float() for g in grads])
+    norms = list(torch._foreach_norm([g.float() for g in grads]))
+    split = [i for i, s in enumerate(splits or ()) if s is not None]
+    if split:
+        whole = mesh_lib.reduce_sum(torch.stack(
+            [norms[i].square() for i in split]), splits[split[0]][1]).sqrt()
+        for j, i in enumerate(split):
+            norms[i] = whole[j]
     for g, norm in zip(grads, norms):
         scale = torch.clamp(max_norm / norm.clamp_min(1e-12), max=1.0)
         g.mul_(scale.to(g.dtype))
@@ -132,13 +151,20 @@ def adaptive_grad_clip(units: List[Tuple[torch.Tensor, Tuple[int, ...]]],
     """optax ``adaptive_grad_clip(clip)`` (NFNet AGC) in place on each
     parameter's gradient: per unit, where ``||g|| >= max_norm = clip *
     max(||p||, 1e-3)``, ``g * max_norm / max(||g||, 1e-6)``; ``units`` pairs
-    each parameter with its ``unitwise_dims``. Norms in float32."""
+    each parameter with its ``unitwise_dims``. Norms in float32; a
+    tensor-parallel slice split along a summed dim sums its squares over
+    its group first."""
     for p, dims in units:
         g = p.grad
         if g is None:
             continue
-        g_norm = g.float().square().sum(dims, keepdim=True).sqrt()
-        p_norm = p.detach().float().square().sum(dims, keepdim=True).sqrt()
+        squares = torch.stack([g.float().square().sum(dims, keepdim=True),
+                               p.detach().float().square().sum(
+                                   dims, keepdim=True)])
+        split = getattr(p, "tp_split", None)
+        if split is not None and split[0] in dims:
+            squares = mesh_lib.reduce_sum(squares, split[1])
+        g_norm, p_norm = squares.sqrt()
         max_norm = clip * p_norm.clamp_min(1e-3)
         clipped = g * (max_norm / g_norm.clamp_min(1e-6))
         g.copy_(torch.where(g_norm < max_norm, g, clipped))
@@ -169,9 +195,13 @@ class Optimizer:
             adaptive_grad_clip([u for u in self.agc if id(u[0]) in held],
                                self.agc_clip)
         if self.clipnorm:
-            clip_by_per_variable_norm(
-                [p.grad for p in self.params if p.grad is not None],
-                self.clipnorm)
+            held = [p for p in self.params if p.grad is not None]
+            grads = [p.grad for p in held]
+            splits = [getattr(p, "tp_split", None) for p in held]
+            if any(splits):
+                clip_by_per_variable_norm(grads, self.clipnorm, splits)
+            else:  # the two-argument call that the tests' spies wrap
+                clip_by_per_variable_norm(grads, self.clipnorm)
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr
@@ -309,7 +339,7 @@ def compute_losses(preds_list, batch, cfg: ModelConfig, weights: LossWeights,
             tile(category), tile(attribute), tile(bbox), tile(num_objects),
             stacked["category"], stacked["attribute"], stacked["boxes"],
             weights=weights, matcher=cfg.matcher)
-        sum_n = num_objects.sum().float()
+        sum_n = mesh_lib.data_sum(num_objects)
         rescale = (1.0 + n_blocks * sum_n) / (1.0 + sum_n)
         acc = {k: v.reshape(n_blocks, b).sum(dim=0)
                for k, v in losses.items()}
@@ -342,14 +372,25 @@ def resolve_loss_weights(model_cfg: ModelConfig,
     return weights
 
 
-def make_update_step(loss_fn: Callable, ema_decay: float = 0.0) -> Callable:
+def make_update_step(loss_fn: Callable, ema_decay: float = 0.0,
+                     mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """Wraps ``loss_fn(model, batch, generator) -> (loss, aux)`` into the
     update step: backward, optimizer (clip, schedule, update), and the EMA
     shadow ``e = d e + (1 - d) p`` when the state carries one. The step's
-    ``generator`` (the dropout bits) is handed to ``loss_fn``."""
+    ``generator`` (the dropout bits) is handed to ``loss_fn``. Under a
+    ``mesh`` of several ranks the loss and its backward run inside it, the
+    gradients are summed over its 'data' group (``train_step/all_reduce``)
+    and the returned losses and metrics are global. Raises
+    ``ValueError`` when a parameter was split by ``shard_module`` over
+    another 'model' group than the mesh's."""
+    data = mesh_lib.axis_of(mesh_lib.DATA_AXIS, mesh) if mesh else None
+    checked = []  # the optimizer whose parameters were held to the mesh
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
+        if not checked or checked[0] is not state.optimizer:
+            check_tensor_split(state.optimizer.params, mesh)
+            checked[:] = [state.optimizer]
         state.model.zero_grad(set_to_none=True)
         # gradients for the leaves the optimizer trains only (staged
         # freezing); the flags are put back after the backward
@@ -359,12 +400,17 @@ def make_update_step(loss_fn: Callable, ema_decay: float = 0.0) -> Callable:
         for p in frozen:
             p.requires_grad_(False)
         try:
-            loss, aux = loss_fn(state.model, batch, generator)
-            with record_function("train_step/backward"):
-                loss.backward()
+            with _within(mesh):
+                loss, aux = loss_fn(state.model, batch, generator)
+                with record_function("train_step/backward"):
+                    loss.backward()
         finally:
             for p in frozen:
                 p.requires_grad_(True)
+        if data is not None:
+            with record_function("train_step/all_reduce"):
+                mesh_lib.all_reduce_gradients(state.optimizer.params,
+                                              data[2])
         with record_function("train_step/optimizer"):
             state.optimizer.step()
         if state.ema_params is not None and ema_decay > 0.0:
@@ -375,9 +421,29 @@ def make_update_step(loss_fn: Callable, ema_decay: float = 0.0) -> Callable:
         state.step += 1
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()
-        return state, aux
+        return state, mesh_lib.global_metrics(aux, mesh)
 
     return train_step
+
+
+def check_tensor_split(params: Iterable[torch.Tensor],
+                       mesh: Optional[mesh_lib.Mesh]) -> None:
+    """Raises ``ValueError`` unless every parameter that ``shard_module``
+    split (``p.tp_split``) is split over ``mesh``'s 'model' group: under
+    any other mesh the data all-reduce would sum different slices of it."""
+    model = mesh_lib.axis_of(mesh_lib.MODEL_AXIS, mesh) if mesh else None
+    for p in params:
+        split = getattr(p, "tp_split", None)
+        if split is not None and (model is None or split[1] is not model[2]):
+            raise ValueError(
+                "a parameter is split over a 'model' group that is not this "
+                "step's mesh's; train with the mesh_shape it was sharded "
+                "with")
+
+
+def _within(mesh: Optional[mesh_lib.Mesh]):
+    """``mesh`` as the active mesh, or nothing."""
+    return mesh if mesh is not None else contextlib.nullcontext()
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -413,10 +479,14 @@ def make_train_step(model: nn.Module, model_cfg: ModelConfig,
     focused layer runs its forward only up to that block
     (steps.py:264-275, :295-298). Without intermediate losses it changes
     nothing here. Which leaves train is the optimizer's: staged training
-    builds it with ``trainable_mask=boosted_block_mask(model, k)``."""
-    if train_cfg.mesh_shape is not None:
-        raise NotImplementedError(_LATER.format(
-            "mesh_shape", "parallel/"))
+    builds it with ``trainable_mask=boosted_block_mask(model, k)``.
+
+    ``train_cfg.mesh_shape`` (every rank on 'data' when None) is the mesh
+    of the step (``make_mesh``, which raises when it does not match the
+    process group): the batch is then this rank's rows of the global
+    batch, and the step computes the global batch's step (see the
+    module's docstring)."""
+    mesh = mesh_lib.make_mesh(train_cfg.mesh_shape, device=_device_of(model))
     weights = resolve_loss_weights(model_cfg, train_cfg)
     intermediate = train_cfg.use_intermediate_losses
     loss_block = train_cfg.train_block if intermediate else None
@@ -458,7 +528,7 @@ def make_train_step(model: nn.Module, model_cfg: ModelConfig,
         return loss, aux
 
     return seeded_step(model, train_cfg.seed, make_update_step(
-        loss_fn, ema_decay=train_cfg.ema_decay))
+        loss_fn, ema_decay=train_cfg.ema_decay, mesh=mesh))
 
 
 def seeded_step(model: nn.Module, seed: int, update: Callable) -> Callable:
@@ -481,17 +551,20 @@ def seeded_step(model: nn.Module, seed: int, update: Callable) -> Callable:
 
 def make_eval_step(model: nn.Module, model_cfg: ModelConfig,
                    train_cfg: TrainConfig) -> Callable:
-    """Validation: the training loss at ``train=False``, no update."""
+    """Validation: the training loss at ``train=False``, no update; across
+    processes, the global batch's losses (the batch is this rank's
+    rows)."""
     weights = resolve_loss_weights(model_cfg, train_cfg)
+    mesh = mesh_lib.make_mesh(train_cfg.mesh_shape, device=_device_of(model))
 
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         check_state(state, model)
         set_mode(model, False)
-        with torch.no_grad():
+        with torch.no_grad(), mesh:
             outs = state.model(batch["image"])
             loss, aux = compute_losses([outs], batch, model_cfg, weights)
-        aux["loss"] = loss
-        return aux
+            aux["loss"] = loss
+            return mesh_lib.global_metrics(aux, mesh)
 
     return eval_step
 

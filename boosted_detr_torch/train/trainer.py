@@ -35,8 +35,17 @@ What differs from JAX, and why:
   ``torch.save`` writes before it returns, so ``save(wait=False)`` waits
   too.
 - ``export_serving`` writes a ``torch.export`` program where JAX writes
-  StableHLO (serving.py). ``mesh_shape`` is not ported (ROADMAP.md, Queue
-  1 item 5).
+  StableHLO (serving.py).
+
+Across processes (``torch.distributed``; parallel/multiprocess.py) the
+Trainer's mesh is ``make_mesh(train_cfg.mesh_shape)``, every rank on
+'data' by default, as JAX's (trainer.py:50-51). ``_place`` takes each
+process's batch as its rows of the global batch (a strided feed, or rows
+already cut by ``mesh.shard_batch`` or ``prefetch_to_device(sharding=)``),
+the steps compute the global batch's step, so ``fit``'s logged loss, the
+NaN guard and ``evaluate`` read global values; ``batch_fn`` runs under the
+mesh, so its random draws are the global batch's. ``save`` writes on rank
+0 behind a barrier, and ``restore`` reads on every rank.
 
 ``device`` is ``cuda`` unless the caller passes another; the model must
 lie there.
@@ -55,6 +64,8 @@ import torch
 
 from boosted_detr_torch.config import ModelConfig, TrainConfig
 from boosted_detr_torch.data.codec import TextCodec
+from boosted_detr_torch.parallel import mesh as mesh_lib
+from boosted_detr_torch.parallel import multiprocess
 from boosted_detr_torch.train import steps as steps_lib
 
 
@@ -81,6 +92,8 @@ class Trainer:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.codec = codec
+        self.mesh = mesh_lib.make_mesh(train_cfg.mesh_shape,
+                                       device=self.device)
         self.state: Optional[steps_lib.TrainState] = None
         self._train_step = None
         self._eval_step = None
@@ -178,12 +191,16 @@ class Trainer:
 
     def save(self, step: Optional[int] = None, wait: bool = True):
         """Checkpoint the whole train state into ``checkpoint_dir`` (nothing
-        without one), keeping the latest ``keep_checkpoints``."""
+        without one), keeping the latest ``keep_checkpoints``. Across
+        processes rank 0 writes (every rank holds the same state) and every
+        rank waits for it."""
         if self._ckpt is None:
             return
         self._require_state()
         step = self.state.step if step is None else step
-        self._ckpt.save(step, self._payload())
+        if mesh_lib.world_rank() == 0:
+            self._ckpt.save(step, self._payload())
+        mesh_lib.barrier()
 
     def restore(self) -> bool:
         """The latest checkpoint of ``checkpoint_dir`` into the state;
@@ -208,7 +225,9 @@ class Trainer:
         payload = {"model": self.state.model.state_dict()}
         if self.state.ema_params is not None:
             payload["ema_params"] = self.state.ema_params
-        _atomic_save(payload, path)
+        if mesh_lib.world_rank() == 0:
+            _atomic_save(payload, path)
+        mesh_lib.barrier()
 
     def load_weights(self, path: str):
         """Weights saved by ``save_weights``; the EMA shadow as ``restore``
@@ -232,7 +251,13 @@ class Trainer:
 
     def _place(self, batch) -> Dict[str, torch.Tensor]:
         """The batch's model inputs as tensors on the device: numpy arrays
-        are copied there, a tensor already there stays."""
+        are copied there, a tensor already there stays.
+
+        Across processes the batch is this process's rows of the global
+        batch: a ``ShardedBatch`` (from ``shard_batch``, ``global_batch``
+        or ``prefetch_to_device(sharding=)``) as it is, any other batch as
+        the local shard of a strided feed, which must split over 'data' as
+        JAX requires (trainer.py:255-260)."""
         out = {}
         for k, v in batch.items():
             if k not in self.BATCH_KEYS:
@@ -240,7 +265,16 @@ class Trainer:
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(np.asarray(v))
             out[k] = v.to(self.device)
-        return out
+        world = mesh_lib.world_size()
+        if world == 1 or isinstance(batch, mesh_lib.ShardedBatch):
+            return out
+        n_data = self.mesh.shape[mesh_lib.DATA_AXIS]
+        b = int(out["image"].shape[0])
+        if n_data % world or (b * world) % n_data:
+            raise ValueError(f"local batch {b} x {world} processes must "
+                             f"divide the 'data' axis ({n_data})")
+        return multiprocess.global_batch(out,
+                                         mesh_lib.batch_sharding(self.mesh))
 
     def fit(self, batches: Iterable[Dict], epochs: int = 1,
             steps_per_epoch: Optional[int] = None,
@@ -300,7 +334,8 @@ class Trainer:
                 stop_epoch = False
                 for batch in it:
                     if batch_fn is not None:
-                        batch = batch_fn(batch)
+                        with self.mesh:
+                            batch = batch_fn(batch)
                     pending.append(self._place(batch))
                     if len(pending) >= group:
                         run_pending()

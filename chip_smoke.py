@@ -98,6 +98,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      process (K2 in its steps); reports each export's seconds and
      ``model.pt2`` size and an artifact request's host time beside the
      live request's;
+   - parallel: training across processes (boosted_detr_torch/parallel/).
+     Two ranks, each a process of this script (``parallel-rank``), share
+     the card over gloo with CUDA tensors (NCCL refuses two ranks on one
+     device); the one-process references run first, in this process.
+     Data parallelism on the 640 flagship, 4 rows a rank against one
+     process on 8: the kernel step's loss at the 1e-3 noise gate, K1-fwd,
+     K1-dW and K2 (at [4, 32, 96]) launched on each rank, both ranks'
+     parameters bit for bit, and the reduced gradients of one step at
+     calibrated, frozen statistics with the plain forward and the
+     backward kernels within 5e-2 of their norm (bf16, all leaves;
+     float32, all leaves and the stem's); a small float32 model (dropout
+     0.1, live BatchNorm) at the small models' gates; context-parallel
+     attention through K3 at the 1280 encoder's shape (two shards of 800
+     keys) against the one-process K3 and the plain version; the 1280
+     flagship with K3 split over 'model' (4 heads a rank), its forward at
+     the serving gate and one step's finite loss; two ``cli train
+     --coordinator`` processes that print the same final loss; and one
+     rank under NCCL whose step equals the step without a process group
+     bit for bit. Reports each rank's step time, the gradients'
+     all-reduce time with its bytes, and the context-parallel merge's
+     time, and K3's row at the per-shard shape [64, 1600, 800, 32];
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
@@ -127,6 +148,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1750,6 +1772,27 @@ def _profiled(fn):
 
 
 @contextlib.contextmanager
+def _lap_masks():
+    """The assignment masks the matching loss's solver returns while the
+    block runs, on the host."""
+    from boosted_detr_torch.ops import matching as M
+
+    solve = M.solve_matching
+    masks = []
+
+    def spy(cost, num_objects, method="hungarian"):
+        mask = solve(cost, num_objects, method)
+        masks.append(mask.detach().cpu())
+        return mask
+
+    M.solve_matching = spy
+    try:
+        yield masks
+    finally:
+        M.solve_matching = solve
+
+
+@contextlib.contextmanager
 def _lap_shapes():
     """The shapes of the cost tensors the matching loss hands to its
     solver (K2 on the card) while the block runs."""
@@ -2621,6 +2664,647 @@ def phase_api_serving():
     return row
 
 
+# The parallel phase: training across processes (parallel/). Two ranks
+# share the one card over gloo with CUDA tensors (NCCL refuses two ranks on
+# one device), each a process of this script (``parallel-rank``); the
+# references run here, in one process, before the ranks start.
+PARALLEL_RANKS = 2
+# context parallelism at the 1280 encoder's shape: [BH, T, D] bf16 q, k, v,
+# the keys split into two shards of 800
+CP_BH, CP_T, CP_D = 64, 1600, 32
+CP_SEED = 60
+TP_MESH = {"data": 1, "model": 2}
+CP_LAUNCHES = _expect(attention_fwd=1, attention_dq=1, attention_dkdv=1)
+# the small float32 model of the data-parallel gate: the dry run's tiny
+# DETR with dropout 0.1 (drawn for the global batch) and live BatchNorm
+DP_SMALL = dict(num_object_preds=16, image_size=(64, 64),
+                num_encoder_blocks=2, num_encoder_heads=2, encoder_dim=32,
+                num_decoder_blocks=2, num_decoder_heads=2, decoder_dim=32,
+                num_categories=12, num_attributes=8, backbone="tiny",
+                backbone_width=0.25, compute_dtype="float32", max_objects=4,
+                dropout_rate=0.1, matcher="pallas")
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def _calibrate(model, image):
+    """Running statistics that normalise ``image`` (the global batch, in
+    this process alone): its batch means and its batch variances plus 1,
+    from one train-mode forward at momentum 0, as the CPU tests calibrate
+    theirs (tests/test_torch_train.py::_calibrated)."""
+    from boosted_detr_torch.models.backbone import BatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(image, generator=torch.Generator(image.device).manual_seed(0))
+        for m in norms:
+            del m.momentum  # the class's 0.99 again
+            m.running_var.add_(1.0)
+
+
+def _dp_flagship(mesh=None):
+    """The 640 flagship's train step (bench.py) from its seeded state on
+    the batch bench.py builds, this rank's rows of it under ``mesh`` (one
+    process, all 8 rows, without): the kernel step's loss, launches, K2
+    problems and new parameters; the gradients of one step from calibrated
+    statistics held (``freeze_bn_stats``) with the plain forward and the
+    backward kernels; then live steps timed with CUDA events, and the
+    gradients' all-reduce timed alone.
+
+    Why frozen statistics for the gradients: two ranks' bf16 forward cannot
+    equal one process's bit for bit (each rank's convolutions and products
+    run at its own batch size and round differently), and with live
+    BatchNorm one bf16 rounding moves this step's gradients by tens of
+    percent (the training phase's note on K3-fwd), so a gradient gate holds
+    only where the batch statistics do not amplify rounding."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+
+    path = PATHS["flagship"]
+    cfg = _path_config("flagship", _codec())
+    tcfg = bt.TrainConfig(batch_size=BATCH)
+    model = _build(path, cfg, seed=0)
+    state = bt.TrainState.create(model, bt.make_optimizer(
+        tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
+    step = bt.make_train_step(model, cfg, tcfg)
+    whole = _flagship_batch(cfg, BATCH, model.device)
+    batch = whole if mesh is None else mesh_lib.shard_batch(whole, mesh)
+    params = dict(model.named_parameters())
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    _reset_launches()
+    with _lap_shapes() as shapes:
+        state, aux = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": aux["loss"].item(), "launches": _launches(),
+           "lap_shapes": shapes, "params": _flat(params.values())}
+    model.load_state_dict(snapshot)
+    _calibrate(model, whole["image"])
+    calibrated = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen_cfg = tcfg.replace(freeze_bn_stats=True)
+    plain_forward = tuple(k for k in KERNELS if k not in _BACKWARD)
+    state.step = 0
+    with _plain_versions(plain_forward), _lap_masks() as masks, \
+            _gradients(state, params) as grads:
+        state, _ = bt.make_train_step(model, cfg, frozen_cfg)(state, batch)
+    out["grads"] = {k: g.float().cpu() for k, g in grads.items()}
+    out["masks"] = masks
+    if mesh is None:
+        out["grads_rows"] = _rows_witness(model, cfg, frozen_cfg, state,
+                                          params, whole, calibrated,
+                                          plain_forward)
+    # the same weights and calibrated statistics in float32
+    cfg32 = cfg.replace(compute_dtype="float32")
+    model32 = _build(path, cfg32, seed=0)
+    model32.load_state_dict(calibrated)
+    params32 = dict(model32.named_parameters())
+    state32 = bt.TrainState.create(model32, bt.make_optimizer(
+        tcfg, model32.named_parameters(), d_model=cfg.decoder_dim))
+    with _plain_versions(plain_forward), _lap_masks() as masks32, \
+            _gradients(state32, params32) as grads32:
+        bt.make_train_step(model32, cfg32, frozen_cfg)(state32, batch)
+    out["grads32"] = {k: g.float().cpu() for k, g in grads32.items()}
+    out["masks32"] = masks32
+    del model32, state32, params32
+    step_ms = []
+    for i in range(1 + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        end.synchronize()
+        if i:
+            step_ms.append(start.elapsed_time(end))
+    out["step_ms"] = step_ms
+    if mesh is not None:
+        group = mesh.groups["data"]
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["all_reduce_bytes"] = mesh_lib.all_reduce_gradients(
+                state.optimizer.params, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["all_reduce_ms"] = times
+    return out
+
+
+def _rows_witness(model, cfg, frozen_cfg, state, params, whole, calibrated,
+                  plain_forward):
+    """The witness that tells the ranks' rounding from their collectives:
+    each rank's rows of ``whole`` stepped in this process alone, at the
+    calibrated statistics with the global batch's ``1 + sum(num_objects)``
+    (the only batch reduction of the frozen step's loss), and the raw
+    gradients summed in float32, as the all-reduce sums them, with no
+    process group."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+
+    total = whole["num_objects"].float().sum()
+    data_sum = mesh_lib.data_sum
+    mesh_lib.data_sum = lambda x: total
+    per = BATCH // PARALLEL_RANKS
+    summed = {}
+    try:
+        for r in range(PARALLEL_RANKS):
+            rows = {k: v[r * per:(r + 1) * per] for k, v in whole.items()}
+            model.load_state_dict(calibrated)
+            state.step = 0
+            with _plain_versions(plain_forward), \
+                    _gradients(state, params) as grads:
+                bt.make_train_step(model, cfg, frozen_cfg)(state, rows)
+            for k, g in grads.items():
+                summed[k] = summed[k] + g.float() if k in summed \
+                    else g.float()
+    finally:
+        mesh_lib.data_sum = data_sum
+    return {k: g.cpu() for k, g in summed.items()}
+
+
+def _dp_small(mesh=None):
+    """One train step of the small float32 model (``DP_SMALL``) from a
+    seeded state on a batch of 8 (this rank's rows under ``mesh``): its
+    metrics and state."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+
+    cfg = bt.ModelConfig(**DP_SMALL)
+    model = bt.DETR(cfg, seed=3)
+    tcfg = bt.TrainConfig(batch_size=8)
+    state = bt.TrainState.create(model, bt.make_optimizer(
+        tcfg, model.parameters(), d_model=cfg.decoder_dim))
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.uniform(0, 1, (8, 64, 64, 3)).astype(np.float32),
+             "category_ids": rng.integers(2, 12, (8, 4)).astype(np.int32),
+             "attribute_ids": rng.integers(0, 8, (8, 4, 2)).astype(np.int32),
+             "bbox": rng.uniform(0.1, 0.4, (8, 4, 4)).astype(np.float32),
+             "num_objects": rng.integers(0, 5, (8,)).astype(np.int32)}
+    batch = (mesh_lib.shard_batch(batch, mesh) if mesh is not None else
+             {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    state, aux = bt.make_train_step(model, cfg, tcfg)(state, batch)
+    return ({k: v.item() for k, v in aux.items()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def _cp_inputs():
+    gen = torch.Generator().manual_seed(CP_SEED)
+    q, k, v, g = (torch.randn(CP_BH, CP_T, CP_D, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    return q, k, v, g
+
+
+def _cp_grads(fn, q, k, v, g):
+    """fn(q, k, v) and the gradients of <fn, g> for q, k and v."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(g)
+    return [out.detach().float().cpu()] + [t.grad.float().cpu()
+                                           for t in leaves]
+
+
+def _host_ms_sync(fn, repeats=5):
+    """Median host-clock ms of ``fn`` to the card's end, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _context_parallel(mesh):
+    """This rank's shard of the context-parallel attention at the 1280
+    encoder's shape through K3 (``impl="pallas"``): the merged output and
+    the gradients, the launches of one forward and backward, and the
+    forward's time beside K3's on the shard alone."""
+    from boosted_detr_torch.ops import attention as A
+    from boosted_detr_torch.parallel.context_parallel import \
+        context_parallel_attention
+
+    q, k, v, g = _cp_inputs()
+    index, n = mesh.coords["model"], mesh.shape["model"]
+    per = CP_T // n
+    k, v = (t[:, index * per:(index + 1) * per].contiguous() for t in (k, v))
+
+    def cp(q, k, v):
+        return context_parallel_attention(q, k, v, mesh, axis="model",
+                                          impl="pallas")
+
+    _reset_launches()
+    out, dq, dk, dv = _cp_grads(cp, q, k, v, g)
+    launches = _launches()
+    with torch.no_grad():
+        cp_ms = _host_ms_sync(lambda: cp(q, k, v))
+        shard_ms = _host_ms_sync(lambda: A.fused_attention_with_lse(q, k, v))
+    return {"out": out, "dq": dq, "dk": dk, "dv": dv, "launches": launches,
+            "cp_ms": cp_ms, "shard_ms": shard_ms,
+            "merge_ms": cp_ms - shard_ms}
+
+
+def _tp_model(mesh=None):
+    """The 1280 flagship with K3 (bench.py's BENCH_RES=1280 BENCH_PATTN=1)
+    from its seeded weights and random running statistics, split over
+    ``mesh``'s 'model' axis when given."""
+    from boosted_detr_torch.parallel import sharding
+
+    path = PATHS["flagship_1280"]
+    cfg = _path_config("flagship_1280", _codec())
+    model = _build(path, cfg, seed=0)
+    _randomize_running_stats(model, seed=1)
+    if mesh is not None:
+        sharding.shard_module(model, mesh)
+    return cfg, model
+
+
+def _tp_forward(model):
+    """The raw outputs of one served request of 8 seeded 1280px images."""
+    import boosted_detr_torch as bt
+
+    images = np.random.default_rng(2).uniform(
+        0.0, 1.0, (BATCH, HR_RES, HR_RES, 3)).astype(np.float32)
+    return bt.predict(model, images, decode_text=False)
+
+
+def _tensor_parallel(mesh):
+    """The 1280 flagship split over 'model': one served forward (raw
+    outputs, K3's launches and the heads each of its attentions runs), then
+    one train step on 4 rows."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch.models.layers import MultiheadAttention
+
+    cfg, model = _tp_model(mesh)
+    heads = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: heads.append(m.num_heads))
+        for m in model.modules() if isinstance(m, MultiheadAttention)]
+    _reset_launches()
+    raw = _tp_forward(model)
+    forward_launches = _launches()
+    for h in hooks:
+        h.remove()
+    tcfg = bt.TrainConfig(batch_size=4, mesh_shape=TP_MESH)
+    state = bt.TrainState.create(model, bt.make_optimizer(
+        tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
+    batch = _flagship_batch(cfg, 4, model.device)
+    _reset_launches()
+    state, aux = bt.make_train_step(model, cfg, tcfg)(state, batch)
+    loss = aux["loss"].item()
+    return {"raw": raw, "heads": heads, "forward_launches": forward_launches,
+            "step_launches": _launches(), "loss": loss}
+
+
+def _add(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in KERNELS}
+
+
+def parallel_rank(rank: int, init: str, out_dir: str) -> int:
+    """``chip_smoke.py parallel-rank RANK INIT OUT``: one of the phase's two
+    ranks, on the card over gloo. Saves its results to OUT; raises (exit
+    non-zero) on a gate of its own: the DP and TP launches, the K2
+    problem, the parameters of both ranks bit for bit after the DP step."""
+    import torch.distributed as dist
+
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+    from boosted_detr_torch.parallel import multiprocess
+
+    multiprocess.initialize(init, PARALLEL_RANKS, rank, backend="gloo")
+    dp_mesh = mesh_lib.make_mesh()
+    result = {"dp": _dp_flagship(dp_mesh)}
+    dp = result["dp"]
+    want = PATHS["flagship"]["step"]
+    per_rank = (BATCH // PARALLEL_RANKS, 32, 96)
+    if dp["launches"] != want or dp["lap_shapes"] != [per_rank]:
+        raise AssertionError(f"rank {rank}: DP step launches "
+                             f"{dp['launches']}, K2 {dp['lap_shapes']}; "
+                             f"expected {want}, K2 at {per_rank}")
+    mine = dp.pop("params")
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=0)
+    if not torch.equal(mine, theirs):
+        raise AssertionError(f"rank {rank}: parameters after the DP step "
+                             "differ from rank 0's")
+    _say(f"rank {rank}: DP step launches {dp['launches']}, K2 "
+         f"{dp['lap_shapes']}, {mine.numel()} parameters equal rank 0's bit "
+         "for bit")
+    result["dp_small"] = _dp_small(dp_mesh)
+    tp_mesh = mesh_lib.make_mesh(TP_MESH)
+    result["cp"] = _context_parallel(tp_mesh)
+    if result["cp"]["launches"] != CP_LAUNCHES:
+        raise AssertionError(f"rank {rank}: context-parallel launches "
+                             f"{result['cp']['launches']}")
+    result["tp"] = tp = _tensor_parallel(tp_mesh)
+    local_heads = _path_config("flagship_1280", _codec()
+                               ).num_encoder_heads // TP_MESH["model"]
+    if set(tp["heads"]) != {local_heads}:
+        raise AssertionError(f"rank {rank}: TP attentions ran "
+                             f"{sorted(set(tp['heads']))} heads")
+    if (tp["forward_launches"] != PATHS["flagship_1280"]["forward"]
+            or tp["step_launches"] != PATHS["flagship_1280"]["step"]
+            or not np.isfinite(tp["loss"])):
+        raise AssertionError(f"rank {rank}: TP forward launches "
+                             f"{tp['forward_launches']}, step "
+                             f"{tp['step_launches']}, loss {tp['loss']}")
+    result["launches"] = _add(_add(_add(dp["launches"],
+                                        result["cp"]["launches"]),
+                                   tp["forward_launches"]),
+                              tp["step_launches"])
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_nccl(init: str, out_dir: str) -> int:
+    """``chip_smoke.py parallel-nccl INIT OUT``: the flagship's DP step in
+    this process without a process group, then again as the one rank of
+    an NCCL group; raises unless the two are equal bit for bit."""
+    import torch.distributed as dist
+
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+    from boosted_detr_torch.parallel import multiprocess
+
+    alone = _dp_flagship()
+    multiprocess.initialize(init, 1, 0)
+    backend = dist.get_backend()
+    probe = torch.arange(8.0, device="cuda")
+    dist.all_reduce(probe)
+    ranked = _dp_flagship(mesh_lib.make_mesh())
+    same = (alone["loss"] == ranked["loss"]
+            and torch.equal(alone["params"], ranked["params"])
+            and all(torch.equal(alone["grads"][k], ranked["grads"][k])
+                    for k in alone["grads"]))
+    _say(f"nccl: backend {backend}, world {dist.get_world_size()}; the DP "
+         f"step equals the step without a process group bit for bit: {same}")
+    if backend != "nccl" or not same or not torch.equal(
+            probe, torch.arange(8.0, device="cuda")):
+        raise AssertionError("the NCCL world-1 step differs")
+    torch.save({"loss": ranked["loss"], "step_ms": ranked["step_ms"]},
+               os.path.join(out_dir, "nccl.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(rows):
+    """Training across processes on the card (see the constants above):
+    data parallelism on the 640 flagship and on a small float32 model,
+    context parallelism at the 1280 encoder's shape, tensor parallelism on
+    the 1280 flagship with K3, the CLI's multi-process launch, and one rank
+    under NCCL. Adds K3's per-shard row to ``rows``."""
+    import shutil
+    import tempfile
+
+    from boosted_detr_torch.ops import attention as A
+    from boosted_detr_torch.parallel.dryrun import spawn
+
+    t_phase = time.perf_counter()
+    _say(f"[parallel] {PARALLEL_RANKS} ranks sharing the card over gloo "
+         "(CUDA tensors); the one-process references first")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    shard = _attention_case("context-parallel shard (1280 encoder, 2 ranks)",
+                            CP_BH, CP_T, CP_T // PARALLEL_RANKS, CP_D,
+                            torch.bfloat16, CP_SEED + 1, flush)
+    for name in ("fwd", "dq", "dkdv"):
+        rows[f"attention_{name}"].append(shard[name])
+    del flush
+    one = _dp_flagship()
+    one.pop("params")
+    small_one = _dp_small()
+    q, k, v, g = _cp_inputs()
+    cp_kernel = _cp_grads(A.fused_attention, q, k, v, g)
+    cp_plain = _cp_grads(lambda *t: A.attention_fwd_reference(*t)[0],
+                         q, k, v, g)
+    with torch.no_grad():
+        parts = [A.attention_fwd(q, k[:, s * CP_T // 2:(s + 1) * CP_T // 2]
+                                 .contiguous(),
+                                 v[:, s * CP_T // 2:(s + 1) * CP_T // 2]
+                                 .contiguous()) for s in range(2)]
+        w = torch.softmax(torch.stack([p[1] for p in parts]), 0)[..., None]
+        magnitude = sum(w[s] * parts[s][0].float().abs()
+                        for s in range(2)).cpu()
+    del parts, w
+    tp_ref = _tp_forward(_tp_model()[1])
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="parallel_")
+    try:
+        init = f"file://{os.path.join(tmp, 'store')}"
+        me = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        outs = spawn([[me, "parallel-rank", str(r), init, tmp]
+                      for r in range(PARALLEL_RANKS)], timeout=600)
+        ranks_s = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            for line in out.strip().splitlines():
+                _say(f"  [rank {r}] {line}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+        port = _free_port()
+        cli = ["-m", "boosted_detr_torch.cli", "train", "--synthetic",
+               "--synthetic-images", "8", "--model", "synthetic-tiny",
+               "--epochs", "2", "--set", "train.batch_size=2", "--backend",
+               "gloo", "--coordinator", f"localhost:{port}",
+               "--num-processes", str(PARALLEL_RANKS), "--process-id"]
+        t0 = time.perf_counter()
+        cli_outs = spawn([cli + [str(r)] for r in range(PARALLEL_RANKS)],
+                         timeout=300)
+        cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl_out = spawn([[me, "parallel-nccl",
+                           f"file://{os.path.join(tmp, 'nccl_store')}",
+                           tmp]], timeout=300)[0]
+        nccl_s = time.perf_counter() - t0
+        for line in nccl_out.strip().splitlines():
+            _say(f"  [nccl] {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    failed = []
+    # data parallelism, 640 flagship: the live kernel step's loss at the
+    # 1e-3 noise gate; the reduced gradients of one step at calibrated,
+    # frozen statistics with the plain forward and the backward kernels,
+    # all leaves and the stem's each held to 5e-2 of their norm: in bf16
+    # against the witness (each rank's 4 rows stepped in one process and
+    # summed, so that only the collectives differ), with all leaves also
+    # against the 8-row step and the stem's shown (4-row products and
+    # convolutions round otherwise than 8-row ones in bf16, and a rounding
+    # early in the forward moves the stem's gradient most: the witness's
+    # own stem against the 8-row step reads that alone); in float32
+    # against the 8-row step
+    dp = ranks[0]["dp"]
+    if any(r["dp"]["loss"] != dp["loss"] for r in ranks):
+        failed.append("the ranks' global losses differ")
+    rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+    stem = [k for k in one["grads"] if k.startswith("backbone")
+            and "stem" in k and k.endswith("weight")]
+    grad_rel = {}
+    for key, got, want in (("grads", dp["grads"], one["grads"]),
+                           ("grads32", dp["grads32"], one["grads32"]),
+                           ("witness", dp["grads"], one["grads_rows"]),
+                           ("witness_vs_one", one["grads_rows"],
+                            one["grads"])):
+        grad_rel[key] = (
+            _norm_rel(_flat(got.values()), _flat(want.values())),
+            max(_norm_rel(got[k], want[k]) for k in stem))
+    moved = {}
+    for key in ("masks", "masks32"):
+        ours = torch.cat([r["dp"][key][0] for r in ranks])
+        moved[key] = int((ours != one[key][0]).any(-1).sum())
+    _say(f"  DP 640 flagship, {PARALLEL_RANKS} ranks x {BATCH // 2} rows "
+         f"against one process x {BATCH}: loss {dp['loss']:.6f} against "
+         f"{one['loss']:.6f} ({rel:.3e} relative, held to 1e-3); the "
+         "reduced gradients at frozen statistics, bf16 "
+         f"{grad_rel['grads'][0]:.3e} of their L2 norm (held to 5e-2), the "
+         f"stem's {grad_rel['grads'][1]:.3e} (shown; {moved['masks']} object "
+         f"rows matched otherwise); against the witness (the ranks' rows "
+         f"in one process, summed) {grad_rel['witness'][0]:.3e}, the stem's "
+         f"{grad_rel['witness'][1]:.3e} (each held to 5e-2); the witness "
+         f"against the 8-row step {grad_rel['witness_vs_one'][0]:.3e}, the "
+         f"stem's {grad_rel['witness_vs_one'][1]:.3e} (shown); float32 "
+         f"{grad_rel['grads32'][0]:.3e}, the stem's "
+         f"{grad_rel['grads32'][1]:.3e} (each held to 5e-2; "
+         f"{moved['masks32']} rows matched otherwise)")
+    if not (rel <= 1e-3 and grad_rel["grads"][0] <= 5e-2
+            and max(grad_rel["witness"]) <= 5e-2
+            and max(grad_rel["grads32"]) <= 5e-2):
+        failed.append("the DP step is off the one-process step")
+    # data parallelism, small float32 model: the small models' gates
+    (want_aux, want_state) = small_one
+    got_aux, got_state = ranks[0]["dp_small"]
+    worst = max(abs(got_aux[k] - want_aux[k]) / max(abs(want_aux[k]), 1e-6)
+                for k in want_aux)
+    p_err = max((got_state[k] - v).abs().max().item()
+                for k, v in want_state.items() if "running" not in k)
+    s_err = max((((got_state[k] - v).abs() / v.abs().clamp_min(1e-2)).max()
+                 .item() for k, v in want_state.items() if "running" in k))
+    _say(f"  DP small float32 model (dropout 0.1, live BatchNorm), 2 ranks "
+         f"against 1: losses within {worst:.3e} relative (held to 1e-4), "
+         f"new parameters {p_err:.3e} (2e-5), running statistics "
+         f"{s_err:.3e} relative (1e-4)")
+    if worst > 1e-4 or p_err > 2e-5 or s_err > 1e-4:
+        failed.append("the small model's DP step is off")
+    # context parallelism: each output held to K3's gate of the magnitude
+    # the merge summed; the gradients to 2**-7 of their norm and to 2**-6
+    # of each row's norm (one token of one head, so that a fault in a few
+    # rows shows: a row of dq is two bf16 partials summed and rounded
+    # again, each rounding up to 2**-9 of a partial's norm, which can pass
+    # the sum's). K3's elementwise gradient gate, 1e-4 + 2**-7 |ref|, is
+    # shown, beside the one-process K3's own count against the plain
+    # version: neither end-to-end backward holds it
+    got = {"out": ranks[0]["cp"]["out"], "dq": ranks[0]["cp"]["dq"],
+           "dk": torch.cat([r["cp"]["dk"] for r in ranks], 1),
+           "dv": torch.cat([r["cp"]["dv"] for r in ranks], 1)}
+    if not torch.equal(ranks[1]["cp"]["out"], got["out"]):
+        failed.append("the ranks' merged outputs differ")
+    cp_row = {}
+
+    def _outside(got, want):
+        return int(((got - want).abs() > 1e-4 + 2.0 ** -7 * want.abs()).sum())
+
+    def _worst_row(got, want):
+        return ((got.double() - want.double()).norm(dim=-1)
+                / want.double().norm(dim=-1)).max().item()
+
+    alone = {x: (_outside(cp_kernel[i + 1], cp_plain[i + 1]),
+                 _worst_row(cp_kernel[i + 1], cp_plain[i + 1]))
+             for i, x in enumerate(("dq", "dk", "dv"))}
+    _say("  the one-process K3's gradients against the plain version: "
+         "values outside 1e-4 + 2**-7 |ref| " + ", ".join(
+             f"{x} {n} of {cp_plain[1].numel()}" for x, (n, _) in
+             alone.items()) + "; the worst row " + ", ".join(
+             f"{x} {r:.3e}" for x, (_, r) in alone.items())
+         + " of its norm (shown)")
+    cp_row["one-process K3 against the plain version"] = alone
+    for label, ref in (("one-process K3", cp_kernel),
+                       ("plain version", cp_plain)):
+        err = (got["out"] - ref[0]).abs()
+        bound = 1e-5 + 2.0 ** -7 * torch.maximum(magnitude, ref[0].abs())
+        bad = int((err > bound).sum())
+        rels, row_rels, outside = {}, {}, {}
+        for i, x in enumerate(("dq", "dk", "dv")):
+            want = ref[i + 1]
+            rels[x] = _norm_rel(got[x], want)
+            row_rels[x] = _worst_row(got[x], want)
+            outside[x] = _outside(got[x], want)
+        _say(f"  context parallel against the {label}: out max abs err "
+             f"{err.max().item():.3e}, {bad} of {err.numel()} values "
+             "outside 1e-5 + 2**-7 x the merged magnitude; gradients " +
+             ", ".join(f"{x} {v:.3e}" for x, v in rels.items())
+             + " of their L2 norm (held to 2**-7), the worst row " +
+             ", ".join(f"{x} {v:.3e}" for x, v in row_rels.items())
+             + " of its norm (held to 2**-6); values outside 1e-4 + 2**-7 "
+             "|ref| " + ", ".join(f"{x} {v} of {got[x].numel()}"
+                                  for x, v in outside.items())
+             + " (shown)")
+        if (bad or max(rels.values()) > 2.0 ** -7
+                or max(row_rels.values()) > 2.0 ** -6):
+            failed.append(f"context parallel off the {label}")
+        cp_row[label] = dict(out_max_abs_err=err.max().item(), **rels,
+                             row_norm_rel=row_rels, values_outside=outside)
+    # tensor parallelism: the forward at the serving gate
+    try:
+        tp_err = _held(ranks[0]["tp"]["raw"], tp_ref, "TP 1280 forward (2 "
+                       "ranks, 4 heads each) against the unsharded one")
+    except AssertionError as exc:
+        failed.append(str(exc))
+        tp_err = float("nan")
+    _say(f"  TP step loss {ranks[0]['tp']['loss']:.4f} (finite)")
+    # the CLI's two processes
+    finals = [re.search(r"final loss: ([\d.]+)", out) for out in cli_outs]
+    if not all(finals) or finals[0].group(1) != finals[1].group(1):
+        failed.append("the CLI ranks' final losses: "
+                      + " | ".join(o[-300:] for o in cli_outs))
+    _say(f"  CLI train --coordinator localhost:{port}: both ranks print "
+         f"final loss: {finals[0].group(1)}")
+    for r, rank in enumerate(ranks):
+        d = rank["dp"]
+        _say(f"  rank {r}: DP step {statistics.median(d['step_ms']):.3f} ms "
+             f"(median of {len(d['step_ms'])}, CUDA events; one process "
+             f"{statistics.median(one['step_ms']):.3f} ms), gradient "
+             f"all-reduce {statistics.median(d['all_reduce_ms']):.3f} ms "
+             f"(host clock) for {d['all_reduce_bytes']} bytes; context "
+             f"parallel forward {rank['cp']['cp_ms']:.3f} ms, K3 on the "
+             f"shard alone {rank['cp']['shard_ms']:.3f} ms, merge "
+             f"{rank['cp']['merge_ms']:.3f} ms (host clock)")
+    row = {"launches": ranks[0]["launches"],
+           "rank_launches": [r["launches"] for r in ranks],
+           "dp_loss_rel_diff": rel, "dp_grad_rel_diff": grad_rel,
+           "dp_rows_matched_otherwise": moved,
+           "dp_small_loss_rel_diff": worst,
+           "dp_step_ms": [statistics.median(r["dp"]["step_ms"])
+                          for r in ranks],
+           "one_process_step_ms": statistics.median(one["step_ms"]),
+           "all_reduce_ms": [statistics.median(r["dp"]["all_reduce_ms"])
+                             for r in ranks],
+           "all_reduce_bytes": dp["all_reduce_bytes"],
+           "cp": cp_row, "cp_merge_ms": [r["cp"]["merge_ms"] for r in ranks],
+           "tp_forward_max_abs_err": tp_err, "tp_loss": ranks[0]["tp"]["loss"],
+           "ranks_s": ranks_s, "cli_s": cli_s, "nccl_s": nccl_s,
+           "phase_s": time.perf_counter() - t_phase}
+    _say(f"  parallel phase launches (rank 0): {row['launches']}; "
+         f"{row['phase_s']:.1f} s in all (ranks {ranks_s:.1f} s, CLI "
+         f"{cli_s:.1f} s, NCCL {nccl_s:.1f} s)")
+    if failed:
+        raise AssertionError("parallel phase: " + "; ".join(failed))
+    return row
+
+
 def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
@@ -2657,6 +3341,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["kernel-names"]:
         return kernel_names()
+    if sys.argv[1:2] == ["parallel-rank"]:
+        return parallel_rank(int(sys.argv[2]), *sys.argv[3:5])
+    if sys.argv[1:2] == ["parallel-nccl"]:
+        return parallel_nccl(*sys.argv[2:4])
     _say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
 
@@ -2687,6 +3375,8 @@ def main() -> int:
     report["trainer"] = {"training": phase_trainer()}
     torch.cuda.empty_cache()
     report["api_serving"] = {"serving": phase_api_serving()}
+    torch.cuda.empty_cache()
+    report["parallel"] = {"training": phase_parallel(rows)}
     torch.cuda.empty_cache()
     for label, (path, cfg, train_kw) in _small_configs().items():
         phase_small_reference(label, path, cfg, train_kw)

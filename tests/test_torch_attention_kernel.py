@@ -137,7 +137,11 @@ def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
 
 
 def _kernel_names(*calls):
-    """Names of the device kernels of the attention that ``calls`` launch."""
+    """Names of the device kernels of the attention that ``calls`` launch,
+    from a profile in this process. The tests below take theirs from a
+    process of their own (``_profiled``): once an earlier profile has run
+    in a process, as another test file's may under one pytest, a later one
+    can record no device kernel at all."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -155,17 +159,57 @@ def _gradient_kernel_names(args):
                          lambda: ta.attention_dkdv(*args))
 
 
+def profiled_names(d):
+    """{kind: {dtype: names}} of the forward and of the gradient kernels
+    at head dim ``d`` and the inputs of the tests below, each built and
+    loaded before its profile."""
+    cuda = torch.device("cuda")
+    out = {"fwd": {}, "grad": {}}
+    for dtype in ("float32", "bfloat16"):
+        qkv = _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
+        ta.attention_fwd(*qkv)
+        out["fwd"][dtype] = _kernel_names(lambda: ta.attention_fwd(*qkv))
+        args = _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
+        ta.attention_dq(*args)
+        ta.attention_dkdv(*args)
+        out["grad"][dtype] = _gradient_kernel_names(args)
+    return out
+
+
+@pytest.fixture(scope="module")
+def _profiled():
+    """``profiled_names`` at D = 32 and 64, from a new Python process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve()
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_attention_kernel as t; "
+            "print(json.dumps({d: t.profiled_names(d) for d in (32, 64)}))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parents[1]), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code, str(here.parent)],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return {int(d): v for d, v in json.loads(
+        proc.stdout.strip().splitlines()[-1]).items()}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64])
-def test_float32_forward_stays_on_the_cuda_cores(cuda, d):
+def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 forward (tensor cores would make
     them TF32 or bf16) and keep its float32 accuracy; bfloat16 inputs take
     the tensor-core forward."""
     inputs = {dtype: _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
               for dtype in ("float32", "bfloat16")}
-    ta.attention_fwd(*inputs["float32"])  # built and loaded before the profile
-    names = {dtype: _kernel_names(lambda: ta.attention_fwd(*qkv))
-             for dtype, qkv in inputs.items()}
+    names = _profiled[d]["fwd"]
     assert len(names["float32"]) == len(names["bfloat16"]) == 1, names
     assert "attn_fwd_kernel" in names["float32"][0], names
     assert "attn_fwd_mma_kernel" in names["bfloat16"][0], names
@@ -179,14 +223,13 @@ def test_float32_forward_stays_on_the_cuda_cores(cuda, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64])
-def test_float32_gradients_stay_on_the_cuda_cores(cuda, d):
+def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 kernels (tensor cores would make
     them TF32 or bf16) and keep their float32 accuracy; bfloat16 inputs
     take the tensor-core kernels."""
     args = {dtype: _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
             for dtype in ("float32", "bfloat16")}
-    ta.attention_dq(*args["float32"])  # built and loaded before the profile
-    names = {dtype: _gradient_kernel_names(a) for dtype, a in args.items()}
+    names = _profiled[d]["grad"]
     assert len(names["float32"]) == len(names["bfloat16"]) == 2, names
     assert not any("mma" in n for n in names["float32"]), names
     assert all("mma" in n for n in names["bfloat16"]), names

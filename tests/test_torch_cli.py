@@ -145,9 +145,11 @@ def test_pretrain_then_transfer_flow(capsys):
 
 
 def test_what_the_cli_refuses():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # a multi-process launch needs its rank (two processes run in
+    # tests/test_torch_parallel_cli.py)
+    with pytest.raises(ValueError, match="--process-id"):
         cli.main(["train", *DATA, "--coordinator", "localhost:1234",
-                  "--num-processes", "2", "--process-id", "0"])
+                  "--num-processes", "2"])
     assert cli.main(["benchmark"]) == 2
     # python -m boosted_detr_torch.cli runs main and exits with its code
     out = subprocess.run([sys.executable, "-m", "boosted_detr_torch.cli",

@@ -72,6 +72,35 @@ def test_multihead_attention(tq, tk):
     _close(ours(_t(q), _t(k), _t(v)), ref, F32)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("post_softmax", [True, False])
+def test_multihead_attention_with_a_mask(post_softmax, use_pallas):
+    """A mask (1 = keep, broadcast over the heads) multiplies the
+    probabilities after the softmax without renormalising them, or masks
+    the logits before it; a masked call takes the plain route even with
+    ``use_pallas`` (layers.py:104, :125-133)."""
+    rng = np.random.default_rng(1)
+    q, k = _normal(rng, (2, 6, 32)), _normal(rng, (2, 9, 32))
+    v = _normal(rng, (2, 9, 32))
+    mask = (rng.uniform(size=(2, 1, 6, 9)) > 0.4).astype(np.float32)
+    mask[..., 0] = 1.0  # every query keeps a key
+    # init and the unmasked call on the plain route (the same tree): the
+    # Pallas kernel runs on the CPU in interpret mode only
+    plain = jl.MultiheadAttention(4, dtype=jnp.float32)
+    params = _perturbed(plain.init(jax.random.PRNGKey(0), q, k, v), rng)
+    jmod = jl.MultiheadAttention(4, dtype=jnp.float32,
+                                 post_softmax_mask=post_softmax,
+                                 use_pallas=use_pallas)
+    ref = jmod.apply(_jax(params), q, k, v, jnp.asarray(mask))
+    unmasked = plain.apply(_jax(params), q, k, v)
+    assert np.abs(np.asarray(ref) - np.asarray(unmasked)).max() > 1e-2
+
+    ours = tl.MultiheadAttention(32, 4, torch.float32, use_pallas=use_pallas,
+                                 post_softmax_mask=post_softmax)
+    load_flax_variables(ours, params)
+    _close(ours(_t(q), _t(k), _t(v), _t(mask)), ref, F32)
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", F32), ("bfloat16", BF16)])
 def test_encoder_block(dtype, tol):
     rng = np.random.default_rng(1)

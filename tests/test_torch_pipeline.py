@@ -191,6 +191,17 @@ def test_prefetch_stops_its_thread_when_closed():
 
 
 def test_prefetch_with_a_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """A sharding other than ``batch_sharding`` is refused; on one rank the
+    batch sharding's rows are the whole batch (several ranks:
+    tests/test_torch_parallel_mesh.py)."""
+    from boosted_detr_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(TypeError, match="batch_sharding"):
         next(tpipe.prefetch_to_device(iter([]), sharding=object(),
                                       device="cpu"))
+    mesh = mesh_lib.make_mesh(device="cpu")
+    batch = {"image": np.arange(12, dtype=np.float32).reshape(4, 3)}
+    got = next(tpipe.prefetch_to_device(
+        iter([batch]), sharding=mesh_lib.batch_sharding(mesh)))
+    assert isinstance(got, mesh_lib.ShardedBatch) and got.global_size == 4
+    assert torch.equal(got["image"], torch.from_numpy(batch["image"]))

@@ -317,7 +317,7 @@ def test_what_the_trainer_refuses(tmp_path):
     with pytest.raises(ValueError, match="platforms"):
         trainer.export_serving(str(tmp_path / "tpu"), platforms=("cpu",
                                                                  "tpu"))
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError, match="mesh shape"):
         _trainer(tcfg=bt.TrainConfig(mesh_shape={"data": 2}))
     with pytest.raises(ValueError, match="lies on"):
         bt.Trainer(model, cfg, bt.TrainConfig(), device="meta")
