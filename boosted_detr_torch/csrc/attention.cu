@@ -11,8 +11,9 @@
 //   attn_dkdv_kernel, attn_dkdv_mma_kernel
 //                    <- _dkdv_kernel (:166-199), same function, call :257.
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
-// bfloat16, with no mask; D is 32 or 64. The arithmetic is the TPU
-// kernels':
+// bfloat16, with no mask; D is 32, 64 or 128 (the wrapper pads any other D
+// up to 128 with zeros, as the TPU kernels pad D to 128 lanes). The
+// arithmetic is the TPU kernels':
 //   - q, k and v are read in their dtype; products of bf16 values are exact
 //     in float32;
 //   - the logits are scale * q.k (scale = 1/sqrt(D)); the float32 kernels
@@ -90,8 +91,8 @@
 //     tile i + 1 loads while tile i multiplies, with one __syncthreads a
 //     tile: after it every thread's copies of tile i have landed and every
 //     thread is done with tile i - 1, whose stage the next copies then
-//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80 or 144
-//     bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
+//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80, 144 or
+//     272 bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
 //     into eight different bank groups, with or without .trans, so no read
 //     conflicts;
 //   - dq and dk are multiplied by scale once, at the end;
@@ -99,6 +100,31 @@
 //     (PERF.md): mma.sync is not the card's fastest path (wgmma is), a third
 //     or more of the passes are the lo halves, and the float32 work on p and
 //     ds (mask, max, exp, sum, split) shares the issue slots with the MMAs.
+//
+// At D = 128 (ViT-Huge's D = 80 and any D in (64, 128], padded):
+//   - the staged tiles outgrow the 48 KB of static shared memory (64 KB of
+//     float32 k and v tiles, 68 KB of double-buffered bf16 ones), so every
+//     kernel takes its tiles from dynamic shared memory, sized at launch,
+//     and a launch above 48 KB first opts its kernel in
+//     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem);
+//   - registers: a warp's q fragments (32 a thread), its 16 x 128 float32
+//     accumulator (64) and a tile's S (32) pass the 128 that a hint of 4
+//     blocks an SM allows, so the forward's hint drops to 2 (the 68 KB of
+//     tiles allow 3 blocks an SM anyway); dq holds q, dO and one
+//     accumulator (128) under the 255 of one block;
+//   - dk/dv would hold k and v as A fragments (64) beside two 16 x 128
+//     accumulators (128) and S, dP and their bf16 parts, past 255. At
+//     D = 128 the block's 64 rows of k and v are staged once in shared
+//     memory (34 KB more, 103 KB in all: 2 blocks an SM) and every product
+//     over the head dim reads its A fragments from there with ldmatrix
+//     (the same registers, in the same order: the same MMAs and the same
+//     sums as at D <= 64, where they stay in registers);
+//   - the float32 kernels keep their layout, DPT dims a thread and TPR = 4
+//     threads a row (256 threads), the row sums xor-shuffled over those
+//     aligned lanes; dk/dv takes 32 dims a thread (16 at D <= 64) and one
+//     query row a step (dkdv_dpt).
+// ptxas -v's registers and spills of every instantiation are printed by
+// chip_smoke.py's build phase and kept in PERF.md.
 //
 // Common to all:
 //   - the gradient is two kernels, as on the TPU: dq streams over key tiles
@@ -120,6 +146,18 @@ constexpr int ROWS = 64;  // rows a block owns
 constexpr int TILE = 64;  // rows of the other operand staged per step
 constexpr float NEG = -1e30f;
 constexpr float FLOOR = 1e-30f;
+// dynamic shared memory a kernel may take without opting in
+constexpr int DEFAULT_SMEM = 48 * 1024;
+
+// Lets `kernel` take `bytes` of dynamic shared memory: above 48 KB a kernel
+// must opt in before its launch (a host-side attribute, set again at each
+// such launch so that it holds on whichever device is current).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes) {
+  if (bytes <= DEFAULT_SMEM) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 // The row dim of element e of the DPT-dim slice that thread h of a row
 // owns: the slice is DPT / 4 chunks of 4 dims, and its chunk c is chunk
@@ -212,8 +250,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
   constexpr int CHUNK = 16;
-  __shared__ __align__(16) float sk[TILE * D];
-  __shared__ __align__(16) float sv[TILE * D];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sk = reinterpret_cast<float*>(smem);  // [TILE * D]
+  float* sv = sk + TILE * D;
   const int bh = blockIdx.x / tiles;
   const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / TPR;
   const int h = threadIdx.x % TPR;
@@ -282,8 +321,9 @@ attn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
   constexpr int CHUNK = 4;
-  __shared__ __align__(16) float sk[TILE * D];
-  __shared__ __align__(16) float sv[TILE * D];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sk = reinterpret_cast<float*>(smem);  // [TILE * D]
+  float* sv = sk + TILE * D;
   const int bh = blockIdx.x / tiles;
   const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / TPR;
   const int h = threadIdx.x % TPR;
@@ -340,10 +380,13 @@ attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float scale) {
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
-  constexpr int CHUNK = 4;
-  __shared__ __align__(16) float sq[TILE * D];  // qs = q * scale
-  __shared__ __align__(16) float sg[TILE * D];  // dO
-  __shared__ float s_lse[TILE], s_delta[TILE];
+  // query rows a step; one at D = 128, where four spilled (dkdv_dpt)
+  constexpr int CHUNK = D > 64 ? 1 : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);  // [TILE * D]: qs = q * scale
+  float* sg = sq + TILE * D;                   // [TILE * D]: dO
+  float* s_lse = sg + TILE * D;                // [TILE]
+  float* s_delta = s_lse + TILE;               // [TILE]
   const int bh = blockIdx.x / tiles;
   const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / TPR;
   const int h = threadIdx.x % TPR;
@@ -515,6 +558,31 @@ __device__ __forceinline__ void mma_over_dims(float (&x)[2][4],
   }
 }
 
+// The same product with a's 16 rows staged too (pitch D + PAD, at a_rows)
+// and their A fragments read by ldmatrix at each step instead of held in
+// registers; a_off is the lane's offset: row lane % 16, column 8 (lane /
+// 16), which gives registers 0..3 the rows grp, grp + 8 at columns 2 tig
+// and 8 + 2 tig, the A layout. The same MMAs in the same order.
+template <int D>
+__device__ __forceinline__ void mma_over_staged_dims(float (&x)[2][4],
+                                                     const bf16* a_rows,
+                                                     int a_off,
+                                                     const bf16* rows,
+                                                     int b_off) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int kb = 0; kb < D / 16; ++kb) {
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, a_rows + a_off + 16 * kb);
+    ldmatrix_x4(b, rows + b_off + 16 * kb);
+    mma_bf16(x[0], a, b[0], b[1]);
+    mma_bf16(x[1], a, b[2], b[3]);
+  }
+}
+
 // acc (rows r0 and r0 + 8 of a [n_rows, D] matrix) as bf16, row r0 times
 // mul[0] and row r0 + 8 times mul[1].
 template <int D>
@@ -552,8 +620,10 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int Tq, int Tk, int tiles, float scale) {
   constexpr int PITCH = D + PAD;
-  __shared__ __align__(16) bf16 sk[2][TILE * PITCH];
-  __shared__ __align__(16) bf16 sv[2][TILE * PITCH];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [2][TILE * PITCH] each: two stages of k and of v (mma_smem_bytes)
+  bf16 (*sk)[TILE * PITCH] = reinterpret_cast<bf16 (*)[TILE * PITCH]>(smem);
+  bf16 (*sv)[TILE * PITCH] = sk + 2;
   const int bh = blockIdx.x / tiles;
   const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
   // this thread's query rows: r0 and r0 + 8
@@ -620,6 +690,12 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_accumulator<D>(acc, scale, dq + q_base * D, r0, Tq, tig);
 }
 
+// k and v of a block's rows stay in shared memory instead of registers
+// where D > 64 (see the header): held as A fragments beside the two
+// accumulators, they would pass 255 registers a thread.
+template <int D>
+__host__ __device__ constexpr bool kv_staged() { return D > 64; }
+
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -629,14 +705,22 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dv, int Tq, int Tk, int tiles,
                      float scale) {
   constexpr int PITCH = D + PAD;
-  __shared__ __align__(16) bf16 sq[2][TILE * PITCH];
-  __shared__ __align__(16) bf16 sg[2][TILE * PITCH];  // dO
-  __shared__ __align__(16) float s_lse[2][TILE];
-  __shared__ __align__(16) float s_delta[2][TILE];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // two stages of q and of dO, [2][TILE * PITCH] each, then two stages of
+  // the lse and of delta, [2][TILE] each, then (kv_staged) the block's rows
+  // of k and of v, [TILE * PITCH] each (dkdv_mma_smem_bytes)
+  bf16 (*sq)[TILE * PITCH] = reinterpret_cast<bf16 (*)[TILE * PITCH]>(smem);
+  bf16 (*sg)[TILE * PITCH] = sq + 2;  // dO
+  float (*s_lse)[TILE] = reinterpret_cast<float (*)[TILE]>(sg + 2);
+  float (*s_delta)[TILE] = s_lse + 2;
+  bf16* skv = reinterpret_cast<bf16*>(s_delta + 2);
   const int bh = blockIdx.x / tiles;
   const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  // the block's first key row, this warp's first row within the block, and
   // this thread's key rows: r0 and r0 + 8
-  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int warp_row = (threadIdx.x / 32) * 16;
+  const int r0 = first + warp_row + grp;
   const long long k_base = static_cast<long long>(bh) * Tk;
   const long long q_base = static_cast<long long>(bh) * Tq;
   const bf16* qb = q + q_base * D;
@@ -645,9 +729,18 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
 
   const float scale2 = scale * LOG2E;
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a_fragments<D>(k + k_base * D, r0, Tk, tig, ka);
-  load_a_fragments<D>(v + k_base * D, r0, Tk, tig, va);
+  uint32_t ka[D / 16][4], va[D / 16][4];  // unused where kv_staged
+  if constexpr (kv_staged<D>()) {
+    // rows past Tk staged as zeros; landed by the first tile's wait below
+    const int n = min(ROWS, Tk - first);
+    stage_async<D>(k + (k_base + first) * D, n, skv);
+    stage_async<D>(v + (k_base + first) * D, n, skv + TILE * PITCH);
+  } else {
+    load_a_fragments<D>(k + k_base * D, r0, Tk, tig, ka);
+    load_a_fragments<D>(v + k_base * D, r0, Tk, tig, va);
+  }
+  const bf16* k_rows = skv + warp_row * PITCH;
+  const bf16* v_rows = skv + (TILE + warp_row) * PITCH;
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd)
@@ -677,8 +770,13 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (q0 + c >= Tq) break;
       // transposed: rows are this warp's keys, columns the 16 queries
       float p[2][4], ds[2][4];
-      mma_over_dims<D>(p, ka, sq[st] + c * PITCH, b_off);
-      mma_over_dims<D>(ds, va, sg[st] + c * PITCH, b_off);
+      if constexpr (kv_staged<D>()) {
+        mma_over_staged_dims<D>(p, k_rows, t_off, sq[st] + c * PITCH, b_off);
+        mma_over_staged_dims<D>(ds, v_rows, t_off, sg[st] + c * PITCH, b_off);
+      } else {
+        mma_over_dims<D>(p, ka, sq[st] + c * PITCH, b_off);
+        mma_over_dims<D>(ds, va, sg[st] + c * PITCH, b_off);
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = c + 8 * j + 2 * tig;
@@ -714,17 +812,20 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // denom, then 16 keys at a time p = 2^(scale2 (s - max)) in registers,
 // summed as float32 into denom and repacked as hi + lo A fragments for
 // acc += P V.
-// At least 5 (D = 32) and 4 (D = 64) blocks on an SM: 96 and 128 registers.
+// At least 5 (D = 32), 4 (D = 64) and 2 (D = 128) blocks on an SM: 96, 128
+// and 255 registers.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : 4)
+__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : D == 64 ? 4 : 2)
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int Tq, int Tk, int tiles,
                     float scale) {
   constexpr int PITCH = D + PAD;
   constexpr int STEPS = TILE / STEP;
-  __shared__ __align__(16) bf16 sk[2][TILE * PITCH];
-  __shared__ __align__(16) bf16 sv[2][TILE * PITCH];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [2][TILE * PITCH] each: two stages of k and of v (mma_smem_bytes)
+  bf16 (*sk)[TILE * PITCH] = reinterpret_cast<bf16 (*)[TILE * PITCH]>(smem);
+  bf16 (*sv)[TILE * PITCH] = sk + 2;
   const int bh = blockIdx.x / tiles;
   const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
   // this thread's query rows: r0 and r0 + 8
@@ -825,11 +926,35 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // Dims a thread of the CUDA-core kernels owns: 32 in the forward and dq (one
-// exp per row and key per thread), 16 in dk/dv, which holds four row slices
-// (k, v and both sums) in registers.
+// exp per row and key per thread; at D = 128, 4 threads a row, 256 a
+// block), and in dk/dv, which holds four row slices (k, v and both sums)
+// in registers, 16 at D <= 64 and 32 at D = 128 with one query row a step
+// (CHUNK). At D = 128, 16 dims a thread made 512 threads, whose 128
+// registers a thread left ptxas at 32 and 1976 bytes of spills: 750 ms at
+// [128, 1600, 1600, 80] against 18 ms now, no spill (probes/k3_f32_dkdv.py
+// on an H100 80GB HBM3 at 700 W, PERF.md).
 constexpr int DPT_FWD = 32;
 constexpr int DPT_DQ = 32;
-constexpr int DPT_DKDV = 16;
+template <int D>
+constexpr int dkdv_dpt() { return D > 64 ? 32 : 16; }
+
+// Dynamic shared memory of each kernel, in bytes: the float32 kernels'
+// tiles of the other operand (and dk/dv's lse and delta), the bf16
+// kernels' two stages of two tiles (and dk/dv's, at D > 64, its rows of k
+// and v).
+template <int D>
+constexpr int f32_smem_bytes() { return 2 * TILE * D * 4; }
+template <int D>
+constexpr int f32_dkdv_smem_bytes() { return f32_smem_bytes<D>() + 2 * TILE * 4; }
+template <int D>
+constexpr int mma_smem_bytes() {
+  return 2 * 2 * TILE * (D + PAD) * static_cast<int>(sizeof(bf16));
+}
+template <int D>
+constexpr int dkdv_mma_smem_bytes() {
+  return mma_smem_bytes<D>() + 2 * 2 * TILE * 4
+         + (kv_staged<D>() ? 2 * TILE * (D + PAD) * static_cast<int>(sizeof(bf16)) : 0);
+}
 
 int tiles_of(int rows) { return (rows + ROWS - 1) / ROWS; }
 
@@ -839,13 +964,19 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        float scale, cudaStream_t stream) {
   const int tiles = tiles_of(Tq);
   if constexpr (std::is_same_v<T, bf16>) {
-    attn_fwd_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+    constexpr int smem = mma_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_fwd_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_mma_kernel<D><<<BH * tiles, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, scale);
   } else {
     constexpr int TPR = D / DPT_FWD;
-    attn_fwd_kernel<DPT_FWD, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+    constexpr int smem = f32_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_fwd_kernel<DPT_FWD, TPR>, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_kernel<DPT_FWD, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, scale);
@@ -862,13 +993,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
   if constexpr (std::is_same_v<T, bf16>) {
-    attn_dq_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+    constexpr int smem = mma_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_dq_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    attn_dq_mma_kernel<D><<<BH * tiles, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, scale);
   } else {
     constexpr int TPR = D / DPT_DQ;
-    attn_dq_kernel<DPT_DQ, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+    constexpr int smem = f32_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_dq_kernel<DPT_DQ, TPR>, smem);
+    if (err != cudaSuccess) return err;
+    attn_dq_kernel<DPT_DQ, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
         row_delta, static_cast<float*>(dq), Tq, Tk, tiles, scale);
@@ -885,14 +1022,20 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
   if constexpr (std::is_same_v<T, bf16>) {
-    attn_dkdv_mma_kernel<D><<<BH * tiles, MMA_THREADS, 0, stream>>>(
+    constexpr int smem = dkdv_mma_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_dkdv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    attn_dkdv_mma_kernel<D><<<BH * tiles, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
         tiles, scale);
   } else {
-    constexpr int TPR = D / DPT_DKDV;
-    attn_dkdv_kernel<DPT_DKDV, TPR><<<BH * tiles, ROWS * TPR, 0, stream>>>(
+    constexpr int DPT = dkdv_dpt<D>(), TPR = D / DPT;
+    constexpr int smem = f32_dkdv_smem_bytes<D>();
+    const cudaError_t err = allow_smem(attn_dkdv_kernel<DPT, TPR>, smem);
+    if (err != cudaSuccess) return err;
+    attn_dkdv_kernel<DPT, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
         row_delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk,
@@ -905,9 +1048,10 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 
 }  // namespace
 
-// One launcher for each (dtype, D) the kernels are built for (the bfloat16
-// launchers take the tensor-core kernels); any other D is
-// refused with cudaErrorInvalidValue (the wrapper raises before that).
+// One launcher for each (dtype, D) the kernels are built for, D = 32, 64 and
+// 128 (the bfloat16 launchers take the tensor-core kernels); any other D is
+// refused with cudaErrorInvalidValue (the wrapper pads D to a built one, and
+// raises above 128, before that).
 #define ATTN_DISPATCH(LAUNCH, D, BF16, ...)                                 \
   do {                                                                      \
     cudaError_t err = cudaErrorInvalidValue;                                \
@@ -917,6 +1061,9 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
     else if ((D) == 64)                                                     \
       err = (BF16) ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                 \
                    : LAUNCH<float, 64>(__VA_ARGS__);                        \
+    else if ((D) == 128)                                                    \
+      err = (BF16) ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                \
+                   : LAUNCH<float, 128>(__VA_ARGS__);                       \
     return static_cast<int>(err);                                           \
   } while (0)
 

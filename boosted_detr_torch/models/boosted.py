@@ -136,6 +136,57 @@ class BoostedDETR(nn.Module):
                     decoder_features),
                 "boxes": self.block(i, "box_head")(decoder_features)}
 
+    def run_block(self, i: int, feats: torch.Tensor,
+                  carry: Dict[str, object],
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """Weak learner ``i`` of the forward (boosted.py:137-189) on the
+        neck's ``feats`` [B, r, c, d] and what block i-1 left in ``carry``
+        (empty before block 0; updated in place: the tokens, the decoder
+        features, the freeze mask and the output). Returns block i's
+        output: the cumulative sums (block 0 doubled with
+        ``block0_double_count``) or, under ``confidence``, the per-block
+        head outputs with the frozen slots' retained. The forward runs it
+        block by block; the incremental early exit (early_exit.py) runs
+        the same blocks and may stop after any of them."""
+        cfg = self.config
+        mode = cfg.boosted_queries
+        if cfg.boosted_shared_encoder:
+            if i == 0:  # one encoder, run once, feeds every block
+                carry["encoded"] = self.encoder_shared(feats, generator)
+            tokens, pos = carry["encoded"]
+        else:
+            b, r, c, d = feats.shape
+            grid = feats if i == 0 else carry["tokens"].reshape(b, r, c, d)
+            tokens, pos = self.block(i, "encoder")(grid, generator)
+            carry["tokens"] = tokens
+        enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
+        if mode != "fresh" and i > 0:
+            dec = carry["dec"]  # block i-1's decoder output as the queries
+        dec = self.block(i, "decoder_block")(enc_value, dec, enc_key,
+                                             generator)
+        if mode == "confidence" and i > 0:
+            # frozen slots keep their carried features
+            dec = torch.where(carry["frozen"][:, :, None], carry["dec"], dec)
+        carry["dec"] = dec
+        heads = self.apply_block_heads(i, dec)
+        if mode == "confidence":
+            # frozen slots keep the outputs of the block where they froze
+            if i > 0:
+                m = carry["frozen"][:, :, None]
+                heads = {k: torch.where(m, carry["out"][k], v)
+                         for k, v in heads.items()}
+            conf = heads["category"].float().amax(dim=-1)
+            newly = conf >= cfg.boosted_carry_threshold
+            carry["frozen"] = newly if i == 0 else carry["frozen"] | newly
+        elif i == 0:
+            if cfg.block0_double_count:
+                heads = {k: 2 * v for k, v in heads.items()}
+        else:
+            heads = {k: carry["out"][k] + v for k, v in heads.items()}
+        carry["out"] = heads
+        return heads
+
     def forward(self, image: torch.Tensor, *,
                 return_intermediate: bool = False,
                 generator: Optional[torch.Generator] = None
@@ -152,47 +203,11 @@ class BoostedDETR(nn.Module):
             raise ValueError("the training forward draws its random bits "
                              "from an explicit generator; pass generator=")
         feats = self.neck(self.backbone(image, generator))
-        b, r, c, d = feats.shape
         focused = self.focused_training_layer
-        mode = cfg.boosted_queries
-        shared = cfg.boosted_shared_encoder
-        sums = outs = frozen = dec_prev = None
+        carry: Dict[str, object] = {}
         outputs: List[Dict[str, torch.Tensor]] = []
-        if shared:
-            tokens, pos = self.encoder_shared(feats, generator)
         for i in range(cfg.num_decoder_blocks):
-            if not shared:
-                grid = feats if i == 0 else tokens.reshape(b, r, c, d)
-                tokens, pos = self.block(i, "encoder")(grid, generator)
-            enc_value, dec, enc_key, _ = self.decoder_prep(tokens, pos)
-            if mode != "fresh" and i > 0:
-                dec = dec_prev  # block i-1's decoder output as the queries
-            dec = self.block(i, "decoder_block")(enc_value, dec, enc_key,
-                                                 generator)
-            if mode == "confidence" and i > 0:
-                # frozen slots keep their carried features
-                dec = torch.where(frozen[:, :, None], dec_prev, dec)
-            dec_prev = dec
-            heads = self.apply_block_heads(i, dec)
-            if mode == "confidence":
-                # frozen slots keep the outputs of the block where they froze
-                if outs is None:
-                    outs = heads
-                else:
-                    m = frozen[:, :, None]
-                    outs = {k: torch.where(m, outs[k], v)
-                            for k, v in heads.items()}
-                conf = outs["category"].float().amax(dim=-1)
-                newly = conf >= cfg.boosted_carry_threshold
-                frozen = newly if frozen is None else frozen | newly
-                block_out = outs
-            elif sums is None:
-                sums = ({k: 2 * v for k, v in heads.items()}
-                        if cfg.block0_double_count else heads)
-                block_out = sums
-            else:
-                sums = {k: sums[k] + v for k, v in heads.items()}
-                block_out = sums
+            block_out = self.run_block(i, feats, carry, generator)
             if focused is None or i == focused:
                 outputs.append(block_out)
             if focused is not None and i == focused:

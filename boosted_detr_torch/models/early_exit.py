@@ -15,11 +15,16 @@ the next block's output moves by at most the threshold,
 ``prediction_delta``: the criterion for the boosted ensemble's cumulative
 outputs, whose class-sum normalized confidence falls with depth).
 
-Narrowing: JAX's incremental boosted route re-tiles fresh queries and runs
-each block's own encoder whatever the config says, so for
-``boosted_queries`` ``carry`` or ``confidence`` and for
-``boosted_shared_encoder`` it computes another model's output. The port
-raises there (and for a model with a focused training layer).
+The boosted ensemble's incremental route runs ``BoostedDETR.run_block``,
+the forward's own block, in every mode: carried queries (``carry``), the
+sticky freeze with its retained features and outputs (``confidence``),
+one shared encoder run once before block 0, and a focused training layer,
+at which the loop ends at the latest. Its output at the exit block is
+therefore the forward's ``return_intermediate`` output there. JAX's
+incremental boosted function (early_exit.py:246-300) differs from its
+own ``BoostedDETR.__call__`` in those modes: it re-tiles fresh queries
+and runs ``encoders[i]`` whatever the config says. The port is held to
+the JAX model, not to that function.
 """
 
 from __future__ import annotations
@@ -157,9 +162,9 @@ def make_incremental_predict(model: nn.Module, threshold: float,
     """Early exit with real compute saving: ``predict(image) -> (preds,
     blocks_run)`` for an image tensor on the model's device. ``DETR``
     encodes once and then runs one decoder block and the heads at a time;
-    ``BoostedDETR`` runs one weak learner (encoder, decoder block and
-    heads) at a time and adds it to the sums. Each block ends with the
-    stop test; the category output comes back renormalized."""
+    ``BoostedDETR`` runs one weak learner at a time, as its forward does
+    in its query mode (``BoostedDETR.run_block``). Each block ends with
+    the stop test; the category output comes back renormalized."""
     if isinstance(model, BoostedDETR):
         return _make_incremental_boosted(model, threshold, criterion)
     should_stop = _make_stop_check(threshold, criterion)
@@ -186,39 +191,25 @@ def _make_incremental_boosted(model: BoostedDETR, threshold: float,
                               criterion: str = "confidence"
                               ) -> Callable[[torch.Tensor],
                                             Tuple[Preds, int]]:
-    """The boosted ensemble one weak learner at a time, each added to the
-    cumulative sums (block 0 doubled with ``block0_double_count``)."""
-    cfg = model.config
-    if (cfg.boosted_queries != "fresh" or cfg.boosted_shared_encoder
-            or model.focused_training_layer is not None):
-        raise NotImplementedError(
-            "the incremental boosted predictor runs fresh queries and one "
-            "encoder a block; it has no route for boosted_queries="
-            f"{cfg.boosted_queries!r}, boosted_shared_encoder="
-            f"{cfg.boosted_shared_encoder} or focused_training_layer="
-            f"{model.focused_training_layer} (ROADMAP.md, Queue 3); use "
-            "predict(..., early_exit_threshold=...)")
+    """The boosted ensemble one weak learner at a time
+    (``BoostedDETR.run_block``: its encoder, unless one shared encoder ran
+    before block 0, its decoder block on fresh or carried queries, its
+    heads, added to the sums or, under ``confidence``, merged with the
+    frozen slots' outputs), the stop test after each, and no block past a
+    focused training layer."""
     should_stop = _make_stop_check(threshold, criterion)
 
     def predict(image: torch.Tensor) -> Tuple[Preds, int]:
         with _inference(model):
-            grid = model.neck(model.backbone(image))
-            b, r, c, d = grid.shape
-            sums = prev = None
-            for i in range(cfg.num_decoder_blocks):
-                tokens, pos = model.block(i, "encoder")(grid)
-                enc_value, dec, enc_key, _ = model.decoder_prep(tokens, pos)
-                dec = model.block(i, "decoder_block")(enc_value, dec,
-                                                      enc_key)
-                out = model.apply_block_heads(i, dec)
-                if sums is not None:
-                    out = {k: sums[k] + v for k, v in out.items()}
-                elif cfg.block0_double_count:
-                    out = {k: 2 * v for k, v in out.items()}
-                sums, grid = out, tokens.reshape(b, r, c, d)
-                if should_stop(prev, sums):
+            focused = model.focused_training_layer
+            feats = model.neck(model.backbone(image))
+            carry: Dict[str, object] = {}
+            prev = None
+            for i in range(model.config.num_decoder_blocks):
+                out = model.run_block(i, feats, carry)
+                if i == focused or should_stop(prev, out):
                     break
-                prev = sums
-            return _normalize_category(sums), i + 1
+                prev = out
+            return _normalize_category(out), i + 1
 
     return predict

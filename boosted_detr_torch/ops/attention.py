@@ -19,11 +19,15 @@ rowsum(dO * O) - g_lse``, ``dq = scale ds.k``, ``dk = ds^T qs``, ``dv =
 p^T dO``. ``delta`` is one plain torch pass, as JAX leaves it to XLA.
 
 The kernels, ``csrc/attention.cu``, are CUDA C++ for ``sm_90a``, built by
-nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32
-and D = 64. A smaller head dim is padded with zeros to the next of the
-two, the launch given the true 1/sqrt(D) and the outputs sliced back
-(``_padded``), as the TPU kernel pads D; a head dim over 64 on a CUDA
-tensor raises. They take
+nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32,
+64 and 128. Any other head dim is padded with zeros to the next of the
+three (ViT-Huge's D = 80 to 128), the launch given the true 1/sqrt(D) and
+the outputs sliced back (``_padded``), as the TPU kernel pads D to 128; a
+head dim over 128 on a CUDA tensor raises. At D = 128 the kernels take
+their tiles from dynamic shared memory (opted in above 48 KB) and the
+bf16 dk/dv kernel reads the block's k and v rows from shared memory
+instead of holding them in registers; the arithmetic is the same at every
+D, so the emulations below describe it at D = 128 too. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
 strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
@@ -63,7 +67,7 @@ from typing import Optional, Tuple
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (32, 64)
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
 
@@ -289,7 +293,7 @@ def _use_kernel(name: str, q, k, v, *grad) -> bool:
 
 def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """[BH, T, D] tensors with D padded with zeros to the smallest head dim
-    the kernels are built for (as the TPU kernel pads D,
+    the kernels are built for (as the TPU kernel pads D to 128,
     pallas_attention.py:86); as they are where D is one. Zero columns add
     nothing to q.k, to the rows' sums of g * out (delta) or to the lse,
     and the padded columns of out, dq, dk and dv come out zero."""

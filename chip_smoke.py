@@ -8,7 +8,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
-   per source, all at once;
+   per source, all at once, and prints ptxas's registers and spill bytes
+   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128);
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -42,10 +43,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      tokens: K3 in every attention, against the plain K1 and K3 versions);
    - the same two for the ViT-p16 backbone at 640x640 (width 384, depth 8,
      6 heads: K1 at P=16 -> 384 and K3 in the ViT blocks and in DETR);
+   - the same two at ViT-Huge's widths (``vit_h16``: depth 32, width 1280,
+     16 heads of D = 80, which K3 pads to 128; 651,553,406 parameters):
+     K1 at P=16 -> 1280, K3 43 times a forward (32 blocks at
+     [128, 1600, 1600, 80], DETR's 11 at D = 32), with each path's peak
+     device memory;
    - the boosted ensemble (``BoostedDETR``) at the 640 flagship's widths:
      serving as above, plus one early-exit request (stability criterion)
      and one incremental request (all 4 weak learners), each held against
-     the full forward; the joint train step with intermediate losses (the
+     the full forward, and one incremental request (stability) on a model
+     built for each of the carry, confidence and shared-encoder modes,
+     held against that model's full forward at its exit block; the joint
+     train step with intermediate losses (the
      4 blocks' matching folded into one K2 launch at [32, 32, 96]) as
      above; then staged steps that train weak learner 1 alone (the frozen
      backbone's weight gradient is never launched; every frozen parameter
@@ -199,15 +208,18 @@ KERNELS = {
 K3_PASSES = {"fwd": 3, "dq": 4, "dkdv": 6}
 # K1-fwd's cases: (patch, C_out, weights' dtype, seed, resolution). The 640
 # flagship's stem first (the ``kernels`` line's row), the ViT patch embed,
-# and the 1280px stem (Wo = 160) last.
+# the 1280px stem (Wo = 160), and ViT-Huge's patch embed (1280 channels:
+# three blocks of 384 and a partial one of 128) last.
 K1_CASES = ((8, 128, torch.bfloat16, 0, RES), (8, 128, torch.float32, 1, RES),
             (4, 64, torch.bfloat16, 2, RES), (16, 384, torch.bfloat16, 3, RES),
-            (8, 128, torch.bfloat16, 30, HR_RES))
+            (8, 128, torch.bfloat16, 30, HR_RES),
+            (16, 1280, torch.bfloat16, 32, RES))
 # K1-dW's cases, as K1_CASES: the 640 stem's first (the ``kernels`` line's
 # row); bf16 on the tensor cores, float32 and the P=4 stem on the CUDA cores.
 DW_CASES = ((8, 128, torch.bfloat16, 4, RES), (8, 128, torch.float32, 5, RES),
             (4, 64, torch.bfloat16, 6, RES), (16, 384, torch.bfloat16, 7, RES),
-            (8, 128, torch.bfloat16, 31, HR_RES))
+            (8, 128, torch.bfloat16, 31, HR_RES),
+            (16, 1280, torch.bfloat16, 33, RES))
 # K2's cases: (B, O, P, seed, edges); the flagship's first (the ``kernels``
 # line's row), then four boosted blocks folded into one launch, 300 queries,
 # the most rows the kernel takes, and the most columns.
@@ -229,7 +241,12 @@ K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              ("ViT config's DETR cross-attention", 64, 96, 400, 32),
              ("ragged", 16, 300, 520, 64),
              # encoder_dim=384 over 8 heads: D = 48, padded with zeros to 64
-             ("D=48 (encoder_dim 384, 8 heads) at 640", 64, 400, 400, 48))
+             ("D=48 (encoder_dim 384, 8 heads) at 640", 64, 400, 400, 48),
+             # vit_h16's blocks: 16 heads of D = 80 (ViT-Huge's widths),
+             # padded with zeros to 128
+             ("ViT-H blocks", 128, 1600, 1600, 80),
+             # vit_w512_h4 at batch 8: D = 128 as built
+             ("vit_w512_h4 blocks", 32, 1600, 1600, 128))
 
 
 def _say(*parts):
@@ -367,7 +384,36 @@ def phase_kernel_names():
         raise AssertionError(f"kernel-names failed:\n{proc.stderr[-3000:]}")
 
 
+def ptxas_k3(log):
+    """ptxas -v's report of each K3 instantiation in a build log,
+    {"attn_<kind>_kernel D=<D>": {"registers", "spill_stores",
+    "spill_loads"}}: D is the mma kernels' template argument, the float32
+    kernels' dims a thread times threads a row."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
+                          r"I((?:Li\d+E)+)E", line)
+        if entry:
+            d = int(np.prod([int(n) for n in
+                             re.findall(r"Li(\d+)E", entry.group(2))]))
+            name = f"{entry.group(1)} D={d}"
+            continue
+        if "Compiling entry" in line:
+            name = None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        used = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            rows.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                             spill_loads=int(spill.group(2)))
+        if name and used:
+            rows.setdefault(name, {})["registers"] = int(used.group(1))
+    return dict(sorted(rows.items()))
+
+
 def phase_build():
+    """Builds every kernel source at once and prints ptxas's registers and
+    spills; returns K3's, one row per instantiation (``ptxas_k3``)."""
     from boosted_detr_torch.ops import build
 
     t0 = time.perf_counter()
@@ -380,6 +426,13 @@ def phase_build():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 _say(f"  {name}: {line.strip()}")
+    k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
+    _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
+         + json.dumps(k3))
+    if len(k3) != 18:
+        raise AssertionError(f"expected 18 K3 instantiations (3 kernels, 2 "
+                             f"dtypes, D = 32, 64, 128), read {len(k3)}")
+    return k3
 
 
 def _patchify_inputs(patch, c_out, dtype, seed, res):
@@ -669,10 +722,10 @@ def _attention_label(label, bh, tq, tk, d, dtype):
 
 def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
     """K3-fwd (with the lse), K3-dq and K3-dkdv at one shape against their
-    plain versions; in bf16 also timed, with F.scaled_dot_product_attention
-    (forward, and forward + backward) as the library yardstick, which the
-    port never calls, and the backward alone beside it. Returns one row per
-    kernel."""
+    plain versions; in bf16 (and float32 at D > 64) also timed, with
+    F.scaled_dot_product_attention (forward, and forward + backward) as
+    the library yardstick, which the port never calls, and the backward
+    alone beside it. Returns one row per kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -721,7 +774,9 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         rows[name] = {"shape": what, "max_abs_err": errs[name],
                       "library_ms": None}
         rows[name].update(_bound(n_bytes[name], ops[name], dtype))
-    if dtype != torch.bfloat16:
+    # bf16 rows are timed; float32 ones (the CUDA-core kernels, off the
+    # bf16 paths) only at the head dims over 64
+    if dtype != torch.bfloat16 and d <= 64:
         return rows
 
     rows["fwd"].update(
@@ -740,7 +795,8 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         device_ms=_time_ms(lambda: A.attention_dkdv(*args), flush,
                            spin_cycles=SPIN_CYCLES))
     # The library yardstick on [1, BH, T, D] views (flash attention in
-    # bf16): the forward, and the forward with the backward of all three
+    # bf16, its float32 route in float32): the forward, and the forward
+    # with the backward of all three
     # inputs, against the port's forward + delta + dq + dk/dv through its
     # autograd Function. SDPA's backward computes dq, dk and dv in one, so
     # dq and dk/dv alone have no library call.
@@ -778,12 +834,13 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         rows[name].update(fb)
         r = rows[name]
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        passes = (f", {K3_PASSES[name]} tensor-core passes a tile pair"
+                  if dtype == torch.bfloat16 else ", CUDA cores")
         _say(f"  {what} {name}: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, SDPA "
              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none")
              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-             f"{100 * r['bound_share']:.1f}% of it reached"
-             f", {K3_PASSES[name]} tensor-core passes a tile pair); "
+             f"{100 * r['bound_share']:.1f}% of it reached{passes}); "
              f"{r['device_ms']:.4f} ms with the launch enqueued ahead of the "
              "card")
     _say(f"  {what} forward + backward: kernels "
@@ -985,6 +1042,18 @@ PATHS = {
         step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=19,
                      attention_dq=19, attention_dkdv=19),
         serving_plain=("patchify_fwd",) + _K3),
+    # ViT-Huge's widths (Dosovitskiy et al., ICLR 2021, Table 1: 32 layers,
+    # width 1280, MLP 5120, 16 heads, so D = 80, padded with zeros to 128 in
+    # K3) at patch 16, since 640 is no multiple of 14: 1600 patches, K1 at
+    # P=16 -> 1280, 32 fused attentions in the blocks and DETR's 11 at D=32
+    "vit_h16": dict(
+        res=RES, cfg=dict(backbone="vit_p16_d32_w1280_h16", norm="batchnorm",
+                          use_pallas_attention=True),
+        params=651_553_406,
+        forward=_expect(patchify_fwd=1, attention_fwd=43),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=43,
+                     attention_dq=43, attention_dkdv=43),
+        serving_plain=("patchify_fwd",) + _K3),
     # 4 weak learners (a 1-block encoder, a decoder block and three heads
     # of hidden width 256 each); the intermediate losses fold the 4 blocks'
     # matching into one K2 launch
@@ -1166,6 +1235,7 @@ def phase_serving(name):
     res = path["res"]
     codec = _codec()
     cfg = _path_config(name, codec)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = _build(path, cfg, seed=0)
     model.eval()  # a server holds its model in eval mode
@@ -1283,9 +1353,12 @@ def phase_serving(name):
              f"the plain output's (held to 5e-2)")
         if not rel_errs[key] <= 5e-2:
             raise AssertionError(f"{what}: off the plain output")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    _say(f"  peak device memory allocated: {peak_gb:.2f} GiB (model, "
+         "requests and the plain comparison)")
     return {"images_per_s": REQUESTS * BATCH / total_s,
             "latency_ms": latencies, "launches": launches,
-            "plain_norm_rel_err": rel_errs,
+            "plain_norm_rel_err": rel_errs, "peak_memory_gib": peak_gb,
             "model": model, "codec": codec, "images": requests[0]}
 
 
@@ -1303,6 +1376,13 @@ def _counted(fn, want, what):
     if launches != want:
         raise AssertionError(f"{what}: expected {want}, got {launches}")
     return out, ms, launches
+
+
+def _renormalized(out):
+    """A forward's output with its category renormalized per slot, as the
+    early-exit routes return it."""
+    cat = out["category"].float()
+    return dict(out, category=cat / cat.sum(-1, keepdim=True).clamp_min(1e-9))
 
 
 def phase_early_exit(name, model, images):
@@ -1329,12 +1409,7 @@ def phase_early_exit(name, model, images):
          f"{EXIT_TAU}: {ms:.2f} ms (host clock), exit blocks {exits.tolist()}"
          f", launches {launches}")
 
-    def renormalized(out):
-        cat = out["category"].float()
-        return dict(out, category=cat / cat.sum(-1, keepdim=True).clamp_min(
-            1e-9))
-
-    want = {k: torch.stack([renormalized(outs[int(e)])[k][b]
+    want = {k: torch.stack([_renormalized(outs[int(e)])[k][b]
                             for b, e in enumerate(exits)]).cpu()
             for k in ("category", "attribute", "boxes")}
     worst = max(_close(torch.from_numpy(preds[k]), want[k], atol=1e-6,
@@ -1354,14 +1429,77 @@ def phase_early_exit(name, model, images):
          f"clock, one readback a block), launches {launches}")
     if blocks_run != model.config.num_decoder_blocks:
         raise AssertionError("the incremental request stopped early")
-    last = renormalized(outs[-1])
+    last = _renormalized(outs[-1])
     worst = max(_close(preds[k], last[k], atol=1e-5, rtol=0.0,
                        what=f"incremental {k} against the full forward")
                 for k in ("category", "attribute", "boxes"))
     row.update(incremental_ms=ms, blocks_run=blocks_run,
                incremental_max_abs_err=worst,
                incremental_launches=launches)
+    row["modes"] = {mode: _incremental_mode(name, model, images, mode, kw)
+                    for mode, kw in INCREMENTAL_MODES.items()}
     return row
+
+
+# The incremental requests of the other query modes, each on a model of the
+# boosted path's widths built for it (ModelConfig keywords): carried
+# queries, the confidence freeze (its threshold set between two middle
+# slot confidences of block 0, so that some slots freeze and some do not),
+# and one shared encoder (num_encoder_blocks deep, run once).
+INCREMENTAL_MODES = {"carry": dict(boosted_queries="carry"),
+                     "confidence": dict(boosted_queries="confidence"),
+                     "shared_encoder": dict(boosted_shared_encoder=True)}
+
+
+def _incremental_mode(name, served, images, mode, kw):
+    """One incremental request (stability at EXIT_TAU) of a BoostedDETR
+    built for ``mode``, held within 1e-5 against its full forward's
+    intermediate output at the exit block, renormalized; the exit block
+    against the first block the same stop test passes on the full
+    forward's outputs; launches as the path's forward."""
+    from boosted_detr_torch.models import early_exit
+    from boosted_detr_torch.train.steps import make_predict_step
+
+    path = PATHS[name]
+    cfg = served.config.replace(**kw)
+    model = _build(path, cfg, seed=0).eval()
+    _randomize_running_stats(model, seed=1)
+    x = torch.from_numpy(images).cuda()
+    if mode == "confidence":
+        with torch.inference_mode():
+            conf = model(x, return_intermediate=True)[0]["category"].float()
+        lo, hi = conf.amax(-1).flatten().sort().values[
+            conf.shape[0] * conf.shape[1] // 2 - 1:][:2].tolist()
+        model.config = cfg = cfg.replace(boosted_carry_threshold=(lo + hi) / 2)
+    outs = make_predict_step(model, return_intermediate=True)(x)
+    stop = early_exit._make_stop_check(EXIT_TAU, "stability")
+    want_run = next((i + 1 for i in range(1, len(outs))
+                     if stop(outs[i - 1], outs[i])), len(outs))
+    incremental = early_exit.make_incremental_predict(model, EXIT_TAU,
+                                                      "stability")
+    (preds, blocks_run), ms, launches = _counted(
+        lambda: incremental(x), path["forward"], f"incremental {mode}")
+    frozen = ""
+    if mode == "confidence":  # the slots block 0 freezes for block 1 on
+        share = (outs[0]["category"].float().amax(-1)
+                 >= cfg.boosted_carry_threshold).float().mean().item()
+        frozen = (f", threshold {cfg.boosted_carry_threshold:.4f} freezes "
+                  f"{100 * share:.1f}% of the slots at block 0")
+    _say(f"[early exit {name}] incremental request, {mode} mode, stability "
+         f"tau {EXIT_TAU}: {blocks_run} of {len(outs)} blocks run (the full "
+         f"forward's outputs stop at {want_run}), {ms:.2f} ms (host clock), "
+         f"launches {launches}{frozen}")
+    if blocks_run != want_run:
+        raise AssertionError(f"incremental {mode}: stopped after "
+                             f"{blocks_run} blocks, the full forward's "
+                             f"outputs after {want_run}")
+    want = _renormalized(outs[blocks_run - 1])
+    worst = max(_close(preds[k], want[k], atol=1e-5, rtol=0.0,
+                       what=f"incremental {mode} {k} against the full "
+                       f"forward at block {blocks_run - 1}")
+                for k in ("category", "attribute", "boxes"))
+    return {"ms": ms, "blocks_run": blocks_run, "max_abs_err": worst,
+            "launches": launches}
 
 
 def _host_ms(fn, repeats=5):
@@ -1554,6 +1692,7 @@ def phase_training(name, warmup, steps):
     res = path["res"]
     cfg = _path_config(name, _codec())
     tcfg = bt.TrainConfig(batch_size=BATCH, **path.get("train", {}))
+    torch.cuda.reset_peak_memory_stats()
     model = _build(path, cfg, seed=0)
     _randomize_skip_gains(model, seed=6)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1606,9 +1745,12 @@ def phase_training(name, warmup, steps):
         _say(f"  step {i}: {ms:.3f} ms (CUDA events); " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(vals.items())))
     images_per_s = steps * BATCH / wall_s
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     _say(f"  {images_per_s:.2f} images/s over {steps} steps (host "
          f"clock, {wall_s * 1e3 / steps:.3f} ms a step); median step "
-         f"{statistics.median(step_ms):.3f} ms (CUDA events)")
+         f"{statistics.median(step_ms):.3f} ms (CUDA events); peak device "
+         f"memory allocated {peak_gb:.2f} GiB (parameters, gradients, "
+         "momentum and a step's activations)")
 
     for pname, p in _trained_stem(model).items():
         g = p.grad
@@ -1647,7 +1789,7 @@ def phase_training(name, warmup, steps):
     prof, wall_us = _profiled(lambda: step(state, batch))
     split, busy_ms, wall_ms, attention_ms = _profile_split(prof, wall_us)
     row = {"images_per_s": images_per_s, "step_ms": step_ms,
-           "launches": launches}
+           "launches": launches, "peak_memory_gib": peak_gb}
     if busy_ms == 0:
         _say("  profiler: no device time recorded; split not measured")
     else:
@@ -3349,7 +3491,7 @@ def main() -> int:
          f"{torch.cuda.get_device_name(0)}")
 
     t_start = time.perf_counter()
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernels()
     matchers = phase_matchers()
     report = {}
@@ -3362,6 +3504,7 @@ def main() -> int:
             serving["launches"] = {
                 k: v + extra["early_exit_launches"][k]
                 + extra["incremental_launches"][k]
+                + sum(m["launches"][k] for m in extra["modes"].values())
                 for k, v in serving["launches"].items()}
         serving.update(phase_breakdown(
             name, serving.pop("model"), serving.pop("codec"),
@@ -3386,6 +3529,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    _say("[report] ptxas K3: " + json.dumps(ptxas))
     _say("[report] per-shape kernel rows: " + json.dumps(rows))
     _say("[report] matchers: " + json.dumps(matchers))
     for name, parts in report.items():

@@ -117,7 +117,11 @@ def _pallas_k3(bh, tq, tk, d, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,tq,tk,d", [(2, 130, 200, 32),  # one block each
                                         (2, 300, 520, 64),  # straddles both
-                                        (2, 17, 1000, 32)])  # tiny q
+                                        (2, 17, 1000, 32),  # tiny q
+                                        # ViT-Huge's D = 80 and D = 128,
+                                        # ragged
+                                        (2, 72, 130, 80),
+                                        (2, 72, 130, 128)])
 def test_k3_matches_the_pallas_kernel(bh, tq, tk, d, dtype):
     """out, lse, and the gradients of a random cotangent of both, the lse's
     included (it folds into delta), against fused_attention_with_lse run
@@ -267,18 +271,23 @@ def test_one_bf16_rounding_of_p_fails_the_forward_gate():
     assert outside[False] > want.numel() // 50, outside
 
 
-@pytest.mark.parametrize("bh,tq,tk", [(2, 130, 200), (2, 96, 400)])
-def test_padded_head_dim_arithmetic_matches_the_pallas_kernel(bh, tq, tk):
-    """D = 48 (``encoder_dim=384, num_encoder_heads=8``), which the kernels
-    take padded with zeros to 64 and the true 1/sqrt(48): the tensor-core
-    arithmetic on the padded tensors, sliced back, inside the card's gates
-    against the plain versions at D = 48 and against JAX's Pallas kernels
-    in interpret mode (which pad D themselves)."""
-    d = 48
+@pytest.mark.parametrize("bh,tq,tk,d,built", [
+    (2, 130, 200, 48, 64), (2, 96, 400, 48, 64),
+    # ViT-Huge's widths (1280 over 16 heads) padded to 128, and D = 128 as
+    # built (vit_w512_h4)
+    (2, 72, 130, 80, 128), (2, 72, 130, 128, 128)])
+def test_padded_head_dim_arithmetic_matches_the_pallas_kernel(bh, tq, tk, d,
+                                                              built):
+    """D = 48 (``encoder_dim=384, num_encoder_heads=8``) and D = 80, which
+    the kernels take padded with zeros to 64 and 128 and the true
+    1/sqrt(D), and D = 128 as built: the tensor-core arithmetic on the
+    padded tensors, sliced back, inside the card's gates against the plain
+    versions at D and against JAX's Pallas kernels in interpret mode (which
+    pad D to 128 themselves)."""
     scale = 1.0 / d ** 0.5
     q, k, v, g, lse, delta = _bf16_gradient_inputs(bh, tq, tk, d)
     qp, kp, vp, gp = ta._padded(q, k, v, g)
-    assert qp.shape == (bh, tq, 64) and not qp[..., d:].any()
+    assert qp.shape == (bh, tq, built) and not qp[..., d:].any()
     out, p_lse = ta.attention_fwd_emulation(qp, kp, vp, scale=scale)
     padded = (qp, kp, vp, gp, lse, delta)
     dq = ta.attention_dq_emulation(*padded, scale=scale)

@@ -4,8 +4,11 @@ dk/dv; bfloat16 inputs on the tensor cores, float32 inputs on the CUDA
 cores) against their plain PyTorch versions on the card, the tensor-core
 kernels against the plain PyTorch emulation of their arithmetic, the
 autograd ``FusedAttentionFn`` on the card against its CPU route, the
-kernels' repeatability bit for bit, and the refusal of a head dim the
-kernels are not built for and of a misaligned bfloat16 tensor. It needs a CUDA card and nvcc,
+kernels' repeatability bit for bit, a ViT artifact at head dim 80 that
+keeps the forward op, and the refusal of a head dim over the largest the
+kernels are built for (128) and of a misaligned bfloat16 tensor. Head
+dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's widths) padded
+with zeros to the next. It needs a CUDA card and nvcc,
 and skips without a card. It imports nothing of JAX, so that it runs on a
 machine without it:
 
@@ -72,6 +75,11 @@ def _assert_close(got, want, dtype, grad=False):
     # head dims padded with zeros to 64 and 32 (encoder_dim=384 over 8
     # heads: D = 48)
     (4, 400, 400, 48), (3, 96, 520, 48), (3, 130, 200, 16),
+    # D = 128 as built (vit_w512_h4) and ViT-Huge's D = 80 padded to it:
+    # 2 of vit_h16's 128 heads, and ragged lengths
+    (2, 1600, 1600, 80), (2, 1600, 1600, 128), (3, 300, 520, 128),
+    (3, 96, 520, 80), (3, 1, 300, 128), (3, 300, 1, 80), (3, 17, 17, 128),
+    (3, 520, 17, 80),
 ])
 def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
     q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype)
@@ -99,8 +107,9 @@ def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_function_gradients_on_the_card_match_the_cpu_route(cuda, dtype):
-    q, k, v, g, g_lse = _inputs(cuda, 2, 130, 200, 64, dtype, seed=1)
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_function_gradients_on_the_card_match_the_cpu_route(cuda, dtype, d):
+    q, k, v, g, g_lse = _inputs(cuda, 2, 130, 200, d, dtype, seed=1)
     grads = {}
     for dev in ("cpu", "cuda"):
         leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
@@ -123,7 +132,9 @@ def _gradient_args(cuda, bh, tq, tk, d, dtype, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
-                                        (5, 300, 520, 32)])
+                                        (5, 300, 520, 32),
+                                        (4, 1600, 1600, 80),
+                                        (5, 300, 520, 128)])
 def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """No atomics and a fixed summation order: two launches on the same
     inputs give the same bits."""
@@ -159,6 +170,17 @@ def _gradient_kernel_names(args):
                          lambda: ta.attention_dkdv(*args))
 
 
+def _recorded(names_of, launched):
+    """``names_of()``, taken again (three times at most) while it records
+    fewer kernels than the ``launched`` ones: a profile of the gradients'
+    two launches once recorded dk/dv's alone."""
+    for _ in range(3):
+        names = names_of()
+        if len(names) >= launched:
+            break
+    return names
+
+
 def profiled_names(d):
     """{kind: {dtype: names}} of the forward and of the gradient kernels
     at head dim ``d`` and the inputs of the tests below, each built and
@@ -168,17 +190,20 @@ def profiled_names(d):
     for dtype in ("float32", "bfloat16"):
         qkv = _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
         ta.attention_fwd(*qkv)
-        out["fwd"][dtype] = _kernel_names(lambda: ta.attention_fwd(*qkv))
+        out["fwd"][dtype] = _recorded(
+            lambda: _kernel_names(lambda: ta.attention_fwd(*qkv)), 1)
         args = _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
         ta.attention_dq(*args)
         ta.attention_dkdv(*args)
-        out["grad"][dtype] = _gradient_kernel_names(args)
+        out["grad"][dtype] = _recorded(
+            lambda: _gradient_kernel_names(args), 2)
     return out
 
 
 @pytest.fixture(scope="module")
 def _profiled():
-    """``profiled_names`` at D = 32 and 64, from a new Python process."""
+    """``profiled_names`` at D = 32, 64, 80 and 128, from a new Python
+    process."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import json
@@ -190,7 +215,8 @@ def _profiled():
     here = Path(__file__).resolve()
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import test_torch_attention_kernel as t; "
-            "print(json.dumps({d: t.profiled_names(d) for d in (32, 64)}))")
+            "print(json.dumps({d: t.profiled_names(d) "
+            "for d in (32, 64, 80, 128)}))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(here.parents[1]), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, "-c", code, str(here.parent)],
@@ -202,7 +228,7 @@ def _profiled():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 forward (tensor cores would make
     them TF32 or bf16) and keep its float32 accuracy; bfloat16 inputs take
@@ -222,7 +248,7 @@ def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 kernels (tensor cores would make
     them TF32 or bf16) and keep their float32 accuracy; bfloat16 inputs
@@ -245,15 +271,15 @@ def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
 
 @pytest.mark.gpu
 def test_unsupported_head_dim_raises(cuda):
-    """Head dims up to 64 are padded to a built one; over 64 the kernels
+    """Head dims up to 128 are padded to a built one; over 128 the kernels
     refuse."""
-    q = torch.zeros((2, 8, 96), device=cuda)
+    q = torch.zeros((2, 8, 160), device=cuda)
     before = ta.attention_fwd.launches
-    with pytest.raises(ValueError, match="D=96"):
+    with pytest.raises(ValueError, match="D=160"):
         ta.fused_attention(q, q, q)
     assert ta.attention_fwd.launches == before
     # the CPU route is the plain version, for any head dim
-    assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 96)
+    assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 160)
 
 
 @pytest.mark.gpu
@@ -298,20 +324,34 @@ def _one_bf16_ulp(got, want):
     return (got == want).float().mean().item()
 
 
+def _emulated(emulation, q, k, v, *rest):
+    """``emulation`` as the kernels run it: on q, k and v (and g) padded
+    with zeros to the built head dim, with the true 1/sqrt(D), sliced
+    back."""
+    d = q.shape[-1]
+    padded = ta._padded(q, k, v, *rest[:1])
+    out = emulation(*padded, *rest[1:], scale=ta._scale(d))
+    return tuple(t[..., :d] if t.dim() == 3 else t for t in out)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,tq,tk,d", [
     (3, 300, 520, 64), (3, 17, 1000, 32),  # ragged
-    (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32)])
+    (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
+    (3, 300, 520, 128), (3, 17, 1000, 80), (2, 1600, 1600, 80),
+    (2, 1600, 1600, 128)])
 def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 gradient kernels against the plain PyTorch emulation of
     their arithmetic (64-row tiles, p and ds as bf16 hi + lo, the scale at
-    the end) on the same inputs: what is left between them is the order of
-    the float32 sums inside a tile and ex2.approx, so nearly every value
-    is the same bf16 and the rest its neighbour."""
+    the end) on the same inputs, D = 80 padded to 128 as the kernels take
+    it: what is left between them is the order of the float32 sums inside
+    a tile and ex2.approx, so nearly every value is the same bf16 and the
+    rest its neighbour."""
     args = _gradient_args(cuda, bh, tq, tk, d, "bfloat16", seed=5)
     got = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
-    want = (ta.attention_dq_emulation(*args),
-            *ta.attention_dkdv_emulation(*args))
+    want = (*_emulated(lambda *a, **kw: (ta.attention_dq_emulation(*a, **kw),),
+                       *args),
+            *_emulated(ta.attention_dkdv_emulation, *args))
     shares = [_one_bf16_ulp(a, b) for a, b in zip(got, want)]
     print(f"equal to the emulation (dq, dk, dv): {shares}")
     assert min(shares) >= 0.99, shares
@@ -323,7 +363,10 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     (3, 17, 17, 64), (3, 96, 520, 64), (3, 520, 17, 32), (3, 1, 1, 32),
     (3, 520, 300, 32),  # ragged lengths 1, 17, 96, 300, 520, Tq != Tk
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
-    (4, 96, 96, 32)])
+    (4, 96, 96, 32),
+    # D = 128 as built and D = 80 padded to it
+    (3, 300, 520, 128), (3, 17, 1000, 80), (3, 1, 300, 128),
+    (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128)])
 def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 forward against the plain PyTorch emulation of its
     arithmetic (64-key tiles, the scale inside the exponent, the float32 p
@@ -335,7 +378,7 @@ def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
     out, lse = ta.attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert ta.attention_fwd.launches == before + 1
-    want, want_lse = ta.attention_fwd_emulation(q, k, v)
+    want, want_lse = _emulated(ta.attention_fwd_emulation, q, k, v)
     share = _one_bf16_ulp(out, want)
     print(f"equal to the emulation (out): {share}")
     assert share >= 0.99, share
@@ -345,7 +388,9 @@ def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
-                                        (5, 300, 520, 32)])
+                                        (5, 300, 520, 32),
+                                        (4, 1600, 1600, 80),
+                                        (5, 300, 520, 128)])
 def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """Every sum belongs to one thread and runs in a fixed order: two
     launches on the same inputs give the same bits."""
@@ -356,3 +401,51 @@ def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     for a, b in zip(first, second):
         assert a.abs().sum() > 0
         assert torch.equal(a, b)
+
+
+# A bf16 ViT DETR whose blocks have width 160 over 2 heads: D = 80, which
+# the forward op pads to 128; the patch embed (P = 16 -> 160) takes the
+# tensor-core K1, DETR's attentions D = 32.
+VIT_D80 = dict(image_size=(64, 64), backbone="vit_p16_d2_w160_h2",
+               num_encoder_blocks=2, num_decoder_blocks=2, encoder_dim=64,
+               decoder_dim=64, num_encoder_heads=2, num_decoder_heads=2,
+               num_object_preds=16, num_categories=12, num_attributes=20,
+               max_objects=8, compute_dtype="bfloat16", dropout_rate=0.0,
+               use_pallas_stem=True, norm="batchnorm",
+               use_pallas_attention=True)
+# the op's launches a forward: 2 ViT blocks, 2 encoder blocks, 2
+# cross-attentions and the second decoder block's self-attention
+VIT_D80_LAUNCHES = 2 + 2 + 2 + 1
+
+
+@pytest.mark.gpu
+def test_exported_vit_artifact_at_head_dim_80_keeps_the_op(cuda, tmp_path):
+    """The ViT at D = 80 exported for cuda (serving.py): the loaded program
+    keeps ``boosted_detr::attention_fwd`` at every attention, counts one
+    launch each a forward, and equals the live model bit for bit."""
+    import boosted_detr_torch as bt
+    from boosted_detr_torch import serving
+    from boosted_detr_torch.data.codec import TextCodec
+
+    cfg = bt.ModelConfig(**VIT_D80)
+    model = bt.DETR(cfg, device=cuda, seed=1)
+    assert dict(model.named_modules())[
+        "backbone.vit.block_0.attn"].head_dim == 80
+    codec = TextCodec({"category": [f"c{i}" for i in range(10)],
+                       "attribute": [f"a{i}" for i in range(18)]})
+    trainer = bt.Trainer(model, cfg, bt.TrainConfig(), codec=codec,
+                         device="cuda").compile()
+    serving.export_serving(trainer, str(tmp_path), platforms="cuda")
+    served = serving.load_serving(str(tmp_path))
+    ops = [str(n.target) for n in served.program.graph.nodes
+           if str(n.target).startswith("boosted_detr.")]
+    assert ops.count("boosted_detr.attention_fwd.default") == VIT_D80_LAUNCHES
+    images = np.random.default_rng(2).uniform(0, 1, (3, 64, 64, 3)).astype(
+        np.float32)
+    want = bt.predict(model, images, decode_text=False)
+    before = ta.attention_fwd.launches
+    got = served(images, decode_text=False)
+    torch.cuda.synchronize()
+    assert ta.attention_fwd.launches - before == VIT_D80_LAUNCHES
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)

@@ -3,7 +3,10 @@
 against the JAX package's on the same arrays, the selections on a boosted
 model's cumulative outputs, and the incremental predictors of the boosted
 ensemble and of DETR against their full forwards, as
-tests/test_panoptic_early_exit.py holds the JAX ones."""
+tests/test_panoptic_early_exit.py holds the JAX ones; the boosted one in
+every query mode also against JAX's ``BoostedDETR.__call__`` with the
+same weights (not against JAX's incremental function, which computes
+another model in those modes)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,8 +16,11 @@ import torch
 import boosted_detr_torch as bt
 from boosted_detr_torch.data.codec import TextCodec
 from boosted_detr_torch.models import early_exit as tee
+from boosted_detr_tpu.config import ModelConfig as JaxConfig
 from boosted_detr_tpu.models import early_exit as jee
-from test_torch_boosted import TINY
+from boosted_detr_tpu.models.boosted import BoostedDETR as JaxBoosted
+from test_torch_boosted import TINY, tiny_variables
+from test_torch_boosted import _image as _boosted_image
 
 torch.set_num_threads(2)
 
@@ -227,16 +233,73 @@ def test_incremental_detr_matches_the_full_forward():
     _check_against_full(preds0, {k: v.numpy() for k, v in first.items()})
 
 
-@pytest.mark.parametrize("kw,focused", [
-    (dict(boosted_queries="carry"), None),
-    (dict(boosted_queries="confidence"), None),
-    (dict(boosted_shared_encoder=True), None),
-    ({}, 1)])
-def test_incremental_boosted_raises_where_it_has_no_route(kw, focused):
+# The modes the incremental boosted predictor runs beside fresh queries:
+# (config keywords, focused_training_layer). Confidence at 0.5 freezes some
+# slots and not others on these weights and images
+# (tests/test_torch_boosted.py::test_confidence_thresholds_are_clear_of_rounding).
+MODES = {
+    "carry": (dict(boosted_queries="carry"), None),
+    "carry_double_count": (dict(boosted_queries="carry",
+                                block0_double_count=True), None),
+    "confidence": (dict(boosted_queries="confidence",
+                        boosted_carry_threshold=0.5), None),
+    "shared_encoder": (dict(boosted_shared_encoder=True), None),
+    "focused_1": ({}, 1),
+}
+# (threshold, criterion, blocks run without a focused layer): confidence
+# 1.1, which no image reaches, runs every block; stability at a huge tau
+# stops at the first block it may, the second.
+STOPS = {"every_block": (1.1, "confidence", TINY["num_decoder_blocks"]),
+         "early": (1e9, "stability", 2)}
+
+
+@pytest.fixture(scope="module")
+def mode_reference():
+    """JAX's ``BoostedDETR.__call__(return_intermediate=True)`` in each
+    mode, without its focused layer (the forward it is held to), on
+    weights drawn as tests/test_torch_boosted.py draws them (one tree for
+    the per-block encoders, one for the shared encoder)."""
+    image = _boosted_image(0)
+    trees, outs = {}, {}
+    for name, (kw, _) in MODES.items():
+        jmodel = JaxBoosted(JaxConfig(**dict(TINY, **kw)))
+        shared = kw.get("boosted_shared_encoder", False)
+        if shared not in trees:
+            trees[shared] = tiny_variables(jmodel, image, seed=1 + shared)
+        outs[name] = [{k: np.asarray(v, np.float32) for k, v in o.items()}
+                      for o in jmodel.apply(trees[shared], image,
+                                            return_intermediate=True)]
+    return {"image": image, "trees": trees, "outs": outs}
+
+
+@pytest.mark.parametrize("stop", list(STOPS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_incremental_boosted_matches_jax_in_every_mode(mode_reference, mode,
+                                                       stop):
+    """Carried queries (with and without block 0 counted twice), the
+    confidence freeze, one shared encoder and a focused training layer:
+    the incremental predictor's output at its exit block against the
+    port's ``return_intermediate`` output there and against JAX's
+    ``BoostedDETR.__call__`` with the same weights (float32, 1e-5). A
+    focused layer ends the loop at its block, whose output is the
+    unfocused model's there."""
+    kw, focused = MODES[mode]
+    threshold, criterion, runs = STOPS[stop]
+    if focused is not None:
+        runs = min(runs, focused + 1)
     model = bt.BoostedDETR(bt.ModelConfig(**dict(TINY, **kw)), device="cpu",
-                           focused_training_layer=focused)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tee.make_incremental_predict(model, 0.5)
+                           focused_training_layer=focused).eval()
+    bt.load_flax_variables(model, mode_reference["trees"][
+        kw.get("boosted_shared_encoder", False)])
+    image = torch.from_numpy(mode_reference["image"])
+    preds, blocks_run = tee.make_incremental_predict(model, threshold,
+                                                     criterion)(image)
+    assert blocks_run == runs
+    with torch.inference_mode(), model.focused(None):
+        port = model(image, return_intermediate=True)[blocks_run - 1]
+    for want in ({k: v.numpy() for k, v in port.items()},
+                 mode_reference["outs"][mode][blocks_run - 1]):
+        _check_against_full(preds, want)
 
 
 @pytest.mark.parametrize("criterion", ["stability", "confidence"])

@@ -2,8 +2,9 @@
 over gloo with CUDA tensors (NCCL refuses two ranks on one device), each a
 process of its own meeting the other at a ``file://`` store.
 
-- context parallelism: q [4, 128, 32] and k, v [4, 256, 32] in bf16, two
-  shards of 128 keys, through the K3 kernels on each rank (forward, dq,
+- context parallelism: q [4, 128, D] and k, v [4, 256, D] in bf16 at
+  D = 32 and at ViT-Huge's D = 80 (which K3 pads to 128), two shards of
+  128 keys, through the K3 kernels on each rank (forward, dq,
   dk/dv each launched once a rank), against the one-process
   ``fused_attention_with_lse`` (K3 over all keys) and the plain version.
   Each shard's output is K3's bf16 output, and the merge sums the two, so
@@ -37,9 +38,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cp_inputs():
+def _cp_inputs(d):
     rng = np.random.default_rng(0)
-    return {x: rng.standard_normal((4, t, 32)).astype(np.float32)
+    return {x: rng.standard_normal((4, t, d)).astype(np.float32)
             for x, t in (("q", 128), ("k", 256), ("v", 256))}
 
 
@@ -66,8 +67,9 @@ def _shard_magnitude(inputs, cuda):
 
 
 @pytest.mark.gpu
-def test_context_parallel_through_k3_on_two_ranks(cuda, tmp_path):
-    inputs = _cp_inputs()
+@pytest.mark.parametrize("d", [32, 80])
+def test_context_parallel_through_k3_on_two_ranks(cuda, tmp_path, d):
+    inputs = _cp_inputs(d)
     ranks = run_ranks("context_case", dict(
         inputs, impls=("pallas",), dtype="bfloat16", device="cuda",
         mesh={"data": 1, "model": 2}), 2, tmp_path)

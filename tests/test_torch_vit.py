@@ -96,12 +96,17 @@ _VIT = dict(image_size=(64, 64), num_encoder_blocks=1, num_decoder_blocks=2,
     ("vit_p16_d2_w64_h2", True, True),    # K1 with its bias, K3 throughout
     ("vit_p16_d2_w64_h2_qk", True, True),  # with the QK-norm
     ("vit_p16_d2_w64_h2_qk", False, False),  # the plain ViT route
+    # head dims over 64: ViT-Huge's D = 80 (padded to 128 on the card) and
+    # D = 128
+    ("vit_p16_d2_w160_h2", True, True),
+    ("vit_p16_d2_w256_h2", True, True),
 ])
 def test_small_vit_detr_matches_jax(interpret, backbone, pallas_stem,
                                     pallas_attention):
-    """A 64x64 ViT DETR (patch 16: 4x4 tokens of width 64, 2 heads, reduced
-    to the 2x2 grid at width 128): the eval forward and the gradient of a
-    fixed linear function of its outputs, leaf by leaf."""
+    """A 64x64 ViT DETR (patch 16: 4x4 tokens of width 64, 160 or 256, 2
+    heads, reduced to the 2x2 grid at width 128): the eval forward and the
+    gradient of a fixed linear function of its outputs at the frozen
+    running statistics, leaf by leaf."""
     cfg = dict(_VIT, backbone=backbone, use_pallas_stem=pallas_stem,
                use_pallas_attention=pallas_attention)
     rng = np.random.default_rng(6)
