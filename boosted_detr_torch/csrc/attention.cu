@@ -11,9 +11,10 @@
 //   attn_dkdv_kernel, attn_dkdv_mma_kernel
 //                    <- _dkdv_kernel (:166-199), same function, call :257.
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
-// bfloat16, with no mask; D is 32, 64 or 128 (the wrapper pads any other D
-// up to 128 with zeros, as the TPU kernels pad D to 128 lanes). The
-// arithmetic is the TPU kernels':
+// bfloat16, with no mask; D is 32, 64, 128 or a multiple of 128 (the
+// wrapper pads any other D with zeros up to the next of those, as the TPU
+// kernels pad D to a multiple of 128 lanes; past 128 the wide kernels
+// below take D in 128-wide chunks). The arithmetic is the TPU kernels':
 //   - q, k and v are read in their dtype; products of bf16 values are exact
 //     in float32;
 //   - the logits are scale * q.k (scale = 1/sqrt(D)); the float32 kernels
@@ -1044,18 +1045,786 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- head dims over 128, in 128-wide chunks ----
+//
+// D = 128 nc (nc >= 2; the wrapper pads any D over 128 up to that, as the
+// TPU kernel pads D to its 128 lanes): a grid axis runs over the nc chunks
+// of the output (blockIdx.y), and each block owns its rows' 128-wide chunk
+// oc of out, dq, dk or dv. Every block computes the logits (and dP) in
+// full, summed over the nc chunks of the head dim in order, one staged
+// 128-wide chunk of each operand at a time, so the blocks of a row group
+// compute the same p and ds, bit for bit, and each its chunk's share of the
+// second products; the lse is written by the blocks of chunk 0.
+// Accumulators stay at D = 128's size at any D; the logits are computed nc
+// times, the price of that.
+//   - tensor cores (bf16): a unit of the pipeline is one chunk c of one
+//     tile of the streamed operand. It stages chunk c of the block's own
+//     rows (q, or q and dO, or k and v) and of the tile's rows (k, or k and
+//     v, or q and dO), two deep with cp.async as at D <= 128, and adds
+//     their products into S (and dP), A and B fragments both read with
+//     ldmatrix; the last chunk's unit also stages the tile's chunk oc of
+//     the second product's operand (v, k, or q and dO) and runs the softmax
+//     and the second products as the D <= 128 kernels do. Shared memory:
+//     104 KB (the forward, 2 blocks an SM), 174 KB (dq) and 141 KB (dk/dv,
+//     which takes 32 queries a tile so that its p and ds over a tile fit
+//     beside its two accumulators), one block an SM;
+//   - CUDA cores (float32): 4 threads a row as at D = 128, 32 dims a thread
+//     of the output chunk, 16 rows of the streamed operand a unit; a
+//     thread streams its 32 dims of its block row from device memory (L1 or
+//     L2) 4 at a time against the staged rows, so no row slice is held in
+//     registers.
+
+constexpr int CD = 128;               // dims of a chunk
+constexpr int WPITCH = CD + PAD;      // bf16 values of a staged chunk row
+constexpr int WUNIT = TILE * WPITCH;  // one staged [64 x 128] bf16 chunk
+constexpr int DKDV_WTILE = 32;        // queries a tile of the wide dk/dv
+constexpr int F32_UNIT = 16;          // streamed rows a unit (float32)
+
+// Starts the copies of rows [0, n) of a 128-column chunk of the rows
+// `stride` values apart at src into a staged chunk of pitch WPITCH (zeros
+// for rows [n, NROWS)), 16 bytes a thread.
+template <int NROWS>
+__device__ __forceinline__ void stage_chunk_async(const bf16* src,
+                                                  long long stride, int n,
+                                                  bf16* dst) {
+  constexpr int PER_ROW = CD / 8;
+  for (int c = threadIdx.x; c < NROWS * PER_ROW; c += MMA_THREADS) {
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    const bool live = r < n;
+    copy_async<16>(dst + r * WPITCH + col, src + (live ? r * stride + col : 0),
+                   live);
+  }
+}
+
+// x[16 x 16] += a_rows[16 x 128] . rows[16 x 128]^T, both staged chunks:
+// A fragments through ldmatrix at a_off (row lane % 16, column 8 (lane /
+// 16)), B at b_off; mma_over_staged_dims, adding to x.
+__device__ __forceinline__ void mma_add_chunk(float (&x)[2][4],
+                                              const bf16* a_rows, int a_off,
+                                              const bf16* rows, int b_off) {
+#pragma unroll
+  for (int kb = 0; kb < CD / 16; ++kb) {
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, a_rows + a_off + 16 * kb);
+    ldmatrix_x4(b, rows + b_off + 16 * kb);
+    mma_bf16(x[0], a, b[0], b[1]);
+    mma_bf16(x[1], a, b[2], b[3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_fragments(float (&x)[N][2][4]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[c][j][e] = 0.f;
+}
+
+__device__ __forceinline__ void zero_accumulator(float (&acc)[CD / 8][4]) {
+#pragma unroll
+  for (int nd = 0; nd < CD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+}
+
+// acc (rows r0 and r0 + 8 of a 128-wide chunk) as bf16 into rows `stride`
+// values apart at base, row r0 times mul[0] and row r0 + 8 times mul[1].
+__device__ __forceinline__ void store_chunk(const float (&acc)[CD / 8][4],
+                                            const float (&mul)[2], bf16* base,
+                                            long long stride, int r0,
+                                            int n_rows, int tig) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= n_rows) continue;
+    __nv_bfloat162* row =
+        reinterpret_cast<__nv_bfloat162*>(base + (r0 + 8 * h) * stride);
+#pragma unroll
+    for (int nd = 0; nd < CD / 8; ++nd)
+      row[4 * nd + tig] = __floats2bfloat162_rn(acc[nd][2 * h] * mul[h],
+                                                acc[nd][2 * h + 1] * mul[h]);
+  }
+}
+
+// The forward at D = 128 nc. A stage's slots: q, k, v (wide_smem_bytes).
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+attn_fwd_wide_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ lse, int Tq, int Tk, int tiles,
+                         int nc, float scale) {
+  constexpr int STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* slots = reinterpret_cast<bf16*>(smem);  // [2][3][WUNIT]
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int warp_row = (threadIdx.x / 32) * 16;
+  const int r0 = first + warp_row + grp;  // this thread's rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* qb = q + (q_base + first) * Dp;
+  const bf16* kb = k + static_cast<long long>(bh) * Tk * Dp;
+  const bf16* vb = v + static_cast<long long>(bh) * Tk * Dp + oc * CD;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * WPITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * WPITCH + 8 * (lane / 16);
+  const int nq = min(ROWS, Tq - first);
+  auto slot = [&](int st, int which) {
+    return slots + (3 * st + which) * WUNIT;
+  };
+  const int units = (Tk + TILE - 1) / TILE * nc;
+  auto stage_unit = [&](int u) {
+    const int c = u % nc, k0 = u / nc * TILE, n = min(TILE, Tk - k0);
+    stage_chunk_async<TILE>(qb + c * CD, Dp, nq, slot(u % 2, 0));
+    stage_chunk_async<TILE>(kb + k0 * Dp + c * CD, Dp, n, slot(u % 2, 1));
+    if (c == nc - 1)
+      stage_chunk_async<TILE>(vb + k0 * Dp, Dp, n, slot(u % 2, 2));
+  };
+
+  const float scale2 = scale * LOG2E;
+  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
+  float acc[CD / 8][4];
+  zero_accumulator(acc);
+  float s[STEPS][2][4];
+  stage_unit(0);
+  commit_copies();
+  for (int u = 0; u < units; ++u) {
+    const int st = u % 2, c = u % nc, k0 = u / nc * TILE;
+    wait_copies<0>();
+    __syncthreads();  // unit u has landed; unit u - 1 is consumed
+    if (u + 1 < units) {
+      stage_unit(u + 1);
+      commit_copies();
+    }
+    if (c == 0) zero_fragments(s);
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+      mma_add_chunk(s[cs], slot(st, 0) + warp_row * WPITCH, t_off,
+                    slot(st, 1) + cs * STEP * WPITCH, b_off);
+    if (c < nc - 1) continue;  // the same for every thread
+
+    // the tile's logits are whole: the D <= 128 kernel's softmax step
+    const bool ragged = k0 + TILE > Tk;
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+          if (ragged && key >= Tk) s[cs][j][e] = NEG;
+          m_new[e / 2] = fmaxf(m_new[e / 2], s[cs][j][e]);
+        }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
+      shift[h] = m_new[h] * scale2;
+      m[h] = m_new[h];
+      denom[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nd = 0; nd < CD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      if (k0 + cs * STEP >= Tk) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              exp2_approx(fmaf(s[cs][j][e], scale2, -shift[e / 2]));
+          s[cs][j][e] = p;
+          denom[e / 2] += p;
+        }
+      uint32_t hi[4], lo[4];
+      split_fragment(s[cs], hi, lo);
+      mma_over_rows<CD>(acc, hi, lo, slot(st, 2) + cs * STEP * WPITCH, t_off);
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    denom[h] = fmaxf(denom[h], FLOOR);
+    inv[h] = 1.f / denom[h];
+    if (oc == 0 && tig == 0 && r0 + 8 * h < Tq)
+      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
+  }
+  store_chunk(acc, inv, out + q_base * Dp + oc * CD, Dp, r0, Tq, tig);
+}
+
+// dq at D = 128 nc. A stage's slots: q, dO, k, v, and the tile's k of
+// chunk oc (wide_smem_bytes).
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int Tq, int Tk, int tiles,
+                        int nc, float scale) {
+  constexpr int STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* slots = reinterpret_cast<bf16*>(smem);  // [2][5][WUNIT]
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int warp_row = (threadIdx.x / 32) * 16;
+  const int r0 = first + warp_row + grp;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* qb = q + (q_base + first) * Dp;
+  const bf16* gb = g + (q_base + first) * Dp;
+  const bf16* kb = k + static_cast<long long>(bh) * Tk * Dp;
+  const bf16* vb = v + static_cast<long long>(bh) * Tk * Dp;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * WPITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * WPITCH + 8 * (lane / 16);
+  const int nq = min(ROWS, Tq - first);
+  auto slot = [&](int st, int which) {
+    return slots + (5 * st + which) * WUNIT;
+  };
+  const int units = (Tk + TILE - 1) / TILE * nc;
+  auto stage_unit = [&](int u) {
+    const int c = u % nc, k0 = u / nc * TILE, n = min(TILE, Tk - k0);
+    const int st = u % 2;
+    stage_chunk_async<TILE>(qb + c * CD, Dp, nq, slot(st, 0));
+    stage_chunk_async<TILE>(gb + c * CD, Dp, nq, slot(st, 1));
+    stage_chunk_async<TILE>(kb + k0 * Dp + c * CD, Dp, n, slot(st, 2));
+    stage_chunk_async<TILE>(vb + k0 * Dp + c * CD, Dp, n, slot(st, 3));
+    if (c == nc - 1)
+      stage_chunk_async<TILE>(kb + k0 * Dp + oc * CD, Dp, n, slot(st, 4));
+  };
+
+  const float scale2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];  // lse times log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = r0 + 8 * h < Tq;
+    row_lse2[h] = live ? lse[q_base + r0 + 8 * h] * LOG2E : 0.f;
+    row_delta[h] = live ? delta[q_base + r0 + 8 * h] : 0.f;
+  }
+  float acc[CD / 8][4];
+  zero_accumulator(acc);
+  float s[STEPS][2][4], dp[STEPS][2][4];
+  stage_unit(0);
+  commit_copies();
+  for (int u = 0; u < units; ++u) {
+    const int st = u % 2, c = u % nc, k0 = u / nc * TILE;
+    wait_copies<0>();
+    __syncthreads();
+    if (u + 1 < units) {
+      stage_unit(u + 1);
+      commit_copies();
+    }
+    if (c == 0) {
+      zero_fragments(s);
+      zero_fragments(dp);
+    }
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      mma_add_chunk(s[cs], slot(st, 0) + warp_row * WPITCH, t_off,
+                    slot(st, 2) + cs * STEP * WPITCH, b_off);
+      mma_add_chunk(dp[cs], slot(st, 1) + warp_row * WPITCH, t_off,
+                    slot(st, 3) + cs * STEP * WPITCH, b_off);
+    }
+    if (c < nc - 1) continue;
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      if (k0 + cs * STEP >= Tk) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // keys past Tk are masked out of p
+          const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+          const float p =
+              key < Tk ? exp2_approx(s[cs][j][e] * scale2 - row_lse2[e / 2])
+                       : 0.f;
+          dp[cs][j][e] = p * (dp[cs][j][e] - row_delta[e / 2]);  // ds
+        }
+      uint32_t hi[4], lo[4];
+      split_fragment(dp[cs], hi, lo);
+      mma_over_rows<CD>(acc, hi, lo, slot(st, 4) + cs * STEP * WPITCH, t_off);
+    }
+  }
+  const float mul[2] = {scale, scale};
+  store_chunk(acc, mul, dq + q_base * Dp + oc * CD, Dp, r0, Tq, tig);
+}
+
+// dk and dv at D = 128 nc, 32 queries a tile. A stage's slots: the block's
+// k and v rows (64 each), the tile's q and dO rows (32 each), the tile's q
+// and dO of chunk oc (32 each); then the stages' lse and delta
+// (wide_dkdv_smem_bytes).
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_dkdv_wide_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int Tq, int Tk, int tiles, int nc, float scale) {
+  constexpr int QT = DKDV_WTILE;
+  constexpr int STEPS = QT / STEP;
+  constexpr int HALF = QT * WPITCH;            // a staged [32 x 128] chunk
+  constexpr int STAGE = 2 * WUNIT + 4 * HALF;  // bf16 values of a stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* slots = reinterpret_cast<bf16*>(smem);                 // [2][STAGE]
+  float* stats = reinterpret_cast<float*>(slots + 2 * STAGE);  // [2][2][QT]
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int warp_row = (threadIdx.x / 32) * 16;
+  const int r0 = first + warp_row + grp;  // this thread's keys r0, r0 + 8
+  const long long k_base = static_cast<long long>(bh) * Tk;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* kb = k + (k_base + first) * Dp;
+  const bf16* vb = v + (k_base + first) * Dp;
+  const bf16* qb = q + q_base * Dp;
+  const bf16* gb = g + q_base * Dp;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * WPITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * WPITCH + 8 * (lane / 16);
+  const int nk = min(ROWS, Tk - first);
+  // slots 0, 1: k, v [64 rows]; 2, 3: q, dO [32]; 4, 5: q, dO of chunk oc
+  auto slot = [&](int st, int which) {
+    return slots + st * STAGE +
+           (which < 2 ? which * WUNIT : 2 * WUNIT + (which - 2) * HALF);
+  };
+  auto stats_of = [&](int st) { return stats + 2 * QT * st; };
+  const int units = (Tq + QT - 1) / QT * nc;
+  auto stage_unit = [&](int u) {
+    const int c = u % nc, q0 = u / nc * QT, n = min(QT, Tq - q0);
+    const int st = u % 2;
+    stage_chunk_async<TILE>(kb + c * CD, Dp, nk, slot(st, 0));
+    stage_chunk_async<TILE>(vb + c * CD, Dp, nk, slot(st, 1));
+    stage_chunk_async<QT>(qb + q0 * Dp + c * CD, Dp, n, slot(st, 2));
+    stage_chunk_async<QT>(gb + q0 * Dp + c * CD, Dp, n, slot(st, 3));
+    if (c == nc - 1) {
+      stage_chunk_async<QT>(qb + q0 * Dp + oc * CD, Dp, n, slot(st, 4));
+      stage_chunk_async<QT>(gb + q0 * Dp + oc * CD, Dp, n, slot(st, 5));
+      if (threadIdx.x < 2 * QT) {  // [lse QT][delta QT]
+        const int i = threadIdx.x % QT;
+        const float* src = (threadIdx.x < QT ? lse : delta) + q_base + q0;
+        copy_async<4>(stats_of(st) + threadIdx.x, src + (i < n ? i : 0),
+                      i < n);
+      }
+    }
+  };
+
+  const float scale2 = scale * LOG2E;
+  float dk_acc[CD / 8][4], dv_acc[CD / 8][4];
+  zero_accumulator(dk_acc);
+  zero_accumulator(dv_acc);
+  float p[STEPS][2][4], ds[STEPS][2][4];
+  stage_unit(0);
+  commit_copies();
+  for (int u = 0; u < units; ++u) {
+    const int st = u % 2, c = u % nc, q0 = u / nc * QT;
+    wait_copies<0>();
+    __syncthreads();
+    if (u + 1 < units) {
+      stage_unit(u + 1);
+      commit_copies();
+    }
+    if (c == 0) {
+      zero_fragments(p);
+      zero_fragments(ds);
+    }
+    // transposed: rows are this warp's keys, columns 16 queries a step
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      mma_add_chunk(p[cs], slot(st, 0) + warp_row * WPITCH, t_off,
+                    slot(st, 2) + cs * STEP * WPITCH, b_off);
+      mma_add_chunk(ds[cs], slot(st, 1) + warp_row * WPITCH, t_off,
+                    slot(st, 3) + cs * STEP * WPITCH, b_off);
+    }
+    if (c < nc - 1) continue;
+    const float* l_row = stats_of(st);
+    const float* d_row = l_row + QT;
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      if (q0 + cs * STEP >= Tq) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = cs * STEP + 8 * j + 2 * tig;
+        const float2 l = *reinterpret_cast<const float2*>(l_row + col);
+        const float2 dl = *reinterpret_cast<const float2*>(d_row + col);
+        const float lse2[2] = {l.x * LOG2E, l.y * LOG2E};
+        const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // query rows past Tq are masked out of p
+          const float pe = q0 + col + e % 2 < Tq
+                               ? exp2_approx(p[cs][j][e] * scale2 - lse2[e % 2])
+                               : 0.f;
+          p[cs][j][e] = pe;
+          ds[cs][j][e] = pe * (ds[cs][j][e] - dlt[e % 2]);
+        }
+      }
+      uint32_t hi[4], lo[4];
+      split_fragment(p[cs], hi, lo);
+      mma_over_rows<CD>(dv_acc, hi, lo, slot(st, 5) + cs * STEP * WPITCH,
+                        t_off);
+      split_fragment(ds[cs], hi, lo);
+      mma_over_rows<CD>(dk_acc, hi, lo, slot(st, 4) + cs * STEP * WPITCH,
+                        t_off);
+    }
+  }
+  const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.f, 1.f};
+  store_chunk(dk_acc, dk_mul, dk + k_base * Dp + oc * CD, Dp, r0, Tk, tig);
+  store_chunk(dv_acc, dv_mul, dv + k_base * Dp + oc * CD, Dp, r0, Tk, tig);
+}
+
+// ---- float32 at D = 128 nc, on the CUDA cores ----
+
+constexpr int W_DPT = 32, W_TPR = CD / W_DPT;  // 4 threads a row
+constexpr int W_THREADS = ROWS * W_TPR;        // 256
+
+// Stages rows [0, n) of a 128-column chunk of the rows `stride` values
+// apart at src into dst [F32_UNIT][CD] times mul (zeros past n).
+__device__ __forceinline__ void stage_f32_chunk(const float* src,
+                                                long long stride, int n,
+                                                float mul, float* dst) {
+  for (int e = threadIdx.x; e < F32_UNIT * CD; e += W_THREADS) {
+    const int r = e / CD, col = e % CD;
+    dst[e] = r < n ? src[r * stride + col] * mul : 0.f;
+  }
+}
+
+// s[j] += (this thread's 32 dims of row, times mul) . (the same dims of
+// staged row j) for the F32_UNIT staged rows; row is read from device
+// memory 4 dims at a time, in dot_slice's order.
+__device__ __forceinline__ void add_dots(const float* row, bool live,
+                                         float mul, const float* staged,
+                                         int h, float (&s)[F32_UNIT]) {
+#pragma unroll
+  for (int c = 0; c < W_DPT / 4; ++c) {
+    const int at = 4 * (c * W_TPR + h);
+    float4 x = live ? __ldg(reinterpret_cast<const float4*>(row + at))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+#pragma unroll
+    for (int j = 0; j < F32_UNIT; ++j) {
+      const float4 r = *reinterpret_cast<const float4*>(staged + j * CD + at);
+      s[j] = fmaf(x.x, r.x, s[j]);
+      s[j] = fmaf(x.y, r.y, s[j]);
+      s[j] = fmaf(x.z, r.z, s[j]);
+      s[j] = fmaf(x.w, r.w, s[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(W_THREADS)
+attn_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int Tq, int Tk, int tiles,
+                     int nc, float scale) {
+  constexpr int U = F32_UNIT;
+  __shared__ __align__(16) float sk[U * CD];
+  __shared__ __align__(16) float sv[U * CD];
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / W_TPR;
+  const int h = threadIdx.x % W_TPR;
+  const bool live = row < Tq;
+  const long long r_row = static_cast<long long>(bh) * Tq + (live ? row : 0);
+  const float* q_row = q + r_row * Dp;
+  const float* kb = k + static_cast<long long>(bh) * Tk * Dp;
+  const float* vb = v + static_cast<long long>(bh) * Tk * Dp + oc * CD;
+
+  float acc[W_DPT];
+#pragma unroll
+  for (int e = 0; e < W_DPT; ++e) acc[e] = 0.f;
+  float m = NEG, denom = 0.f;
+  for (int k0 = 0; k0 < Tk; k0 += U) {
+    const int nk = min(U, Tk - k0);
+    float s[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) s[j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the previous unit is consumed
+      stage_f32_chunk(kb + k0 * Dp + c * CD, Dp, nk, 1.f, sk);
+      if (c == nc - 1) stage_f32_chunk(vb + k0 * Dp, Dp, nk, 1.f, sv);
+      __syncthreads();
+      add_dots(q_row + c * CD, live, scale, sk, h, s);
+    }
+    // the D <= 128 kernel's 16-key chunk; key k0 is real
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      s[j] = row_sum<W_TPR>(s[j]);
+      if (j >= nk) s[j] = NEG;
+      m_new = fmaxf(m_new, s[j]);
+    }
+    const float alpha = expf(m - m_new);
+    float p_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      s[j] = expf(s[j] - m_new);
+      p_sum += s[j];
+    }
+    denom = denom * alpha + p_sum;
+#pragma unroll
+    for (int e = 0; e < W_DPT; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      axpy_slice<W_DPT, W_TPR>(s[j], sv + j * CD, h, acc);
+    m = m_new;
+  }
+  if (live) {
+    const float d = fmaxf(denom, FLOOR);
+#pragma unroll
+    for (int e = 0; e < W_DPT; ++e)
+      out[r_row * Dp + oc * CD + dim_of<W_DPT, W_TPR>(e, h)] = acc[e] / d;
+    if (oc == 0 && h == 0) lse[r_row] = m + logf(d);
+  }
+}
+
+__global__ void __launch_bounds__(W_THREADS)
+attn_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Tq, int Tk, int tiles, int nc, float scale) {
+  constexpr int U = F32_UNIT;
+  __shared__ __align__(16) float sk[U * CD];
+  __shared__ __align__(16) float sv[U * CD];
+  __shared__ __align__(16) float sko[U * CD];  // the unit's k, chunk oc
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / W_TPR;
+  const int h = threadIdx.x % W_TPR;
+  const bool live = row < Tq;
+  const long long r_row = static_cast<long long>(bh) * Tq + (live ? row : 0);
+  const float* q_row = q + r_row * Dp;
+  const float* g_row = g + r_row * Dp;
+  const float* kb = k + static_cast<long long>(bh) * Tk * Dp;
+  const float* vb = v + static_cast<long long>(bh) * Tk * Dp;
+  const float row_lse = live ? lse[r_row] : 0.f;
+  const float row_delta = live ? delta[r_row] : 0.f;
+
+  float acc[W_DPT];
+#pragma unroll
+  for (int e = 0; e < W_DPT; ++e) acc[e] = 0.f;
+  for (int k0 = 0; k0 < Tk; k0 += U) {
+    const int nk = min(U, Tk - k0);
+    float s[U], dp[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) s[j] = dp[j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();
+      stage_f32_chunk(kb + k0 * Dp + c * CD, Dp, nk, 1.f, sk);
+      stage_f32_chunk(vb + k0 * Dp + c * CD, Dp, nk, 1.f, sv);
+      if (c == nc - 1)
+        stage_f32_chunk(kb + k0 * Dp + oc * CD, Dp, nk, 1.f, sko);
+      __syncthreads();
+      add_dots(q_row + c * CD, live, scale, sk, h, s);
+      add_dots(g_row + c * CD, live, 1.f, sv, h, dp);
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      s[j] = row_sum<W_TPR>(s[j]);
+      dp[j] = row_sum<W_TPR>(dp[j]);
+      const float p = j < nk ? expf(s[j] - row_lse) : 0.f;
+      s[j] = p * (dp[j] - row_delta);  // ds
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      axpy_slice<W_DPT, W_TPR>(s[j], sko + j * CD, h, acc);
+  }
+  if (live)
+    store_slice<W_DPT, W_TPR>(acc, scale, h, dq + r_row * Dp + oc * CD);
+}
+
+__global__ void __launch_bounds__(W_THREADS)
+attn_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int Tq, int Tk, int tiles,
+                      int nc, float scale) {
+  constexpr int U = F32_UNIT;
+  __shared__ __align__(16) float sq[U * CD];   // qs = q * scale
+  __shared__ __align__(16) float sg[U * CD];   // dO
+  __shared__ __align__(16) float sqo[U * CD];  // qs, chunk oc
+  __shared__ __align__(16) float sgo[U * CD];  // dO, chunk oc
+  __shared__ float s_lse[U], s_delta[U];
+  const long long Dp = static_cast<long long>(nc) * CD;
+  const int oc = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
+  const int row = (blockIdx.x % tiles) * ROWS + threadIdx.x / W_TPR;
+  const int h = threadIdx.x % W_TPR;
+  const bool live = row < Tk;
+  const long long k_row = static_cast<long long>(bh) * Tk + (live ? row : 0);
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const float* qb = q + q_base * Dp;
+  const float* gb = g + q_base * Dp;
+
+  float dk_acc[W_DPT], dv_acc[W_DPT];
+#pragma unroll
+  for (int e = 0; e < W_DPT; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  for (int q0 = 0; q0 < Tq; q0 += U) {
+    const int nq = min(U, Tq - q0);
+    float s[U], dp[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) s[i] = dp[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();
+      stage_f32_chunk(qb + q0 * Dp + c * CD, Dp, nq, scale, sq);
+      stage_f32_chunk(gb + q0 * Dp + c * CD, Dp, nq, 1.f, sg);
+      if (c == nc - 1) {
+        stage_f32_chunk(qb + q0 * Dp + oc * CD, Dp, nq, scale, sqo);
+        stage_f32_chunk(gb + q0 * Dp + oc * CD, Dp, nq, 1.f, sgo);
+        for (int i = threadIdx.x; i < U; i += W_THREADS) {
+          s_lse[i] = i < nq ? lse[q_base + q0 + i] : 0.f;
+          s_delta[i] = i < nq ? delta[q_base + q0 + i] : 0.f;
+        }
+      }
+      __syncthreads();
+      add_dots(k + k_row * Dp + c * CD, live, 1.f, sq, h, s);
+      add_dots(v + k_row * Dp + c * CD, live, 1.f, sg, h, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      s[i] = row_sum<W_TPR>(s[i]);
+      dp[i] = row_sum<W_TPR>(dp[i]);
+      // query rows past Tq are masked out of p
+      const float p = i < nq ? expf(s[i] - s_lse[i]) : 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - s_delta[i]);  // ds
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      axpy_slice<W_DPT, W_TPR>(s[i], sgo + i * CD, h, dv_acc);
+      axpy_slice<W_DPT, W_TPR>(dp[i], sqo + i * CD, h, dk_acc);
+    }
+  }
+  if (live) {
+    store_slice<W_DPT, W_TPR>(dk_acc, 1.f, h, dk + k_row * Dp + oc * CD);
+    store_slice<W_DPT, W_TPR>(dv_acc, 1.f, h, dv + k_row * Dp + oc * CD);
+  }
+}
+
+// Dynamic shared memory of the wide tensor-core kernels: `slots` staged
+// [64 x 128] chunks a stage, two stages; dk/dv's stages hold two 64-row
+// chunks and four 32-row ones, then the two stages' lse and delta.
+constexpr int wide_smem_bytes(int slots) {
+  return 2 * slots * WUNIT * static_cast<int>(sizeof(bf16));
+}
+constexpr int wide_dkdv_smem_bytes() {
+  return 2 * (2 * WUNIT + 4 * DKDV_WTILE * WPITCH) *
+             static_cast<int>(sizeof(bf16)) +
+         2 * 2 * DKDV_WTILE * 4;
+}
+
+// The wide launchers take launch_fwd's, launch_dq's and launch_dkdv's
+// arguments, then the chunks nc and the dtype (bf: bfloat16).
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* out, void* lse, int BH, int Tq, int Tk,
+                            float scale, cudaStream_t stream, int nc,
+                            bool bf) {
+  const int tiles = tiles_of(Tq);
+  const dim3 grid(BH * tiles, nc);
+  if (bf) {
+    constexpr int smem = wide_smem_bytes(3);
+    const cudaError_t err = allow_smem(attn_fwd_wide_mma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<float*>(lse), Tq, Tk, tiles, nc, scale);
+  } else {
+    attn_fwd_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), Tq, Tk, tiles, nc, scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* g, const void* lse, const void* delta,
+                           void* dq, int BH, int Tq, int Tk, float scale,
+                           cudaStream_t stream, int nc, bool bf) {
+  const int tiles = tiles_of(Tq);
+  const dim3 grid(BH * tiles, nc);
+  const float* row_lse = static_cast<const float*>(lse);
+  const float* row_delta = static_cast<const float*>(delta);
+  if (bf) {
+    constexpr int smem = wide_smem_bytes(5);
+    const cudaError_t err = allow_smem(attn_dq_wide_mma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    attn_dq_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
+        row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, nc, scale);
+  } else {
+    attn_dq_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
+        row_delta, static_cast<float*>(dq), Tq, Tk, tiles, nc, scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v,
+                             const void* g, const void* lse,
+                             const void* delta, void* dk, void* dv, int BH,
+                             int Tq, int Tk, float scale, cudaStream_t stream,
+                             int nc, bool bf) {
+  const int tiles = tiles_of(Tk);
+  const dim3 grid(BH * tiles, nc);
+  const float* row_lse = static_cast<const float*>(lse);
+  const float* row_delta = static_cast<const float*>(delta);
+  if (bf) {
+    constexpr int smem = wide_dkdv_smem_bytes();
+    const cudaError_t err = allow_smem(attn_dkdv_wide_mma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    attn_dkdv_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
+        row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
+        tiles, nc, scale);
+  } else {
+    attn_dkdv_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
+        row_delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk,
+        tiles, nc, scale);
+  }
+  return cudaGetLastError();
+}
+
 bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 
 }  // namespace
 
 // One launcher for each (dtype, D) the kernels are built for, D = 32, 64 and
-// 128 (the bfloat16 launchers take the tensor-core kernels); any other D is
-// refused with cudaErrorInvalidValue (the wrapper pads D to a built one, and
-// raises above 128, before that).
+// 128 (the bfloat16 launchers take the tensor-core kernels), and the wide
+// launchers for D = 128 nc, nc >= 2; any other D is refused with
+// cudaErrorInvalidValue (the wrapper pads D to one of those before that).
 #define ATTN_DISPATCH(LAUNCH, D, BF16, ...)                                 \
   do {                                                                      \
     cudaError_t err = cudaErrorInvalidValue;                                \
-    if ((D) == 32)                                                          \
+    if ((D) > CD && (D) % CD == 0)                                          \
+      err = LAUNCH##_wide(__VA_ARGS__, (D) / CD, (BF16) != 0);              \
+    else if ((D) == 32)                                                     \
       err = (BF16) ? LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__)                 \
                    : LAUNCH<float, 32>(__VA_ARGS__);                        \
     else if ((D) == 64)                                                     \

@@ -6,8 +6,18 @@
 // b it takes cost [O, P] float32 and n = num_objects[b], and writes the 0/1
 // float32 mask [O, P] of a least-cost assignment of rows 0..n-1 to distinct
 // columns, zero on rows n..O-1. It takes O <= 120 (the TPU kernel's limit)
-// and C = P + O + 1 <= 1024 columns, where the problem's cost rows and two
-// ints a column fit in 227 KB of shared memory.
+// and any P, on one of two routes:
+//   - lap_kernel<S, R> (the slots route) where C = P + O + 1 <= 1024 and the
+//     problem's cost rows and two ints a column slot fit in the 227 KB of
+//     shared memory a block may use: the flagship's [8, 32, 96] and every
+//     shape up to C = 1024 at O * P <= ~57,000;
+//   - lap_columns_kernel (the columns route) for every other shape, such as
+//     DINO's 900 queries at 120 objects (C = 1021, but 432 KB of cost rows)
+//     or P = 2000 (C = 2065): the cost rows stay in device memory and the
+//     step reads row i0 from L2, and the column state (v, minv, way, used,
+//     the owners) lives in shared memory, 17 bytes a column, or, past
+//     ~13,600 columns, in a scratch buffer in device memory that the caller
+//     allocates (generic pointers: the same code reads either).
 //
 // Columns: the P real ones, then one private dummy column per row (cost
 // -BIG to its row when the row is inactive, +BIG otherwise), then a virtual
@@ -20,7 +30,8 @@
 // chain: O augmentations of up to i + 1 Dijkstra steps each, every step a
 // dependent min over C columns, then a walk back. The TPU kernel advances
 // all problems in lockstep on its vector lanes; here each problem has its
-// own warp, and the design shortens that warp's dependent chain:
+// own warp, and the slots route's design shortens that warp's dependent
+// chain:
 //   - one block of 8 warps per problem: all 256 threads copy its cost
 //     rows into shared memory (16-byte cp.async, all in flight at once)
 //     and write its mask (16-byte stores), warp 0 alone solves;
@@ -45,9 +56,16 @@
 //     makes its columns' tags from them when a row's search starts; lane 0
 //     walks back along way (copied to shared memory at the end of each
 //     search), two loads and a store a step.
-// The float32 arithmetic is the plain version's (ops/lap.py), operation for
-// operation and in its order, so the two give the same mask, ties
-// included. A step count cap of C per search and per augmentation cannot
+// The columns route keeps the same warp and the same arithmetic but loops:
+// lane l takes columns l, l + 32, ... in each step, its minimum is the
+// first of the smallest in column order, and the warp's argmin takes the
+// lowest column among the lanes at the minimum; the next row is then one
+// read of the owners. Its step costs ~C / 32 loop turns of shared-memory
+// reads where the slots route's is straight-line registers: correct and
+// simple, not fast (ROADMAP Queue 2).
+// On both routes the float32 arithmetic is the plain version's
+// (ops/lap.py), operation for operation and in its order, so the two give
+// the same mask, ties included. A step count cap of C per search and per augmentation cannot
 // bind on finite costs (each step marks a new column used) and keeps NaN
 // costs from hanging the card.
 //
@@ -292,6 +310,24 @@ lap_kernel(const float* __restrict__ cost, const int* __restrict__ num_objects,
       })
 }
 
+// Lets `kernel` take up to SMEM_LIMIT bytes of dynamic shared memory on the
+// current card: the attribute is set once per kernel and card (`raised`
+// holds a bit a card).
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel* kernel, unsigned long long& raised) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!(raised >> device & 1ull)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    raised |= 1ull << device;
+  }
+  return cudaSuccess;
+}
+
 int slots_for(int O, int P) {
   for (int s : SLOT_CHOICES)
     if (P + O + 1 <= WARP * s) return s;
@@ -301,19 +337,9 @@ int slots_for(int O, int P) {
 template <int S, int R>
 int launch(const float* cost, const int* num_objects, float* out, int B,
            int O, int P, int vec, long long smem, cudaStream_t stream) {
-  // the shared-memory limit is raised once per instantiation and card
-  static unsigned long long raised = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static unsigned long long raised = 0;  // one per instantiation
+  const cudaError_t err = allow_smem_once(lap_kernel<S, R>, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(raised >> device & 1ull)) {
-    err = cudaFuncSetAttribute(lap_kernel<S, R>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised |= 1ull << device;
-  }
   lap_kernel<S, R><<<B, THREADS, static_cast<size_t>(smem), stream>>>(
       cost, num_objects, out, O, P, vec);
   return static_cast<int>(cudaGetLastError());
@@ -326,6 +352,125 @@ int launch_rows(const float* cost, const int* num_objects, float* out, int B,
                                   stream)
                    : launch<S, 4>(cost, num_objects, out, B, O, P, vec, smem,
                                   stream);
+}
+
+// The columns route: one problem a block, warp 0 solves, every thread
+// clears the column state and writes the mask. The cost rows are read
+// from device memory; the column state sits at `scratch` + b * stride when
+// the caller gives a scratch buffer, else in dynamic shared memory.
+__global__ void __launch_bounds__(THREADS)
+lap_columns_kernel(const float* __restrict__ cost,
+                   const int* __restrict__ num_objects,
+                   float* __restrict__ out, unsigned char* __restrict__ scratch,
+                   long long stride, int O, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int C = P + O + 1;
+  const int virt = C - 1;
+  const int free_row = O;
+  unsigned char* state = scratch != nullptr ? scratch + b * stride : smem;
+  float* v = reinterpret_cast<float*>(state);  // [C] each, then used [C]
+  float* minv = v + C;
+  int* way = reinterpret_cast<int*>(minv + C);
+  int* match = way + C;
+  unsigned char* used = reinterpret_cast<unsigned char*>(match + C);
+  const long long base = static_cast<long long>(b) * O * P;
+  const int n = num_objects[b];
+  for (int j = tid; j < C; j += THREADS) {
+    v[j] = 0.f;
+    match[j] = free_row;
+  }
+  __syncthreads();
+
+  if (tid < WARP) {
+    constexpr int R = MAX_OBJECTS / WARP + 1;  // row slots a lane: 4
+    const int lane = tid;
+    float u[R];
+    bool hit[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[r] = 0.f;
+
+    for (int i = 0; i < O; ++i) {
+      for (int j = lane; j < C; j += WARP) {
+        minv[j] = INF;
+        way[j] = virt;
+        used[j] = 0;
+      }
+      if (lane == 0) match[virt] = i;  // owned by the row inserted
+#pragma unroll
+      for (int r = 0; r < R; ++r) hit[r] = false;
+      __syncwarp();
+      int j0 = virt;
+      int i0 = i;
+      for (int step = 0; step < C; ++step) {
+        if (i0 == free_row) break;  // j0 is free: the path ends there
+        float mine = u[0];
+#pragma unroll
+        for (int r = 1; r < R; ++r) mine = i0 >= r * WARP ? u[r] : mine;
+        const float u_i0 = __shfl_sync(0xffffffffu, mine, i0 & (WARP - 1));
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r * WARP + lane == i0) hit[r] = true;
+        const bool i0_inactive = i0 >= n;
+        const float* row = cost + base + static_cast<long long>(i0) * P;
+        // the lane's minimum in column order: the first of the smallest
+        float best = INF;
+        unsigned pick = ~0u;
+        for (int j = lane; j < C; j += WARP) {
+          if (j == j0) used[j] = 1;
+          float c = (j == P + i0 && i0_inactive) ? -BIG : BIG;
+          if (j < P) c = __ldg(row + j);
+          const bool taken = used[j];
+          const float reduced = __fsub_rn(__fsub_rn(c, u_i0), v[j]);
+          float dist = minv[j];
+          if (!taken && reduced < dist) {
+            dist = reduced;
+            minv[j] = reduced;
+            way[j] = j0;
+          }
+          const float masked = taken ? INF : dist;
+          if (j == lane || masked < best) {
+            best = masked;
+            pick = static_cast<unsigned>(j);
+          }
+        }
+        warp_argmin(best, pick);
+        // as the slots route: rows owning used columns gain delta, used
+        // columns lose it, the others' distances shrink by it
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          u[r] = hit[r] ? __fadd_rn(u[r], best) : u[r];
+        for (int j = lane; j < C; j += WARP) {
+          if (used[j])
+            v[j] = __fsub_rn(v[j], best);
+          else
+            minv[j] = __fsub_rn(minv[j], best);
+        }
+        j0 = static_cast<int>(pick);
+        i0 = match[j0];  // owners change only in the walk back
+      }
+      __syncwarp();  // every lane's way, before lane 0 walks
+      if (lane == 0) walk_back(way, match, j0, virt, C);
+      __syncwarp();  // the new owners, before any lane reads them
+    }
+  }
+  __syncthreads();
+
+  float* dst = out + base;
+  for (long long e = tid; e < static_cast<long long>(O) * P; e += THREADS) {
+    const int r = static_cast<int>(e / P);
+    dst[e] = (r < n && match[e - static_cast<long long>(r) * P] == r) ? 1.f
+                                                                       : 0.f;
+  }
+}
+
+// Bytes of one problem's column state on the columns route: v and minv
+// (float32), way and the owners (int32), a used flag, for each of the C
+// columns, rounded up to 16.
+long long columns_bytes(int O, int P) {
+  const long long C = static_cast<long long>(P) + O + 1;
+  return (17 * C + 15) / 16 * 16;
 }
 
 }  // namespace
@@ -363,6 +508,33 @@ int lap_solve(const void* cost, const void* num_objects, void* out, int B,
     case 24: return launch_rows<24>(c, n, o, B, O, P, vec, smem, st);
     default: return launch_rows<32>(c, n, o, B, O, P, vec, smem, st);
   }
+}
+
+// Bytes of one problem's column state on the columns route (in shared
+// memory up to the 227 KB limit, else in the caller's scratch buffer).
+long long lap_columns_bytes(int O, int P) { return columns_bytes(O, P); }
+
+// Solves B problems by the columns route on `stream` and returns
+// cudaGetLastError(). As lap_solve, plus `scratch`: null to keep the
+// column state in shared memory (lap_columns_bytes(O, P) <= 232,448), else
+// a device buffer of B * lap_columns_bytes(O, P) bytes.
+int lap_solve_columns(const void* cost, const void* num_objects, void* out,
+                      void* scratch, int B, int O, int P, void* stream) {
+  if (B <= 0 || O <= 0 || P <= 0 || O > MAX_OBJECTS ||
+      static_cast<long long>(P) + O + 1 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bytes = columns_bytes(O, P);
+  const long long smem = scratch == nullptr ? bytes : 0;
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long raised = 0;
+  const cudaError_t err = allow_smem_once(lap_columns_kernel, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lap_columns_kernel<<<B, THREADS, static_cast<size_t>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cost), static_cast<const int*>(num_objects),
+      static_cast<float*>(out), static_cast<unsigned char*>(scratch), bytes,
+      O, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lap_error_string(int code) {

@@ -30,13 +30,14 @@
 // else: float32 weights (tensor cores would make them TF32), other patch
 // sizes (the P = 4 stem) and SAME-padded geometries.
 //
-// patchify_fwd_kernel: one thread block per output row (b, ho) and per slice
+// patchify_fwd_kernel: one thread block per output row (b, ho), per slice
 // of BN output channels (blockIdx.y; BN = N up to 128, smaller when shared
-// memory requires it). The block
-//   1. reads its P full image rows, which are contiguous in NHWC (P*W*C
-//      float32, 61 KB at the flagship), clips them, rounds them to the
-//      kernel's dtype and stages them in shared memory as float32 (exact),
-//      with SAME padding written as zeros;
+// memory requires it) and per span of the row's positions (blockIdx.z: the
+// whole row where it fits, fwd_span_plan in ops/patchify.py). The block
+//   1. reads the span's part of its P image rows, which is contiguous in
+//      NHWC (P*W*C float32 for a whole row, 61 KB at the flagship), clips
+//      it, rounds it to the kernel's dtype and stages it in shared memory as
+//      float32 (exact), with SAME padding written as zeros;
 //   2. stages the kernel slice [P*P*C, BN] in shared memory in its own dtype
 //      (48 KB bf16 at the flagship);
 //   3. lets every thread accumulate 4 positions x 4 channels in float32 by
@@ -45,8 +46,12 @@
 //      only an offset.
 // Each image byte is read from device memory once per channel slice, each
 // output byte written once; the weights are re-read from L2 by every block.
-// The host computes the shared memory from the geometry and refuses what
-// exceeds the 227 KB a block may use (ops/patchify.py).
+// The host computes the shared memory from the geometry (ops/patchify.py):
+// where P whole rows and the kernel slice pass the 227 KB a block may use
+// even at 4 channels (P = 16 at W = 4096: 786 KB of rows; P = 4 at W = 8192:
+// 393 KB), the block takes a span of the row's positions instead, the
+// longest that fits beside a slice of up to 128 channels. Each output sums
+// the same products in the same order on every cut.
 
 #include <type_traits>
 
@@ -90,21 +95,21 @@ __device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 
-// Stages image row h of image b into dst[0, row) as float32: clipped to
-// [0, 1] when clip01, rounded to WT, with SAME padding (rows outside the
-// image, columns before pad_left and past the image) as zeros. Every
-// thread of the block takes part.
+// Stages values [e0, e0 + row) of the SAME-padded image row h of image b
+// into dst[0, row) as float32: clipped to [0, 1] when clip01, rounded to
+// WT, with SAME padding (rows outside the image, columns before pad_left
+// and past the image) as zeros. Every thread of the block takes part.
 template <typename WT>
 __device__ __forceinline__ void stage_image_row(
     float* dst, const float* __restrict__ x, int b, int h, int H, int W,
-    int C, int row, int pad_left, int clip01, int vec4, WT wzero) {
+    int C, int e0, int row, int pad_left, int clip01, int vec4, WT wzero) {
   const int tid = threadIdx.x;
   if (h < 0 || h >= H) {
     for (int e = tid; e < row; e += THREADS) dst[e] = 0.f;
     return;
   }
-  const float* src = x + (static_cast<long long>(b) * H + h) * W * C;
-  if (vec4) {  // no horizontal padding, row of a multiple of 4, aligned
+  const float* src = x + (static_cast<long long>(b) * H + h) * W * C + e0;
+  if (vec4) {  // no horizontal padding, e0 and row multiples of 4, aligned
     for (int e = 4 * tid; e < row; e += 4 * THREADS) {
       float v[4];
       const float4 q = __ldg(reinterpret_cast<const float4*>(src + e));
@@ -118,11 +123,11 @@ __device__ __forceinline__ void stage_image_row(
       store4(dst + e, v);
     }
   } else {
-    const int lo = pad_left * C, hi = pad_left * C + W * C;
+    const int lo = pad_left * C - e0, hi = lo + W * C;
     for (int e = tid; e < row; e += THREADS) {
       float v = 0.f;
       if (e >= lo && e < hi) {
-        v = __ldg(src + (e - lo));
+        v = __ldg(src + (e - pad_left * C));
         if (clip01) v = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
         v = round_to(v, wzero);
       }
@@ -131,10 +136,11 @@ __device__ __forceinline__ void stage_image_row(
   }
 }
 
-// Shared memory: the image rows img [P][row] as float32, row = Wo*P*C, then
-// the kernel slice ws [K][bn] in WT, 16-byte aligned.
-__host__ __device__ inline long long image_bytes(int P, int Wo, int C) {
-  return (static_cast<long long>(P) * Wo * P * C * 4 + 15) / 16 * 16;
+// Shared memory: the image rows img [P][row] as float32, row = span*P*C
+// (span positions of the row), then the kernel slice ws [K][bn] in WT,
+// 16-byte aligned.
+__host__ __device__ inline long long image_bytes(int P, int span, int C) {
+  return (static_cast<long long>(P) * span * P * C * 4 + 15) / 16 * 16;
 }
 
 template <typename WT, typename OT>
@@ -142,13 +148,15 @@ __global__ void __launch_bounds__(THREADS)
 patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
                     OT* __restrict__ out, int H, int W, int C, int P, int N,
                     int Ho, int Wo, int pad_top, int pad_left, int bn,
-                    int clip01, int vec4) {
+                    int span, int clip01, int vec4) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int row = Wo * P * C;  // one padded image row, in values
   const int PC = P * C;
   const int K = P * PC;
+  const int w0 = blockIdx.z * span;          // the span's first position
+  const int positions = min(span, Wo - w0);  // and its positions
+  const int row = positions * PC;  // the span's part of a padded row
   float* img = reinterpret_cast<float*>(smem);
-  WT* ws = reinterpret_cast<WT*>(smem + image_bytes(P, Wo, C));
+  WT* ws = reinterpret_cast<WT*>(smem + image_bytes(P, span, C));
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / Ho;
@@ -159,7 +167,7 @@ patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   // 1. Image rows: clip, round to WT, SAME padding as zeros.
   for (int di = 0; di < P; ++di)
     stage_image_row(img + di * row, x, b, ho * P + di - pad_top, H, W, C,
-                    row, pad_left, clip01, vec4, wzero);
+                    w0 * PC, row, pad_left, clip01, vec4, wzero);
 
   // 2. Kernel slice [K, bn]; channels past N are zero.
   for (int e = tid; e < K * bn; e += THREADS) {
@@ -176,15 +184,18 @@ patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   const int rg = THREADS / groups;
   const int j0 = (tid % groups) * TN;
   const int ty = tid / groups;
-  OT* out_row = out + (static_cast<long long>(b) * Ho + ho) * Wo * N;
+  OT* out_row =
+      out + ((static_cast<long long>(b) * Ho + ho) * Wo + w0) * N;
   const bool vec_out = (N % TN == 0) && (n0 + j0 + TN <= N);
 
-  for (int wb = ty; wb < Wo; wb += TM * rg) {
+  // wo counts the span's positions
+  for (int wb = ty; wb < positions; wb += TM * rg) {
     int base[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int wo = wb + i * rg;
-      base[i] = (wo < Wo ? wo : 0) * PC;  // out-of-row positions are not stored
+      // out-of-span positions are not stored
+      base[i] = (wo < positions ? wo : 0) * PC;
     }
     float acc[TM][TN];
 #pragma unroll
@@ -211,7 +222,7 @@ patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int wo = wb + i * rg;
-      if (wo >= Wo) continue;
+      if (wo >= positions) continue;
       OT* dst = out_row + static_cast<long long>(wo) * N + n0 + j0;
       if (vec_out) {
         store4(dst, acc[i]);
@@ -227,17 +238,18 @@ patchify_fwd_kernel(const float* __restrict__ x, const WT* __restrict__ w,
 template <typename WT, typename OT>
 cudaError_t launch(const float* x, const void* w, void* out, int batch, int H,
                    int W, int C, int P, int N, int Ho, int Wo, int pad_top,
-                   int pad_left, int bn, int clip01, int vec4,
+                   int pad_left, int bn, int span, int clip01, int vec4,
                    long long smem_bytes, cudaStream_t stream) {
   auto kernel = patchify_fwd_kernel<WT, OT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned int>(batch) * Ho, (N + bn - 1) / bn);
+  const dim3 grid(static_cast<unsigned int>(batch) * Ho, (N + bn - 1) / bn,
+                  (Wo + span - 1) / span);
   kernel<<<grid, THREADS, static_cast<size_t>(smem_bytes), stream>>>(
       x, static_cast<const WT*>(w), static_cast<OT*>(out), H, W, C, P, N, Ho,
-      Wo, pad_top, pad_left, bn, clip01, vec4);
+      Wo, pad_top, pad_left, bn, span, clip01, vec4);
   return cudaGetLastError();
 }
 
@@ -614,18 +626,21 @@ cudaError_t launch_mma_tiles(int MT, int NB, const float* x, const void* w,
 // geometries:
 //   1. patchify_dw_partial_kernel: block (chunk, k tile, n tile) sums the
 //      positions of a chunk of output rows (b, ho) into a [BK, BN] float32
-//      tile of its chunk's partial. For each row it stages the image rows
-//      that its k tile touches (the row of intra-patch offset di is
-//      contiguous in NHWC, as in the forward: the gather is an offset) and
-//      the g row, both rounded, in shared memory; each thread accumulates
-//      TK x TN outputs by FMA over the row's Wo positions.
+//      tile of its chunk's partial. For each row, one span of its positions
+//      after another (the whole row where it fits), it stages the part of
+//      the image rows that its k tile touches (the row of intra-patch
+//      offset di is contiguous in NHWC, as in the forward: the gather is an
+//      offset) and of the g row, both rounded, in shared memory; each
+//      thread accumulates TK x TN outputs by FMA over the span's positions,
+//      so every cut sums the row's positions in the same order.
 //   2. patchify_partials_sum_kernel: each thread sums one (k, n) over the
 //      chunks in chunk order and writes the float32 sum and its cast.
 // The host sizes the chunks to give about two blocks per SM. Bytes: the
 // image rows a k tile touches overlap the next tile's by up to one row, and
 // the partials (7.9 MB at the flagship) are written and read once more.
-// The products run on the CUDA cores; it stages whole rows, so the host
-// refuses widths whose rows do not fit in shared memory.
+// The products run on the CUDA cores. The span is the longest that fits
+// in shared memory (dw_span_plan in ops/patchify.py): a whole row at the
+// flagship, 213 of 256 positions at P = 16 and W = 4096.
 
 constexpr int DW_TK = 4;                    // k values per thread
 constexpr int DW_TN = 8;                    // n values per thread
@@ -638,9 +653,11 @@ __host__ __device__ inline int dw_rows_staged(int P, int C) {
   return rows < P ? rows : P;
 }
 
-// The staged image rows, in floats, rounded up to whole 16-byte groups.
-__host__ __device__ inline long long dw_image_floats(int P, int C, int Wo) {
-  const long long n = static_cast<long long>(dw_rows_staged(P, C)) * Wo * P * C;
+// The staged image rows of a span of positions, in floats, rounded up to
+// whole 16-byte groups.
+__host__ __device__ inline long long dw_image_floats(int P, int C, int span) {
+  const long long n =
+      static_cast<long long>(dw_rows_staged(P, C)) * span * P * C;
   return (n + 3) / 4 * 4;
 }
 
@@ -656,13 +673,13 @@ patchify_dw_partial_kernel(const float* __restrict__ x,
                            float* __restrict__ partial, int batch, int H,
                            int W, int C, int P, int N, int Ho, int Wo,
                            int pad_top, int pad_left, int rows_per_chunk,
-                           int clip01, int vec4) {
+                           int span, int clip01, int vec4) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int row = Wo * P * C;  // one padded image row, in values
+  const int row = span * P * C;  // a span's part of a padded row, in values
   const int PC = P * C;
   const int K = P * PC;
   float* img = reinterpret_cast<float*>(smem);   // [staged][row]
-  float* gs = img + dw_image_floats(P, C, Wo);   // [Wo][DW_BN], 16B aligned
+  float* gs = img + dw_image_floats(P, C, span);  // [span][DW_BN], aligned
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // n group
@@ -699,34 +716,38 @@ patchify_dw_partial_kernel(const float* __restrict__ x,
   for (int r = r_begin; r < r_end; ++r) {
     const int b = r / Ho;
     const int ho = r - b * Ho;
-    for (int di = di_lo; di <= di_hi; ++di)
-      stage_image_row(img + (di - di_lo) * row, x, b, ho * P + di - pad_top,
-                      H, W, C, row, pad_left, clip01, vec4, wzero);
-    const GT* g_row = g + static_cast<long long>(r) * Wo * N;
-    for (int e = tid; e < Wo * DW_BN; e += THREADS) {
-      const int wo = e / DW_BN;
-      const int n = n0 + (e - wo * DW_BN);
-      gs[e] = n < N ? round_to(load_as_float(g_row + static_cast<long long>(wo) * N + n), wzero)
-                    : 0.f;
+    for (int w0 = 0; w0 < Wo; w0 += span) {
+      const int positions = min(span, Wo - w0);
+      for (int di = di_lo; di <= di_hi; ++di)
+        stage_image_row(img + (di - di_lo) * row, x, b, ho * P + di - pad_top,
+                        H, W, C, w0 * PC, positions * PC, pad_left, clip01,
+                        vec4, wzero);
+      const GT* g_row = g + (static_cast<long long>(r) * Wo + w0) * N;
+      for (int e = tid; e < positions * DW_BN; e += THREADS) {
+        const int wo = e / DW_BN;
+        const int n = n0 + (e - wo * DW_BN);
+        gs[e] = n < N ? round_to(load_as_float(g_row + static_cast<long long>(wo) * N + n), wzero)
+                      : 0.f;
+      }
+      __syncthreads();
+      for (int wo = 0; wo < positions; ++wo) {
+        const float* a_base = img + wo * PC;
+        float a[DW_TK];
+#pragma unroll
+        for (int t = 0; t < DW_TK; ++t) a[t] = a_base[off[t]];
+        float gv[DW_TN];
+        const float4 g0 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN);
+        const float4 g1 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN + 4);
+        gv[0] = g0.x; gv[1] = g0.y; gv[2] = g0.z; gv[3] = g0.w;
+        gv[4] = g1.x; gv[5] = g1.y; gv[6] = g1.z; gv[7] = g1.w;
+#pragma unroll
+        for (int t = 0; t < DW_TK; ++t)
+#pragma unroll
+          for (int q = 0; q < DW_TN; ++q)
+            acc[t][q] = fmaf(a[t], gv[q], acc[t][q]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int wo = 0; wo < Wo; ++wo) {
-      const float* a_base = img + wo * PC;
-      float a[DW_TK];
-#pragma unroll
-      for (int t = 0; t < DW_TK; ++t) a[t] = a_base[off[t]];
-      float gv[DW_TN];
-      const float4 g0 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN);
-      const float4 g1 = *reinterpret_cast<const float4*>(gs + wo * DW_BN + tx * DW_TN + 4);
-      gv[0] = g0.x; gv[1] = g0.y; gv[2] = g0.z; gv[3] = g0.w;
-      gv[4] = g1.x; gv[5] = g1.y; gv[6] = g1.z; gv[7] = g1.w;
-#pragma unroll
-      for (int t = 0; t < DW_TK; ++t)
-#pragma unroll
-        for (int q = 0; q < DW_TN; ++q)
-          acc[t][q] = fmaf(a[t], gv[q], acc[t][q]);
-    }
-    __syncthreads();
   }
 
   float* dst = partial + static_cast<long long>(blockIdx.x) * K * N;
@@ -755,18 +776,19 @@ patchify_partials_sum_kernel(const float* __restrict__ partial, int chunks,
   store1(dw + e, s);
 }
 
-__host__ __device__ inline long long dw_smem(int P, int C, int Wo) {
-  return 4LL * dw_image_floats(P, C, Wo) + 4LL * Wo * DW_BN;
+// The image rows and the g row of a span of positions.
+__host__ __device__ inline long long dw_smem(int P, int C, int span) {
+  return 4LL * dw_image_floats(P, C, span) + 4LL * span * DW_BN;
 }
 
 template <typename WT, typename GT>
 cudaError_t launch_dw(const float* x, const void* g, float* partial,
                       float* dw32, void* dw, int batch, int H, int W, int C,
                       int P, int N, int Ho, int Wo, int pad_top, int pad_left,
-                      int rows_per_chunk, int chunks, int clip01, int vec4,
-                      cudaStream_t stream) {
+                      int rows_per_chunk, int chunks, int span, int clip01,
+                      int vec4, cudaStream_t stream) {
   auto kernel = patchify_dw_partial_kernel<WT, GT>;
-  const long long smem = dw_smem(P, C, Wo);
+  const long long smem = dw_smem(P, C, span);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -775,7 +797,7 @@ cudaError_t launch_dw(const float* x, const void* g, float* partial,
   const dim3 grid(chunks, (K + DW_BK - 1) / DW_BK, (N + DW_BN - 1) / DW_BN);
   kernel<<<grid, THREADS, static_cast<size_t>(smem), stream>>>(
       x, static_cast<const GT*>(g), partial, batch, H, W, C, P, N, Ho, Wo,
-      pad_top, pad_left, rows_per_chunk, clip01, vec4);
+      pad_top, pad_left, rows_per_chunk, span, clip01, vec4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int KN = K * N;
@@ -1086,45 +1108,49 @@ cudaError_t launch_dw_mma(const float* x, const bf16* g, float* partial,
 
 extern "C" {
 
-// Shared memory one block of the kernel needs for this geometry, in bytes.
-// The wrapper checks it against the card's limit before it launches.
-long long patchify_smem_bytes(int P, int C, int Wo, int bn, int w_bf16) {
+// Shared memory one block of the kernel needs for a span of `span`
+// positions and `bn` channels, in bytes. The wrapper checks it against the
+// card's limit before it launches.
+long long patchify_smem_bytes(int P, int C, int span, int bn, int w_bf16) {
   const long long k = static_cast<long long>(P) * P * C;
-  return image_bytes(P, Wo, C) + k * bn * (w_bf16 ? 2 : 4);
+  return image_bytes(P, span, C) + k * bn * (w_bf16 ? 2 : 4);
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = the
 // launch was accepted). Pointers are device pointers of contiguous tensors;
 // the caller allocates `out` [batch, Ho, Wo, N]. `bn` is a power of two
-// from 4 to 128.
+// from 4 to 128; a block takes `span` of a row's Wo positions (with vec4,
+// span * P * C is a multiple of 4).
 int patchify_fwd(const void* x, const void* w, void* out, int batch, int H,
                  int W, int C, int P, int N, int Ho, int Wo, int pad_top,
-                 int pad_left, int bn, int w_bf16, int out_bf16, int clip01,
-                 int vec4, void* stream) {
+                 int pad_left, int bn, int span, int w_bf16, int out_bf16,
+                 int clip01, int vec4, void* stream) {
   if (batch <= 0 || Ho <= 0 || Wo <= 0 || N <= 0 || C <= 0 || P <= 0 ||
-      bn < TN || bn > 128 || (bn & (bn - 1)) != 0 ||
-      static_cast<long long>(batch) * Ho > 0x7fffffffLL ||
-      (N + bn - 1) / bn > 65535)
+      bn < TN || bn > 128 || (bn & (bn - 1)) != 0 || span <= 0 ||
+      span > Wo || static_cast<long long>(batch) * Ho > 0x7fffffffLL ||
+      (N + bn - 1) / bn > 65535 || (Wo + span - 1) / span > 65535 ||
+      (vec4 && (static_cast<long long>(span) * P * C) % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = patchify_smem_bytes(P, C, Wo, bn, w_bf16);
+  const long long smem = patchify_smem_bytes(P, C, span, bn, w_bf16);
   const float* xf = static_cast<const float*>(x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (w_bf16 && out_bf16)
     err = launch<__nv_bfloat16, __nv_bfloat16>(
         xf, w, out, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left, bn,
-        clip01, vec4, smem, s);
+        span, clip01, vec4, smem, s);
   else if (w_bf16)
     err = launch<__nv_bfloat16, float>(xf, w, out, batch, H, W, C, P, N, Ho,
-                                       Wo, pad_top, pad_left, bn, clip01,
-                                       vec4, smem, s);
+                                       Wo, pad_top, pad_left, bn, span,
+                                       clip01, vec4, smem, s);
   else if (out_bf16)
     err = launch<float, __nv_bfloat16>(xf, w, out, batch, H, W, C, P, N, Ho,
-                                       Wo, pad_top, pad_left, bn, clip01,
-                                       vec4, smem, s);
+                                       Wo, pad_top, pad_left, bn, span,
+                                       clip01, vec4, smem, s);
   else
     err = launch<float, float>(xf, w, out, batch, H, W, C, P, N, Ho, Wo,
-                               pad_top, pad_left, bn, clip01, vec4, smem, s);
+                               pad_top, pad_left, bn, span, clip01, vec4,
+                               smem, s);
   return static_cast<int>(err);
 }
 
@@ -1160,9 +1186,10 @@ int patchify_fwd_mma(const void* x, const void* w, void* out, int batch,
 }
 
 // Shared memory one block of the weight-gradient kernel needs, in bytes:
-// the image rows a k tile touches and one g row.
-long long patchify_dw_smem_bytes(int P, int C, int Wo) {
-  return dw_smem(P, C, Wo);
+// the image rows a k tile touches and the g row, over a span of `span`
+// positions.
+long long patchify_dw_smem_bytes(int P, int C, int span) {
+  return dw_smem(P, C, span);
 }
 
 // Launches the two passes of the weight gradient on `stream` and returns
@@ -1170,15 +1197,18 @@ long long patchify_dw_smem_bytes(int P, int C, int Wo) {
 // float32, g [batch, Ho, Wo, N] (bfloat16 when g_bf16, else float32),
 // partial [chunks, K, N] float32 scratch, dw32 [K, N] float32 and dw [K, N]
 // (bfloat16 when w_bf16, else float32) are device pointers of contiguous
-// tensors, K = P*P*C; chunks * rows_per_chunk >= batch * Ho.
+// tensors, K = P*P*C; chunks * rows_per_chunk >= batch * Ho; a block stages
+// `span` of a row's positions at a time (with vec4, span * P * C is a
+// multiple of 4).
 int patchify_dw(const void* x, const void* g, void* partial, void* dw32,
                 void* dw, int batch, int H, int W, int C, int P, int N,
                 int Ho, int Wo, int pad_top, int pad_left, int rows_per_chunk,
-                int chunks, int w_bf16, int g_bf16, int clip01, int vec4,
-                void* stream) {
+                int chunks, int span, int w_bf16, int g_bf16, int clip01,
+                int vec4, void* stream) {
   const long long K = static_cast<long long>(P) * P * C;
   if (batch <= 0 || Ho <= 0 || Wo <= 0 || N <= 0 || C <= 0 || P <= 0 ||
-      rows_per_chunk <= 0 || chunks <= 0 ||
+      rows_per_chunk <= 0 || chunks <= 0 || span <= 0 || span > Wo ||
+      (vec4 && (static_cast<long long>(span) * P * C) % 4 != 0) ||
       static_cast<long long>(chunks) * rows_per_chunk <
           static_cast<long long>(batch) * Ho ||
       (K + DW_BK - 1) / DW_BK > 65535 || (N + DW_BN - 1) / DW_BN > 65535 ||
@@ -1192,19 +1222,19 @@ int patchify_dw(const void* x, const void* g, void* partial, void* dw32,
   if (w_bf16 && g_bf16)
     err = launch_dw<__nv_bfloat16, __nv_bfloat16>(
         xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
-        rows_per_chunk, chunks, clip01, vec4, s);
+        rows_per_chunk, chunks, span, clip01, vec4, s);
   else if (w_bf16)
     err = launch_dw<__nv_bfloat16, float>(
         xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
-        rows_per_chunk, chunks, clip01, vec4, s);
+        rows_per_chunk, chunks, span, clip01, vec4, s);
   else if (g_bf16)
     err = launch_dw<float, __nv_bfloat16>(
         xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
-        rows_per_chunk, chunks, clip01, vec4, s);
+        rows_per_chunk, chunks, span, clip01, vec4, s);
   else
     err = launch_dw<float, float>(
         xf, g, pf, d32, dw, batch, H, W, C, P, N, Ho, Wo, pad_top, pad_left,
-        rows_per_chunk, chunks, clip01, vec4, s);
+        rows_per_chunk, chunks, span, clip01, vec4, s);
   return static_cast<int>(err);
 }
 

@@ -20,14 +20,20 @@ p^T dO``. ``delta`` is one plain torch pass, as JAX leaves it to XLA.
 
 The kernels, ``csrc/attention.cu``, are CUDA C++ for ``sm_90a``, built by
 nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32,
-64 and 128. Any other head dim is padded with zeros to the next of the
-three (ViT-Huge's D = 80 to 128), the launch given the true 1/sqrt(D) and
-the outputs sliced back (``_padded``), as the TPU kernel pads D to 128; a
-head dim over 128 on a CUDA tensor raises. At D = 128 the kernels take
-their tiles from dynamic shared memory (opted in above 48 KB) and the
-bf16 dk/dv kernel reads the block's k and v rows from shared memory
-instead of holding them in registers; the arithmetic is the same at every
-D, so the emulations below describe it at D = 128 too. They take
+64 and 128, and for D = 128 n (n >= 2) in 128-wide chunks. Any other head
+dim is padded with zeros (``_padded``): up to the next of 32, 64 and 128
+at most 128 (ViT-Huge's D = 80 to 128), else to the next multiple of 128
+(D = 160 to 256), as the TPU kernel pads D to a multiple of 128; the
+launch is given the true 1/sqrt(D) and the outputs are sliced back. At
+D = 128 the kernels take their tiles from dynamic shared memory (opted in
+above 48 KB) and the bf16 dk/dv kernel reads the block's k and v rows from
+shared memory instead of holding them in registers. Past 128 a grid axis
+runs over the output's 128-wide chunks: each block owns one chunk of out,
+dq, dk or dv, and computes the logits (and dP) over the whole head dim,
+one staged 128-wide chunk after another in the same order in every
+block, so all blocks of a row group compute the same p and ds. The
+arithmetic is the same at every D, so the emulations below describe it at
+D = 128 and past it too. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
 strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
@@ -67,7 +73,10 @@ from typing import Optional, Tuple
 
 import torch
 
+# The head dims the kernels are built for; past the last they take
+# multiples of it, in chunks of it.
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+CHUNK = SUPPORTED_HEAD_DIMS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
 
@@ -148,7 +157,23 @@ def attention_dkdv_reference(q, k, v, g, lse, delta
 
 
 _TILE = 64  # rows of the streamed operand per step of the bf16 kernels
+# queries a tile of the bf16 dk/dv kernel past D = 128
+_DKDV_WIDE_TILE = 32
 _LOG2E = 1.4426950408889634
+
+
+def _logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T in float32 as the tensor-core kernels sum it: past D = 128
+    one 128-wide chunk of the head dim after another, in order, as each
+    block of the wide kernels stages them."""
+    d = a.shape[-1]
+    if d <= CHUNK:
+        return a @ b.transpose(1, 2)
+    out = a[..., :CHUNK] @ b[..., :CHUNK].transpose(1, 2)
+    for c0 in range(CHUNK, d, CHUNK):
+        out = out + (a[..., c0:c0 + CHUNK]
+                     @ b[..., c0:c0 + CHUNK].transpose(1, 2))
+    return out
 
 
 def _two_bf16(x: torch.Tensor, split: bool) -> Tuple[torch.Tensor, ...]:
@@ -164,16 +189,18 @@ def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool,
     exact product of the inputs (bf16 on the card) summed in float32, the
     scale applied to the float32 logit, and (p, ds) as their bf16 parts.
     Yields (slice of the streamed rows, parts of p, parts of ds), the
-    stream running over 64-row key tiles (dq) or query tiles (dk/dv)."""
+    stream running over 64-row key tiles (dq) or query tiles (dk/dv; 32
+    rows past D = 128)."""
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     rows = k.shape[1] if over_keys else q.shape[1]
-    for r0 in range(0, rows, _TILE):
-        tile = slice(r0, r0 + _TILE)
+    step = (_DKDV_WIDE_TILE if not over_keys and q.shape[-1] > CHUNK
+            else _TILE)
+    for r0 in range(0, rows, step):
+        tile = slice(r0, r0 + step)
         qs, ks = (slice(None), tile) if over_keys else (tile, slice(None))
-        s = qf[:, qs] @ kf[:, ks].transpose(1, 2)
+        s = _logits(qf[:, qs], kf[:, ks])
         p = torch.exp(s * scale - lse[:, qs, None])
-        ds = p * (gf[:, qs] @ vf[:, ks].transpose(1, 2)
-                  - delta[:, qs, None])
+        ds = p * (_logits(gf[:, qs], vf[:, ks]) - delta[:, qs, None])
         yield tile, _two_bf16(p, split), _two_bf16(ds, split)
 
 
@@ -188,7 +215,10 @@ def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
     ``denom`` summed from the float32 p, and p entering ``p @ v`` as bf16
     hi + lo. With ``split=False`` p is rounded to one bf16 value instead.
     ``scale`` (1/sqrt(D) by default) is the one the launch is given: a
-    head dim padded with zeros keeps the true one (``_padded``)."""
+    head dim padded with zeros keeps the true one (``_padded``). Past
+    D = 128 the logits are summed chunk by chunk (``_logits``), as every
+    block of the wide kernel sums them before it takes its 128-wide chunk
+    of the output."""
     _check(q, k, v)
     scale = _scale(q.shape[-1]) if scale is None else scale
     scale2 = scale * _LOG2E
@@ -198,7 +228,7 @@ def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for k0 in range(0, k.shape[1], _TILE):
         tile = slice(k0, k0 + _TILE)
-        s = qf @ kf[:, tile].transpose(1, 2)
+        s = _logits(qf, kf[:, tile])
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2((m - m_new) * scale2)
         p = torch.exp2(s * scale2 - m_new * scale2)
@@ -281,24 +311,27 @@ def _use_kernel(name: str, q, k, v, *grad) -> bool:
     _check(q, k, v)
     if grad:
         _check_grad(q, *grad)
-    d = q.shape[-1]
-    if d > SUPPORTED_HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim D={d} is not supported; the "
-                         f"kernels are built for D in {SUPPORTED_HEAD_DIMS} "
-                         f"and take smaller ones padded with zeros")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the kernels take contiguous tensors")
     return True
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run D at: the smallest of
+    ``SUPPORTED_HEAD_DIMS`` that holds it, else the next multiple of
+    ``CHUNK`` (as the TPU kernel pads D to a multiple of 128,
+    pallas_attention.py:86)."""
+    return next((n for n in SUPPORTED_HEAD_DIMS if n >= d),
+                -(-d // CHUNK) * CHUNK)
+
+
 def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """[BH, T, D] tensors with D padded with zeros to the smallest head dim
-    the kernels are built for (as the TPU kernel pads D to 128,
-    pallas_attention.py:86); as they are where D is one. Zero columns add
+    """[BH, T, D] tensors with D padded with zeros to
+    ``padded_head_dim(D)``; as they are where D is that. Zero columns add
     nothing to q.k, to the rows' sums of g * out (delta) or to the lse,
     and the padded columns of out, dq, dk and dv come out zero."""
     d = tensors[0].shape[-1]
-    padded = next(n for n in SUPPORTED_HEAD_DIMS if n >= d)
+    padded = padded_head_dim(d)
     if padded == d:
         return tensors
     return tuple(torch.nn.functional.pad(t, (0, padded - d))

@@ -20,14 +20,18 @@ deterministically, with the lowest index winning a tie in the argmin
 (``torch.min`` over a dim returns the first minimum, as ``jnp.argmin``
 does). It is also the port's ``matcher="hungarian"`` solver.
 
-The kernel, ``csrc/lap.cu``, is CUDA C++ for ``sm_90a``: one warp solves
-each problem, the C columns spread over its 32 lanes in a number of slots
-fitted to C, the row duals in registers, the cost rows in shared memory, a
-``redux.sync`` argmin. It repeats the plain version's float32 arithmetic
-operation for operation, so the two give the same mask, ties included.
-``kernel_plan`` says which shapes it takes: O <= 120 rows (the TPU
-kernel's limit) and C <= 1024 columns, where the cost rows and two ints a
-column slot fit in the 227 KB of shared memory a block may use.
+The kernels, ``csrc/lap.cu``, are CUDA C++ for ``sm_90a``: one warp solves
+each problem, the row duals in registers, a ``redux.sync`` argmin. They
+take O <= 120 rows (the TPU kernel's limit) and any P, on two routes that
+``kernel_plan`` chooses from the shape: ``lap_kernel`` (the "slots" route)
+spreads the C columns over the 32 lanes in a number of register slots
+fitted to C and keeps the cost rows in shared memory, where C <= 1024 and
+the rows fit in the 227 KB a block may use; ``lap_columns_kernel`` takes
+every other shape, reading the cost rows from device memory and keeping
+the column state in shared memory ("columns_shared") or, past ~13,600
+columns, in a scratch buffer the wrapper allocates ("columns_global").
+Both repeat the plain version's float32 arithmetic operation for
+operation, so they give its mask, ties included.
 """
 
 from __future__ import annotations
@@ -49,14 +53,25 @@ SMEM_LIMIT = 232448
 
 
 class LapPlan(NamedTuple):
-    """How the kernel solves a problem of O rows and P columns."""
-    slots: int  # columns a lane holds: 32 * slots >= P + O + 1
-    smem: int   # shared memory a problem takes, in bytes
+    """How the kernels solve a problem of O rows and P columns."""
+    route: str  # "slots", "columns_shared" or "columns_global"
+    slots: int  # columns a lane holds in registers (slots route), else 0
+    smem: int   # dynamic shared memory of one problem's block, in bytes
+    scratch: int  # device-memory bytes of one problem's column state
+
+
+def columns_bytes(o: int, p: int) -> int:
+    """One problem's column state on the columns route (``lap.cu``'s
+    ``columns_bytes``): 17 bytes a column, rounded up to 16."""
+    return (17 * (p + o + 1) + 15) // 16 * 16
 
 
 def kernel_plan(o: int, p: int) -> LapPlan:
-    """The kernel's plan for O rows and P columns; raises ValueError,
-    naming the limit, for a shape the kernel does not take."""
+    """The kernels' plan for O rows and P columns: the slots route where
+    C = P + O + 1 <= 1024 and the cost rows fit beside two ints a column
+    slot in shared memory, else the columns route, its column state in
+    shared memory while it fits. Raises ValueError, naming the limit, for
+    O > 120, the TPU kernel's own limit."""
     if o < 1 or p < 1:
         raise ValueError(f"hungarian_lap: O={o} and P={p} must be positive")
     if o > MAX_OBJECTS:
@@ -64,16 +79,13 @@ def kernel_plan(o: int, p: int) -> LapPlan:
                          f"{MAX_OBJECTS} rows, got O={o}")
     columns = p + o + 1
     slots = next((s for s in SLOT_CHOICES if columns <= WARP * s), 0)
-    if not slots:
-        raise ValueError(f"hungarian_lap: the kernel takes P + O + 1 <= "
-                         f"{WARP * SLOT_CHOICES[-1]} columns, got P={p}, "
-                         f"O={o}")
     smem = 4 * (o * p + 2 * WARP * slots)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"hungarian_lap: a problem needs {smem} bytes of "
-                         f"shared memory at O={o}, P={p}, over the "
-                         f"{SMEM_LIMIT}-byte limit")
-    return LapPlan(slots, smem)
+    if slots and smem <= SMEM_LIMIT:
+        return LapPlan("slots", slots, smem, 0)
+    state = columns_bytes(o, p)
+    if state <= SMEM_LIMIT:
+        return LapPlan("columns_shared", 0, state, 0)
+    return LapPlan("columns_global", 0, 0, state)
 
 
 def _check(cost: torch.Tensor, num_objects: torch.Tensor):
@@ -176,8 +188,13 @@ def _library() -> ctypes.CDLL:
     lib.lap_solve.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                               + [ctypes.c_void_p])
     lib.lap_solve.restype = ctypes.c_int
-    lib.lap_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.lap_smem_bytes.restype = ctypes.c_longlong
+    lib.lap_solve_columns.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p])
+    lib.lap_solve_columns.restype = ctypes.c_int
+    for name in ("lap_smem_bytes", "lap_columns_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 2
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.lap_error_string.argtypes = [ctypes.c_int]
     lib.lap_error_string.restype = ctypes.c_char_p
     return lib
@@ -200,19 +217,28 @@ def hungarian_lap(cost: torch.Tensor, num_objects: torch.Tensor
     b, o, p = cost.shape
     if b * o * p == 0:
         return torch.empty((b, o, p), dtype=torch.float32, device=cost.device)
-    kernel_plan(o, p)
+    plan = kernel_plan(o, p)
     cost = cost.detach().float().contiguous()
     n = num_objects.to(device=cost.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, o, p), dtype=torch.float32, device=cost.device)
     lib = _library()
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lap_solve(cost.data_ptr(), n.data_ptr(), out.data_ptr(), b,
-                           o, p, stream)
+        if plan.route == "slots":
+            rc = lib.lap_solve(cost.data_ptr(), n.data_ptr(), out.data_ptr(),
+                               b, o, p, stream)
+        else:
+            scratch = (torch.empty(b * plan.scratch, dtype=torch.uint8,
+                                   device=cost.device)
+                       if plan.scratch else None)
+            rc = lib.lap_solve_columns(
+                cost.data_ptr(), n.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, o, p,
+                stream)
     if rc != 0:
-        raise RuntimeError(f"lap_solve launch failed: "
+        raise RuntimeError(f"hungarian_lap launch failed: "
                            f"{lib.lap_error_string(rc).decode()} (B={b}, "
-                           f"O={o}, P={p})")
+                           f"O={o}, P={p}, {plan.route} route)")
     hungarian_lap.launches += 1
     return out
 

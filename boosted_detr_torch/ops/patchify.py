@@ -22,8 +22,9 @@ Counterpart of boosted_detr_tpu/ops/pallas_patchify.py: ``patchify_conv``
   (float32 weights, the P = 4 stem, SAME-padded geometries, misaligned
   tensors): one block an output row and a slice of up to 128 channels, the
   P image rows staged as float32 beside the kernel slice, FMA on the CUDA
-  cores; ``_channel_slice`` narrows the slice until a block fits in 227 KB
-  and raises with the geometry when none does.
+  cores; ``fwd_span_plan`` narrows the slice until a block fits in 227 KB
+  and, where P whole rows do not fit even at 4 channels (P = 16 at
+  W = 4096), gives a block a span of the row's positions instead.
 
 Bound on an H100 SXM at the flagship shape (x f32 [8, 640, 640, 3], w bf16
 [8, 8, 3, 128], out bf16 [8, 80, 80, 128]): 39.3 MB read plus 13.1 MB
@@ -58,7 +59,9 @@ width: a block owns a [192 x 128] tile of dw in registers over a chunk of
 80-position stages that stream two deep, image rows and g through
 ``cp.async``); ``patchify_dw_emulation`` is its order of sums in plain
 torch, for the tests. ``patchify_dw_partial_kernel`` keeps float32
-weights, the P = 4 stem and SAME-padded geometries.
+weights, the P = 4 stem and SAME-padded geometries, at any width: it
+stages a span of a row's positions at a time (``dw_span_plan``), the
+whole row where it fits, the same sums in the same order on every cut.
 ``PatchifyConvFn`` is the custom VJP (:178-206): forward through
 ``patchify_conv``, dW through ``patchify_conv_dw``, and dx in plain torch
 (depth-to-space of g times the kernel, zeroed where the clip cut) only when
@@ -211,12 +214,12 @@ SMEM_LIMIT = 232448
 
 # The C entry points of csrc/patchify.cu: (argument types, result type).
 _SIGNATURES = {
-    "patchify_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
+    "patchify_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
                      + [ctypes.c_void_p], ctypes.c_int),
     "patchify_fwd_mma": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
                          + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
     "patchify_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    "patchify_dw": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
+    "patchify_dw": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
                     + [ctypes.c_void_p], ctypes.c_int),
     "patchify_dw_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "patchify_dw_mma": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
@@ -236,25 +239,94 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _channel_slice(lib, p: int, c_in: int, wo: int, c_out: int,
-                   w_bf16: bool) -> Tuple[int, int]:
-    """(channels per block, shared memory bytes): all of ``c_out`` up to
-    128, halved while the block's image rows and kernel slice exceed
-    ``SMEM_LIMIT``. Raises with the geometry when not even 4 channels fit."""
-    bn = 4
-    while bn < min(c_out, 128):
-        bn *= 2
-    while True:
-        smem = lib.patchify_smem_bytes(p, c_in, wo, bn, int(w_bf16))
+# A block of the forward cut into spans takes the widest channel slice
+# that leaves room for this many positions (or the whole row).
+MIN_SPAN = 32
+
+
+class SpanPlan(NamedTuple):
+    """How a CUDA-core kernel cuts a row of ``wo`` output positions: a
+    block stages ``span`` positions at a time (``wo``: the whole row) for
+    ``channels`` output channels (the forward's slice; the weight
+    gradient's 128-channel tile), in ``smem`` bytes of shared memory."""
+    channels: int
+    span: int
+    smem: int
+
+
+def fwd_smem_bytes(p: int, c_in: int, span: int, bn: int,
+                   w_bf16: bool) -> int:
+    """``patchify_smem_bytes``: P image rows of ``span`` positions as
+    float32, rounded up to 16 bytes, then the [P*P*C_in, bn] kernel
+    slice."""
+    image = (p * span * p * c_in * 4 + 15) // 16 * 16
+    return image + p * p * c_in * bn * (2 if w_bf16 else 4)
+
+
+def dw_smem_bytes(p: int, c_in: int, span: int) -> int:
+    """``dw_smem``: the image rows a 64-value k tile touches and the g row
+    (128 channels), both float32, over ``span`` positions."""
+    pc = p * c_in
+    rows = min((DW_TILE_K - 1) // pc + 2, p)
+    image = -(-rows * span * pc // 4) * 4
+    return 4 * image + 4 * span * DW_TILE_N
+
+
+def _longest_span(wo: int, fits) -> int:
+    """The most positions up to ``wo`` for which ``fits`` holds, cut into
+    equal spans; 0 where not even one fits."""
+    lo, hi = 0, wo
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo and -(-wo // -(-wo // lo))
+
+
+def fwd_span_plan(p: int, c_in: int, wo: int, c_out: int,
+                  w_bf16: bool) -> SpanPlan:
+    """The CUDA-core forward's cut: whole rows with all of ``c_out`` up to
+    128 channels a block, the slice halved down to 4 while a block passes
+    ``SMEM_LIMIT``; where not even 4 channels fit beside P whole rows, the
+    widest slice whose block holds ``MIN_SPAN`` positions (or the row), at
+    the longest span that fits. Raises with the geometry when not one
+    position fits."""
+    top = 4
+    while top < min(c_out, 128):
+        top *= 2
+    bn = top
+    while bn >= 4:
+        smem = fwd_smem_bytes(p, c_in, wo, bn, w_bf16)
         if smem <= SMEM_LIMIT:
-            return bn, smem
+            return SpanPlan(bn, wo, smem)
+        bn //= 2
+    bn = top
+    while True:
+        span = _longest_span(wo, lambda n: fwd_smem_bytes(
+            p, c_in, n, bn, w_bf16) <= SMEM_LIMIT)
+        if span >= min(wo, MIN_SPAN) or (bn == 4 and span):
+            return SpanPlan(bn, span,
+                            fwd_smem_bytes(p, c_in, span, bn, w_bf16))
         if bn == 4:
             raise ValueError(
-                f"patchify_conv: a block needs {smem} bytes of shared memory "
-                f"for P={p}, C_in={c_in}, Wo={wo} ({p} image rows of "
-                f"{wo * p * c_in} values) even at 4 channels, over the "
+                f"patchify_conv: one position needs "
+                f"{fwd_smem_bytes(p, c_in, 1, 4, w_bf16)} bytes of shared "
+                f"memory for P={p}, C_in={c_in} at 4 channels, over the "
                 f"{SMEM_LIMIT}-byte limit")
         bn //= 2
+
+
+def dw_span_plan(p: int, c_in: int, wo: int) -> SpanPlan:
+    """The CUDA-core weight gradient's cut: the whole row where its staged
+    rows fit, else the longest span that does. Raises with the geometry
+    when not one position fits."""
+    span = _longest_span(wo, lambda n: dw_smem_bytes(p, c_in, n)
+                         <= SMEM_LIMIT)
+    if not span:
+        raise ValueError(
+            f"patchify_conv_dw: one position needs "
+            f"{dw_smem_bytes(p, c_in, 1)} bytes of shared memory for "
+            f"P={p}, C_in={c_in}, over the {SMEM_LIMIT}-byte limit")
+    return SpanPlan(DW_TILE_N, span, dw_smem_bytes(p, c_in, span))
 
 
 # The tensor-core forward takes k = (di, dj, c) in slabs of 6 chunks of 8
@@ -383,13 +455,14 @@ def _patchify_fwd_op(x: torch.Tensor, w: torch.Tensor,
                 plan.channel_blocks, int(out_dtype == torch.bfloat16),
                 int(clip01), plan.smem, stream)
         else:
-            bn, _ = _channel_slice(lib, p, c_in, wo, c_out, w_bf16)
-            how = f"the CUDA-core kernel, {bn} channels per block"
+            cut = fwd_span_plan(p, c_in, wo, c_out, w_bf16)
+            how = (f"the CUDA-core kernel, {cut.channels} channels and "
+                   f"{cut.span} positions per block")
             rc = lib.patchify_fwd(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, width,
-                c_in, p, c_out, ho, wo, top, left, bn, int(w_bf16),
-                int(out_dtype == torch.bfloat16), int(clip01),
-                int(_vec4(x, p)), stream)
+                c_in, p, c_out, ho, wo, top, left, cut.channels, cut.span,
+                int(w_bf16), int(out_dtype == torch.bfloat16), int(clip01),
+                int(_vec4(x, p, cut.span)), stream)
     if rc != 0:
         raise RuntimeError(
             f"patchify_fwd launch failed: "
@@ -414,14 +487,15 @@ DW_TARGET_BLOCKS = 2 * 132
 DW_TILE_K, DW_TILE_N = 64, 128
 
 
-def _vec4(x: torch.Tensor, p: int) -> bool:
+def _vec4(x: torch.Tensor, p: int, span: int) -> bool:
     """Whole float4 loads of the image rows need rows with no horizontal
-    padding, a multiple of 4 values long, from a 16-byte aligned base."""
+    padding, a multiple of 4 values long, from a 16-byte aligned base, and
+    spans of a multiple of 4 values."""
     width, c_in = x.shape[2], x.shape[3]
     left, _ = same_padding(width, p, p)
     wo = -(-width // p)
     return (left == 0 and wo * p == width and (width * c_in) % 4 == 0
-            and x.data_ptr() % 16 == 0)
+            and (span * p * c_in) % 4 == 0 and x.data_ptr() % 16 == 0)
 
 
 # The tensor-core weight gradient (``patchify_dw_mma_kernel``): a block of
@@ -588,12 +662,7 @@ def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
                 plan.per_chunk, int(clip01), plan.smem,
                 torch.cuda.current_stream().cuda_stream)
     else:
-        smem = lib.patchify_dw_smem_bytes(patch, c_in, wo)
-        if smem > SMEM_LIMIT:
-            raise ValueError(
-                f"patchify_conv_dw: a block needs {smem} bytes of shared "
-                f"memory for P={patch}, C_in={c_in}, Wo={wo}, over the "
-                f"{SMEM_LIMIT}-byte limit")
+        cut = dw_span_plan(patch, c_in, wo)
         tiles = -(-k // DW_TILE_K) * -(-c_out // DW_TILE_N)
         rows = b * ho
         rows_per_chunk = -(-rows // max(1, min(rows, -(-DW_TARGET_BLOCKS
@@ -601,15 +670,17 @@ def patchify_conv_dw(x: torch.Tensor, g: torch.Tensor, patch: int,
         chunks = -(-rows // rows_per_chunk)
         partial = torch.empty((chunks, k, c_out), dtype=torch.float32,
                               device=x.device)
-        how = f"the CUDA-core kernel, {chunks} chunks of {rows_per_chunk} rows"
+        how = (f"the CUDA-core kernel, {chunks} chunks of {rows_per_chunk} "
+               f"rows, {cut.span} positions at a time")
         with torch.cuda.device(x.device):
             rc = lib.patchify_dw(
                 x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dw32.data_ptr(), dw.data_ptr(), b, h, width, c_in, patch,
-                c_out, ho, wo, top, left, rows_per_chunk, chunks,
+                c_out, ho, wo, top, left, rows_per_chunk, chunks, cut.span,
                 int(w_dtype == torch.bfloat16),
                 int(g.dtype == torch.bfloat16), int(clip01),
-                int(_vec4(x, patch)), torch.cuda.current_stream().cuda_stream)
+                int(_vec4(x, patch, cut.span)),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"patchify_dw launch failed: "

@@ -9,16 +9,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
    per source, all at once, and prints ptxas's registers and spill bytes
-   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128);
+   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128, and
+   the wide kernels for D = 128 n, n >= 2);
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
-   tensor cores and float32 weights and the P=4 stem on the CUDA cores,
-   the exact matcher (K2; also at 300 queries, 120 objects and 1023
-   columns, each against its serial-chain yardstick), and the fused
+   tensor cores and float32 weights and the P=4 stem on the CUDA cores
+   (also at W = 4096 and 8192, where a block takes a span of a row), the
+   exact matcher (K2; also at 300 queries, 120 objects and 1023 columns,
+   and on its columns route at DINO's 900 queries with 120 objects and at
+   2065 columns, each against its serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores); holds each result against the plain PyTorch version
+   cores), up to D = 384; holds each result against the plain PyTorch version
    on the same inputs, and times kernel, plain version and one PyTorch
    library call (where one computes the same function) with CUDA events;
    for K3 also the backward alone (delta, dq and dk/dv through the autograd
@@ -48,6 +51,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      K1 at P=16 -> 1280, K3 43 times a forward (32 blocks at
      [128, 1600, 1600, 80], DETR's 11 at D = 32), with each path's peak
      device memory;
+   - the same two at ViT-Large's depth and widths over 4 heads
+     (``vit_l16_h4``: depth 24, width 1024, MLP 4096, D = 256;
+     318,726,526 parameters): K1 at P=16 -> 1024, K3 35 times a forward
+     (24 blocks at [32, 1600, 1600, 256] on the wide kernels, DETR's 11 at
+     D = 32);
+   - one train step of the 640 flagship at DINO's 900 queries and
+     ``max_objects=120`` (``flagship_900q``): K2 once on its columns route
+     at [8, 120, 900], the loss held to the plain step's;
    - the boosted ensemble (``BoostedDETR``) at the 640 flagship's widths:
      serving as above, plus one early-exit request (stability criterion)
      and one incremental request (all 4 weak learners), each held against
@@ -206,26 +217,40 @@ KERNELS = {
 # products once, and each second product twice (p and ds enter as two bf16
 # values, hi + lo), against 2, 3 and 4 products in the work itself.
 K3_PASSES = {"fwd": 3, "dq": 4, "dkdv": 6}
-# K1-fwd's cases: (patch, C_out, weights' dtype, seed, resolution). The 640
-# flagship's stem first (the ``kernels`` line's row), the ViT patch embed,
-# the 1280px stem (Wo = 160), and ViT-Huge's patch embed (1280 channels:
-# three blocks of 384 and a partial one of 128) last.
+# K1-fwd's cases: (patch, C_out, weights' dtype, seed, resolution: a side,
+# or (height, width)). The 640 flagship's stem first (the ``kernels``
+# line's row), the ViT patch embed, the 1280px stem (Wo = 160), ViT-Huge's
+# patch embed (1280 channels: three blocks of 384 and a partial one of
+# 128) and ViT-Large's (P=16 -> 1024); then the CUDA-core kernel at widths
+# whose P whole rows pass its shared memory (a block takes a span of a
+# row): float32 weights at P=16 -> 384 and W = 4096, and the P=4 stem's
+# float32 weights at W = 8192.
+WIDE_RES = {16: (256, 4096), 4: (256, 8192)}
 K1_CASES = ((8, 128, torch.bfloat16, 0, RES), (8, 128, torch.float32, 1, RES),
             (4, 64, torch.bfloat16, 2, RES), (16, 384, torch.bfloat16, 3, RES),
             (8, 128, torch.bfloat16, 30, HR_RES),
-            (16, 1280, torch.bfloat16, 32, RES))
+            (16, 1280, torch.bfloat16, 32, RES),
+            (16, 1024, torch.bfloat16, 34, RES),
+            (16, 384, torch.float32, 36, WIDE_RES[16]),
+            (4, 64, torch.float32, 38, WIDE_RES[4]))
 # K1-dW's cases, as K1_CASES: the 640 stem's first (the ``kernels`` line's
 # row); bf16 on the tensor cores, float32 and the P=4 stem on the CUDA cores.
 DW_CASES = ((8, 128, torch.bfloat16, 4, RES), (8, 128, torch.float32, 5, RES),
             (4, 64, torch.bfloat16, 6, RES), (16, 384, torch.bfloat16, 7, RES),
             (8, 128, torch.bfloat16, 31, HR_RES),
-            (16, 1280, torch.bfloat16, 33, RES))
+            (16, 1280, torch.bfloat16, 33, RES),
+            (16, 1024, torch.bfloat16, 35, RES),
+            (16, 384, torch.float32, 37, WIDE_RES[16]),
+            (4, 64, torch.float32, 39, WIDE_RES[4]))
 # K2's cases: (B, O, P, seed, edges); the flagship's first (the ``kernels``
 # line's row), then four boosted blocks folded into one launch, 300 queries,
-# the most rows the kernel takes, and the most columns.
+# the most rows the kernel takes, and the most columns of the slots route;
+# then the columns route: DINO's 900 queries at max_objects=120 (the
+# flagship_900q step's problem; 432 KB of cost rows) and C = 2065.
 K2_CASES = ((8, 32, 96, 8, False), (8, 32, 96, 9, True),
             (32, 32, 96, 10, True), (8, 32, 300, 40, True),
-            (4, 120, 300, 41, True), (2, 32, 990, 42, True))
+            (4, 120, 300, 41, True), (2, 32, 990, 42, True),
+            (8, 120, 900, 43, True), (2, 64, 2000, 44, True))
 # K2's yardstick, the serial chain of the kernel's first design counted
 # from its source (PERF.md, section 6): cycles of one Dijkstra step and of
 # one step of the walk back, at the H100 SXM's top SM clock.
@@ -246,7 +271,13 @@ K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              # padded with zeros to 128
              ("ViT-H blocks", 128, 1600, 1600, 80),
              # vit_w512_h4 at batch 8: D = 128 as built
-             ("vit_w512_h4 blocks", 32, 1600, 1600, 128))
+             ("vit_w512_h4 blocks", 32, 1600, 1600, 128),
+             # past 128, the wide kernels: vit_l16_h4's blocks (4 heads of
+             # D = 256 at batch 8), D = 160 padded with zeros to 256, and
+             # D = 384
+             ("ViT-L blocks at 4 heads", 32, 1600, 1600, 256),
+             ("D=160 padded to 256", 16, 400, 400, 160),
+             ("D=384", 8, 400, 400, 384))
 
 
 def _say(*parts):
@@ -366,9 +397,20 @@ def kernel_names() -> int:
         for label, bh, tq, tk, d in K3_SHAPES:
             q, k, v = _attention_inputs(bh, tq, tk, d, dtype, seed)[:3]
             seed += 1
+            if d > A.CHUNK:
+                # which backend the SDPA yardstick of the kernels phase
+                # takes past 128 (flash attention takes D <= 256)
+                q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                sdpa(q4, k4, v4)
+                ran = _device_kernels(lambda: sdpa(q4, k4, v4), "")
+                _say(f"  {_attention_label(label, bh, tq, tk, d, dtype)} "
+                     f"SDPA yardstick ran: {[n[:70] for n in ran]}")
+            wide = "wide_" if A.padded_head_dim(d) > A.CHUNK else ""
             _expect_kernel(lambda: A.attention_fwd(q, k, v), "attn_fwd",
-                           "attn_fwd_mma_kernel" if dtype == torch.bfloat16
-                           else "attn_fwd_kernel",
+                           f"attn_fwd_{wide}mma_kernel"
+                           if dtype == torch.bfloat16
+                           else f"attn_fwd_{wide}kernel",
                            _attention_label(label, bh, tq, tk, d, dtype))
     return 0
 
@@ -388,15 +430,21 @@ def ptxas_k3(log):
     """ptxas -v's report of each K3 instantiation in a build log,
     {"attn_<kind>_kernel D=<D>": {"registers", "spill_stores",
     "spill_loads"}}: D is the mma kernels' template argument, the float32
-    kernels' dims a thread times threads a row."""
+    kernels' dims a thread times threads a row; the wide kernels (no
+    template) read "D=128n"."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
                           r"I((?:Li\d+E)+)E", line)
+        wide = re.search(r"Compiling entry function '\S*?\d"
+                         r"(attn_\w+?_wide_\w*?kernel)E", line)
         if entry:
             d = int(np.prod([int(n) for n in
                              re.findall(r"Li(\d+)E", entry.group(2))]))
             name = f"{entry.group(1)} D={d}"
+            continue
+        if wide:
+            name = f"{wide.group(1)} D=128n"
             continue
         if "Compiling entry" in line:
             name = None
@@ -429,15 +477,21 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 18:
-        raise AssertionError(f"expected 18 K3 instantiations (3 kernels, 2 "
-                             f"dtypes, D = 32, 64, 128), read {len(k3)}")
+    if len(k3) != 24:
+        raise AssertionError(f"expected 24 K3 kernels (3 kernels, 2 dtypes, "
+                             f"D = 32, 64, 128 and the wide ones), read "
+                             f"{len(k3)}")
     return k3
+
+
+def _sides(res):
+    """(height, width) of a case's resolution: a side, or both."""
+    return tuple(res) if isinstance(res, tuple) else (res, res)
 
 
 def _patchify_inputs(patch, c_out, dtype, seed, res):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((BATCH, res, res, 3), generator=gen, device="cuda")
+    x = torch.rand((BATCH, *_sides(res), 3), generator=gen, device="cuda")
     x = x * 1.2 - 0.1  # a little outside [0, 1], so that the clip works
     k = patch * patch * 3
     w = (torch.randn((patch, patch, 3, c_out), generator=gen, device="cuda")
@@ -445,8 +499,13 @@ def _patchify_inputs(patch, c_out, dtype, seed, res):
     return x, w
 
 
+def _res_label(res):
+    h, w = _sides(res)
+    return f"{h}px" if h == w else f"{h}x{w}px"
+
+
 def _patchify_label(patch, c_out, dtype, res):
-    return f"{res}px P={patch} -> {c_out} {str(dtype)[6:]}"
+    return f"{_res_label(res)} P={patch} -> {c_out} {str(dtype)[6:]}"
 
 
 def _patchify_case(patch, c_out, dtype, seed, res, flush):
@@ -465,6 +524,11 @@ def _patchify_case(patch, c_out, dtype, seed, res, flush):
            else dict(atol=1e-5, rtol=2.0 ** -7))
     max_abs = _close(out, ref, what=what, **tol)
     row = {"shape": what, "max_abs_err": max_abs}
+    if P.tensor_core_plan(tuple(x.shape), tuple(w.shape), w.dtype) is None:
+        # the CUDA-core kernel's cut of a row: channels and positions a block
+        row["cut"] = P.fwd_span_plan(patch, 3, out.shape[2], c_out,
+                                     w.dtype == torch.bfloat16)._asdict()
+        _say(f"  {what}: CUDA-core kernel, {row['cut']}")
     m = out.numel() // c_out
     n_bytes = (x.numel() * 4 + w.numel() * w.element_size()
                + out.numel() * out.element_size())
@@ -521,16 +585,16 @@ def _dw_inputs(patch, c_out, dtype, seed, res):
     """The image and an output cotangent g in the weights' dtype (the
     output's, on the stem), as the train step gives them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((BATCH, res, res, 3), generator=gen, device="cuda")
+    h, w = _sides(res)
+    x = torch.rand((BATCH, h, w, 3), generator=gen, device="cuda")
     x = x * 1.2 - 0.1
-    ho = res // patch
-    g = torch.randn((BATCH, ho, ho, c_out), generator=gen,
+    g = torch.randn((BATCH, h // patch, w // patch, c_out), generator=gen,
                     device="cuda").to(dtype)
     return x, g
 
 
 def _dw_label(patch, c_out, dtype, res):
-    return f"dW {res}px P={patch} -> {c_out} {str(dtype)[6:]}"
+    return f"dW {_res_label(res)} P={patch} -> {c_out} {str(dtype)[6:]}"
 
 
 def _dw_case(patch, c_out, dtype, seed, res, flush):
@@ -564,6 +628,10 @@ def _dw_case(patch, c_out, dtype, seed, res, flush):
         raise AssertionError(f"{what}: {bad} values outside the tolerance")
     m, k = patches.shape
     row = {"shape": what, "max_abs_err": max_abs}
+    if P.dw_tensor_core_plan(tuple(x.shape), tuple(g.shape), patch,
+                             dtype) is None:
+        row["cut"] = P.dw_span_plan(patch, 3, g.shape[2])._asdict()
+        _say(f"  {what}: CUDA-core kernel, {row['cut']}")
     row.update(_bound(x.numel() * 4 + g.numel() * g.element_size()
                       + dw.numel() * (dw.element_size() + 4),
                       2 * m * k * c_out, dtype))
@@ -1054,6 +1122,20 @@ PATHS = {
         step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=43,
                      attention_dq=43, attention_dkdv=43),
         serving_plain=("patchify_fwd",) + _K3),
+    # ViT-Large's depth, width and MLP (Dosovitskiy et al., ICLR 2021,
+    # Table 1: 24 layers, width 1024, MLP 4096) over 4 heads, so D = 256:
+    # no published model has that head dim; a configuration users can
+    # write, which runs K3's wide kernels on a main path. 1600 patches, K1
+    # at P=16 -> 1024, 24 fused attentions in the blocks at
+    # [32, 1600, 1600, 256] and DETR's 11 at D = 32
+    "vit_l16_h4": dict(
+        res=RES, cfg=dict(backbone="vit_p16_d24_w1024_h4", norm="batchnorm",
+                          use_pallas_attention=True),
+        params=318_726_526,
+        forward=_expect(patchify_fwd=1, attention_fwd=35),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=35,
+                     attention_dq=35, attention_dkdv=35),
+        serving_plain=("patchify_fwd",) + _K3),
     # 4 weak learners (a 1-block encoder, a decoder block and three heads
     # of hidden width 256 each); the intermediate losses fold the 4 blocks'
     # matching into one K2 launch
@@ -1121,6 +1203,16 @@ PATHS = {
         forward=_expect(patchify_fwd=1),
         step=_expect(patchify_fwd=1, patchify_dw=1),
         serving_plain=("patchify_fwd",)),
+    # The 640 flagship at DINO's 900 queries (Zhang et al., ICLR 2023) and
+    # max_objects=120, trained only (one warm-up and one timed step, the
+    # profile and the loss check): K2 once a step on its columns route at
+    # [8, 120, 900], whose 432 KB of cost rows pass shared memory
+    "flagship_900q": dict(
+        res=RES, cfg=dict(backbone="resnet", stem="patchify8",
+                          norm="batchnorm", num_object_preds=900,
+                          max_objects=120),
+        params=29_030_014, lap_shape=(BATCH, 120, 900), train_only=(1, 1),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1)),
 }
 MASK_SIZE = 96
 # the boosted path's early-exit request (PERF.md: the stability criterion
@@ -1580,10 +1672,11 @@ def phase_breakdown(name, model, codec, images):
     ours = {}  # by name, the head dims of K3 together
     for e in kernels:
         if "patchify_fwd_" in e.key or "attn_fwd_" in e.key:
-            name = e.key.split("<")[0].split("::")[-1].split()[-1]
+            name = re.search(r"(?:patchify|attn)_\w*?kernel", e.key)[0]
             ours[name] = ours.get(name, 0) + e.count // n
     _say(f"  forward kernels of K1 and K3 per forward: {ours}")
-    if not set(ours) <= {"patchify_fwd_mma_kernel", "attn_fwd_mma_kernel"}:
+    if not set(ours) <= {"patchify_fwd_mma_kernel", "attn_fwd_mma_kernel",
+                         "attn_fwd_wide_mma_kernel"}:
         raise AssertionError(f"a bf16 forward ran a CUDA-core kernel: {ours}")
     return row
 
@@ -1696,6 +1789,9 @@ def phase_training(name, warmup, steps):
     model = _build(path, cfg, seed=0)
     _randomize_skip_gains(model, seed=6)
     n_params = sum(p.numel() for p in model.parameters())
+    if n_params != path.get("params", n_params):
+        raise AssertionError(f"{name}: {n_params} parameters, the JAX model "
+                             f"has {path['params']}")
     state = bt.TrainState.create(model, bt.make_optimizer(
         tcfg, model.named_parameters(), d_model=cfg.decoder_dim))
     step = _step_builder(path, model, cfg, tcfg)
@@ -1811,8 +1907,9 @@ def phase_training(name, warmup, steps):
         row["profile_k1_fwd_ms"] = sum(
             e.self_device_time_total for e in kernels
             if "patchify_fwd" in e.key) / 1e3
-        row["profile_k2_ms"] = sum(e.self_device_time_total for e in kernels
-                                   if "lap_kernel" in e.key) / 1e3
+        row["profile_k2_ms"] = sum(
+            e.self_device_time_total for e in kernels
+            if "lap_kernel" in e.key or "lap_columns_kernel" in e.key) / 1e3
         _say(f"  K1-fwd {row['profile_k1_fwd_ms']:.3f}, K1-dW (both passes) "
              f"{row['profile_k1_dw_ms']:.3f}, K2 {row['profile_k2_ms']:.3f} "
              "device ms of the step")
@@ -3496,6 +3593,11 @@ def main() -> int:
     matchers = phase_matchers()
     report = {}
     for name in PATHS:
+        if "train_only" in PATHS[name]:
+            report[name] = {"training": phase_training(
+                name, *PATHS[name]["train_only"])}
+            torch.cuda.empty_cache()
+            continue
         serving = phase_serving(name)
         if name == "boosted":
             extra = phase_early_exit(name, serving["model"],

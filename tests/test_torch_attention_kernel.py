@@ -4,11 +4,12 @@ dk/dv; bfloat16 inputs on the tensor cores, float32 inputs on the CUDA
 cores) against their plain PyTorch versions on the card, the tensor-core
 kernels against the plain PyTorch emulation of their arithmetic, the
 autograd ``FusedAttentionFn`` on the card against its CPU route, the
-kernels' repeatability bit for bit, a ViT artifact at head dim 80 that
-keeps the forward op, and the refusal of a head dim over the largest the
-kernels are built for (128) and of a misaligned bfloat16 tensor. Head
-dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's widths) padded
-with zeros to the next. It needs a CUDA card and nvcc,
+kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
+256 that keep the forward op, and the refusal of a misaligned bfloat16
+tensor. Head dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's
+widths) padded with zeros to the next; past 128, multiples of 128 (256,
+384) run on the wide kernels, in 128-wide chunks, and any other D (160)
+padded to the next multiple. It needs a CUDA card and nvcc,
 and skips without a card. It imports nothing of JAX, so that it runs on a
 machine without it:
 
@@ -80,6 +81,10 @@ def _assert_close(got, want, dtype, grad=False):
     (2, 1600, 1600, 80), (2, 1600, 1600, 128), (3, 300, 520, 128),
     (3, 96, 520, 80), (3, 1, 300, 128), (3, 300, 1, 80), (3, 17, 17, 128),
     (3, 520, 17, 80),
+    # past 128: the wide kernels, D = 256 and 384 as they are, 160 padded
+    # to 256 (vit_l16_h4's blocks: 2 of their 32 heads)
+    (2, 1600, 1600, 256), (3, 300, 520, 160), (3, 96, 520, 384),
+    (3, 1, 300, 256), (3, 300, 1, 160), (3, 17, 17, 384), (3, 520, 17, 256),
 ])
 def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
     q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype)
@@ -107,7 +112,7 @@ def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 160, 256, 384])
 def test_function_gradients_on_the_card_match_the_cpu_route(cuda, dtype, d):
     q, k, v, g, g_lse = _inputs(cuda, 2, 130, 200, d, dtype, seed=1)
     grads = {}
@@ -134,7 +139,9 @@ def _gradient_args(cuda, bh, tq, tk, d, dtype, seed):
 @pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
                                         (5, 300, 520, 32),
                                         (4, 1600, 1600, 80),
-                                        (5, 300, 520, 128)])
+                                        (5, 300, 520, 128),
+                                        (2, 1600, 1600, 256),
+                                        (3, 300, 520, 384)])
 def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """No atomics and a fixed summation order: two launches on the same
     inputs give the same bits."""
@@ -202,8 +209,8 @@ def profiled_names(d):
 
 @pytest.fixture(scope="module")
 def _profiled():
-    """``profiled_names`` at D = 32, 64, 80 and 128, from a new Python
-    process."""
+    """``profiled_names`` at D = 32, 64, 80, 128 and 256, from a new
+    Python process."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import json
@@ -216,7 +223,7 @@ def _profiled():
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import test_torch_attention_kernel as t; "
             "print(json.dumps({d: t.profiled_names(d) "
-            "for d in (32, 64, 80, 128)}))")
+            "for d in (32, 64, 80, 128, 256)}))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(here.parents[1]), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, "-c", code, str(here.parent)],
@@ -228,17 +235,18 @@ def _profiled():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 forward (tensor cores would make
     them TF32 or bf16) and keep its float32 accuracy; bfloat16 inputs take
-    the tensor-core forward."""
+    the tensor-core forward; past D = 128 the wide ones."""
     inputs = {dtype: _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
               for dtype in ("float32", "bfloat16")}
     names = _profiled[d]["fwd"]
+    wide = "wide_" if d > 128 else ""
     assert len(names["float32"]) == len(names["bfloat16"]) == 1, names
-    assert "attn_fwd_kernel" in names["float32"][0], names
-    assert "attn_fwd_mma_kernel" in names["bfloat16"][0], names
+    assert f"attn_fwd_{wide}kernel" in names["float32"][0], names
+    assert f"attn_fwd_{wide}mma_kernel" in names["bfloat16"][0], names
     out, lse = ta.attention_fwd(*inputs["float32"])
     want, want_lse = ta.attention_fwd_reference(*inputs["float32"])
     # a few float32 ulps of sums over 330 keys; one bf16 or TF32 rounding
@@ -248,7 +256,7 @@ def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
     """float32 inputs take the float32 kernels (tensor cores would make
     them TF32 or bf16) and keep their float32 accuracy; bfloat16 inputs
@@ -259,6 +267,8 @@ def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
     assert len(names["float32"]) == len(names["bfloat16"]) == 2, names
     assert not any("mma" in n for n in names["float32"]), names
     assert all("mma" in n for n in names["bfloat16"]), names
+    assert all(("wide" in n) == (d > 128)
+               for n in names["float32"] + names["bfloat16"]), names
     # a few float32 ulps of sums over 200-330 rows; one bf16 or TF32
     # rounding of an operand would be 1e-3 of a term
     got = (ta.attention_dq(*args["float32"]),
@@ -270,16 +280,32 @@ def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
 
 
 @pytest.mark.gpu
-def test_unsupported_head_dim_raises(cuda):
-    """Head dims up to 128 are padded to a built one; over 128 the kernels
-    refuse."""
-    q = torch.zeros((2, 8, 160), device=cuda)
-    before = ta.attention_fwd.launches
-    with pytest.raises(ValueError, match="D=160"):
-        ta.fused_attention(q, q, q)
-    assert ta.attention_fwd.launches == before
-    # the CPU route is the plain version, for any head dim
-    assert ta.fused_attention(q.cpu(), q.cpu(), q.cpu()).shape == (2, 8, 160)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256, 384])
+def test_head_dims_past_128_launch_the_wide_kernels(cuda, dtype, d):
+    """Head dims over 128 launch the kernels (160 padded with zeros to
+    256): one launch each of the forward, dq and dk/dv through
+    ``FusedAttentionFn``, inside the gates against the plain versions."""
+    q, k, v, g, g_lse = _inputs(cuda, 2, 130, 200, d, dtype, seed=8)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (ta.attention_fwd.launches, ta.attention_dq.launches,
+              ta.attention_dkdv.launches)
+    out, lse = ta.fused_attention_with_lse(*leaves)
+    torch.autograd.backward([out, lse], [g, g_lse])
+    torch.cuda.synchronize()
+    assert (ta.attention_fwd.launches, ta.attention_dq.launches,
+            ta.attention_dkdv.launches) == tuple(n + 1 for n in before)
+    assert out.shape == (2, 130, d)
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    _assert_close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    delta = (g.float() * out.detach().float()).sum(-1) - g_lse
+    args = (q, k, v, g, lse.detach(), delta)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    for got, ref in ((leaves[0].grad, ta.attention_dq_reference(*args)),
+                     (leaves[1].grad, want_dk), (leaves[2].grad, want_dv)):
+        assert got.shape == ref.shape == (2, got.shape[1], d)
+        _assert_close(got, ref, dtype, grad=True)
 
 
 @pytest.mark.gpu
@@ -339,7 +365,10 @@ def _emulated(emulation, q, k, v, *rest):
     (3, 300, 520, 64), (3, 17, 1000, 32),  # ragged
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
     (3, 300, 520, 128), (3, 17, 1000, 80), (2, 1600, 1600, 80),
-    (2, 1600, 1600, 128)])
+    (2, 1600, 1600, 128),
+    # the wide kernels: 128-wide chunks, 32-query tiles in dk/dv
+    (3, 300, 520, 256), (2, 1600, 1600, 256), (3, 17, 1000, 160),
+    (3, 130, 70, 384)])
 def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 gradient kernels against the plain PyTorch emulation of
     their arithmetic (64-row tiles, p and ds as bf16 hi + lo, the scale at
@@ -366,7 +395,10 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     (4, 96, 96, 32),
     # D = 128 as built and D = 80 padded to it
     (3, 300, 520, 128), (3, 17, 1000, 80), (3, 1, 300, 128),
-    (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128)])
+    (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128),
+    # the wide forward
+    (3, 300, 520, 256), (2, 1600, 1600, 256), (3, 17, 1000, 160),
+    (3, 1, 300, 384), (3, 520, 17, 256)])
 def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 forward against the plain PyTorch emulation of its
     arithmetic (64-key tiles, the scale inside the exponent, the float32 p
@@ -390,7 +422,8 @@ def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
 @pytest.mark.parametrize("bh,tq,tk,d", [(8, 1600, 1600, 64),
                                         (5, 300, 520, 32),
                                         (4, 1600, 1600, 80),
-                                        (5, 300, 520, 128)])
+                                        (5, 300, 520, 128),
+                                        (2, 1600, 1600, 256)])
 def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """Every sum belongs to one thread and runs in a fixed order: two
     launches on the same inputs give the same bits."""
@@ -405,7 +438,8 @@ def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
 
 # A bf16 ViT DETR whose blocks have width 160 over 2 heads: D = 80, which
 # the forward op pads to 128; the patch embed (P = 16 -> 160) takes the
-# tensor-core K1, DETR's attentions D = 32.
+# tensor-core K1, DETR's attentions D = 32. The same at width 256 over one
+# head: D = 256, the wide kernels.
 VIT_D80 = dict(image_size=(64, 64), backbone="vit_p16_d2_w160_h2",
                num_encoder_blocks=2, num_decoder_blocks=2, encoder_dim=64,
                decoder_dim=64, num_encoder_heads=2, num_decoder_heads=2,
@@ -419,18 +453,24 @@ VIT_D80_LAUNCHES = 2 + 2 + 2 + 1
 
 
 @pytest.mark.gpu
-def test_exported_vit_artifact_at_head_dim_80_keeps_the_op(cuda, tmp_path):
-    """The ViT at D = 80 exported for cuda (serving.py): the loaded program
-    keeps ``boosted_detr::attention_fwd`` at every attention, counts one
-    launch each a forward, and equals the live model bit for bit."""
+@pytest.mark.parametrize("backbone,head_dim", [
+    ("vit_p16_d2_w160_h2", 80),
+    # one head of width 256: the wide kernels
+    ("vit_p16_d2_w256_h1", 256)])
+def test_exported_vit_artifact_keeps_the_op(cuda, tmp_path, backbone,
+                                            head_dim):
+    """The ViT at D = 80 and at D = 256 exported for cuda (serving.py): the
+    loaded program keeps ``boosted_detr::attention_fwd`` at every
+    attention, counts one launch each a forward, and equals the live model
+    bit for bit."""
     import boosted_detr_torch as bt
     from boosted_detr_torch import serving
     from boosted_detr_torch.data.codec import TextCodec
 
-    cfg = bt.ModelConfig(**VIT_D80)
+    cfg = bt.ModelConfig(**dict(VIT_D80, backbone=backbone))
     model = bt.DETR(cfg, device=cuda, seed=1)
     assert dict(model.named_modules())[
-        "backbone.vit.block_0.attn"].head_dim == 80
+        "backbone.vit.block_0.attn"].head_dim == head_dim
     codec = TextCodec({"category": [f"c{i}" for i in range(10)],
                        "attribute": [f"a{i}" for i in range(18)]})
     trainer = bt.Trainer(model, cfg, bt.TrainConfig(), codec=codec,

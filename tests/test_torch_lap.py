@@ -64,8 +64,11 @@ def _constant(name):
 
 def _c_plan(o, p):
     """The C source's rule, read from its text: ``slots_for``'s choices,
-    ``lap_solve``'s limits and ``lap_smem_bytes``'s formula."""
+    ``lap_solve``'s limits, ``lap_smem_bytes``'s and ``columns_bytes``'s
+    formulas. (route, slots, smem, scratch), or None where it refuses."""
     warp = _constant("WARP")
+    if not (0 < o <= _constant("MAX_OBJECTS") and p > 0):
+        return None
     choices = [int(s) for s in re.search(
         r"constexpr int SLOT_CHOICES\[\] = \{([^}]*)\};", SOURCE)
         .group(1).split(",")]
@@ -75,24 +78,34 @@ def _c_plan(o, p):
     expr = (body.replace("4LL", "4").replace("static_cast<long long>(O)", "O")
             .replace("slots_for(O, P)", "slots").replace("WARP", str(warp)))
     smem = eval(expr, {}, {"O": o, "P": p, "slots": slots})  # noqa: S307
-    takes = (0 < o <= _constant("MAX_OBJECTS") and p > 0 and slots > 0
-             and smem <= _constant("SMEM_LIMIT"))
-    return takes, slots, smem
+    limit = _constant("SMEM_LIMIT")
+    if slots and smem <= limit:
+        return "slots", slots, smem, 0
+    c_expr, rounded = re.search(
+        r"long long columns_bytes\(int O, int P\) \{\s*"
+        r"const long long C = ([^;]*);\s*return ([^;]*);", SOURCE).groups()
+    columns = eval(c_expr.replace("static_cast<long long>(P)", "P"),  # noqa: S307
+                   {}, {"O": o, "P": p})
+    state = eval(rounded.replace("/", "//"), {}, {"C": columns})  # noqa: S307
+    if state <= limit:
+        return "columns_shared", 0, state, 0
+    return "columns_global", 0, 0, state
 
 
 @pytest.mark.parametrize("o,p", [
     (32, 96), (32, 300), (120, 300), (32, 990), (100, 120), (4, 8),
     (1, 1), (120, 1), (31, 96), (32, 127), (33, 126), (64, 64),
     (120, 400), (120, 420), (120, 480), (121, 8), (32, 991), (32, 992),
-    (1, 1022), (1, 1023), (60, 800), (100, 480), (128, 100)])
+    (1, 1022), (1, 1023), (60, 800), (100, 480), (128, 100), (120, 900),
+    (64, 2000), (8, 20000)])
 def test_kernel_plan_is_the_c_sources_rule(o, p):
-    takes, slots, smem = _c_plan(o, p)
-    if not takes:
+    want = _c_plan(o, p)
+    if want is None:
         with pytest.raises(ValueError, match="hungarian_lap: "):
             tlap.kernel_plan(o, p)
         return
     plan = tlap.kernel_plan(o, p)
-    assert (plan.slots, plan.smem) == (slots, smem)
+    assert tuple(plan) == want
     assert plan.smem <= tlap.SMEM_LIMIT
     assert tlap.SLOT_CHOICES == tuple(
         int(s) for s in re.search(r"SLOT_CHOICES\[\] = \{([^}]*)\}",
@@ -111,19 +124,78 @@ def test_kernel_plan_is_the_c_sources_rule(o, p):
 ])
 def test_kernel_plan_at_the_main_and_widened_shapes(b, o, p, slots):
     plan = tlap.kernel_plan(o, p)
-    assert plan.slots == slots
+    assert plan.route == "slots" and plan.slots == slots
     assert 32 * plan.slots >= p + o + 1 > 32 * max(
         [s for s in tlap.SLOT_CHOICES if s < plan.slots], default=0)
 
 
-@pytest.mark.parametrize("o,p,limit", [
-    (121, 8, "O <= 120 rows"),
-    (32, 992, "P \\+ O \\+ 1 <= 1024 columns"),
-    (120, 480, "bytes of shared memory"),
+@pytest.mark.parametrize("o,p,route,why", [
+    # C = 1025: past the 32 register slots of a lane
+    (32, 992, "columns_shared", "columns"),
+    # C = 601, but 120 x 480 cost rows take 236,544 bytes
+    (120, 480, "columns_shared", "cost rows"),
+    # DINO's 900 queries at max_objects=120: 432,000 bytes of cost rows
+    (120, 900, "columns_shared", "cost rows"),
+    (64, 2000, "columns_shared", "columns"),  # C = 2065
+    # 17 bytes a column pass the shared memory past ~13,600 columns
+    (8, 20000, "columns_global", "column state"),
 ])
+def test_kernel_plan_takes_the_columns_route_past_the_slots(o, p, route,
+                                                            why):
+    plan = tlap.kernel_plan(o, p)
+    assert plan.route == route and plan.slots == 0
+    columns = p + o + 1
+    state = tlap.columns_bytes(o, p)
+    assert state >= 17 * columns and state % 16 == 0
+    if why == "columns":
+        assert columns > 32 * tlap.SLOT_CHOICES[-1]
+    elif why == "cost rows":
+        assert columns <= 32 * tlap.SLOT_CHOICES[-1]
+        assert 4 * o * p > tlap.SMEM_LIMIT - 4 * 2 * 32 * 32
+    if route == "columns_shared":
+        assert (plan.smem, plan.scratch) == (state, 0)
+    else:
+        assert (plan.smem, plan.scratch) == (0, state)
+        assert state > tlap.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("o,p,limit", [(121, 8, "O <= 120 rows")])
 def test_kernel_plan_names_the_limit(o, p, limit):
     with pytest.raises(ValueError, match=limit):
         tlap.kernel_plan(o, p)
+
+
+@pytest.mark.parametrize("b,o,p", [(2, 120, 900), (1, 64, 2000)])
+def test_plain_solver_is_optimal_on_the_columns_route(b, o, p):
+    """DINO's 900 queries at 120 objects, and C = 2065: the shapes the
+    columns route takes, against scipy."""
+    rng = np.random.default_rng(o * p)
+    cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
+    n = np.array([o, o // 2][:b], np.int32)
+    mask = tlap.hungarian_lap_reference(torch.from_numpy(cost),
+                                        torch.from_numpy(n)).numpy()
+    for i in range(b):
+        ni = int(n[i])
+        np.testing.assert_array_equal(mask[i, ni:], 0.0)
+        np.testing.assert_array_equal(mask[i, :ni].sum(1), 1.0)
+        assert (mask[i].sum(0) <= 1).all()
+        r, c = linear_sum_assignment(cost[i, :ni])
+        assert np.isclose((mask[i] * cost[i]).sum(), cost[i][r, c].sum(),
+                          rtol=1e-5, atol=1e-3)
+
+
+def test_plain_solver_gives_the_pallas_kernels_mask_past_the_slots():
+    """[1, 120, 900], which the columns route takes: the plain version
+    (the kernels' arithmetic) against the Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(900)
+    cost = rng.uniform(0, 10, (1, 120, 900)).astype(np.float32)
+    n = np.array([97], np.int32)
+    ours = tlap.hungarian_lap_reference(torch.from_numpy(cost),
+                                        torch.from_numpy(n)).numpy()
+    ref = np.asarray(hungarian_lap_pallas(jnp.asarray(cost), jnp.asarray(n),
+                                          interpret=True))
+    np.testing.assert_array_equal(ours, ref)
 
 
 def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):

@@ -117,26 +117,57 @@ def test_kernel_ends_on_nan_costs(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_cannot_hold(cuda):
+    # O > 120 is the TPU kernel's own limit; every P is taken (the columns
+    # route below)
     before = lap.hungarian_lap.launches
-    for (o, p), limit in (((121, 8), "rows"),       # O > 120
-                          ((32, 992), "columns"),   # C = 1025
-                          ((120, 480), "shared memory")):  # 236,544 bytes
-        cost = torch.zeros((1, o, p), device=cuda)
-        with pytest.raises(ValueError, match=limit):
-            lap.hungarian_lap(cost, torch.tensor([1], device=cuda))
+    cost = torch.zeros((1, 121, 8), device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        lap.hungarian_lap(cost, torch.tensor([1], device=cuda))
     assert lap.hungarian_lap.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,o,p,route", [
+    (8, 120, 900, "columns_shared"),   # DINO's 900 queries, 120 objects
+    (2, 64, 2000, "columns_shared"),   # C = 2065
+    (2, 32, 992, "columns_shared"),    # C = 1025
+    (3, 7, 1101, "columns_shared"),    # O * P % 4 != 0
+    (2, 8, 20000, "columns_global"),   # the column state in device memory
+])
+def test_columns_route_matches_plain_version(cuda, b, o, p, route):
+    assert lap.kernel_plan(o, p).route == route
+    rng = np.random.default_rng(b * 1000 + o + p)
+    cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
+    n = rng.integers(1, o + 1, (b,)).astype(np.int32)
+    n[0], n[-1] = 0, o
+    got, want = _solve_both(cuda, cost, n)
+    _check_optimal(got, cost, n)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_columns_route_on_ties(cuda):
+    # integer costs: ties in every step, which the lowest-column rule
+    # breaks as the plain version does
+    rng = np.random.default_rng(13)
+    cost = rng.integers(0, 3, (3, 16, 1100)).astype(np.float32)
+    n = np.array([16, 9, 1], np.int32)
+    got, want = _solve_both(cuda, cost, n)
+    _check_optimal(got, cost, n)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.gpu
 def test_library_states_the_wrappers_plan(cuda):
     lib = lap._library()
     for o in (1, 7, 32, 33, 100, 120):
-        for p in (1, 8, 96, 120, 300, 480, 990):
-            try:
-                plan = lap.kernel_plan(o, p)
-            except ValueError:
-                continue
-            assert lib.lap_smem_bytes(o, p) == plan.smem
+        for p in (1, 8, 96, 120, 300, 480, 900, 990, 2000, 20000):
+            plan = lap.kernel_plan(o, p)
+            if plan.route == "slots":
+                assert lib.lap_smem_bytes(o, p) == plan.smem
+            else:
+                assert lib.lap_columns_bytes(o, p) == max(plan.smem,
+                                                          plan.scratch)
 
 
 @pytest.mark.gpu

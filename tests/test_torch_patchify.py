@@ -365,3 +365,108 @@ def test_plain_version_sums_in_the_tensor_core_order(patch, c_out):
     np.testing.assert_array_equal(
         tp.patchify_conv_reference(x, w32, clip01=True).reshape(-1, c_out)
         .numpy(), (patches32 @ w32.reshape(-1, c_out)).numpy())
+
+
+_SOURCE = None
+
+
+def _c_formulas():
+    """The CUDA-core kernels' shared-memory rule, read from the text of
+    csrc/patchify.cu and translated to Python: ``image_bytes``,
+    ``patchify_smem_bytes`` (the forward), ``dw_rows_staged``,
+    ``dw_image_floats`` and ``dw_smem`` (the weight gradient), with the
+    constants they read."""
+    import re
+    from pathlib import Path
+
+    global _SOURCE
+    if _SOURCE is None:
+        _SOURCE = (Path(tp.__file__).resolve().parents[1] / "csrc"
+                   / "patchify.cu").read_text()
+    src = _SOURCE
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (DW_\w+) = ([^;]*);", src):
+        consts[name] = eval(expr.split("//")[0], {}, dict(consts))  # noqa: S307
+    names = ("image_bytes", "patchify_smem_bytes", "dw_rows_staged",
+             "dw_image_floats", "dw_smem")
+    space = dict(consts)
+    for name in names:
+        params, body = re.search(
+            rf"(?:inline )?(?:long long|int) {name}\(([^)]*)\) \{{(.*?)\n\}}",
+            src, flags=re.S).groups()
+        args = ", ".join(p.split()[-1] for p in params.split(","))
+        body = re.sub(r"//[^\n]*", "", body)
+        body = body.replace("static_cast<long long>", "")
+        body = body.replace("4LL", "4").replace("/", "//")
+        body = body.replace("(w_bf16 ? 2 : 4)", "(2 if w_bf16 else 4)")
+        body = body.replace("rows < P ? rows : P", "min(rows, P)")
+        assert "?" not in body, body
+        lines = [re.sub(r"^(const )?(long long|int) ", "",
+                        " ".join(st.split()))
+                 for st in body.split(";") if st.strip()]
+        exec(f"def {name}({args}):\n" + "".join(  # noqa: S102
+            f"    {ln}\n" for ln in lines), space)
+    return space
+
+
+@pytest.mark.parametrize("p,c_in,wo,c_out,w_bf16", [
+    (8, 3, 80, 128, True), (8, 3, 80, 128, False), (4, 3, 160, 64, True),
+    (16, 3, 40, 384, False), (8, 3, 11, 20, False), (16, 3, 4, 384, True),
+    (8, 3, 160, 128, False),
+    (16, 3, 256, 384, False),  # W = 4096: 786 KB of whole rows
+    (16, 3, 256, 8, False),
+    (4, 3, 2048, 64, False),   # W = 8192: 393 KB of whole rows
+    (4, 3, 2048, 64, True), (32, 3, 300, 128, False), (2, 1, 50000, 4, False)])
+def test_fwd_span_plan_is_the_c_sources_rule(p, c_in, wo, c_out, w_bf16):
+    """Today's cut (whole rows, the slice halved down to 4 channels) where
+    it fits, the same numbers as before; else a span of the row at the
+    widest slice that leaves ``MIN_SPAN`` positions, as few spans as fit;
+    the shared memory always the C source's count."""
+    c = _c_formulas()
+    smem = c["patchify_smem_bytes"]
+    plan = tp.fwd_span_plan(p, c_in, wo, c_out, w_bf16)
+    assert plan.smem == smem(p, c_in, plan.span, plan.channels, w_bf16)
+    assert plan.smem <= tp.SMEM_LIMIT
+    top = 4
+    while top < min(c_out, 128):
+        top *= 2
+    whole = [bn for bn in (128, 64, 32, 16, 8, 4)
+             if bn <= top and smem(p, c_in, wo, bn, w_bf16) <= tp.SMEM_LIMIT]
+    if whole:
+        assert (plan.channels, plan.span) == (whole[0], wo)
+        return
+    spans = -(-wo // plan.span)
+    assert plan.span == -(-wo // spans) < wo
+    assert smem(p, c_in, -(-wo // (spans - 1)), plan.channels,
+                w_bf16) > tp.SMEM_LIMIT
+    wider = 2 * plan.channels
+    if wider <= top:
+        assert smem(p, c_in, min(wo, tp.MIN_SPAN), wider,
+                    w_bf16) > tp.SMEM_LIMIT
+    assert plan.span >= min(wo, tp.MIN_SPAN) or plan.channels == 4
+
+
+@pytest.mark.parametrize("p,c_in,wo", [
+    (8, 3, 80), (4, 3, 160), (16, 3, 40), (8, 3, 160), (8, 3, 11),
+    (16, 3, 256),   # W = 4096: 278 KB of whole rows
+    (4, 3, 2048),   # W = 8192
+    (16, 64, 100), (2, 1, 90000)])
+def test_dw_span_plan_is_the_c_sources_rule(p, c_in, wo):
+    c = _c_formulas()
+    assert (tp.DW_TILE_K, tp.DW_TILE_N) == (c["DW_BK"], c["DW_BN"])
+    plan = tp.dw_span_plan(p, c_in, wo)
+    assert plan.channels == c["DW_BN"]
+    assert plan.smem == c["dw_smem"](p, c_in, plan.span) <= tp.SMEM_LIMIT
+    spans = -(-wo // plan.span)
+    assert plan.span == -(-wo // spans)
+    if spans > 1:
+        assert c["dw_smem"](p, c_in, -(-wo // (spans - 1))) > tp.SMEM_LIMIT
+
+
+def test_span_plans_name_the_geometry_that_does_not_fit():
+    # one position of P = 64 over 512 input channels: rows of 32,768
+    # values, two of which a k tile of the weight gradient touches
+    with pytest.raises(ValueError, match="P=64, C_in=512"):
+        tp.fwd_span_plan(64, 512, 10, 8, False)
+    with pytest.raises(ValueError, match="P=64, C_in=512"):
+        tp.dw_span_plan(64, 512, 10)

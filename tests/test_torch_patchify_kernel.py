@@ -79,15 +79,30 @@ def test_kernel_mixed_dtypes_and_clip(cuda, w_dtype, out_dtype, clip01):
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_rows_that_do_not_fit(cuda):
+@pytest.mark.parametrize("shape,patch,cout,dtype", [
     # 16 float32 rows of 4096 x 3 values are 786 KB, over the 227 KB a
-    # block may use, even before the kernel slice
-    x = torch.zeros((1, 16, 4096, 3), device=cuda)
-    w = torch.zeros((16, 16, 3, 8), device=cuda)
+    # block may use: a block takes a span of the row's positions
+    ((1, 16, 4096, 3), 16, 8, "float32"),
+    ((2, 32, 4096, 3), 16, 384, "float32"),
+    ((1, 8, 8192, 3), 4, 64, "float32"),    # 4 rows of 8192 x 3: 393 KB
+    ((1, 8, 8192, 3), 4, 64, "bfloat16"),   # P = 4: the CUDA cores
+    ((1, 20, 4100, 3), 16, 40, "float32"),  # SAME padding on a cut row
+    ((1, 20, 4100, 3), 16, 40, "bfloat16"),
+])
+def test_kernel_takes_rows_that_do_not_fit(cuda, shape, patch, cout, dtype):
+    x, w = _inputs(shape, patch, cout, seed=5)
+    xt = torch.from_numpy(x).to(cuda)
+    wt = torch.from_numpy(w).to(cuda, _DT[dtype])
+    assert tp.tensor_core_plan(shape, tuple(w.shape), _DT[dtype]) is None
+    wo = -(-shape[2] // patch)
+    cut = tp.fwd_span_plan(patch, 3, wo, cout, dtype == "bfloat16")
+    assert cut.span < wo
     before = tp.patchify_conv.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tp.patchify_conv(x, w)
-    assert tp.patchify_conv.launches == before
+    out = tp.patchify_conv(xt, wt, clip01=True)
+    torch.cuda.synchronize()
+    assert tp.patchify_conv.launches == before + 1
+    ref = tp.patchify_conv_reference(xt, wt, clip01=True)
+    torch.testing.assert_close(out.float(), ref.float(), **_TOL[dtype])
 
 
 def _dw_case(cuda, shape, patch, cout, dtype, clip01, seed=2):
@@ -173,15 +188,50 @@ def test_stem_gradient_on_the_kernel_route(cuda):
 
 
 @pytest.mark.gpu
-def test_dw_kernel_refuses_rows_that_do_not_fit(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,patch,cout", [
     # P=16 at W=4096: 3 staged rows of 12,288 values and a g row of 256 x
-    # 128 need 278 KB, over the 227 KB a block may use
-    x = torch.zeros((1, 16, 4096, 3), device=cuda)
-    g = torch.zeros((1, 1, 256, 8), device=cuda)
+    # 128 are 278 KB, over the 227 KB a block may use: spans of the row
+    ((1, 16, 4096, 3), 16, 8),
+    ((1, 8, 8192, 3), 4, 64),
+    ((1, 20, 4100, 3), 16, 40),  # SAME padding on a cut row
+])
+def test_dw_kernel_takes_rows_that_do_not_fit(cuda, shape, patch, cout,
+                                              dtype):
+    wo = -(-shape[2] // patch)
+    assert tp.dw_span_plan(patch, 3, wo).span < wo
+    xt, gt = _dw_case(cuda, shape, patch, cout, dtype, clip01=True, seed=6)
+    if dtype == "bfloat16":  # float32 g keeps the CUDA-core kernel
+        gt = gt.float()
     before = tp.patchify_conv_dw.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tp.patchify_conv_dw(x, g, 16, torch.float32)
-    assert tp.patchify_conv_dw.launches == before
+    dw, dw32 = tp.patchify_conv_dw(xt, gt, patch, _DT[dtype], clip01=True)
+    torch.cuda.synchronize()
+    assert tp.patchify_conv_dw.launches == before + 1
+    ref, ref32 = tp.patchify_conv_dw_reference(xt, gt, patch, _DT[dtype],
+                                               clip01=True)
+    patches, _ = tp._patch_matrix(xt, patch, _DT[dtype], True)
+    scale = (patches.float().abs().t()
+             @ gt.reshape(-1, cout).to(_DT[dtype]).float().abs())
+    bound = 1e-5 * scale.reshape(dw32.shape) + 1e-6
+    assert ((dw32 - ref32).abs() <= bound).all()
+    assert ((dw.float() - ref.float()).abs()
+            <= bound + 2.0 ** -7 * ref.float().abs()).all()
+
+
+@pytest.mark.gpu
+def test_library_states_the_span_plans(cuda):
+    """The C source's shared-memory counts are the plans' (the CPU tests
+    hold the plans against the source's text)."""
+    lib = tp._library()
+    for p, c_in, wo, c_out, w_bf16 in ((8, 3, 80, 128, False),
+                                       (16, 3, 256, 384, False),
+                                       (4, 3, 2048, 64, True),
+                                       (16, 3, 257, 40, False)):
+        cut = tp.fwd_span_plan(p, c_in, wo, c_out, w_bf16)
+        assert lib.patchify_smem_bytes(p, c_in, cut.span, cut.channels,
+                                       int(w_bf16)) == cut.smem
+        cut = tp.dw_span_plan(p, c_in, wo)
+        assert lib.patchify_dw_smem_bytes(p, c_in, cut.span) == cut.smem
 
 
 def _kernel_names(call, tag):
