@@ -16,11 +16,15 @@ configs (``config.from_yaml`` and dotted overrides) over the port:
               model (optionally the early-exit program with a runtime
               threshold), for ``--platforms cuda`` (the default) or
               ``cpu``.
-  benchmark - not ported: it waits for the port's benchmark (ROADMAP.md,
-              Queue 1 item 6) and exits 2.
+  benchmark - the matchers' and the model configurations' train
+              throughput on the card, one JSON line each
+              (``benchmarks/run_benchmarks.py``: ``bench_matcher``, then
+              ``bench_throughput``; ``--quick`` runs the first
+              configuration only).
 
-``train`` and ``evaluate`` run on ``--device`` (``cuda`` by default; pass
-``--device cpu`` on a machine without a card). ``train --coordinator
+``train``, ``evaluate`` and ``benchmark`` run on ``--device`` (``cuda`` by
+default; pass ``--device cpu`` on a machine without a card: without it,
+``benchmark`` refuses there). ``train --coordinator
 HOST:PORT --num-processes N --process-id R`` is one process of a run
 across N (one command each, parallel/multiprocess.py): the process group
 is ``nccl`` on a card and ``gloo`` on the CPU unless ``--backend`` names
@@ -244,10 +248,12 @@ def cmd_export(args) -> int:
 
 
 def cmd_benchmark(args) -> int:
-    print("benchmark: the port has no benchmark yet; it waits for "
-          "ROADMAP.md, Queue 1 item 6 (bench_torch.py and its cells)",
-          file=sys.stderr)
-    return 2
+    from boosted_detr_torch.benchmarks.run_benchmarks import (
+        bench_matcher, bench_throughput)
+
+    bench_matcher(args.device)
+    bench_throughput(args.quick, args.device)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -330,6 +336,9 @@ def main(argv=None) -> int:
 
     b = sub.add_parser("benchmark")
     b.add_argument("--quick", action="store_true")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda; cpu measures the "
+                        "CPU)")
     b.set_defaults(fn=cmd_benchmark)
 
     args = parser.parse_args(argv)

@@ -139,6 +139,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      bit for bit. Reports each rank's step time, the gradients'
      all-reduce time with its bytes, and the context-parallel merge's
      time, and K3's row at the per-shard shape [64, 1600, 800, 32];
+   - benchmarks: the benchmark suite as users run it, each command in a
+     process of its own: ``python -m boosted_detr_torch.cli benchmark
+     --quick`` (the matchers at [8, 32, 96] and the first throughput
+     configuration), ``bench_torch.py`` (the 640 flagship's train and
+     inference throughput) and ``boosted_detr_torch.benchmarks.
+     profile_step --steps 2``; every expected line names the card and its
+     power limit and has positive, finite times, K2 launched on the kernel
+     matcher's line and not on the plain one's, bench_torch.py launched
+     K1-fwd, K1-dW and K2 and no K3, and the profile attributed K1, K2
+     and every component;
 4. small reference: small float32 models on the card against the same
    weights on the CPU, the path the CPU tests hold against JAX (the
    ResNet DETR with plain attention, the same with the fused attention,
@@ -167,6 +177,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -1727,37 +1738,19 @@ def _step_builder(path, model, cfg, tcfg):
     return bt.make_train_step(model, cfg, tcfg)
 
 
-_PHASES = ("train_step/forward", "train_step/loss_and_matching",
-           "train_step/backward", "train_step/optimizer")
-
-
 def _profile_split(prof, wall_us):
-    """Device time of one profiled step by phase, and K3's share of it.
-    Each kernel is attached to the CPU op that launched it; the op's start
-    on the host falls inside the ``record_function`` range of its phase
-    (the backward's ops run on autograd's thread while the main thread
-    waits inside its range)."""
-    cpu = torch.autograd.DeviceType.CPU
-    events = prof.events()
-    windows = {ph: [(e.time_range.start, e.time_range.end) for e in events
-                    if e.name == ph and e.device_type == cpu]
-               for ph in _PHASES}
-    split = dict.fromkeys(_PHASES, 0.0)
-    split["other"] = 0.0
-    attention_us = 0.0
-    for e in events:
-        if e.device_type != cpu or not e.kernels:
-            continue
-        us = sum(k.duration for k in e.kernels)
-        attention_us += sum(k.duration for k in e.kernels
-                            if "attn_" in k.name)
-        t = e.time_range.start
-        phase = next((ph for ph, ws in windows.items()
-                      if any(a <= t <= b for a, b in ws)), "other")
-        split[phase] += us
-    busy = sum(split.values())
-    return ({k: v / 1e3 for k, v in split.items()}, busy / 1e3,
-            wall_us / 1e3, attention_us / 1e3)
+    """Device time of one profiled step by phase, and K3's share of it
+    (``profile_step.attribute``: each kernel is anchored to the runtime
+    call that launched it; a kernel under an autograd node is in the
+    backward, any other in the ``record_function`` range of its phase)."""
+    from boosted_detr_torch.benchmarks import profile_step
+
+    rows = profile_step.attribute(prof.events())
+    split = dict.fromkeys(profile_step.PHASES + ("other",), 0.0)
+    for r in rows:
+        split[r["phase"]] += r["us"] / 1e3
+    attention_ms = sum(r["us"] for r in rows if "attn_" in r["name"]) / 1e3
+    return split, sum(split.values()), wall_us / 1e3, attention_ms
 
 
 def _trained_stem(model):
@@ -3544,6 +3537,110 @@ def phase_parallel(rows):
     return row
 
 
+# The benchmark suite's commands, each run in a fresh process from the root
+# of the checkout, with its time limit in seconds.
+BENCHMARKS = {
+    "cli benchmark --quick": (["-m", "boosted_detr_torch.cli", "benchmark",
+                               "--quick"], 600),
+    "bench_torch.py": (["bench_torch.py"], 600),
+    "profile_step --steps 2": (["-m", "boosted_detr_torch.benchmarks."
+                                "profile_step", "--steps", "2"], 600),
+}
+QUICK_LINES = ("matcher_hungarian_plain", "matcher_hungarian_kernel",
+               "matcher_auction", "matcher_native_cpp_host",
+               "train_detr_resnet_640")
+
+
+def _positive(line, keys, what):
+    bad = {k: line.get(k) for k in keys
+           if not (isinstance(line.get(k), (int, float))
+                   and math.isfinite(line[k]) and line[k] > 0)}
+    if bad:
+        raise AssertionError(f"{what}: not positive and finite: {bad}")
+
+
+def phase_benchmarks():
+    """The benchmark suite as users run it, each command in a process of
+    its own: ``cli benchmark --quick`` (the matchers and the first
+    throughput configuration), ``bench_torch.py`` (the 640 flagship's train
+    and inference throughput) and ``profile_step --steps 2``. Gates: each
+    command exits 0; every expected line is there, names the card and its
+    power limit and has positive, finite times; K2 launched on
+    ``matcher_hungarian_kernel`` and not on ``matcher_hungarian_plain``;
+    bench_torch.py launched K1-fwd, K1-dW and K2 and no K3; the profile
+    saw K1, K2 and every component. Returns the lines and the launches
+    summed over them."""
+    from boosted_detr_torch.benchmarks import profile_step
+
+    card = torch.cuda.get_device_name(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    out = {}
+    for label, (args, timeout) in BENCHMARKS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=root,
+                              capture_output=True, text=True, check=False,
+                              timeout=timeout)
+        seconds = time.perf_counter() - t0
+        for text in proc.stdout.strip().splitlines():
+            _say(f"  [{label}] {text}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        _say(f"[benchmarks] {label}: {seconds:.1f} s")
+        out[label] = proc.stdout
+    lines = [json.loads(t) for t in out["cli benchmark --quick"].splitlines()
+             if t.startswith("{")]
+    by_name = {line["benchmark"]: line for line in lines}
+    if list(by_name) != list(QUICK_LINES):
+        raise AssertionError(f"benchmark --quick printed {list(by_name)}, "
+                             f"expected {list(QUICK_LINES)}")
+    bench = json.loads(out["bench_torch.py"].strip().splitlines()[-1])
+    profile = json.loads(next(
+        t for t in out["profile_step --steps 2"].splitlines()
+        if t.startswith("PROFILE_STEP "))[len("PROFILE_STEP "):])
+    for line in lines + [bench, profile]:
+        what = line.get("benchmark", line.get("metric", "profile_step"))
+        if line["device"] != card:
+            raise AssertionError(f"{what}: device {line['device']!r}, the "
+                                 f"card is {card!r}")
+        _positive(line, ["power_limit_w"], what)
+    for line in lines:
+        key = "ms_per_solve" if "ms_per_solve" in line else "ms_per_step"
+        _positive(line, [key, f"{key}_q1", f"{key}_q3"], line["benchmark"])
+    _positive(by_name["train_detr_resnet_640"], ["images_per_sec"],
+              "train_detr_resnet_640")
+    if not math.isfinite(by_name["train_detr_resnet_640"]["loss"]):
+        raise AssertionError("train_detr_resnet_640: the loss is not finite")
+    k2 = {n: by_name[f"matcher_hungarian_{n}"]["kernel_launches"]["lap"]
+          for n in ("kernel", "plain")}
+    if not (k2["kernel"] > 0 and k2["plain"] == 0):
+        raise AssertionError(f"K2's launches on the matcher lines: {k2}")
+    _positive(bench, ["value", "train_step_ms", bench["metric"].replace(
+        "train_", "inference_", 1)], "bench_torch.py")
+    if not math.isfinite(bench["final_loss"]):
+        raise AssertionError("bench_torch.py: the final loss is not finite")
+    launched = bench["kernel_launches"]
+    if (min(launched[k] for k in ("patchify_fwd", "patchify_dw", "lap")) == 0
+            or any(launched[k] for k in _K3)):
+        raise AssertionError(f"bench_torch.py launched {launched}: K1-fwd, "
+                             "K1-dW and K2 expected, no K3")
+    _positive(profile, ["device_ms_per_step", "busy_share"], "profile_step")
+    seen = {k for k, v in profile["by_category"].items() if v > 0}
+    comps = {k for k, v in profile["by_component"].items() if v > 0}
+    if (not {"K1-fwd", "K1-dW", "K2"} <= seen
+            or not set(profile_step.COMPONENTS) - {"other"} <= comps):
+        raise AssertionError(f"profile_step saw categories {sorted(seen)}, "
+                             f"components {sorted(comps)}")
+    launches = {name: sum(line["kernel_launches"][name]
+                          for line in lines + [bench]) for name in KERNELS}
+    seconds = time.perf_counter() - t_phase
+    _say(f"[benchmarks] launches over the timed chunks {launches}; "
+         f"{seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds, "lines": lines,
+            "bench_torch": bench, "profile_step": profile}
+
+
 def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
@@ -3623,6 +3720,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["parallel"] = {"training": phase_parallel(rows)}
     torch.cuda.empty_cache()
+    report["benchmarks"] = {"benchmarks": phase_benchmarks()}
     for label, (path, cfg, train_kw) in _small_configs().items():
         phase_small_reference(label, path, cfg, train_kw)
     phase_kernel_names()

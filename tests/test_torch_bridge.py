@@ -128,7 +128,10 @@ def test_vocabulary_and_codec_copies(name):
                                   ref.encode_attributes(atts, 2, 3))
 
 
-_BANNED = ("jax", "jaxlib", "flax", "optax", "boosted_detr_tpu")
+# The JAX stack, the JAX package, and the JAX repo's benchmark suite
+# (benchmarks/, bench.py): the port keeps its own copies.
+_BANNED = ("jax", "jaxlib", "flax", "optax", "boosted_detr_tpu", "benchmarks",
+           "bench")
 
 
 def _imports(path):
@@ -192,10 +195,11 @@ def test_new_modules_import_without_the_optional_host_packages():
 
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "boosted_detr_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10 and files[-1].exists()
+    roots = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    assert len(files) > 10 and all(f.exists() for f in roots)
     scanned = {str(f.relative_to(ROOT / "boosted_detr_torch"))
-               for f in files[:-1]}
+               for f in files}
+    files += roots
     assert {"ops/boxes.py", "ops/losses.py", "ops/lap.py", "ops/matching.py",
             "train/schedules.py", "train/steps.py", "models/boosted.py",
             "models/early_exit.py", "models/panoptic.py",
@@ -204,7 +208,9 @@ def test_port_imports_nothing_of_jax():
             "serving.py", "parallel/__init__.py", "parallel/mesh.py",
             "parallel/sharding.py", "parallel/multiprocess.py",
             "parallel/context_parallel.py",
-            "parallel/dryrun.py"} | set(_HOST_MODULES) <= scanned
+            "parallel/dryrun.py", "benchmarks/__init__.py",
+            "benchmarks/run_benchmarks.py", "benchmarks/profile_step.py",
+            "benchmarks/roofline.py"} | set(_HOST_MODULES) <= scanned
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in _BANNED]
