@@ -1129,9 +1129,11 @@ __device__ __forceinline__ void zero_accumulator(float (&acc)[CD / 8][4]) {
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 }
 
-// acc (rows r0 and r0 + 8 of a 128-wide chunk) as bf16 into rows `stride`
-// values apart at base, row r0 times mul[0] and row r0 + 8 times mul[1].
-__device__ __forceinline__ void store_chunk(const float (&acc)[CD / 8][4],
+// acc (rows r0 and r0 + 8 of an 8 N-wide slice of columns: a 128-wide
+// chunk, N = 16, or half the head dim) as bf16 into rows `stride` values
+// apart at base, row r0 times mul[0] and row r0 + 8 times mul[1].
+template <int N>
+__device__ __forceinline__ void store_chunk(const float (&acc)[N][4],
                                             const float (&mul)[2], bf16* base,
                                             long long stride, int r0,
                                             int n_rows, int tig) {
@@ -1141,7 +1143,7 @@ __device__ __forceinline__ void store_chunk(const float (&acc)[CD / 8][4],
     __nv_bfloat162* row =
         reinterpret_cast<__nv_bfloat162*>(base + (r0 + 8 * h) * stride);
 #pragma unroll
-    for (int nd = 0; nd < CD / 8; ++nd)
+    for (int nd = 0; nd < N; ++nd)
       row[4 * nd + tig] = __floats2bfloat162_rn(acc[nd][2 * h] * mul[h],
                                                 acc[nd][2 * h + 1] * mul[h]);
   }
@@ -1262,15 +1264,17 @@ attn_fwd_wide_mma_kernel(const bf16* __restrict__ q,
   store_chunk(acc, inv, out + q_base * Dp + oc * CD, Dp, r0, Tq, tig);
 }
 
-// dq at D = 128 nc. A stage's slots: q, dO, k, v, and the tile's k of
-// chunk oc (wide_smem_bytes).
+// dq at D = 128 nc (the chunked route, nc >= 4). A stage's slots: q, dO, k,
+// v, and the tile's k of chunk oc (wide_smem_bytes).
 __global__ void __launch_bounds__(MMA_THREADS)
-attn_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int Tq, int Tk, int tiles,
-                        int nc, float scale) {
+attn_dq_wide_chunked_mma_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ g,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                bf16* __restrict__ dq, int Tq, int Tk,
+                                int tiles, int nc, float scale) {
   constexpr int STEPS = TILE / STEP;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* slots = reinterpret_cast<bf16*>(smem);  // [2][5][WUNIT]
@@ -1360,19 +1364,20 @@ attn_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_chunk(acc, mul, dq + q_base * Dp + oc * CD, Dp, r0, Tq, tig);
 }
 
-// dk and dv at D = 128 nc, 32 queries a tile. A stage's slots: the block's
-// k and v rows (64 each), the tile's q and dO rows (32 each), the tile's q
-// and dO of chunk oc (32 each); then the stages' lse and delta
-// (wide_dkdv_smem_bytes).
+// dk and dv at D = 128 nc (the chunked route, nc >= 4), 32 queries a tile.
+// A stage's slots: the block's k and v rows (64 each), the tile's q and dO
+// rows (32 each), the tile's q and dO of chunk oc (32 each); then the
+// stages' lse and delta (wide_dkdv_smem_bytes).
 __global__ void __launch_bounds__(MMA_THREADS)
-attn_dkdv_wide_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ g,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int Tq, int Tk, int tiles, int nc, float scale) {
+attn_dkdv_wide_chunked_mma_kernel(const bf16* __restrict__ q,
+                                  const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v,
+                                  const bf16* __restrict__ g,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                  int Tq, int Tk, int tiles, int nc,
+                                  float scale) {
   constexpr int QT = DKDV_WTILE;
   constexpr int STEPS = QT / STEP;
   constexpr int HALF = QT * WPITCH;            // a staged [32 x 128] chunk
@@ -1484,6 +1489,371 @@ attn_dkdv_wide_mma_kernel(const bf16* __restrict__ q,
   const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.f, 1.f};
   store_chunk(dk_acc, dk_mul, dk + k_base * Dp + oc * CD, Dp, r0, Tk, tig);
   store_chunk(dv_acc, dv_mul, dv + k_base * Dp + oc * CD, Dp, r0, Tk, tig);
+}
+
+// ---- D = 256 and 384 on the tensor cores: the block's rows resident ----
+//
+// The chunked dq and dk/dv above recompute S and dP once for each 128-wide
+// chunk of the output (twice at D = 256), stage the block's own rows
+// again from L2 for every unit (44% of dq's ~5.8 GB of L2 reads at
+// [32, 1600, 1600, 256]), and fit one block of 4 warps on an SM (174 and
+// 141 KB of shared memory): 4.7 and 5.8% of their bounds (PERF.md). Up to
+// RESIDENT_MAX_NC chunks (D = 384), the kernels below instead own all D of
+// their 64 rows' output:
+//   - 8 warps, 16 rows a pair: warp w < 4 computes S (dq: q . k^T; dk/dv
+//     transposed, k . q^T) and p for rows 16 w .. 16 w + 15, warp w + 4 dP
+//     (dO . v^T; v . dO^T) for the same rows, each over the whole head
+//     dim, 16 dims a step in order: the chunked kernels' order (chunk 0's
+//     steps, then chunk 1's, into one fragment), so S and dP are the same
+//     bits, computed once a tile instead of D / 128 times;
+//   - the block's own rows (q and dO; k and v) are staged once, at
+//     pitch D + PAD, and stay resident in shared memory; only the
+//     streamed operand is staged, in tiles of RTILE = 32 rows two deep
+//     with cp.async, at full D. Shared memory: 2 64-row and 4 32-row
+//     slots, 256 (D + PAD) bf16 values, and the exchange below: 151,552
+//     and 217,088 bytes for dq at D = 256 and 384, 143,872 and 209,408
+//     for dk/dv, one block an SM (8 warps, against 4);
+//   - the exchange: each warp writes its float32 fragments (p from the S
+//     warps; dq's dP warps their dP) to shared memory lane by lane, and
+//     after one barrier reads its partner's. dq: both warps of a pair
+//     form the same ds = p (dP - delta) and each takes half of dq's D
+//     (D / 4 accumulators a thread). dk/dv: the S warp keeps p and sums
+//     dv, the dP warp reads p, forms ds and sums dk, each over all D (D / 2
+//     accumulators a thread; split by D halves instead, each warp would
+//     hold the same count and p and ds both, hi and lo);
+//   - the second products are the chunked kernels' (mma_over_rows, hi then
+//     lo for each 16-row step in order, the scale on dq and dk at the
+//     end), so dq, dk and dv equal theirs bit for bit;
+//   - what bounds them on this card: every 16 x 16 A fragment and 16 x 16
+//     B pair is one ldmatrix.x4 (512 bytes of the SM's 128 bytes a clock)
+//     for two mma.sync in the first products, so shared-memory reads, not
+//     the tensor cores, set the pace there; each A fragment is read once
+//     for both 16-row steps of a tile (mma_tile_over_dims). The tensor
+//     cores still run the split's lo halves (dq 8, dk/dv 12 passes a
+//     16 x 16 x D tile pair against the 6 and 8 of the bound's count).
+
+constexpr int RES_WARPS = 8;
+constexpr int RES_THREADS = 32 * RES_WARPS;
+constexpr int RTILE = 32;             // rows of a streamed tile
+constexpr int RSTEPS = RTILE / STEP;  // its 16-row steps
+constexpr int RESIDENT_MAX_NC = 3;    // D = 256 and 384; past it, chunked
+// float32 values a warp puts into the exchange a tile: its fragments of
+// every step, value and lane
+constexpr int XWARP = RSTEPS * 2 * 4 * 32;
+
+// Starts the copies of rows [0, n) of the [*, D] bf16 rows at src into
+// NROWS staged rows of pitch D + PAD (zeros for rows [n, NROWS)), 16 bytes
+// a thread of the RES_THREADS.
+template <int D, int NROWS>
+__device__ __forceinline__ void stage_rows_async(const bf16* src, int n,
+                                                 bf16* dst) {
+  constexpr int PER_ROW = D / 8;
+  for (int c = threadIdx.x; c < NROWS * PER_ROW; c += RES_THREADS) {
+    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
+    const bool live = r < n;
+    copy_async<16>(dst + r * (D + PAD) + col, src + (live ? r * D + col : 0),
+                   live);
+  }
+}
+
+// x[cs] = a_rows[16 x D] . (rows 16 cs .. 16 cs + 15 of a staged tile)^T
+// for each step cs of the tile: over the head dim 16 dims a step in order,
+// as mma_add_chunk sums chunk after chunk, each A fragment read once for
+// all the steps. Offsets as mma_add_chunk's, at pitch D + PAD.
+template <int D>
+__device__ __forceinline__ void mma_tile_over_dims(float (&x)[RSTEPS][2][4],
+                                                   const bf16* a_rows,
+                                                   int a_off,
+                                                   const bf16* rows,
+                                                   int b_off) {
+  zero_fragments(x);
+#pragma unroll
+  for (int kb = 0; kb < D / 16; ++kb) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_rows + a_off + 16 * kb);
+#pragma unroll
+    for (int cs = 0; cs < RSTEPS; ++cs) {
+      uint32_t b[4];
+      ldmatrix_x4(b, rows + cs * STEP * (D + PAD) + b_off + 16 * kb);
+      mma_bf16(x[cs][0], a, b[0], b[1]);
+      mma_bf16(x[cs][1], a, b[2], b[3]);
+    }
+  }
+}
+
+// A warp's fragments into the exchange, value by value, lane beside lane.
+__device__ __forceinline__ void put_fragments(const float (&x)[RSTEPS][2][4],
+                                              float* to, int lane) {
+#pragma unroll
+  for (int cs = 0; cs < RSTEPS; ++cs)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        to[((cs * 2 + j) * 4 + e) * 32 + lane] = x[cs][j][e];
+}
+
+// Value e of accumulator j of step cs that `put_fragments` wrote for lane.
+__device__ __forceinline__ float fragment_value(const float* from, int cs,
+                                                int j, int e, int lane) {
+  return from[((cs * 2 + j) * 4 + e) * 32 + lane];
+}
+
+// Dynamic shared memory of the resident kernels: the block's 64 rows of
+// two operands, two stages of 32 rows of two others, then dk/dv's two
+// stages of the lse and delta and the exchange (dq: all 8 warps'; dk/dv:
+// the S warps' p).
+template <int NC>
+__host__ __device__ constexpr int resident_smem_bytes(bool dkdv) {
+  return (2 * ROWS + 2 * 2 * RTILE) * (NC * CD + PAD) *
+             static_cast<int>(sizeof(bf16)) +
+         (dkdv ? 2 * 2 * RTILE * 4 + 4 * XWARP * 4 : 8 * XWARP * 4);
+}
+
+// dq at D = 128 NC, NC <= RESIDENT_MAX_NC: a block of 8 warps owns 64
+// query rows and all D of their dq, and streams the keys' k and v.
+template <int NC>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+attn_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int Tq, int Tk, int tiles,
+                        float scale) {
+  constexpr int D = NC * CD, PITCH = D + PAD, HALF = D / 2;
+  constexpr int OWN = ROWS * PITCH, STREAM = RTILE * PITCH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the block's q and dO rows [OWN] each, two stages of k and of v
+  // [2][STREAM] each, the exchange [8][XWARP] (resident_smem_bytes)
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sg = sq + OWN;
+  bf16* sk = sg + OWN;
+  bf16* sv = sk + 2 * STREAM;
+  float* exchange = reinterpret_cast<float*>(sv + 2 * STREAM);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  // role 0 (warps 0-3): S and p; role 1 (warps 4-7): dP. Warps w and w ^ 4
+  // share rows 16 (w % 4) .. + 15; each sums half of their dq, columns
+  // role HALF .. + HALF - 1
+  const int role = warp / 4, warp_row = (warp % 4) * STEP;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int r0 = first + warp_row + grp;  // this thread's rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* kb = k + static_cast<long long>(bh) * Tk * D;
+  const bf16* vb = v + static_cast<long long>(bh) * Tk * D;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
+
+  // the block's rows, past Tq as zeros; landed by the first tile's wait
+  const int nq = min(ROWS, Tq - first);
+  stage_rows_async<D, ROWS>(q + (q_base + first) * D, nq, sq);
+  stage_rows_async<D, ROWS>(g + (q_base + first) * D, nq, sg);
+  const float scale2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];  // lse times log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = r0 + 8 * h < Tq;
+    row_lse2[h] = live ? lse[q_base + r0 + 8 * h] * LOG2E : 0.f;
+    row_delta[h] = live ? delta[q_base + r0 + 8 * h] : 0.f;
+  }
+  float acc[HALF / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HALF / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_tiles = (Tk + RTILE - 1) / RTILE;
+  auto stage_tile = [&](int k0, int st) {
+    const int n = min(RTILE, Tk - k0);
+    stage_rows_async<D, RTILE>(kb + static_cast<long long>(k0) * D, n,
+                               sk + st * STREAM);
+    stage_rows_async<D, RTILE>(vb + static_cast<long long>(k0) * D, n,
+                               sv + st * STREAM);
+  };
+  stage_tile(0, 0);
+  commit_copies();
+  const bf16* a_rows = (role ? sg : sq) + warp_row * PITCH;
+  float* mine = exchange + warp * XWARP;
+  const float* theirs = exchange + (warp ^ 4) * XWARP;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % 2, k0 = i * RTILE;
+    wait_copies<0>();
+    // tile i has landed; tile i - 1 and the exchange are consumed
+    __syncthreads();
+    if (i + 1 < n_tiles) {
+      stage_tile(k0 + RTILE, st ^ 1);
+      commit_copies();
+    }
+    const bf16* tile_k = sk + st * STREAM;
+    float x[RSTEPS][2][4];  // S (role 0, then p) or dP (role 1)
+    mma_tile_over_dims<D>(x, a_rows, t_off, role ? sv + st * STREAM : tile_k,
+                          b_off);
+    if (role == 0) {
+#pragma unroll
+      for (int cs = 0; cs < RSTEPS; ++cs)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // keys past Tk are masked out of p
+            const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+            x[cs][j][e] = key < Tk ? exp2_approx(x[cs][j][e] * scale2 -
+                                                 row_lse2[e / 2])
+                                   : 0.f;
+          }
+    }
+    put_fragments(x, mine, lane);
+    __syncthreads();  // every pair's p and dP are in the exchange
+#pragma unroll
+    for (int cs = 0; cs < RSTEPS; ++cs) {
+      if (k0 + cs * STEP >= Tk) break;  // the same for every thread
+      float ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = fragment_value(theirs, cs, j, e, lane);
+          const float p = role ? y : x[cs][j][e];
+          const float dp = role ? x[cs][j][e] : y;
+          ds[j][e] = p * (dp - row_delta[e / 2]);
+        }
+      uint32_t hi[4], lo[4];
+      split_fragment(ds, hi, lo);
+      mma_over_rows<HALF>(acc, hi, lo,
+                          tile_k + cs * STEP * PITCH + role * HALF, t_off);
+    }
+  }
+  const float mul[2] = {scale, scale};
+  store_chunk(acc, mul, dq + q_base * D + role * HALF, D, r0, Tq, tig);
+}
+
+// dk and dv at D = 128 NC, NC <= RESIDENT_MAX_NC: a block of 8 warps owns
+// 64 key rows and all D of their dk and dv, and streams the queries' q, dO,
+// lse and delta.
+template <int NC>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+attn_dkdv_wide_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int Tq, int Tk, int tiles, float scale) {
+  constexpr int D = NC * CD, PITCH = D + PAD;
+  constexpr int OWN = ROWS * PITCH, STREAM = RTILE * PITCH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the block's k and v rows [OWN] each, two stages of q and of dO
+  // [2][STREAM] each, two stages of [lse RTILE][delta RTILE], the exchange
+  // [4][XWARP] (resident_smem_bytes)
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + OWN;
+  bf16* sq = sv + OWN;
+  bf16* sg = sq + 2 * STREAM;
+  float* stats = reinterpret_cast<float*>(sg + 2 * STREAM);
+  float* exchange = stats + 2 * 2 * RTILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  // role 0 (warps 0-3): S^T, p and dv; role 1 (warps 4-7): dP^T, ds and
+  // dk, for key rows 16 (w % 4) .. + 15, all D
+  const int role = warp / 4, warp_row = (warp % 4) * STEP;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * ROWS;
+  const int r0 = first + warp_row + grp;  // this thread's keys r0, r0 + 8
+  const long long k_base = static_cast<long long>(bh) * Tk;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const bf16* qb = q + q_base * D;
+  const bf16* gb = g + q_base * D;
+  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
+  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
+
+  // the block's rows, past Tk as zeros; landed by the first tile's wait
+  const int nk = min(ROWS, Tk - first);
+  stage_rows_async<D, ROWS>(k + (k_base + first) * D, nk, sk);
+  stage_rows_async<D, ROWS>(v + (k_base + first) * D, nk, sv);
+  const float scale2 = scale * LOG2E;
+  float acc[D / 8][4];  // dv (role 0) or dk (role 1)
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_tiles = (Tq + RTILE - 1) / RTILE;
+  auto stage_tile = [&](int q0, int st) {
+    const int n = min(RTILE, Tq - q0);
+    stage_rows_async<D, RTILE>(qb + static_cast<long long>(q0) * D, n,
+                               sq + st * STREAM);
+    stage_rows_async<D, RTILE>(gb + static_cast<long long>(q0) * D, n,
+                               sg + st * STREAM);
+    if (threadIdx.x < 2 * RTILE) {  // [lse RTILE][delta RTILE]
+      const int i = threadIdx.x % RTILE;
+      const float* src = (threadIdx.x < RTILE ? lse : delta) + q_base + q0;
+      copy_async<4>(stats + 2 * RTILE * st + threadIdx.x,
+                    src + (i < n ? i : 0), i < n);
+    }
+  };
+  stage_tile(0, 0);
+  commit_copies();
+  const bf16* a_rows = (role ? sv : sk) + warp_row * PITCH;
+  float* p_of_pair = exchange + (warp % 4) * XWARP;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % 2, q0 = i * RTILE;
+    wait_copies<0>();
+    // tile i has landed; tile i - 1 and the exchange are consumed
+    __syncthreads();
+    if (i + 1 < n_tiles) {
+      stage_tile(q0 + RTILE, st ^ 1);
+      commit_copies();
+    }
+    const bf16* tile_q = sq + st * STREAM;
+    const bf16* tile_g = sg + st * STREAM;
+    const float* l_row = stats + 2 * RTILE * st;
+    const float* d_row = l_row + RTILE;
+    // transposed: rows are this warp's keys, columns 16 queries a step
+    float x[RSTEPS][2][4];  // S^T (role 0, then p) or dP^T (role 1)
+    mma_tile_over_dims<D>(x, a_rows, t_off, role ? tile_g : tile_q, b_off);
+    if (role == 0) {
+#pragma unroll
+      for (int cs = 0; cs < RSTEPS; ++cs)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = cs * STEP + 8 * j + 2 * tig;
+          const float2 l = *reinterpret_cast<const float2*>(l_row + col);
+          const float lse2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            // query rows past Tq are masked out of p
+            x[cs][j][e] = q0 + col + e % 2 < Tq
+                              ? exp2_approx(x[cs][j][e] * scale2 - lse2[e % 2])
+                              : 0.f;
+        }
+      put_fragments(x, p_of_pair, lane);
+    }
+    __syncthreads();  // every pair's p is in the exchange
+#pragma unroll
+    for (int cs = 0; cs < RSTEPS; ++cs) {
+      if (q0 + cs * STEP >= Tq) break;  // the same for every thread
+      if (role == 1) {  // ds = p (dP - delta), over x's dP
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = cs * STEP + 8 * j + 2 * tig;
+          const float2 dl = *reinterpret_cast<const float2*>(d_row + col);
+          const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[cs][j][e] = fragment_value(p_of_pair, cs, j, e, lane) *
+                          (x[cs][j][e] - dlt[e % 2]);
+        }
+      }
+      uint32_t hi[4], lo[4];
+      split_fragment(x[cs], hi, lo);  // p (role 0) or ds (role 1)
+      mma_over_rows<D>(acc, hi, lo,
+                       (role ? tile_q : tile_g) + cs * STEP * PITCH, t_off);
+    }
+  }
+  const float mul[2] = {role ? scale : 1.f, role ? scale : 1.f};
+  store_chunk(acc, mul, (role ? dk : dv) + k_base * D, D, r0, Tk, tig);
 }
 
 // ---- float32 at D = 128 nc, on the CUDA cores ----
@@ -1733,8 +2103,62 @@ constexpr int wide_dkdv_smem_bytes() {
          2 * 2 * DKDV_WTILE * 4;
 }
 
+// The resident kernels' launches: one block for 64 rows, 8 warps.
+static_assert(RESIDENT_MAX_NC == 3, "the launchers take NC = 2 and 3");
+static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
+                  resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448,
+              "the resident kernels' shared memory passes an H100 block's");
+
+template <int NC>
+cudaError_t launch_dq_resident(const void* q, const void* k, const void* v,
+                               const void* g, const void* lse,
+                               const void* delta, void* dq, int BH, int Tq,
+                               int Tk, float scale, cudaStream_t stream) {
+  const int tiles = tiles_of(Tq);
+  constexpr int smem = resident_smem_bytes<NC>(false);
+  const cudaError_t err = allow_smem(attn_dq_wide_mma_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  attn_dq_wide_mma_kernel<NC><<<BH * tiles, RES_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_dkdv_resident(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 int BH, int Tq, int Tk, float scale,
+                                 cudaStream_t stream) {
+  const int tiles = tiles_of(Tk);
+  constexpr int smem = resident_smem_bytes<NC>(true);
+  const cudaError_t err = allow_smem(attn_dkdv_wide_mma_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  attn_dkdv_wide_mma_kernel<NC><<<BH * tiles, RES_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
+// Blocks an SM of `kernel` launched with `threads` and `smem` bytes of
+// dynamic shared memory (after the opt-in its launch makes).
+template <typename Kernel>
+cudaError_t occupancy(Kernel* kernel, int threads, int smem, int* blocks) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem);
+}
+
 // The wide launchers take launch_fwd's, launch_dq's and launch_dkdv's
-// arguments, then the chunks nc and the dtype (bf: bfloat16).
+// arguments, then the chunks nc and the dtype (bf: bfloat16). In bf16, dq
+// and dk/dv take the resident kernels up to RESIDENT_MAX_NC chunks (their
+// rows at D = 512 would pass a block's shared memory) and the chunked
+// ones past it; the forward and float32 take the chunked kernels.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* out, void* lse, int BH, int Tq, int Tk,
                             float scale, cudaStream_t stream, int nc,
@@ -1766,11 +2190,17 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
   const dim3 grid(BH * tiles, nc);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
+  if (bf && nc == 2)
+    return launch_dq_resident<2>(q, k, v, g, lse, delta, dq, BH, Tq, Tk,
+                                 scale, stream);
+  if (bf && nc == 3)
+    return launch_dq_resident<3>(q, k, v, g, lse, delta, dq, BH, Tq, Tk,
+                                 scale, stream);
   if (bf) {
     constexpr int smem = wide_smem_bytes(5);
-    const cudaError_t err = allow_smem(attn_dq_wide_mma_kernel, smem);
+    const cudaError_t err = allow_smem(attn_dq_wide_chunked_mma_kernel, smem);
     if (err != cudaSuccess) return err;
-    attn_dq_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+    attn_dq_wide_chunked_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, nc, scale);
@@ -1792,11 +2222,18 @@ cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v,
   const dim3 grid(BH * tiles, nc);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
+  if (bf && nc == 2)
+    return launch_dkdv_resident<2>(q, k, v, g, lse, delta, dk, dv, BH, Tq,
+                                   Tk, scale, stream);
+  if (bf && nc == 3)
+    return launch_dkdv_resident<3>(q, k, v, g, lse, delta, dk, dv, BH, Tq,
+                                   Tk, scale, stream);
   if (bf) {
     constexpr int smem = wide_dkdv_smem_bytes();
-    const cudaError_t err = allow_smem(attn_dkdv_wide_mma_kernel, smem);
+    const cudaError_t err =
+        allow_smem(attn_dkdv_wide_chunked_mma_kernel, smem);
     if (err != cudaSuccess) return err;
-    attn_dkdv_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+    attn_dkdv_wide_chunked_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
@@ -1866,6 +2303,41 @@ int attention_dkdv(const void* q, const void* k, const void* v,
   if (!valid(BH, Tq, Tk)) return static_cast<int>(cudaErrorInvalidValue);
   ATTN_DISPATCH(launch_dkdv, D, bf16, q, k, v, g, lse, delta, dk, dv, BH, Tq,
                 Tk, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the bf16
+// wide kernel `kernel` (0 the forward, 1 dq, 2 dk/dv) that a launch at head
+// dim D takes; *smem gets its dynamic shared memory in bytes.
+int attention_wide_occupancy(int kernel, int D, int* blocks, int* smem) {
+  if (D <= CD || D % CD != 0 || kernel < 0 || kernel > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = D / CD;
+  const bool resident = kernel > 0 && nc <= RESIDENT_MAX_NC;
+  cudaError_t err;
+  if (!resident) {
+    *smem = kernel == 0   ? wide_smem_bytes(3)
+            : kernel == 1 ? wide_smem_bytes(5)
+                          : wide_dkdv_smem_bytes();
+    err = kernel == 0   ? occupancy(attn_fwd_wide_mma_kernel, MMA_THREADS,
+                                    *smem, blocks)
+          : kernel == 1 ? occupancy(attn_dq_wide_chunked_mma_kernel,
+                                    MMA_THREADS, *smem, blocks)
+                        : occupancy(attn_dkdv_wide_chunked_mma_kernel,
+                                    MMA_THREADS, *smem, blocks);
+  } else if (nc == 2) {
+    *smem = resident_smem_bytes<2>(kernel == 2);
+    err = kernel == 1 ? occupancy(attn_dq_wide_mma_kernel<2>, RES_THREADS,
+                                  *smem, blocks)
+                      : occupancy(attn_dkdv_wide_mma_kernel<2>, RES_THREADS,
+                                  *smem, blocks);
+  } else {
+    *smem = resident_smem_bytes<3>(kernel == 2);
+    err = kernel == 1 ? occupancy(attn_dq_wide_mma_kernel<3>, RES_THREADS,
+                                  *smem, blocks)
+                      : occupancy(attn_dkdv_wide_mma_kernel<3>, RES_THREADS,
+                                  *smem, blocks);
+  }
+  return static_cast<int>(err);
 }
 
 const char* attention_error_string(int code) {

@@ -27,13 +27,20 @@ at most 128 (ViT-Huge's D = 80 to 128), else to the next multiple of 128
 launch is given the true 1/sqrt(D) and the outputs are sliced back. At
 D = 128 the kernels take their tiles from dynamic shared memory (opted in
 above 48 KB) and the bf16 dk/dv kernel reads the block's k and v rows from
-shared memory instead of holding them in registers. Past 128 a grid axis
-runs over the output's 128-wide chunks: each block owns one chunk of out,
+shared memory instead of holding them in registers. Past 128 the bf16
+dq and dk/dv at D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) run 8 warps
+a block that own all D of their 64 rows' output: the block's own rows
+stay resident in shared memory, the logits and dP are computed once a
+streamed tile, summed over the head dim 16 dims a step in order, and p
+goes to the partner warp through shared memory. Every other wide kernel
+(the forward, float32, and dq and dk/dv from D = 512 on) takes a grid
+axis over the output's 128-wide chunks: each block owns one chunk of out,
 dq, dk or dv, and computes the logits (and dP) over the whole head dim,
 one staged 128-wide chunk after another in the same order in every
-block, so all blocks of a row group compute the same p and ds. The
-arithmetic is the same at every D, so the emulations below describe it at
-D = 128 and past it too. They take
+block, so all blocks of a row group compute the same p and ds. Both
+routes sum in that order, so the emulations below describe them both, at
+D = 128 and past it too (``wide_gradient_kernels`` names the route). They
+take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
 strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
@@ -77,6 +84,10 @@ import torch
 # multiples of it, in chunks of it.
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 CHUNK = SUPPORTED_HEAD_DIMS[-1]
+# The widest head dim whose bf16 dq and dk/dv keep the block's rows
+# resident in shared memory (csrc/attention.cu, RESIDENT_MAX_NC chunks);
+# wider ones take the chunked kernels.
+RESIDENT_MAX_HEAD_DIM = 3 * CHUNK
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
 
@@ -165,7 +176,8 @@ _LOG2E = 1.4426950408889634
 def _logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b^T in float32 as the tensor-core kernels sum it: past D = 128
     one 128-wide chunk of the head dim after another, in order, as each
-    block of the wide kernels stages them."""
+    block of the chunked kernels stages them (the resident kernels sum the
+    same 16-dim steps in the same order)."""
     d = a.shape[-1]
     if d <= CHUNK:
         return a @ b.transpose(1, 2)
@@ -190,7 +202,9 @@ def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool,
     scale applied to the float32 logit, and (p, ds) as their bf16 parts.
     Yields (slice of the streamed rows, parts of p, parts of ds), the
     stream running over 64-row key tiles (dq) or query tiles (dk/dv; 32
-    rows past D = 128)."""
+    rows past D = 128). The kernels add each 16-row step of a tile into
+    their sums in order, so a tile's size moves no kernel's order of sums:
+    the resident kernels (32-row tiles) give the chunked ones' bits."""
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     rows = k.shape[1] if over_keys else q.shape[1]
     step = (_DKDV_WIDE_TILE if not over_keys and q.shape[-1] > CHUNK
@@ -292,6 +306,9 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
         fn.restype = ctypes.c_int
+    lib.attention_wide_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.attention_wide_occupancy.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -323,6 +340,35 @@ def padded_head_dim(d: int) -> int:
     pallas_attention.py:86)."""
     return next((n for n in SUPPORTED_HEAD_DIMS if n >= d),
                 -(-d // CHUNK) * CHUNK)
+
+
+def wide_gradient_kernels(d: int) -> Tuple[str, str]:
+    """The names of the bf16 dq and dk/dv kernels that a launch at head dim
+    ``d`` past ``CHUNK`` runs, after padding: the resident kernels up to
+    ``RESIDENT_MAX_HEAD_DIM``, the chunked ones past it."""
+    padded = padded_head_dim(d)
+    if padded <= CHUNK:
+        raise ValueError(f"head dim {d} runs on the kernels of D <= {CHUNK}")
+    route = "" if padded <= RESIDENT_MAX_HEAD_DIM else "chunked_"
+    return (f"attn_dq_wide_{route}mma_kernel",
+            f"attn_dkdv_wide_{route}mma_kernel")
+
+
+def wide_occupancy(kernel: str, d: int) -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared memory in bytes) of the bf16 wide
+    ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkdv"``) that a launch at head dim
+    ``d`` (a multiple of ``CHUNK`` past it) takes, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    card."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _library()
+    rc = lib.attention_wide_occupancy(("fwd", "dq", "dkdv").index(kernel), d,
+                                      ctypes.byref(blocks),
+                                      ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"attention_wide_occupancy({kernel}, {d}): "
+                           f"{lib.attention_error_string(rc).decode()}")
+    return blocks.value, smem.value
 
 
 def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:

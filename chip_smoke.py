@@ -9,8 +9,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
    per source, all at once, and prints ptxas's registers and spill bytes
-   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128, and
-   the wide kernels for D = 128 n, n >= 2);
+   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128, the
+   chunked wide kernels for D = 128 n, n >= 2, and the resident bf16 dq
+   and dk/dv at D = 256 and 384) and the wide bf16 kernels' blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -21,9 +22,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    2065 columns, each against its serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores), up to D = 384; holds each result against the plain PyTorch version
-   on the same inputs, and times kernel, plain version and one PyTorch
-   library call (where one computes the same function) with CUDA events;
+   cores), up to D = 512 (in bf16 past 128, dq and dk/dv on the resident
+   kernels at 256 and 384 and on the chunked ones at 512); holds each
+   result against the plain PyTorch version on the same inputs, and times
+   kernel, plain version and one PyTorch library call (where one computes
+   the same function) with CUDA events;
    for K3 also the backward alone (delta, dq and dk/dv through the autograd
    Function) beside the library's; then the matchers that are not kernels
    (the auction, the greedy matcher and scipy's on the host) on CUDA
@@ -288,7 +291,9 @@ K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              # D = 384
              ("ViT-L blocks at 4 heads", 32, 1600, 1600, 256),
              ("D=160 padded to 256", 16, 400, 400, 160),
-             ("D=384", 8, 400, 400, 384))
+             ("D=384", 8, 400, 400, 384),
+             # past 384 the bf16 dq and dk/dv take the chunked kernels
+             ("D=512, the chunked route", 4, 400, 400, 512))
 
 
 def _say(*parts):
@@ -380,11 +385,14 @@ def kernel_names() -> int:
     of its own once its timed phases are over: which device kernel each
     forward of the kernels phase runs, by name from a profile: the
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
-    the P=4 stem; the same for each weight gradient. Apart, because a
+    the P=4 stem; the same for each weight gradient; past D = 128 in
+    bf16, the route of dq and dk/dv (resident or chunked) too, and the
+    wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones."""
     from boosted_detr_torch.ops import attention as A
+    from boosted_detr_torch.ops import build
     from boosted_detr_torch.ops import patchify as P
 
     for patch, c_out, dtype, seed, res in K1_CASES:
@@ -418,11 +426,23 @@ def kernel_names() -> int:
                 _say(f"  {_attention_label(label, bh, tq, tk, d, dtype)} "
                      f"SDPA yardstick ran: {[n[:70] for n in ran]}")
             wide = "wide_" if A.padded_head_dim(d) > A.CHUNK else ""
+            what = _attention_label(label, bh, tq, tk, d, dtype)
             _expect_kernel(lambda: A.attention_fwd(q, k, v), "attn_fwd",
                            f"attn_fwd_{wide}mma_kernel"
                            if dtype == torch.bfloat16
-                           else f"attn_fwd_{wide}kernel",
-                           _attention_label(label, bh, tq, tk, d, dtype))
+                           else f"attn_fwd_{wide}kernel", what)
+            if wide and dtype == torch.bfloat16:
+                # the route of the wide gradients: resident, or chunked
+                g = torch.randn_like(q)
+                out, lse = A.attention_fwd_reference(q, k, v)
+                args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
+                names = A.wide_gradient_kernels(d)
+                _expect_kernel(lambda: A.attention_dq(*args), "attn_dq",
+                               names[0], f"{what} dq")
+                _expect_kernel(lambda: A.attention_dkdv(*args), "attn_dkdv",
+                               names[1], f"{what} dk/dv")
+    _say("  K3 wide bf16 kernels: " + json.dumps(wide_occupancy(ptxas_k3(
+        build.build("attention").with_suffix(".log").read_text()))))
     return 0
 
 
@@ -441,8 +461,9 @@ def ptxas_k3(log):
     """ptxas -v's report of each K3 instantiation in a build log,
     {"attn_<kind>_kernel D=<D>": {"registers", "spill_stores",
     "spill_loads"}}: D is the mma kernels' template argument, the float32
-    kernels' dims a thread times threads a row; the wide kernels (no
-    template) read "D=128n"."""
+    kernels' dims a thread times threads a row, the resident wide kernels'
+    128 times theirs (the chunks); the other wide kernels (no template)
+    read "D=128n"."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
@@ -452,6 +473,8 @@ def ptxas_k3(log):
         if entry:
             d = int(np.prod([int(n) for n in
                              re.findall(r"Li(\d+)E", entry.group(2))]))
+            if "_wide_" in entry.group(1):
+                d *= 128
             name = f"{entry.group(1)} D={d}"
             continue
         if wide:
@@ -488,11 +511,40 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 24:
-        raise AssertionError(f"expected 24 K3 kernels (3 kernels, 2 dtypes, "
-                             f"D = 32, 64, 128 and the wide ones), read "
-                             f"{len(k3)}")
+    if len(k3) != 28:
+        raise AssertionError(f"expected 28 K3 kernels (3 kernels, 2 dtypes, "
+                             f"D = 32, 64, 128, the 6 chunked wide ones and "
+                             f"the resident dq and dk/dv at D = 256 and "
+                             f"384), read {len(k3)}")
+    _say("[build] K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
     return k3
+
+
+def wide_occupancy(k3):
+    """{"<kernel> D=<D>": {"blocks_per_sm", "smem_bytes", "registers"}} of
+    the bf16 wide kernels: the forward, and dq and dk/dv on the route a
+    launch at D = 256, 384 and 512 takes (resident, then chunked: PR 15's
+    design, whose shared memory and threads do not depend on D); blocks
+    an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the
+    kernel's shared memory, registers from ptxas (``ptxas_k3``)."""
+    from boosted_detr_torch.ops import attention as A
+
+    cases = [("fwd", 256)] + [(kind, d) for kind in ("dq", "dkdv")
+                              for d in (256, 384, 512)]
+    out = {}
+    for kind, d in cases:
+        blocks, smem = A.wide_occupancy(kind, d)
+        if kind == "fwd":
+            name, key = "attn_fwd_wide_mma_kernel", "D=128n"
+        else:
+            name = A.wide_gradient_kernels(d)[("dq", "dkdv").index(kind)]
+            key = "D=128n" if "chunked" in name else f"D={d}"
+        if blocks < 1:
+            raise AssertionError(f"{name} at D = {d}: no block fits an SM")
+        out[f"{name} D={d}"] = {
+            "blocks_per_sm": blocks, "smem_bytes": smem,
+            "registers": k3.get(f"{name} {key}", {}).get("registers")}
+    return out
 
 
 def _sides(res):

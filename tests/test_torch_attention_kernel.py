@@ -8,10 +8,11 @@ kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
 tensor. Head dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's
 widths) padded with zeros to the next; past 128, multiples of 128 (256,
-384) run on the wide kernels, in 128-wide chunks, and any other D (160)
-padded to the next multiple. It needs a CUDA card and nvcc,
-and skips without a card. It imports nothing of JAX, so that it runs on a
-machine without it:
+384, 512) run on the wide kernels and any other D (160) padded to the
+next multiple: in bf16, dq and dk/dv on the resident kernels up to
+D = 384, on the chunked ones (128-wide chunks) from 512 on. It needs a
+CUDA card and nvcc, and skips without a card. It imports nothing of JAX,
+so that it runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_attention_kernel.py
 """
@@ -82,9 +83,11 @@ def _assert_close(got, want, dtype, grad=False):
     (3, 96, 520, 80), (3, 1, 300, 128), (3, 300, 1, 80), (3, 17, 17, 128),
     (3, 520, 17, 80),
     # past 128: the wide kernels, D = 256 and 384 as they are, 160 padded
-    # to 256 (vit_l16_h4's blocks: 2 of their 32 heads)
+    # to 256 (vit_l16_h4's blocks: 2 of their 32 heads); in bf16 dq and
+    # dk/dv on the resident kernels there, on the chunked ones at 512
     (2, 1600, 1600, 256), (3, 300, 520, 160), (3, 96, 520, 384),
     (3, 1, 300, 256), (3, 300, 1, 160), (3, 17, 17, 384), (3, 520, 17, 256),
+    (3, 130, 70, 512), (2, 17, 300, 512),
 ])
 def test_kernels_match_plain_versions(cuda, bh, tq, tk, d, dtype):
     q, k, v, g, g_lse = _inputs(cuda, bh, tq, tk, d, dtype)
@@ -141,7 +144,8 @@ def _gradient_args(cuda, bh, tq, tk, d, dtype, seed):
                                         (4, 1600, 1600, 80),
                                         (5, 300, 520, 128),
                                         (2, 1600, 1600, 256),
-                                        (3, 300, 520, 384)])
+                                        (3, 300, 520, 384),
+                                        (3, 300, 520, 512)])
 def test_gradient_kernels_repeat_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """No atomics and a fixed summation order: two launches on the same
     inputs give the same bits."""
@@ -207,10 +211,13 @@ def profiled_names(d):
     return out
 
 
+PROFILED_DIMS = (32, 64, 80, 128, 160, 256, 384, 512)
+
+
 @pytest.fixture(scope="module")
 def _profiled():
-    """``profiled_names`` at D = 32, 64, 80, 128 and 256, from a new
-    Python process."""
+    """``profiled_names`` at ``PROFILED_DIMS``, from a new Python
+    process."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import json
@@ -223,7 +230,7 @@ def _profiled():
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import test_torch_attention_kernel as t; "
             "print(json.dumps({d: t.profiled_names(d) "
-            "for d in (32, 64, 80, 128, 256)}))")
+            "for d in t.PROFILED_DIMS}))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(here.parents[1]), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, "-c", code, str(here.parent)],
@@ -281,7 +288,7 @@ def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [160, 256, 384])
+@pytest.mark.parametrize("d", [160, 256, 384, 512])
 def test_head_dims_past_128_launch_the_wide_kernels(cuda, dtype, d):
     """Head dims over 128 launch the kernels (160 padded with zeros to
     256): one launch each of the forward, dq and dk/dv through
@@ -306,6 +313,24 @@ def test_head_dims_past_128_launch_the_wide_kernels(cuda, dtype, d):
                      (leaves[1].grad, want_dk), (leaves[2].grad, want_dv)):
         assert got.shape == ref.shape == (2, got.shape[1], d)
         _assert_close(got, ref, dtype, grad=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,route", [(160, ""), (256, ""), (384, ""),
+                                     (512, "chunked_")])
+def test_wide_gradients_launch_their_route(cuda, _profiled, d, route):
+    """Past D = 128 the bf16 dq and dk/dv run the resident kernels up to
+    D = 384 (160 padded to 256) and the chunked ones from 512 on, by name
+    from a profile; float32 keeps its CUDA-core wide kernels."""
+    names = _profiled[d]["grad"]
+    assert len(names["bfloat16"]) == 2, names
+    for kind, name in zip(("dq", "dkdv"), ta.wide_gradient_kernels(d)):
+        assert name == f"attn_{kind}_wide_{route}mma_kernel"
+        # a template's name is followed by its arguments, a plain one's by (
+        assert sum(any(f"{name}{c}" in n for c in "<(")
+                   for n in names["bfloat16"]) == 1, names
+        assert sum(f"attn_{kind}_wide_kernel" in n
+                   for n in names["float32"]) == 1, names
 
 
 @pytest.mark.gpu
@@ -366,9 +391,12 @@ def _emulated(emulation, q, k, v, *rest):
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
     (3, 300, 520, 128), (3, 17, 1000, 80), (2, 1600, 1600, 80),
     (2, 1600, 1600, 128),
-    # the wide kernels: 128-wide chunks, 32-query tiles in dk/dv
+    # the wide kernels, resident (the block's rows staged once, 32-row
+    # tiles) at D = 160, 256 and 384, ragged too, and chunked (128-wide
+    # chunks, 32-query tiles in dk/dv) at 512
     (3, 300, 520, 256), (2, 1600, 1600, 256), (3, 17, 1000, 160),
-    (3, 130, 70, 384)])
+    (3, 130, 70, 384), (3, 1, 300, 256), (3, 300, 1, 160), (3, 17, 17, 384),
+    (3, 520, 17, 256), (3, 96, 520, 384), (3, 130, 70, 512)])
 def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 gradient kernels against the plain PyTorch emulation of
     their arithmetic (64-row tiles, p and ds as bf16 hi + lo, the scale at

@@ -8,6 +8,7 @@ themselves are held against these versions on the card by
 tests/test_torch_attention_kernel.py."""
 
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -31,8 +32,11 @@ from test_torch_attention import interpret  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
-# ragged against the 64-row tiles and the 32-query tiles of the wide dk/dv
+# ragged against the 64-row tiles and the 32-row tiles of the wide dq and
+# dk/dv
 WIDE = [(2, 70, 130, 160), (2, 70, 130, 256), (2, 70, 130, 384)]
+# past RESIDENT_MAX_HEAD_DIM the bf16 dq and dk/dv take the chunked kernels
+CHUNKED = [(1, 40, 70, 512)]
 
 
 @pytest.mark.parametrize("d,padded", [(129, 256), (160, 256), (256, 256),
@@ -66,13 +70,14 @@ def test_k3_matches_the_pallas_kernel_past_128(bh, tq, tk, d, dtype):
         _close(t.grad, j, K3_GRAD_TOL[dtype], f"d{name}")
 
 
-@pytest.mark.parametrize("bh,tq,tk,d", WIDE)
+@pytest.mark.parametrize("bh,tq,tk,d", WIDE + CHUNKED)
 def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
     """The emulations on the padded tensors (the logits summed 128-wide
-    chunk by chunk, 32-query tiles in dk/dv), with the true 1/sqrt(D),
-    sliced back: inside the card's gates against the plain versions at D,
-    and at the plain versions' tolerance against JAX's Pallas kernels in
-    interpret mode."""
+    chunk by chunk, 32-query tiles in dk/dv: the resident kernels up to
+    D = 384 sum in the chunked kernels' order, and the chunked ones run
+    from D = 512 on), with the true 1/sqrt(D), sliced back: inside the
+    card's gates against the plain versions at D, and at the plain
+    versions' tolerance against JAX's Pallas kernels in interpret mode."""
     scale = 1.0 / d ** 0.5
     q, k, v, g, lse, delta = _bf16_gradient_inputs(bh, tq, tk, d)
     qp, kp, vp, gp = ta._padded(q, k, v, g)
@@ -101,6 +106,28 @@ def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
     _close(dq, j_dq, tol, "dq")
     _close(dk, j_dk, tol, "dk")
     _close(dv, j_dv, tol, "dv")
+
+
+@pytest.mark.parametrize("d,route", [(129, ""), (256, ""), (300, ""),
+                                     (384, ""), (385, "chunked_"),
+                                     (512, "chunked_"), (1000, "chunked_")])
+def test_wide_gradient_route_follows_the_source(d, route):
+    """``wide_gradient_kernels`` names the kernels csrc/attention.cu
+    launches: the resident ones up to RESIDENT_MAX_NC chunks, read from
+    the source, the chunked ones past it."""
+    from pathlib import Path
+
+    src = (Path(ta.__file__).resolve().parents[1] / "csrc"
+           / "attention.cu").read_text()
+    nc = int(re.search(r"constexpr int RESIDENT_MAX_NC = (\d+);",
+                       src).group(1))
+    assert ta.RESIDENT_MAX_HEAD_DIM == nc * ta.CHUNK
+    assert ta.wide_gradient_kernels(d) == (
+        f"attn_dq_wide_{route}mma_kernel", f"attn_dkdv_wide_{route}mma_kernel")
+    for name in ta.wide_gradient_kernels(d):
+        assert f"\n{name}(" in src  # a kernel of that name is defined
+    with pytest.raises(ValueError):
+        ta.wide_gradient_kernels(128)
 
 
 def test_chunked_logits_are_the_whole_product_to_rounding():
