@@ -2,13 +2,13 @@
 // log-sum-exp, and the two kernels of its gradient.
 //
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
-//   attn_fwd_kernel, attn_fwd_mma_kernel
+//   attn_fwd_kernel, attn_fwd_mma_kernel (and past D = 128 attn_fwd_wide_*)
 //                    <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
-//   attn_dq_kernel, attn_dq_mma_kernel
+//   attn_dq_kernel, attn_dq_mma_kernel (attn_dq_wide_*)
 //                    <- _dq_kernel (:138-163), called by
 //                       _fused_attention_bwd_impl (:202-255, call :233);
-//   attn_dkdv_kernel, attn_dkdv_mma_kernel
+//   attn_dkdv_kernel, attn_dkdv_mma_kernel (attn_dkdv_wide_*)
 //                    <- _dkdv_kernel (:166-199), same function, call :257.
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
 // bfloat16, with no mask; D is 32, 64, 128 or a multiple of 128 (the
@@ -1056,7 +1056,10 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
 // compute the same p and ds, bit for bit, and each its chunk's share of the
 // second products; the lse is written by the blocks of chunk 0.
 // Accumulators stay at D = 128's size at any D; the logits are computed nc
-// times, the price of that.
+// times, the price of that. float32 takes these kernels at every nc; bf16
+// only past RESIDENT_MAX_NC chunks (D >= 512): at D = 256 and 384 the
+// forward, dq and dk/dv take the resident kernels of the sections below,
+// which compute the logits once a tile.
 //   - tensor cores (bf16): a unit of the pipeline is one chunk c of one
 //     tile of the streamed operand. It stages chunk c of the block's own
 //     rows (q, or q and dO, or k and v) and of the tile's rows (k, or k and
@@ -1149,13 +1152,15 @@ __device__ __forceinline__ void store_chunk(const float (&acc)[N][4],
   }
 }
 
-// The forward at D = 128 nc. A stage's slots: q, k, v (wide_smem_bytes).
+// The forward at D = 128 nc (the chunked route, nc > RESIDENT_MAX_NC). A
+// stage's slots: q, k, v (wide_smem_bytes).
 __global__ void __launch_bounds__(MMA_THREADS, 2)
-attn_fwd_wide_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ lse, int Tq, int Tk, int tiles,
-                         int nc, float scale) {
+attn_fwd_wide_chunked_mma_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 bf16* __restrict__ out,
+                                 float* __restrict__ lse, int Tq, int Tk,
+                                 int tiles, int nc, float scale) {
   constexpr int STEPS = TILE / STEP;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* slots = reinterpret_cast<bf16*>(smem);  // [2][3][WUNIT]
@@ -1856,6 +1861,270 @@ attn_dkdv_wide_mma_kernel(const bf16* __restrict__ q,
   store_chunk(acc, mul, (role ? dk : dv) + k_base * D, D, r0, Tk, tig);
 }
 
+// ---- the bf16 forward at D = 256 and 384: wgmma, TMA, q resident ----
+//
+// The chunked forward above computes the logits and the whole softmax once
+// for each 128-wide chunk of the output (twice at D = 256), stages the
+// block's q from L2 again beside every chunk of k, and reads every A and B
+// fragment of mma.sync with ldmatrix: 9.1% of its bound at
+// [32, 1600, 1600, 256] (PERF.md). Up to RESIDENT_MAX_NC chunks (the
+// forward's budget below fits there, as the resident dq's and dk/dv's
+// does, and not at D = 512) attn_fwd_wide_mma_kernel<NC> owns all D of
+// its query rows instead:
+//   - two warpgroups of 4 warps. Every copy is TMA (cp.async.bulk.tensor:
+//     the hardware forms the addresses, zero-fills what lies past the
+//     tensor and counts the bytes into an mbarrier), issued by thread 0
+//     alone: q once, k and v a 64-key tile at a time into rings of stages,
+//     each stage with a full and an empty mbarrier; thread 0 refills a
+//     stage once every warp has released it. TMA rather than cp.async,
+//     which could write the same swizzled layout but from every thread's
+//     issue slots, and needs a proxy fence before wgmma reads it. No
+//     producer warpgroup: one whose setmaxnreg gave the consumers 240
+//     registers left ptxas spilling the D = 256 accumulators and
+//     serialising the wgmmas, where two warpgroups alone get 255 a thread
+//     and need 204 (PERF.md). The tensor maps are 3-D, [BH, T, D],
+//     so a ragged last tile reads zero rows, never the next head's; keys
+//     past Tk are still masked to -1e30. cuTensorMapEncodeTiled is the
+//     driver's, taken through cudaGetDriverEntryPoint: the library links
+//     no libcuda;
+//   - tiles sit in shared memory in TMA's 128-byte swizzle, which wgmma's
+//     descriptors read: [64 rows x 64 dims] slabs of 8 KB, D / 64 a tile;
+//   - S = q k^T is wgmma.m64n64k16 with both operands read from shared
+//     memory (K-major), 16 dims a step over the whole head dim in order,
+//     once a tile; P.V is wgmma.m64nNk16 with p's bf16 hi, then lo, as the
+//     A operand from registers for each 16-key step in order, into float32
+//     accumulators of N output dims (v MN-major). Every step of a tile is
+//     issued, the ragged tile's too (a masked key's p is 0 and its v row
+//     zero-filled, so it adds 0): a branch among the wgmmas made ptxas
+//     serialise them. A warpgroup's accumulators have mma.sync's m16n8 C
+//     layout in each warp, so the softmax and split_fragment are the
+//     D <= 128 kernel's, and so is the arithmetic
+//     (attention_fwd_emulation): the max of the unscaled logit,
+//     p = exp2_approx(s scale2 - shift) over 64-key tiles, the denominator
+//     from the float32 p, out = acc / max(denom, 1e-30), lse written once
+//     a row. wgmma may sum inside a 16-dim step otherwise than mma.sync;
+//   - registers: a warpgroup's 64 x 256 accumulator is 128 float32 a
+//     thread, beside S (32) and p's hi and lo (32). At D = 256 each
+//     warpgroup owns 64 query rows and all 256 dims (128 rows a block); at
+//     D = 384 all 384 would be 192 registers, so both take the same 64
+//     rows, each half of the output's dims (96 accumulators), and both
+//     compute the same S (a third more tensor-core work than one S passed
+//     through shared memory, but no exchange and no wait between them);
+//   - shared memory (FwdPlan::SMEM): q, two stages of k and at D = 256
+//     two of v, at D = 384 one (a second would pass the 232,448 bytes a
+//     block may opt into): 193 KB at both, one block an SM;
+//   - waves: at [32, 1600] D = 256 the grid is 416 blocks of 128 rows
+//     (3.15 waves of 132); 64-row blocks would need S twice or 192
+//     accumulators.
+
+constexpr int FWD_CONSUMERS = 2;                  // warpgroups
+constexpr int FWD_THREADS = 128 * FWD_CONSUMERS;
+constexpr int SLAB = 64;                          // dims of a swizzled row
+constexpr int SLAB_BYTES = TILE * SLAB * 2;       // [64 rows x 64 dims] bf16
+constexpr int SW_ALIGN = 1024;                    // a swizzle atom's alignment
+
+template <int NC>
+struct FwdPlan {
+  static constexpr int D = NC * CD;
+  static constexpr int SLABS = D / SLAB;
+  static constexpr int TILE_BYTES = SLABS * SLAB_BYTES;  // 64 rows of D
+  // query rows a block; output dims a consumer warpgroup owns
+  static constexpr int BLOCK_ROWS = NC == 2 ? 2 * TILE : TILE;
+  static constexpr int OWN = NC == 2 ? D : D / 2;
+  static constexpr int K_STAGES = 2, V_STAGES = NC == 2 ? 2 : 1;
+  static constexpr int Q_BYTES = BLOCK_ROWS / TILE * TILE_BYTES;
+  static constexpr int SMEM =
+      SW_ALIGN + Q_BYTES + (K_STAGES + V_STAGES) * TILE_BYTES;
+};
+
+// The forward at D = 128 NC, NC <= RESIDENT_MAX_NC: a block owns
+// FwdPlan<NC>::BLOCK_ROWS query rows and all D of their output; q_map,
+// k_map and v_map are 3-D tensor maps of q, k and v ([BH, T, D] bf16,
+// boxes of 64 dims x 64 rows x 1, 128-byte swizzle).
+template <int NC>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         int Tq, int Tk, int tiles, float scale) {
+  using P = FwdPlan<NC>;
+  constexpr int D = P::D, STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t q_full, k_full[P::K_STAGES], k_empty[P::K_STAGES],
+      v_full[P::V_STAGES], v_empty[P::V_STAGES];
+  // q [BLOCK_ROWS / 64][SLABS][SLAB_BYTES], then the k and v stages
+  // [stage][SLABS][SLAB_BYTES], from the first 1024-byte boundary
+  unsigned char* sq =
+      smem_raw + (SW_ALIGN - shared_address(smem_raw) % SW_ALIGN) % SW_ALIGN;
+  unsigned char* sk = sq + P::Q_BYTES;
+  unsigned char* sv = sk + P::K_STAGES * P::TILE_BYTES;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * P::BLOCK_ROWS;
+  const int n_tiles = (Tk + TILE - 1) / TILE;
+  if (threadIdx.x == 0) {
+    barrier_init(&q_full, 1);
+    // a stage is full after thread 0's one arrival and its bytes, empty
+    // after one arrival of each warp
+#pragma unroll
+    for (int s = 0; s < P::K_STAGES; ++s) {
+      barrier_init(&k_full[s], 1);
+      barrier_init(&k_empty[s], 4 * FWD_CONSUMERS);
+    }
+#pragma unroll
+    for (int s = 0; s < P::V_STAGES; ++s) {
+      barrier_init(&v_full[s], 1);
+      barrier_init(&v_empty[s], 4 * FWD_CONSUMERS);
+    }
+    barrier_init_fence();
+  }
+  __syncthreads();
+  // tile i of k and of v into its stage
+  auto load_k = [&](int i) {
+    const int ks = i % P::K_STAGES;
+    barrier_expect_bytes(&k_full[ks], P::TILE_BYTES);
+    for (int s = 0; s < P::SLABS; ++s)
+      tma_load_3d(sk + (ks * P::SLABS + s) * SLAB_BYTES, &k_map, &k_full[ks],
+                  s * SLAB, i * TILE, bh);
+  };
+  auto load_v = [&](int i) {
+    const int vs = i % P::V_STAGES;
+    barrier_expect_bytes(&v_full[vs], P::TILE_BYTES);
+    for (int s = 0; s < P::SLABS; ++s)
+      tma_load_3d(sv + (vs * P::SLABS + s) * SLAB_BYTES, &v_map, &v_full[vs],
+                  s * SLAB, i * TILE, bh);
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&q_full, P::Q_BYTES);
+    for (int g = 0; g < P::BLOCK_ROWS / TILE; ++g)
+      for (int s = 0; s < P::SLABS; ++s)
+        tma_load_3d(sq + (g * P::SLABS + s) * SLAB_BYTES, &q_map, &q_full,
+                    s * SLAB, first + g * TILE, bh);
+    for (int i = 0; i < P::K_STAGES && i < n_tiles; ++i) load_k(i);
+    for (int i = 0; i < P::V_STAGES && i < n_tiles; ++i) load_v(i);
+  }
+  // warpgroup wg: rows row0 .. row0 + 63 of the block, output dims col0 ..
+  // col0 + OWN - 1
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int row0 = NC == 2 ? wg * TILE : 0;
+  const int col0 = NC == 2 ? 0 : wg * P::OWN;
+  const int r0 = first + row0 + warp * STEP + grp;  // rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const unsigned char* q_rows = sq + row0 / TILE * P::TILE_BYTES;
+  const float scale2 = scale * LOG2E;
+  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
+  float acc[P::OWN / 8][4];
+  float(&acc_flat)[P::OWN / 2] = reinterpret_cast<float(&)[P::OWN / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < P::OWN / 2; ++i) acc_flat[i] = 0.f;
+
+  barrier_wait(&q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int ks = i % P::K_STAGES, vs = i % P::V_STAGES, k0 = i * TILE;
+    // S = q k^T over the head dim, 16 dims a step in order (the first
+    // step's scale-d of 0 starts the sum)
+    float s[STEPS][2][4];
+    float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
+    barrier_wait(&k_full[ks], (i / P::K_STAGES) & 1);
+    const unsigned char* k_tile = sk + ks * P::TILE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / STEP; ++kk) {
+      const int at = kk / 4 * SLAB_BYTES + kk % 4 * 2 * STEP;
+      wgmma_m64n64k16_ss(s_flat, sw128_descriptor(q_rows + at, 0),
+                         sw128_descriptor(k_tile + at, 0), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s_flat);
+    // the k stage is released; once every warp has, thread 0 refills it
+    if (lane == 0) barrier_arrive(&k_empty[ks]);
+    if (threadIdx.x == 0 && i + P::K_STAGES < n_tiles) {
+      barrier_wait(&k_empty[ks], (i / P::K_STAGES) & 1);
+      load_k(i + P::K_STAGES);
+    }
+    __syncwarp();
+
+    // the D <= 128 kernel's softmax step
+    const bool ragged = k0 + TILE > Tk;
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+          if (ragged && key >= Tk) s[cs][j][e] = NEG;
+          m_new[e / 2] = fmaxf(m_new[e / 2], s[cs][j][e]);
+        }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
+      shift[h] = m_new[h] * scale2;
+      m[h] = m_new[h];
+      denom[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nd = 0; nd < P::OWN / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
+    uint32_t hi[STEPS][4], lo[STEPS][4];
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked key: 2^(-1e30 scale2 - shift) = 0
+          const float p = exp2_approx(fmaf(s[cs][j][e], scale2, -shift[e / 2]));
+          s[cs][j][e] = p;
+          denom[e / 2] += p;  // the float32 p, not its bf16 parts
+        }
+      split_fragment(s[cs], hi[cs], lo[cs]);
+    }
+
+    // acc += p v: hi, then lo, for each 16-key step in order, every step
+    barrier_wait(&v_full[vs], (i / P::V_STAGES) & 1);
+    const unsigned char* v_cols =
+        sv + vs * P::TILE_BYTES + col0 / SLAB * SLAB_BYTES;
+    wgmma_hold(acc_flat);
+    wgmma_fence();
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+      const uint64_t b =
+          sw128_descriptor(v_cols + cs * STEP * 2 * SLAB, SLAB_BYTES);
+      wgmma_rs<P::OWN>(acc_flat, hi[cs], b);
+      wgmma_rs<P::OWN>(acc_flat, lo[cs], b);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(acc_flat);
+    if (lane == 0) barrier_arrive(&v_empty[vs]);
+    if (threadIdx.x == 0 && i + P::V_STAGES < n_tiles) {
+      barrier_wait(&v_empty[vs], (i / P::V_STAGES) & 1);
+      load_v(i + P::V_STAGES);
+    }
+    __syncwarp();
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    denom[h] = fmaxf(denom[h], FLOOR);
+    inv[h] = 1.f / denom[h];
+    if (col0 == 0 && tig == 0 && r0 + 8 * h < Tq)
+      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
+  }
+  store_chunk(acc, inv, out + q_base * D + col0, D, r0, Tq, tig);
+}
+
 // ---- float32 at D = 128 nc, on the CUDA cores ----
 
 constexpr int W_DPT = 32, W_TPR = CD / W_DPT;  // 4 threads a row
@@ -2103,11 +2372,83 @@ constexpr int wide_dkdv_smem_bytes() {
          2 * 2 * DKDV_WTILE * 4;
 }
 
-// The resident kernels' launches: one block for 64 rows, 8 warps.
+// The resident kernels' launches: dq and dk/dv one block for 64 rows, 8
+// warps; the forward one block for FwdPlan<NC>::BLOCK_ROWS rows, three
+// warpgroups.
 static_assert(RESIDENT_MAX_NC == 3, "the launchers take NC = 2 and 3");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
-                  resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448,
+                  resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448 &&
+                  FwdPlan<2>::SMEM <= 232448 &&
+                  FwdPlan<RESIDENT_MAX_NC>::SMEM <= 232448,
               "the resident kernels' shared memory passes an H100 block's");
+
+// cuTensorMapEncodeTiled, the driver's, taken through the runtime (the
+// library links no libcuda); null where the driver does not give it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled driver_encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<EncodeTiled>(fn)
+             : nullptr;
+}
+
+// The tensor map of the contiguous bf16 [BH, rows, D] at base for
+// attn_fwd_wide_mma_kernel: boxes of 64 dims x 64 rows x 1, 128-byte
+// swizzle, zeros past each extent (so a box never reaches the next head).
+cudaError_t rows_tensor_map(CUtensorMap* map, const void* base, int BH,
+                            int rows, int D) {
+  static const EncodeTiled encode = driver_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {  // bytes, of dims 1 and 2
+      static_cast<cuuint64_t>(D) * sizeof(bf16),
+      static_cast<cuuint64_t>(rows) * D * sizeof(bf16)};
+  const cuuint32_t box[3] = {SLAB, TILE, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NC>
+cudaError_t launch_fwd_resident(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int BH, int Tq, int Tk,
+                                float scale, cudaStream_t stream) {
+  constexpr int D = NC * CD, smem = FwdPlan<NC>::SMEM;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {Tq, Tk, Tk};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = rows_tensor_map(&maps[i], bases[i], BH, rows[i], D);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles = (Tq + FwdPlan<NC>::BLOCK_ROWS - 1) / FwdPlan<NC>::BLOCK_ROWS;
+  const cudaError_t err = allow_smem(attn_fwd_wide_mma_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_wide_mma_kernel<NC><<<BH * tiles, FWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out),
+      static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
 
 template <int NC>
 cudaError_t launch_dq_resident(const void* q, const void* k, const void* v,
@@ -2155,21 +2496,28 @@ cudaError_t occupancy(Kernel* kernel, int threads, int smem, int* blocks) {
 }
 
 // The wide launchers take launch_fwd's, launch_dq's and launch_dkdv's
-// arguments, then the chunks nc and the dtype (bf: bfloat16). In bf16, dq
-// and dk/dv take the resident kernels up to RESIDENT_MAX_NC chunks (their
-// rows at D = 512 would pass a block's shared memory) and the chunked
-// ones past it; the forward and float32 take the chunked kernels.
+// arguments, then the chunks nc and the dtype (bf: bfloat16). In bf16 the
+// forward, dq and dk/dv take the resident kernels up to RESIDENT_MAX_NC
+// chunks (their rows at D = 512 would pass a block's shared memory) and
+// the chunked ones past it; float32 takes the chunked kernels. Each is a
+// route chosen by shape: a failed map, opt-in or launch is returned.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* out, void* lse, int BH, int Tq, int Tk,
                             float scale, cudaStream_t stream, int nc,
                             bool bf) {
   const int tiles = tiles_of(Tq);
   const dim3 grid(BH * tiles, nc);
+  if (bf && nc == 2)
+    return launch_fwd_resident<2>(q, k, v, out, lse, BH, Tq, Tk, scale,
+                                  stream);
+  if (bf && nc == 3)
+    return launch_fwd_resident<3>(q, k, v, out, lse, BH, Tq, Tk, scale,
+                                  stream);
   if (bf) {
     constexpr int smem = wide_smem_bytes(3);
-    const cudaError_t err = allow_smem(attn_fwd_wide_mma_kernel, smem);
+    const cudaError_t err = allow_smem(attn_fwd_wide_chunked_mma_kernel, smem);
     if (err != cudaSuccess) return err;
-    attn_fwd_wide_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
+    attn_fwd_wide_chunked_mma_kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, nc, scale);
@@ -2312,18 +2660,24 @@ int attention_wide_occupancy(int kernel, int D, int* blocks, int* smem) {
   if (D <= CD || D % CD != 0 || kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = D / CD;
-  const bool resident = kernel > 0 && nc <= RESIDENT_MAX_NC;
+  const bool resident = nc <= RESIDENT_MAX_NC;
   cudaError_t err;
   if (!resident) {
     *smem = kernel == 0   ? wide_smem_bytes(3)
             : kernel == 1 ? wide_smem_bytes(5)
                           : wide_dkdv_smem_bytes();
-    err = kernel == 0   ? occupancy(attn_fwd_wide_mma_kernel, MMA_THREADS,
-                                    *smem, blocks)
+    err = kernel == 0   ? occupancy(attn_fwd_wide_chunked_mma_kernel,
+                                    MMA_THREADS, *smem, blocks)
           : kernel == 1 ? occupancy(attn_dq_wide_chunked_mma_kernel,
                                     MMA_THREADS, *smem, blocks)
                         : occupancy(attn_dkdv_wide_chunked_mma_kernel,
                                     MMA_THREADS, *smem, blocks);
+  } else if (kernel == 0) {
+    *smem = nc == 2 ? FwdPlan<2>::SMEM : FwdPlan<3>::SMEM;
+    err = nc == 2 ? occupancy(attn_fwd_wide_mma_kernel<2>, FWD_THREADS,
+                              *smem, blocks)
+                  : occupancy(attn_fwd_wide_mma_kernel<3>, FWD_THREADS,
+                              *smem, blocks);
   } else if (nc == 2) {
     *smem = resident_smem_bytes<2>(kernel == 2);
     err = kernel == 1 ? occupancy(attn_dq_wide_mma_kernel<2>, RES_THREADS,

@@ -1,6 +1,8 @@
 // Building blocks of the tensor-core kernels (attention.cu, patchify.cu) on
 // Hopper (sm_90a): asynchronous copies into shared memory, ldmatrix, and the
-// warp-level bf16 product mma.sync.m16n8k16 with float32 sums.
+// warp-level bf16 product mma.sync.m16n8k16 with float32 sums; then
+// Hopper's own (the last section): mbarriers, TMA tile loads, and the
+// warpgroup product wgmma with its shared-memory descriptors.
 //
 // Fragment layouts of m16n8k16, with grp = lane / 4 and tig = lane % 4:
 //   A (16 x 16, row): registers 0..3 hold rows grp, grp + 8, grp, grp + 8 at
@@ -15,6 +17,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -83,6 +86,241 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t as_register(__nv_bfloat162 x) {
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// ---- Hopper: mbarriers, TMA, wgmma ----
+//
+// A tile that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B is rows of 128
+// bytes (64 bf16) whose 16-byte pieces are permuted within each group of 8
+// rows (piece c of row r at c ^ (r % 8)); 8 rows make a 1024-byte atom,
+// which must start 1024-byte aligned. wgmma reads such a tile through a
+// descriptor (sw128_descriptor) as
+//   - K-major (the contraction dim contiguous, e.g. q or k rows over the
+//     head dim): rows of the M or N dim, 8-row groups 1024 bytes apart; a
+//     16-wide step along K inside the 64-wide row adds 32 bytes to the
+//     start address (the hardware applies the swizzle to the address it
+//     forms);
+//   - MN-major (the M or N dim contiguous, e.g. v rows over the head dim
+//     as B of P.V): each 128-byte row holds 64 columns of N, 8 rows of K
+//     are one atom, atoms along K 1024 bytes apart (the stride offset) and
+//     64-column blocks of N `lead` bytes apart (the leading offset).
+
+// A wgmma descriptor of a 128-byte-swizzled operand at p (shared memory):
+// start address, leading offset `lead` (bytes; MN-major only), stride
+// offset 1024 bytes, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t sw128_descriptor(const void* p,
+                                                     uint32_t lead) {
+  const uint64_t start = (shared_address(p) & 0x3FFFF) >> 4;
+  return start | (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(shared_address(bar)), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void barrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(shared_address(bar)) : "memory");
+}
+
+// One arrival that also expects `bytes` of asynchronous copies to land.
+__device__ __forceinline__ void barrier_expect_bytes(uint64_t* bar,
+                                                     uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(shared_address(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool barrier_try_wait(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+// A wait that lasts 4 s (no tile takes a millisecond) traps instead of
+// spinning on: a fault in the pipeline then ends the kernel with an error
+// rather than hanging the card.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_address(bar);
+  if (barrier_try_wait(addr, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!barrier_try_wait(addr, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 4000000000ull) __trap();
+  }
+}
+
+// TMA: the box at coordinates (c0, c1, c2) of the 3-D tensor `map`
+// (innermost first) into shared memory at dst; its bytes count against
+// `bar`'s expected transaction.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(shared_address(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(shared_address(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Orders the registers of a wgmma's operands after what wrote them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most PENDING committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING)
+               : "memory");
+}
+// Keeps the compiler from moving reads or writes of d across the
+// asynchronous products that hold it.
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The accumulators of m64nNk16 hold, for each warp w of the warpgroup,
+// rows 16 w .. 16 w + 15 in mma.sync's m16n8 C layout: d[4 j + e] is value
+// e of the 16 x 8 accumulator of columns 8 j .. 8 j + 7.
+
+// d[64 x 64] (+)= a[64 x 16] . b[16 x 64], both read from shared memory
+// through descriptors, K-major (the head dim contiguous); the sum is added
+// to d unless scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+// d[64 x 192] += a[64 x 16] . b[16 x 192]: a from registers (each warp
+// its 16 rows, in mma.sync's m16n8k16 A layout), b from shared memory
+// through a descriptor, MN-major (its 192 columns contiguous in 64-wide
+// blocks).
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 256] += a[64 x 16] . b[16 x 256]: a from registers (each warp
+// its 16 rows, in mma.sync's m16n8k16 A layout), b from shared memory
+// through a descriptor, MN-major (its 256 columns contiguous in 64-wide
+// blocks).
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 }  // namespace

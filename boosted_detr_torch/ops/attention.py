@@ -28,19 +28,25 @@ launch is given the true 1/sqrt(D) and the outputs are sliced back. At
 D = 128 the kernels take their tiles from dynamic shared memory (opted in
 above 48 KB) and the bf16 dk/dv kernel reads the block's k and v rows from
 shared memory instead of holding them in registers. Past 128 the bf16
-dq and dk/dv at D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) run 8 warps
-a block that own all D of their 64 rows' output: the block's own rows
-stay resident in shared memory, the logits and dP are computed once a
-streamed tile, summed over the head dim 16 dims a step in order, and p
-goes to the partner warp through shared memory. Every other wide kernel
-(the forward, float32, and dq and dk/dv from D = 512 on) takes a grid
-axis over the output's 128-wide chunks: each block owns one chunk of out,
-dq, dk or dv, and computes the logits (and dP) over the whole head dim,
-one staged 128-wide chunk after another in the same order in every
-block, so all blocks of a row group compute the same p and ds. Both
-routes sum in that order, so the emulations below describe them both, at
-D = 128 and past it too (``wide_gradient_kernels`` names the route). They
-take
+kernels at D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) own all D of their
+rows' output and compute the logits once a streamed tile, summed over
+the head dim 16 dims a step in order. The forward runs Hopper's
+warpgroup products (``wgmma``, both S = q k^T and P.V, p as the A
+operand from registers) on tiles that one thread loads with TMA into
+rings of stages, q resident; at D = 256 each of its two warpgroups
+owns 64 query rows and all 256 dims, at D = 384 both take the
+same 64 rows and half the dims each. dq and dk/dv run 8 warps a block
+over 64 rows, the block's own rows resident in shared memory, p passed to
+the partner warp through shared memory. Every other wide kernel (float32,
+and the bf16 forward, dq and dk/dv from D = 512 on) takes a grid axis
+over the output's 128-wide chunks: each block owns one chunk of out, dq,
+dk or dv, and computes the logits (and dP) over the whole head dim, one
+staged 128-wide chunk after another in the same order in every block, so
+all blocks of a row group compute the same p and ds. Both routes sum in
+that order, so the emulations below describe them both, at D = 128 and
+past it too (``wide_forward_kernel`` and ``wide_gradient_kernels`` name
+the route); ``wgmma`` may sum inside a 16-dim step otherwise than
+``mma.sync``, which the emulation does not model either. They take
 contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
 before the call (one copy each of q, k and v), so the kernels need no
 strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
@@ -48,7 +54,8 @@ cores would make them TF32). bfloat16 inputs run on the tensor cores, the
 forward as dq and dk/dv: ``mma.sync`` on bf16 operands with float32 sums, a
 block's 64 rows in registers, the other operand streamed in 64-row tiles
 two deep with ``cp.async`` (16 bytes at a time, so q, k, v and g must be
-aligned to that or the wrapper raises). The exact bf16 q.k product is
+aligned to that or the wrapper raises; the wide forward's TMA needs the
+same), and the wide forward at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
 scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
 second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
 bf16 rounding of p moves a tenth of the forward's outputs past one ulp.
@@ -84,9 +91,9 @@ import torch
 # multiples of it, in chunks of it.
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 CHUNK = SUPPORTED_HEAD_DIMS[-1]
-# The widest head dim whose bf16 dq and dk/dv keep the block's rows
-# resident in shared memory (csrc/attention.cu, RESIDENT_MAX_NC chunks);
-# wider ones take the chunked kernels.
+# The widest head dim whose bf16 forward, dq and dk/dv keep the block's
+# rows resident in shared memory (csrc/attention.cu, RESIDENT_MAX_NC
+# chunks); wider ones take the chunked kernels.
 RESIDENT_MAX_HEAD_DIM = 3 * CHUNK
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
@@ -342,14 +349,29 @@ def padded_head_dim(d: int) -> int:
                 -(-d // CHUNK) * CHUNK)
 
 
-def wide_gradient_kernels(d: int) -> Tuple[str, str]:
-    """The names of the bf16 dq and dk/dv kernels that a launch at head dim
-    ``d`` past ``CHUNK`` runs, after padding: the resident kernels up to
-    ``RESIDENT_MAX_HEAD_DIM``, the chunked ones past it."""
+def _wide_route(d: int) -> str:
+    """The bf16 wide kernels' route at head dim ``d`` past ``CHUNK``, after
+    padding: ``""`` (resident) up to ``RESIDENT_MAX_HEAD_DIM``, else
+    ``"chunked_"``."""
     padded = padded_head_dim(d)
     if padded <= CHUNK:
         raise ValueError(f"head dim {d} runs on the kernels of D <= {CHUNK}")
-    route = "" if padded <= RESIDENT_MAX_HEAD_DIM else "chunked_"
+    return "" if padded <= RESIDENT_MAX_HEAD_DIM else "chunked_"
+
+
+def wide_forward_kernel(d: int) -> str:
+    """The name of the bf16 forward kernel that a launch at head dim ``d``
+    past ``CHUNK`` runs: the resident one (wgmma, TMA, q resident, the
+    logits once a tile) up to ``RESIDENT_MAX_HEAD_DIM``, the chunked one
+    past it."""
+    return f"attn_fwd_wide_{_wide_route(d)}mma_kernel"
+
+
+def wide_gradient_kernels(d: int) -> Tuple[str, str]:
+    """The names of the bf16 dq and dk/dv kernels that a launch at head dim
+    ``d`` past ``CHUNK`` runs: the resident kernels up to
+    ``RESIDENT_MAX_HEAD_DIM``, the chunked ones past it."""
+    route = _wide_route(d)
     return (f"attn_dq_wide_{route}mma_kernel",
             f"attn_dkdv_wide_{route}mma_kernel")
 

@@ -229,8 +229,19 @@ KERNELS = {
 }
 # Tensor-core passes over a pair of tiles in the bf16 kernels: the first
 # products once, and each second product twice (p and ds enter as two bf16
-# values, hi + lo), against 2, 3 and 4 products in the work itself.
+# values, hi + lo), against 2, 3 and 4 products in the work itself; the
+# resident wide forward at D = 384 computes the logits in both of its
+# warpgroups, one more pass (``_k3_passes``).
 K3_PASSES = {"fwd": 3, "dq": 4, "dkdv": 6}
+
+
+def _k3_passes(name, d):
+    from boosted_detr_torch.ops import attention as A
+
+    padded = A.padded_head_dim(d)
+    twice = (name == "fwd" and 2 * A.CHUNK < padded
+             <= A.RESIDENT_MAX_HEAD_DIM)
+    return K3_PASSES[name] + twice
 # K1-fwd's cases: (patch, C_out, weights' dtype, seed, resolution: a side,
 # or (height, width)). The 640 flagship's stem first (the ``kernels``
 # line's row), the ViT patch embed, the 1280px stem (Wo = 160), ViT-Huge's
@@ -386,8 +397,8 @@ def kernel_names() -> int:
     forward of the kernels phase runs, by name from a profile: the
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
     the P=4 stem; the same for each weight gradient; past D = 128 in
-    bf16, the route of dq and dk/dv (resident or chunked) too, and the
-    wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
+    bf16, the route of the forward, dq and dk/dv (resident or chunked),
+    and the wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones."""
@@ -427,10 +438,12 @@ def kernel_names() -> int:
                      f"SDPA yardstick ran: {[n[:70] for n in ran]}")
             wide = "wide_" if A.padded_head_dim(d) > A.CHUNK else ""
             what = _attention_label(label, bh, tq, tk, d, dtype)
+            # past 128 the bf16 forward's route: resident, or chunked
             _expect_kernel(lambda: A.attention_fwd(q, k, v), "attn_fwd",
-                           f"attn_fwd_{wide}mma_kernel"
-                           if dtype == torch.bfloat16
-                           else f"attn_fwd_{wide}kernel", what)
+                           f"attn_fwd_{wide}kernel"
+                           if dtype != torch.bfloat16
+                           else A.wide_forward_kernel(d) if wide
+                           else "attn_fwd_mma_kernel", what)
             if wide and dtype == torch.bfloat16:
                 # the route of the wide gradients: resident, or chunked
                 g = torch.randn_like(q)
@@ -462,8 +475,9 @@ def ptxas_k3(log):
     {"attn_<kind>_kernel D=<D>": {"registers", "spill_stores",
     "spill_loads"}}: D is the mma kernels' template argument, the float32
     kernels' dims a thread times threads a row, the resident wide kernels'
-    128 times theirs (the chunks); the other wide kernels (no template)
-    read "D=128n"."""
+    (attn_<kind>_wide_mma_kernel<NC>, the forward's too) 128 times theirs
+    (the chunks); the chunked wide kernels (no template) read
+    "D=128n"."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
@@ -511,34 +525,34 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 28:
-        raise AssertionError(f"expected 28 K3 kernels (3 kernels, 2 dtypes, "
+    if len(k3) != 30:
+        raise AssertionError(f"expected 30 K3 kernels (3 kernels, 2 dtypes, "
                              f"D = 32, 64, 128, the 6 chunked wide ones and "
-                             f"the resident dq and dk/dv at D = 256 and "
-                             f"384), read {len(k3)}")
+                             f"the resident forward, dq and dk/dv at "
+                             f"D = 256 and 384), read {len(k3)}")
     _say("[build] K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
     return k3
 
 
 def wide_occupancy(k3):
     """{"<kernel> D=<D>": {"blocks_per_sm", "smem_bytes", "registers"}} of
-    the bf16 wide kernels: the forward, and dq and dk/dv on the route a
-    launch at D = 256, 384 and 512 takes (resident, then chunked: PR 15's
-    design, whose shared memory and threads do not depend on D); blocks
-    an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the
-    kernel's shared memory, registers from ptxas (``ptxas_k3``)."""
+    the bf16 wide kernels: the forward, dq and dk/dv on the route a launch
+    at D = 256, 384 and 512 takes (resident, then chunked: the design
+    whose shared memory and threads do not depend on D); blocks an SM from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
+    shared memory, registers from ptxas (``ptxas_k3``)."""
     from boosted_detr_torch.ops import attention as A
 
-    cases = [("fwd", 256)] + [(kind, d) for kind in ("dq", "dkdv")
-                              for d in (256, 384, 512)]
+    cases = [(kind, d) for kind in ("fwd", "dq", "dkdv")
+             for d in (256, 384, 512)]
     out = {}
     for kind, d in cases:
         blocks, smem = A.wide_occupancy(kind, d)
         if kind == "fwd":
-            name, key = "attn_fwd_wide_mma_kernel", "D=128n"
+            name = A.wide_forward_kernel(d)
         else:
             name = A.wide_gradient_kernels(d)[("dq", "dkdv").index(kind)]
-            key = "D=128n" if "chunked" in name else f"D={d}"
+        key = "D=128n" if "chunked" in name else f"D={d}"
         if blocks < 1:
             raise AssertionError(f"{name} at D = {d}: no block fits an SM")
         out[f"{name} D={d}"] = {
@@ -965,7 +979,7 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         rows[name].update(fb)
         r = rows[name]
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        passes = (f", {K3_PASSES[name]} tensor-core passes a tile pair"
+        passes = (f", {_k3_passes(name, d)} tensor-core passes a tile pair"
                   if dtype == torch.bfloat16 else ", CUDA cores")
         _say(f"  {what} {name}: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, SDPA "
@@ -1739,7 +1753,8 @@ def phase_breakdown(name, model, codec, images):
             ours[name] = ours.get(name, 0) + e.count // n
     _say(f"  forward kernels of K1 and K3 per forward: {ours}")
     if not set(ours) <= {"patchify_fwd_mma_kernel", "attn_fwd_mma_kernel",
-                         "attn_fwd_wide_mma_kernel"}:
+                         "attn_fwd_wide_mma_kernel",
+                         "attn_fwd_wide_chunked_mma_kernel"}:
         raise AssertionError(f"a bf16 forward ran a CUDA-core kernel: {ours}")
     return row
 

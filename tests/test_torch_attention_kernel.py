@@ -9,8 +9,9 @@ kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 tensor. Head dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's
 widths) padded with zeros to the next; past 128, multiples of 128 (256,
 384, 512) run on the wide kernels and any other D (160) padded to the
-next multiple: in bf16, dq and dk/dv on the resident kernels up to
-D = 384, on the chunked ones (128-wide chunks) from 512 on. It needs a
+next multiple: in bf16, the forward, dq and dk/dv on the resident
+kernels up to D = 384 (the forward on wgmma with TMA), on the chunked
+ones (128-wide chunks) from 512 on. It needs a
 CUDA card and nvcc, and skips without a card. It imports nothing of JAX,
 so that it runs on a machine without it:
 
@@ -334,6 +335,23 @@ def test_wide_gradients_launch_their_route(cuda, _profiled, d, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,route", [(160, ""), (256, ""), (384, ""),
+                                     (512, "chunked_")])
+def test_wide_forward_launches_its_route(cuda, _profiled, d, route):
+    """Past D = 128 the bf16 forward runs the resident kernel
+    (``attn_fwd_wide_mma_kernel<NC>``: wgmma, TMA, q resident) up to
+    D = 384 (160 padded to 256) and the chunked one from 512 on, by name
+    from a profile; float32 keeps its CUDA-core wide kernel."""
+    names = _profiled[d]["fwd"]
+    assert len(names["bfloat16"]) == len(names["float32"]) == 1, names
+    name = ta.wide_forward_kernel(d)
+    assert name == f"attn_fwd_wide_{route}mma_kernel"
+    # a template's name is followed by its arguments, a plain one's by (
+    assert f"{name}{'(' if route else '<'}" in names["bfloat16"][0], names
+    assert "attn_fwd_wide_kernel(" in names["float32"][0], names
+
+
+@pytest.mark.gpu
 def test_misaligned_tensor_raises(cuda):
     """The tensor-core kernels copy rows 16 bytes at a time: a contiguous
     bfloat16 view that starts 2 bytes into its storage is refused by the
@@ -424,9 +442,11 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     # D = 128 as built and D = 80 padded to it
     (3, 300, 520, 128), (3, 17, 1000, 80), (3, 1, 300, 128),
     (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128),
-    # the wide forward
+    # the wide forward: resident (wgmma, q staged once; 128 rows a block
+    # at D = 256, 64 at 384), ragged too, and chunked at 512
     (3, 300, 520, 256), (2, 1600, 1600, 256), (3, 17, 1000, 160),
-    (3, 1, 300, 384), (3, 520, 17, 256)])
+    (3, 1, 300, 384), (3, 520, 17, 256), (3, 130, 70, 384),
+    (3, 17, 17, 384), (3, 130, 70, 512)])
 def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 forward against the plain PyTorch emulation of its
     arithmetic (64-key tiles, the scale inside the exponent, the float32 p
@@ -451,7 +471,8 @@ def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
                                         (5, 300, 520, 32),
                                         (4, 1600, 1600, 80),
                                         (5, 300, 520, 128),
-                                        (2, 1600, 1600, 256)])
+                                        (2, 1600, 1600, 256),
+                                        (3, 400, 400, 384)])
 def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     """Every sum belongs to one thread and runs in a fixed order: two
     launches on the same inputs give the same bits."""

@@ -112,9 +112,11 @@ def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
                                      (384, ""), (385, "chunked_"),
                                      (512, "chunked_"), (1000, "chunked_")])
 def test_wide_gradient_route_follows_the_source(d, route):
-    """``wide_gradient_kernels`` names the kernels csrc/attention.cu
-    launches: the resident ones up to RESIDENT_MAX_NC chunks, read from
-    the source, the chunked ones past it."""
+    """``wide_gradient_kernels`` and ``wide_forward_kernel`` name the
+    kernels csrc/attention.cu launches: the resident ones up to
+    RESIDENT_MAX_NC chunks, read from the source, the chunked ones past
+    it; the launchers of the forward, dq and dk/dv branch on that
+    constant's chunks."""
     from pathlib import Path
 
     src = (Path(ta.__file__).resolve().parents[1] / "csrc"
@@ -124,10 +126,22 @@ def test_wide_gradient_route_follows_the_source(d, route):
     assert ta.RESIDENT_MAX_HEAD_DIM == nc * ta.CHUNK
     assert ta.wide_gradient_kernels(d) == (
         f"attn_dq_wide_{route}mma_kernel", f"attn_dkdv_wide_{route}mma_kernel")
-    for name in ta.wide_gradient_kernels(d):
+    assert ta.wide_forward_kernel(d) == f"attn_fwd_wide_{route}mma_kernel"
+    for name in (ta.wide_forward_kernel(d), *ta.wide_gradient_kernels(d)):
         assert f"\n{name}(" in src  # a kernel of that name is defined
+    for kind in ("fwd", "dq", "dkdv"):
+        # the launcher takes the resident kernel at every nc up to the
+        # constant, then the chunked one
+        body = src.split(f"cudaError_t launch_{kind}_wide(")[1].split(
+            "\n}\n")[0]
+        assert re.findall(rf"if \(bf && nc == (\d)\)\s+return "
+                          rf"launch_{kind}_resident<(\d)>", body) == [
+            (str(n), str(n)) for n in range(2, nc + 1)]
+        assert f"attn_{kind}_wide_chunked_mma_kernel<<<" in body
     with pytest.raises(ValueError):
         ta.wide_gradient_kernels(128)
+    with pytest.raises(ValueError):
+        ta.wide_forward_kernel(128)
 
 
 def test_chunked_logits_are_the_whole_product_to_rounding():
