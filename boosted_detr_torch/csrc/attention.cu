@@ -5,16 +5,17 @@
 //   attn_fwd_kernel, attn_fwd_mma_kernel (and past D = 128 attn_fwd_wide_*)
 //                    <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
-//   attn_dq_kernel, attn_dq_mma_kernel (attn_dq_wide_*)
-//                    <- _dq_kernel (:138-163), called by
+//   attn_dq_kernel, attn_dq_mma_kernel, attn_dq_wgmma_kernel
+//   (attn_dq_wide_*) <- _dq_kernel (:138-163), called by
 //                       _fused_attention_bwd_impl (:202-255, call :233);
-//   attn_dkdv_kernel, attn_dkdv_mma_kernel (attn_dkdv_wide_*)
-//                    <- _dkdv_kernel (:166-199), same function, call :257.
+//   attn_dkdv_kernel, attn_dkdv_mma_kernel, attn_dkdv_wgmma_kernel
+//   (attn_dkdv_wide_*) <- _dkdv_kernel (:166-199), same function, call :257.
 // q is [BH, Tq, D], k and v [BH, Tk, D], contiguous, all float32 or all
-// bfloat16, with no mask; D is 32, 64, 128 or a multiple of 128 (the
+// bfloat16, with no mask; D is 32, 64, 80, 128 or a multiple of 128 (the
 // wrapper pads any other D with zeros up to the next of those, as the TPU
-// kernels pad D to a multiple of 128 lanes; past 128 the wide kernels
-// below take D in 128-wide chunks). The arithmetic is the TPU kernels':
+// kernels pad D to a multiple of 128 lanes; ViT-Huge's D = 80 runs at its
+// true width, which the TPU pads to 128; past 128 the wide kernels below
+// take D in 128-wide chunks). The arithmetic is the TPU kernels':
 //   - q, k and v are read in their dtype; products of bf16 values are exact
 //     in float32;
 //   - the logits are scale * q.k (scale = 1/sqrt(D)); the float32 kernels
@@ -54,8 +55,9 @@
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
 //     spilled registers to local memory).
 //
-// bfloat16 inputs run on the tensor cores (attn_fwd_mma_kernel,
-// attn_dq_mma_kernel, attn_dkdv_mma_kernel):
+// bfloat16 inputs run on the tensor cores (attn_fwd_mma_kernel, and at
+// D <= 64 attn_dq_mma_kernel and attn_dkdv_mma_kernel; at D = 80 and 128
+// dq and dk/dv take the wgmma kernels of their own section below):
 //   - every product is mma.sync.m16n8k16 on bf16 operands with float32
 //     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q
 //     (forward), q and dO (dq) or k and v (dk/dv) sit in registers as A
@@ -92,8 +94,8 @@
 //     tile i + 1 loads while tile i multiplies, with one __syncthreads a
 //     tile: after it every thread's copies of tile i have landed and every
 //     thread is done with tile i - 1, whose stage the next copies then
-//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80, 144 or
-//     272 bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
+//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80, 144, 176
+//     or 272 bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
 //     into eight different bank groups, with or without .trans, so no read
 //     conflicts;
 //   - dq and dk are multiplied by scale once, at the end;
@@ -102,27 +104,28 @@
 //     or more of the passes are the lo halves, and the float32 work on p and
 //     ds (mask, max, exp, sum, split) shares the issue slots with the MMAs.
 //
-// At D = 128 (ViT-Huge's D = 80 and any D in (64, 128], padded):
-//   - the staged tiles outgrow the 48 KB of static shared memory (64 KB of
-//     float32 k and v tiles, 68 KB of double-buffered bf16 ones), so every
-//     kernel takes its tiles from dynamic shared memory, sized at launch,
-//     and a launch above 48 KB first opts its kernel in
-//     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem);
-//   - registers: a warp's q fragments (32 a thread), its 16 x 128 float32
-//     accumulator (64) and a tile's S (32) pass the 128 that a hint of 4
-//     blocks an SM allows, so the forward's hint drops to 2 (the 68 KB of
-//     tiles allow 3 blocks an SM anyway); dq holds q, dO and one
-//     accumulator (128) under the 255 of one block;
-//   - dk/dv would hold k and v as A fragments (64) beside two 16 x 128
-//     accumulators (128) and S, dP and their bf16 parts, past 255. At
-//     D = 128 the block's 64 rows of k and v are staged once in shared
-//     memory (34 KB more, 103 KB in all: 2 blocks an SM) and every product
-//     over the head dim reads its A fragments from there with ldmatrix
-//     (the same registers, in the same order: the same MMAs and the same
-//     sums as at D <= 64, where they stay in registers);
+// At D = 80 (ViT-Huge's; any D in (64, 80] padded to it) and 128 (any D
+// in (80, 128]):
+//   - the forward is attn_fwd_mma_kernel<80> and <128>: the staged rows'
+//     pitch of 88 bf16 (176 bytes: eleven 16-byte groups, so the eight
+//     rows of an ldmatrix phase fall into eight bank groups) at 80, 45 KB
+//     of tiles; at 128 the staged tiles outgrow the 48 KB of static shared
+//     memory (68 KB of double-buffered bf16 tiles, 64 KB of float32 k and v
+//     tiles), so every kernel takes its tiles from dynamic shared memory,
+//     sized at launch, and a launch above 48 KB first opts its kernel in
+//     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem). Zero
+//     columns add exact zeros to every sum, so the forward at 80 gives the
+//     bits it gave padded to 128;
+//   - registers: a warp's q fragments (32 a thread at 128), its 16 x D
+//     float32 accumulator (64) and a tile's S (32) pass the 128 that a hint
+//     of 4 blocks an SM allows, so the forward's hint drops to 2 (the 68 KB
+//     of tiles allow 3 blocks an SM anyway);
+//   - dq and dk/dv in bf16 are attn_dq_wgmma_kernel and
+//     attn_dkdv_wgmma_kernel (their section below: warpgroup products,
+//     TMA, the block's rows resident in shared memory);
 //   - the float32 kernels keep their layout, DPT dims a thread and TPR = 4
 //     threads a row (256 threads), the row sums xor-shuffled over those
-//     aligned lanes; dk/dv takes 32 dims a thread (16 at D <= 64) and one
+//     aligned lanes: 20 dims a thread at D = 80, 32 at 128; dk/dv takes one
 //     query row a step (dkdv_dpt).
 // ptxas -v's registers and spills of every instantiation are printed by
 // chip_smoke.py's build phase and kept in PERF.md.
@@ -381,7 +384,8 @@ attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float scale) {
   constexpr int D = DPT * TPR;
   constexpr int NT = ROWS * TPR;
-  // query rows a step; one at D = 128, where four spilled (dkdv_dpt)
+  // query rows a step; one past D = 64, where four spilled at 128
+  // (dkdv_dpt)
   constexpr int CHUNK = D > 64 ? 1 : 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem);  // [TILE * D]: qs = q * scale
@@ -559,31 +563,6 @@ __device__ __forceinline__ void mma_over_dims(float (&x)[2][4],
   }
 }
 
-// The same product with a's 16 rows staged too (pitch D + PAD, at a_rows)
-// and their A fragments read by ldmatrix at each step instead of held in
-// registers; a_off is the lane's offset: row lane % 16, column 8 (lane /
-// 16), which gives registers 0..3 the rows grp, grp + 8 at columns 2 tig
-// and 8 + 2 tig, the A layout. The same MMAs in the same order.
-template <int D>
-__device__ __forceinline__ void mma_over_staged_dims(float (&x)[2][4],
-                                                     const bf16* a_rows,
-                                                     int a_off,
-                                                     const bf16* rows,
-                                                     int b_off) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
-#pragma unroll
-  for (int kb = 0; kb < D / 16; ++kb) {
-    uint32_t a[4], b[4];
-    ldmatrix_x4(a, a_rows + a_off + 16 * kb);
-    ldmatrix_x4(b, rows + b_off + 16 * kb);
-    mma_bf16(x[0], a, b[0], b[1]);
-    mma_bf16(x[1], a, b[2], b[3]);
-  }
-}
-
 // acc (rows r0 and r0 + 8 of a [n_rows, D] matrix) as bf16, row r0 times
 // mul[0] and row r0 + 8 times mul[1].
 template <int D>
@@ -691,12 +670,6 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_accumulator<D>(acc, scale, dq + q_base * D, r0, Tq, tig);
 }
 
-// k and v of a block's rows stay in shared memory instead of registers
-// where D > 64 (see the header): held as A fragments beside the two
-// accumulators, they would pass 255 registers a thread.
-template <int D>
-__host__ __device__ constexpr bool kv_staged() { return D > 64; }
-
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -708,20 +681,15 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int PITCH = D + PAD;
   extern __shared__ __align__(16) unsigned char smem[];
   // two stages of q and of dO, [2][TILE * PITCH] each, then two stages of
-  // the lse and of delta, [2][TILE] each, then (kv_staged) the block's rows
-  // of k and of v, [TILE * PITCH] each (dkdv_mma_smem_bytes)
+  // the lse and of delta, [2][TILE] each (dkdv_mma_smem_bytes)
   bf16 (*sq)[TILE * PITCH] = reinterpret_cast<bf16 (*)[TILE * PITCH]>(smem);
   bf16 (*sg)[TILE * PITCH] = sq + 2;  // dO
   float (*s_lse)[TILE] = reinterpret_cast<float (*)[TILE]>(sg + 2);
   float (*s_delta)[TILE] = s_lse + 2;
-  bf16* skv = reinterpret_cast<bf16*>(s_delta + 2);
   const int bh = blockIdx.x / tiles;
   const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
-  // the block's first key row, this warp's first row within the block, and
   // this thread's key rows: r0 and r0 + 8
-  const int first = (blockIdx.x % tiles) * ROWS;
-  const int warp_row = (threadIdx.x / 32) * 16;
-  const int r0 = first + warp_row + grp;
+  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
   const long long k_base = static_cast<long long>(bh) * Tk;
   const long long q_base = static_cast<long long>(bh) * Tq;
   const bf16* qb = q + q_base * D;
@@ -730,18 +698,9 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
 
   const float scale2 = scale * LOG2E;
-  uint32_t ka[D / 16][4], va[D / 16][4];  // unused where kv_staged
-  if constexpr (kv_staged<D>()) {
-    // rows past Tk staged as zeros; landed by the first tile's wait below
-    const int n = min(ROWS, Tk - first);
-    stage_async<D>(k + (k_base + first) * D, n, skv);
-    stage_async<D>(v + (k_base + first) * D, n, skv + TILE * PITCH);
-  } else {
-    load_a_fragments<D>(k + k_base * D, r0, Tk, tig, ka);
-    load_a_fragments<D>(v + k_base * D, r0, Tk, tig, va);
-  }
-  const bf16* k_rows = skv + warp_row * PITCH;
-  const bf16* v_rows = skv + (TILE + warp_row) * PITCH;
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a_fragments<D>(k + k_base * D, r0, Tk, tig, ka);
+  load_a_fragments<D>(v + k_base * D, r0, Tk, tig, va);
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd)
@@ -771,13 +730,8 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (q0 + c >= Tq) break;
       // transposed: rows are this warp's keys, columns the 16 queries
       float p[2][4], ds[2][4];
-      if constexpr (kv_staged<D>()) {
-        mma_over_staged_dims<D>(p, k_rows, t_off, sq[st] + c * PITCH, b_off);
-        mma_over_staged_dims<D>(ds, v_rows, t_off, sg[st] + c * PITCH, b_off);
-      } else {
-        mma_over_dims<D>(p, ka, sq[st] + c * PITCH, b_off);
-        mma_over_dims<D>(ds, va, sg[st] + c * PITCH, b_off);
-      }
+      mma_over_dims<D>(p, ka, sq[st] + c * PITCH, b_off);
+      mma_over_dims<D>(ds, va, sg[st] + c * PITCH, b_off);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = c + 8 * j + 2 * tig;
@@ -813,8 +767,8 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // denom, then 16 keys at a time p = 2^(scale2 (s - max)) in registers,
 // summed as float32 into denom and repacked as hi + lo A fragments for
 // acc += P V.
-// At least 5 (D = 32), 4 (D = 64) and 2 (D = 128) blocks on an SM: 96, 128
-// and 255 registers.
+// At least 5 (D = 32), 4 (D = 64) and 2 (D = 80 and 128) blocks on an SM:
+// 96, 128 and 255 registers.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : D == 64 ? 4 : 2)
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -932,17 +886,19 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // in registers, 16 at D <= 64 and 32 at D = 128 with one query row a step
 // (CHUNK). At D = 128, 16 dims a thread made 512 threads, whose 128
 // registers a thread left ptxas at 32 and 1976 bytes of spills: 750 ms at
-// [128, 1600, 1600, 80] against 18 ms now, no spill (probes/k3_f32_dkdv.py
-// on an H100 80GB HBM3 at 700 W, PERF.md).
-constexpr int DPT_FWD = 32;
-constexpr int DPT_DQ = 32;
+// [128, 1600, 1600, 80] against 18 ms (probes/k3_f32_dkdv.py on an H100
+// 80GB HBM3 at 700 W, PERF.md). At D = 80 all three take 20 dims a thread,
+// 4 threads a row: five float4 chunks a thread, as at D = 128 eight.
 template <int D>
-constexpr int dkdv_dpt() { return D > 64 ? 32 : 16; }
+__host__ __device__ constexpr int fwd_dpt() { return D == 80 ? 20 : 32; }
+template <int D>
+__host__ __device__ constexpr int dkdv_dpt() {
+  return D == 80 ? 20 : D > 64 ? 32 : 16;
+}
 
 // Dynamic shared memory of each kernel, in bytes: the float32 kernels'
 // tiles of the other operand (and dk/dv's lse and delta), the bf16
-// kernels' two stages of two tiles (and dk/dv's, at D > 64, its rows of k
-// and v).
+// kernels' two stages of two tiles (and dk/dv's lse and delta).
 template <int D>
 constexpr int f32_smem_bytes() { return 2 * TILE * D * 4; }
 template <int D>
@@ -953,9 +909,22 @@ constexpr int mma_smem_bytes() {
 }
 template <int D>
 constexpr int dkdv_mma_smem_bytes() {
-  return mma_smem_bytes<D>() + 2 * 2 * TILE * 4
-         + (kv_staged<D>() ? 2 * TILE * (D + PAD) * static_cast<int>(sizeof(bf16)) : 0);
+  return mma_smem_bytes<D>() + 2 * 2 * TILE * 4;
 }
+
+// bf16 dq and dk/dv at D = 80 and 128: the wgmma kernels of the section
+// below (their launchers follow the tensor maps').
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* g, const void* lse, const void* delta,
+                            void* dq, int BH, int Tq, int Tk, float scale,
+                            cudaStream_t stream);
+template <int D>
+cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                              const void* g, const void* lse,
+                              const void* delta, void* dk, void* dv, int BH,
+                              int Tq, int Tk, float scale,
+                              cudaStream_t stream);
 
 int tiles_of(int rows) { return (rows + ROWS - 1) / ROWS; }
 
@@ -973,11 +942,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<bf16*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, scale);
   } else {
-    constexpr int TPR = D / DPT_FWD;
+    constexpr int DPT = fwd_dpt<D>(), TPR = D / DPT;
     constexpr int smem = f32_smem_bytes<D>();
-    const cudaError_t err = allow_smem(attn_fwd_kernel<DPT_FWD, TPR>, smem);
+    const cudaError_t err = allow_smem(attn_fwd_kernel<DPT, TPR>, smem);
     if (err != cudaSuccess) return err;
-    attn_fwd_kernel<DPT_FWD, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
+    attn_fwd_kernel<DPT, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, scale);
@@ -993,7 +962,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const int tiles = tiles_of(Tq);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && D > 64) {
+    return launch_dq_wgmma<D>(q, k, v, g, lse, delta, dq, BH, Tq, Tk, scale,
+                              stream);
+  } else if constexpr (std::is_same_v<T, bf16>) {
     constexpr int smem = mma_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_dq_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -1002,11 +974,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, scale);
   } else {
-    constexpr int TPR = D / DPT_DQ;
+    constexpr int DPT = fwd_dpt<D>(), TPR = D / DPT;
     constexpr int smem = f32_smem_bytes<D>();
-    const cudaError_t err = allow_smem(attn_dq_kernel<DPT_DQ, TPR>, smem);
+    const cudaError_t err = allow_smem(attn_dq_kernel<DPT, TPR>, smem);
     if (err != cudaSuccess) return err;
-    attn_dq_kernel<DPT_DQ, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
+    attn_dq_kernel<DPT, TPR><<<BH * tiles, ROWS * TPR, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
         row_delta, static_cast<float*>(dq), Tq, Tk, tiles, scale);
@@ -1022,7 +994,10 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   const int tiles = tiles_of(Tk);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && D > 64) {
+    return launch_dkdv_wgmma<D>(q, k, v, g, lse, delta, dk, dv, BH, Tq, Tk,
+                                scale, stream);
+  } else if constexpr (std::is_same_v<T, bf16>) {
     constexpr int smem = dkdv_mma_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_dkdv_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -1101,7 +1076,9 @@ __device__ __forceinline__ void stage_chunk_async(const bf16* src,
 
 // x[16 x 16] += a_rows[16 x 128] . rows[16 x 128]^T, both staged chunks:
 // A fragments through ldmatrix at a_off (row lane % 16, column 8 (lane /
-// 16)), B at b_off; mma_over_staged_dims, adding to x.
+// 16), which gives registers 0..3 the rows grp, grp + 8 at columns 2 tig
+// and 8 + 2 tig, the A layout), B at b_off; mma_over_dims with a's rows
+// staged, adding to x.
 __device__ __forceinline__ void mma_add_chunk(float (&x)[2][4],
                                               const bf16* a_rows, int a_off,
                                               const bf16* rows, int b_off) {
@@ -2125,6 +2102,411 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_chunk(acc, inv, out + q_base * D + col0, D, r0, Tq, tig);
 }
 
+// ---- bf16 dq and dk/dv at D = 80 and 128: wgmma, TMA ----
+//
+// attn_dq_mma_kernel and attn_dkdv_mma_kernel, designed for D <= 64, ran
+// D = 128 (and ViT-Huge's D = 80, padded to it) at 12.3% and 9.7% of
+// their bounds at [128, 1600, 1600, 80]: mma.sync with ldmatrix, 4 warps
+// of 16 rows, and dk/dv reading its own rows' A fragments from shared
+// memory at every product for want of registers (PERF.md). Here
+// attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D> (D = 80, 128)
+// take the design of the wide forward above instead:
+//   - two warpgroups a block, each owning 64 rows (query rows for dq, key
+//     rows for dk/dv; 128 a block), all D of their output. Thread 0 issues
+//     every copy with TMA: the block's own rows once (q and dO, or k and
+//     v), resident for the whole kernel, and the streamed operand (k and v,
+//     or q and dO) a 64-row tile at a time into a ring of NARROW_STAGES
+//     stages with a full and an empty mbarrier each; it refills a stage
+//     once every warp has released it (a third stage gained nothing);
+//   - the staged rows are 128 dims wide in TMA's 128-byte swizzle, two
+//     [64 x 64] slabs a tile, at both D: at D = 80 the second slab's box
+//     reaches past the tensor's 80 dims and TMA writes zeros there (and
+//     counts their bytes), so no padded copy exists in device memory. The
+//     first products issue only the real 16-dim steps (5 at D = 80, 8 at
+//     128), the second products take N = D columns (wgmma m64n80k16 reads
+//     64 columns from the first slab and 16 from the second);
+//   - dq: S = Q K^T and dP = dO V^T are wgmma.m64n64k16 with both operands
+//     in shared memory (K-major), 16 dims a step over the head dim in
+//     order; p = exp2_approx(s scale2 - lse2) and ds = p (dp - delta) in
+//     registers (keys past Tk masked to p = 0), split into hi and lo and
+//     fed as the register A operand of dQ += dS K, hi then lo for each
+//     16-key step in order, the k tile read as MN-major B;
+//   - dk/dv: S^T = K Q^T and dP^T = V dO^T the same way with the block's k
+//     and v rows as A; p and ds the same arithmetic (queries past Tq masked
+//     to p = 0), then dV += P^T dO and dK += dS^T Q from registers, hi then
+//     lo for each 16-query step, the q and dO tiles read again as MN-major
+//     B. A tile's lse and delta are loaded by the warpgroup's threads, one
+//     value each (its load in flight during the first products), into a
+//     double buffer of the warpgroup's, read after a named barrier: the
+//     rows of a tile start anywhere in the [BH Tq] rows, where TMA would
+//     need 16-byte aligned ones;
+//   - S and dP are two commit groups, so that p is computed while dP is
+//     in flight; dk/dv issues dV's products before it splits ds, which
+//     then overlaps them. Issuing the next tile's S and dP while dq's
+//     second products were still in flight made ptxas serialise the
+//     wgmmas (C7515) and dq slower: not kept;
+//   - the sums are those of the mma.sync kernels (attention_dq_emulation,
+//     attention_dkdv_emulation): 64-row tiles, 16-row steps in order, hi
+//     before lo, dq and dk scaled at the end; on the card dq, dk and dv
+//     come out the bits of the mma.sync kernels at D = 80 (padded to 128
+//     there) and 128. Every step of a tile is issued, the ragged tile's
+//     too (a masked p is 0 and TMA zero-fills the rows past T): a branch
+//     among the wgmmas made ptxas serialise them in the wide forward. Each
+//     output element is one thread's, summed in a fixed order: two
+//     launches give the same bits;
+//   - registers: dk/dv at D = 128 holds two 64 x 128 float32 accumulators
+//     (128 a thread) beside S^T and dP^T (64) and the hi and lo parts of p
+//     and ds (64); ptxas gives it 255, no spill, and dq 147 (D = 80) and
+//     154 (128); one block of 8 warps an SM;
+//   - shared memory: the block's rows (64 KB) and two stages of two tiles
+//     (64 KB), 129 KB with the alignment (NARROW_SMEM), and dk/dv's 2 KB
+//     of lse and delta.
+
+constexpr int NARROW_WGS = 2;                      // warpgroups a block
+constexpr int NARROW_THREADS = 128 * NARROW_WGS;
+constexpr int NARROW_ROWS = TILE * NARROW_WGS;     // rows a block owns
+constexpr int NARROW_STAGES = 2;
+constexpr int NTILE_BYTES = 2 * SLAB_BYTES;        // 64 rows x 128 dims
+// the block's rows of two operands, then the stages' tiles of two (dq: k
+// and v; dk/dv: q and dO)
+constexpr int NARROW_SMEM =
+    SW_ALIGN + 2 * NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
+
+// The first 1024-byte boundary at or after p (a swizzle atom's alignment).
+__device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* p) {
+  return p + (SW_ALIGN - shared_address(p) % SW_ALIGN) % SW_ALIGN;
+}
+
+// Waits until the 128 threads of warpgroup wg have arrived (named barrier
+// 1 + wg; 0 is __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// x[64 x 64] = a[64 x D] . b[64 x D]^T over the real 16-dim steps of D, a
+// and b staged tiles (two 128-byte-swizzled slabs, K-major); the first
+// step's scale-d of 0 starts the sum.
+template <int D>
+__device__ __forceinline__ void wgmma_over_dims(float (&x)[32],
+                                                const unsigned char* a,
+                                                const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / STEP; ++kk) {
+    const int at = kk / 4 * SLAB_BYTES + kk % 4 * 2 * STEP;
+    wgmma_m64n64k16_ss(x, sw128_descriptor(a + at, 0),
+                       sw128_descriptor(b + at, 0), kk > 0);
+  }
+}
+
+// acc[64 x D] += (hi + lo)[64 x 64] . rows[64 x D]: the four 16-row steps
+// of a staged tile in order, hi then lo, rows read as MN-major B.
+template <int D>
+__device__ __forceinline__ void wgmma_over_rows(
+    float (&acc)[D / 2], const uint32_t (&hi)[TILE / STEP][4],
+    const uint32_t (&lo)[TILE / STEP][4], const unsigned char* rows) {
+#pragma unroll
+  for (int cs = 0; cs < TILE / STEP; ++cs) {
+    const uint64_t b = sw128_descriptor(rows + cs * STEP * 2 * SLAB,
+                                        SLAB_BYTES);
+    wgmma_rs<D>(acc, hi[cs], b);
+    wgmma_rs<D>(acc, lo[cs], b);
+  }
+}
+
+// dq at D = 80 and 128: a block owns NARROW_ROWS query rows; q_map, k_map,
+// v_map and g_map are 3-D tensor maps of q, k, v and dO ([BH, T, D] bf16,
+// boxes of 64 dims x 64 rows x 1, 128-byte swizzle).
+template <int D>
+__global__ void __launch_bounds__(NARROW_THREADS, 1)
+attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int Tq, int Tk, int tiles, float scale) {
+  constexpr int STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t rows_full, full[NARROW_STAGES], empty[NARROW_STAGES];
+  // q [NARROW_WGS][NTILE_BYTES], dO the same, then the stages' k and v
+  // tiles [stage][2][NTILE_BYTES]
+  unsigned char* sq = swizzle_aligned(smem_raw);
+  unsigned char* sg = sq + NARROW_WGS * NTILE_BYTES;
+  unsigned char* skv = sg + NARROW_WGS * NTILE_BYTES;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * NARROW_ROWS;
+  const int n_tiles = (Tk + TILE - 1) / TILE;
+  if (threadIdx.x == 0) {
+    barrier_init(&rows_full, 1);
+    // a stage is full after thread 0's one arrival and its bytes, empty
+    // after one arrival of each warp
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      barrier_init(&full[s], 1);
+      barrier_init(&empty[s], 4 * NARROW_WGS);
+    }
+    barrier_init_fence();
+  }
+  __syncthreads();
+  auto load_tile = [&](int i) {  // keys i * TILE .. + 63 of k and of v
+    const int st = i % NARROW_STAGES;
+    unsigned char* dst = skv + st * 2 * NTILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
+    for (int s = 0; s < 2; ++s) {
+      tma_load_3d(dst + s * SLAB_BYTES, &k_map, &full[st], s * SLAB,
+                  i * TILE, bh);
+      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
+                  s * SLAB, i * TILE, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * NTILE_BYTES);
+    for (int w = 0; w < NARROW_WGS; ++w)
+      for (int s = 0; s < 2; ++s) {
+        const int at = w * NTILE_BYTES + s * SLAB_BYTES;
+        tma_load_3d(sq + at, &q_map, &rows_full, s * SLAB, first + w * TILE,
+                    bh);
+        tma_load_3d(sg + at, &g_map, &rows_full, s * SLAB, first + w * TILE,
+                    bh);
+      }
+    for (int i = 0; i < NARROW_STAGES && i < n_tiles; ++i) load_tile(i);
+  }
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int r0 = first + wg * TILE + warp * STEP + grp;  // rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const unsigned char* q_rows = sq + wg * NTILE_BYTES;
+  const unsigned char* g_rows = sg + wg * NTILE_BYTES;
+  const float scale2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];  // lse times log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = r0 + 8 * h < Tq;
+    row_lse2[h] = live ? lse[q_base + r0 + 8 * h] * LOG2E : 0.f;
+    row_delta[h] = live ? delta[q_base + r0 + 8 * h] : 0.f;
+  }
+  float acc[D / 8][4];
+  float(&acc_flat)[D / 2] = reinterpret_cast<float(&)[D / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+
+  barrier_wait(&rows_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NARROW_STAGES, k0 = i * TILE;
+    const unsigned char* k_tile = skv + st * 2 * NTILE_BYTES;
+    const unsigned char* v_tile = k_tile + NTILE_BYTES;
+    float s[STEPS][2][4], dp[STEPS][2][4];
+    float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
+    float(&dp_flat)[32] = reinterpret_cast<float(&)[32]>(dp);
+    barrier_wait(&full[st], (i / NARROW_STAGES) & 1);
+    // S and dP in two groups: p is computed while dP is in flight
+    wgmma_fence();
+    wgmma_over_dims<D>(s_flat, q_rows, k_tile);
+    wgmma_commit();
+    wgmma_over_dims<D>(dp_flat, g_rows, v_tile);
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_hold(s_flat);
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // keys past Tk are masked out of p
+          const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+          s[cs][j][e] =
+              key < Tk ? exp2_approx(s[cs][j][e] * scale2 - row_lse2[e / 2])
+                       : 0.f;
+        }
+    wgmma_wait<0>();
+    wgmma_hold(dp_flat);
+    uint32_t hi[STEPS][4], lo[STEPS][4];
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // ds
+          dp[cs][j][e] = s[cs][j][e] * (dp[cs][j][e] - row_delta[e / 2]);
+      split_fragment(dp[cs], hi[cs], lo[cs]);
+    }
+    wgmma_hold(acc_flat);
+    wgmma_fence();
+    wgmma_over_rows<D>(acc_flat, hi, lo, k_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(acc_flat);
+    // the stage is released; once every warp has, thread 0 refills it
+    if (lane == 0) barrier_arrive(&empty[st]);
+    if (threadIdx.x == 0 && i + NARROW_STAGES < n_tiles) {
+      barrier_wait(&empty[st], (i / NARROW_STAGES) & 1);
+      load_tile(i + NARROW_STAGES);
+    }
+    __syncwarp();
+  }
+  store_accumulator<D>(acc, scale, dq + q_base * D, r0, Tq, tig);
+}
+
+// dk/dv at D = 80 and 128: a block owns NARROW_ROWS key rows; the tensor
+// maps as dq's.
+template <int D>
+__global__ void __launch_bounds__(NARROW_THREADS, 1)
+attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap g_map,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
+                       int Tk, int tiles, float scale) {
+  constexpr int STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t rows_full, full[NARROW_STAGES], empty[NARROW_STAGES];
+  // each warpgroup's double buffer of a tile's lse and delta
+  __shared__ __align__(8) float stats[NARROW_WGS][2][2][TILE];
+  // k [NARROW_WGS][NTILE_BYTES], v the same, then the stages' q and dO
+  // tiles [stage][2][NTILE_BYTES]
+  unsigned char* sk = swizzle_aligned(smem_raw);
+  unsigned char* sv = sk + NARROW_WGS * NTILE_BYTES;
+  unsigned char* stages = sv + NARROW_WGS * NTILE_BYTES;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * NARROW_ROWS;
+  const int n_tiles = (Tq + TILE - 1) / TILE;
+  if (threadIdx.x == 0) {
+    barrier_init(&rows_full, 1);
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      barrier_init(&full[s], 1);
+      barrier_init(&empty[s], 4 * NARROW_WGS);
+    }
+    barrier_init_fence();
+  }
+  __syncthreads();
+  auto load_tile = [&](int i) {  // queries i * TILE .. + 63
+    const int st = i % NARROW_STAGES;
+    unsigned char* dst = stages + st * 2 * NTILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
+    for (int s = 0; s < 2; ++s) {
+      tma_load_3d(dst + s * SLAB_BYTES, &q_map, &full[st], s * SLAB,
+                  i * TILE, bh);
+      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &g_map, &full[st],
+                  s * SLAB, i * TILE, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * NTILE_BYTES);
+    for (int w = 0; w < NARROW_WGS; ++w)
+      for (int s = 0; s < 2; ++s) {
+        const int at = w * NTILE_BYTES + s * SLAB_BYTES;
+        tma_load_3d(sk + at, &k_map, &rows_full, s * SLAB, first + w * TILE,
+                    bh);
+        tma_load_3d(sv + at, &v_map, &rows_full, s * SLAB, first + w * TILE,
+                    bh);
+      }
+    for (int i = 0; i < NARROW_STAGES && i < n_tiles; ++i) load_tile(i);
+  }
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int r0 = first + wg * TILE + warp * STEP + grp;  // rows r0, r0 + 8
+  const long long k_base = static_cast<long long>(bh) * Tk;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  // this thread's value of each tile's statistics: row t % 64 of the lse
+  // (t < 64) or of delta
+  const int t = threadIdx.x % 128;
+  const float* stat_rows = (t < TILE ? lse : delta) + q_base;
+  const unsigned char* k_rows = sk + wg * NTILE_BYTES;
+  const unsigned char* v_rows = sv + wg * NTILE_BYTES;
+  const float scale2 = scale * LOG2E;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float(&dk_flat)[D / 2] = reinterpret_cast<float(&)[D / 2]>(dk_acc);
+  float(&dv_flat)[D / 2] = reinterpret_cast<float(&)[D / 2]>(dv_acc);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_flat[i] = dv_flat[i] = 0.f;
+
+  barrier_wait(&rows_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NARROW_STAGES, q0 = i * TILE;
+    const unsigned char* q_tile = stages + st * 2 * NTILE_BYTES;
+    const unsigned char* g_tile = q_tile + NTILE_BYTES;
+    const float* s_lse = stats[wg][i & 1][0];
+    const float* s_delta = stats[wg][i & 1][1];
+    const int q_row = q0 + t % TILE;
+    const float stat = q_row < Tq ? stat_rows[q_row] : 0.f;
+    // transposed: rows are this warp's keys, columns the tile's queries
+    float s[STEPS][2][4], dp[STEPS][2][4];
+    float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
+    float(&dp_flat)[32] = reinterpret_cast<float(&)[32]>(dp);
+    barrier_wait(&full[st], (i / NARROW_STAGES) & 1);
+    // S^T and dP^T in two groups: p is computed while dP^T is in flight
+    wgmma_fence();
+    wgmma_over_dims<D>(s_flat, k_rows, q_tile);
+    wgmma_commit();
+    wgmma_over_dims<D>(dp_flat, v_rows, g_tile);
+    wgmma_commit();
+    // the other buffer is still read by the warps behind; this one was
+    // last read two tiles ago, before every warp passed the last barrier
+    stats[wg][i & 1][t / TILE][t % TILE] = stat;
+    warpgroup_sync(wg);
+    wgmma_wait<1>();
+    wgmma_hold(s_flat);
+    uint32_t p_hi[STEPS][4], p_lo[STEPS][4], ds_hi[STEPS][4], ds_lo[STEPS][4];
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = cs * STEP + 8 * j + 2 * tig;
+        const float2 l = *reinterpret_cast<const float2*>(s_lse + col);
+        const float lse2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // query rows past Tq are masked out
+          s[cs][j][e] = q0 + col + e % 2 < Tq
+                            ? exp2_approx(s[cs][j][e] * scale2 - lse2[e % 2])
+                            : 0.f;
+      }
+    wgmma_wait<0>();
+    wgmma_hold(dp_flat);
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = cs * STEP + 8 * j + 2 * tig;
+        const float2 dl = *reinterpret_cast<const float2*>(s_delta + col);
+        const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // ds
+          dp[cs][j][e] = s[cs][j][e] * (dp[cs][j][e] - dlt[e % 2]);
+      }
+      split_fragment(s[cs], p_hi[cs], p_lo[cs]);
+    }
+    // dV first; ds is split while its products run
+    wgmma_hold(dv_flat);
+    wgmma_hold(dk_flat);
+    wgmma_fence();
+    wgmma_over_rows<D>(dv_flat, p_hi, p_lo, g_tile);
+    wgmma_commit();
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+      split_fragment(dp[cs], ds_hi[cs], ds_lo[cs]);
+    wgmma_fence();
+    wgmma_over_rows<D>(dk_flat, ds_hi, ds_lo, q_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(dv_flat);
+    wgmma_hold(dk_flat);
+    if (lane == 0) barrier_arrive(&empty[st]);
+    if (threadIdx.x == 0 && i + NARROW_STAGES < n_tiles) {
+      barrier_wait(&empty[st], (i / NARROW_STAGES) & 1);
+      load_tile(i + NARROW_STAGES);
+    }
+    __syncwarp();
+  }
+  store_accumulator<D>(dk_acc, scale, dk + k_base * D, r0, Tk, tig);
+  store_accumulator<D>(dv_acc, 1.f, dv + k_base * D, r0, Tk, tig);
+}
+
 // ---- float32 at D = 128 nc, on the CUDA cores ----
 
 constexpr int W_DPT = 32, W_TPR = CD / W_DPT;  // 4 threads a row
@@ -2376,6 +2758,9 @@ constexpr int wide_dkdv_smem_bytes() {
 // warps; the forward one block for FwdPlan<NC>::BLOCK_ROWS rows, three
 // warpgroups.
 static_assert(RESIDENT_MAX_NC == 3, "the launchers take NC = 2 and 3");
+static_assert(NARROW_SMEM <= 232448,
+              "the wgmma gradient kernels' shared memory passes an H100 "
+              "block's");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
                   resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448 &&
                   FwdPlan<2>::SMEM <= 232448 &&
@@ -2407,8 +2792,10 @@ EncodeTiled driver_encode_tiled() {
 }
 
 // The tensor map of the contiguous bf16 [BH, rows, D] at base for
-// attn_fwd_wide_mma_kernel: boxes of 64 dims x 64 rows x 1, 128-byte
-// swizzle, zeros past each extent (so a box never reaches the next head).
+// attn_fwd_wide_mma_kernel and the wgmma gradient kernels: boxes of 64 dims
+// x 64 rows x 1, 128-byte swizzle, zeros past each extent (so a box never
+// reaches the next head, and at D = 80 the second box of a row holds 16
+// real dims and 48 zeros).
 cudaError_t rows_tensor_map(CUtensorMap* map, const void* base, int BH,
                             int rows, int D) {
   static const EncodeTiled encode = driver_encode_tiled();
@@ -2482,6 +2869,58 @@ cudaError_t launch_dkdv_resident(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
+// The tensor maps of q, k, v and g for the wgmma gradient kernels.
+cudaError_t narrow_tensor_maps(CUtensorMap (&maps)[4], const void* q,
+                               const void* k, const void* v, const void* g,
+                               int BH, int Tq, int Tk, int D) {
+  const void* bases[4] = {q, k, v, g};
+  const int rows[4] = {Tq, Tk, Tk, Tq};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = rows_tensor_map(&maps[i], bases[i], BH, rows[i], D);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* g, const void* lse, const void* delta,
+                            void* dq, int BH, int Tq, int Tk, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = narrow_tensor_maps(maps, q, k, v, g, BH, Tq, Tk, D);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(attn_dq_wgmma_kernel<D>, NARROW_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tq + NARROW_ROWS - 1) / NARROW_ROWS;
+  attn_dq_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_SMEM,
+                            stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Tq, Tk, tiles,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                              const void* g, const void* lse,
+                              const void* delta, void* dk, void* dv, int BH,
+                              int Tq, int Tk, float scale,
+                              cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = narrow_tensor_maps(maps, q, k, v, g, BH, Tq, Tk, D);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(attn_dkdv_wgmma_kernel<D>, NARROW_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tk + NARROW_ROWS - 1) / NARROW_ROWS;
+  attn_dkdv_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_SMEM,
+                              stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Tq, Tk, tiles, scale);
   return cudaGetLastError();
 }
 
@@ -2600,8 +3039,8 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 
 }  // namespace
 
-// One launcher for each (dtype, D) the kernels are built for, D = 32, 64 and
-// 128 (the bfloat16 launchers take the tensor-core kernels), and the wide
+// One launcher for each (dtype, D) the kernels are built for, D = 32, 64, 80
+// and 128 (the bfloat16 launchers take the tensor-core kernels), and the wide
 // launchers for D = 128 nc, nc >= 2; any other D is refused with
 // cudaErrorInvalidValue (the wrapper pads D to one of those before that).
 #define ATTN_DISPATCH(LAUNCH, D, BF16, ...)                                 \
@@ -2615,6 +3054,9 @@ bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
     else if ((D) == 64)                                                     \
       err = (BF16) ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                 \
                    : LAUNCH<float, 64>(__VA_ARGS__);                        \
+    else if ((D) == 80)                                                     \
+      err = (BF16) ? LAUNCH<__nv_bfloat16, 80>(__VA_ARGS__)                 \
+                   : LAUNCH<float, 80>(__VA_ARGS__);                        \
     else if ((D) == 128)                                                    \
       err = (BF16) ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)                \
                    : LAUNCH<float, 128>(__VA_ARGS__);                       \

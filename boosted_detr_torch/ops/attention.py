@@ -20,42 +20,47 @@ p^T dO``. ``delta`` is one plain torch pass, as JAX leaves it to XLA.
 
 The kernels, ``csrc/attention.cu``, are CUDA C++ for ``sm_90a``, built by
 nvcc at first use and loaded with ctypes (``ops/build.py``), for D = 32,
-64 and 128, and for D = 128 n (n >= 2) in 128-wide chunks. Any other head
-dim is padded with zeros (``_padded``): up to the next of 32, 64 and 128
-at most 128 (ViT-Huge's D = 80 to 128), else to the next multiple of 128
-(D = 160 to 256), as the TPU kernel pads D to a multiple of 128; the
-launch is given the true 1/sqrt(D) and the outputs are sliced back. At
-D = 128 the kernels take their tiles from dynamic shared memory (opted in
-above 48 KB) and the bf16 dk/dv kernel reads the block's k and v rows from
-shared memory instead of holding them in registers. Past 128 the bf16
-kernels at D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) own all D of their
-rows' output and compute the logits once a streamed tile, summed over
-the head dim 16 dims a step in order. The forward runs Hopper's
-warpgroup products (``wgmma``, both S = q k^T and P.V, p as the A
-operand from registers) on tiles that one thread loads with TMA into
-rings of stages, q resident; at D = 256 each of its two warpgroups
-owns 64 query rows and all 256 dims, at D = 384 both take the
-same 64 rows and half the dims each. dq and dk/dv run 8 warps a block
-over 64 rows, the block's own rows resident in shared memory, p passed to
-the partner warp through shared memory. Every other wide kernel (float32,
-and the bf16 forward, dq and dk/dv from D = 512 on) takes a grid axis
-over the output's 128-wide chunks: each block owns one chunk of out, dq,
-dk or dv, and computes the logits (and dP) over the whole head dim, one
-staged 128-wide chunk after another in the same order in every block, so
-all blocks of a row group compute the same p and ds. Both routes sum in
-that order, so the emulations below describe them both, at D = 128 and
-past it too (``wide_forward_kernel`` and ``wide_gradient_kernels`` name
-the route); ``wgmma`` may sum inside a 16-dim step otherwise than
-``mma.sync``, which the emulation does not model either. They take
-contiguous [BH, T, D] tensors: the MHA folds its heads into that layout
-before the call (one copy each of q, k and v), so the kernels need no
-strides. float32 inputs multiply in float32 on the CUDA cores (the tensor
-cores would make them TF32). bfloat16 inputs run on the tensor cores, the
-forward as dq and dk/dv: ``mma.sync`` on bf16 operands with float32 sums, a
-block's 64 rows in registers, the other operand streamed in 64-row tiles
-two deep with ``cp.async`` (16 bytes at a time, so q, k, v and g must be
-aligned to that or the wrapper raises; the wide forward's TMA needs the
-same), and the wide forward at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
+64, 80 and 128, and for D = 128 n (n >= 2) in 128-wide chunks. Any other
+head dim is padded with zeros (``_padded``): up to the next of 32, 64, 80
+and 128 at most 128, else to the next multiple of 128 (D = 160 to 256), as
+the TPU kernel pads D to a multiple of 128; the launch is given the true
+1/sqrt(D) and the outputs are sliced back. ViT-Huge's D = 80 runs at its
+true width (the TPU pads it to 128), in both dtypes: the wrappers make no
+padded copy and no slice there. At D = 128 the forward's tiles sit in
+dynamic shared memory (opted in above 48 KB). Past 128 the bf16 kernels at
+D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) own all D of their rows'
+output and compute the logits once a streamed tile, summed over the head
+dim 16 dims a step in order. The forward runs Hopper's warpgroup products
+(``wgmma``, both S = q k^T and P.V, p as the A operand from registers) on
+tiles that one thread loads with TMA into rings of stages, q resident; at
+D = 256 each of its two warpgroups owns 64 query rows and all 256 dims, at
+D = 384 both take the same 64 rows and half the dims each. dq and dk/dv
+run 8 warps a block over 64 rows, the block's own rows resident in shared
+memory, p passed to the partner warp through shared memory. Every other
+wide kernel (float32, and the bf16 forward, dq and dk/dv from D = 512 on)
+takes a grid axis over the output's 128-wide chunks: each block owns one
+chunk of out, dq, dk or dv, and computes the logits (and dP) over the
+whole head dim, one staged 128-wide chunk after another in the same order
+in every block, so all blocks of a row group compute the same p and ds.
+Both routes sum in that order, so the emulations below describe them
+both, at D = 128 and past it too (``wide_forward_kernel`` and
+``wide_gradient_kernels`` name the route); ``wgmma`` may sum inside a
+16-dim step otherwise than ``mma.sync``, which the emulation does not
+model either. They take contiguous [BH, T, D] tensors: the MHA folds its
+heads into that layout before the call (one copy each of q, k and v), so
+the kernels need no strides. float32 inputs multiply in float32 on the
+CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
+D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: the forward,
+and dq and dk/dv up to D = 64, on ``mma.sync`` with bf16 operands and
+float32 sums, a block's 64 rows in registers, the other operand streamed
+in 64-row tiles two deep with ``cp.async`` (16 bytes at a time, so q, k, v
+and g must be aligned to that or the wrapper raises; the TMA kernels need
+the same); dq and dk/dv at D = 80 and 128 on ``wgmma`` and TMA
+(``attn_dq_wgmma_kernel``, ``attn_dkdv_wgmma_kernel``: two warpgroups of
+64 rows, the block's rows resident, the streamed tiles in a ring of
+stages, p and ds from registers as the A operand of the second products;
+``narrow_gradient_kernels`` names the route up to 128); the wide forward
+at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
 scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
 second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
 bf16 rounding of p moves a tenth of the forward's outputs past one ulp.
@@ -89,7 +94,7 @@ import torch
 
 # The head dims the kernels are built for; past the last they take
 # multiples of it, in chunks of it.
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
 CHUNK = SUPPORTED_HEAD_DIMS[-1]
 # The widest head dim whose bf16 forward, dq and dk/dv keep the block's
 # rows resident in shared memory (csrc/attention.cu, RESIDENT_MAX_NC
@@ -374,6 +379,19 @@ def wide_gradient_kernels(d: int) -> Tuple[str, str]:
     route = _wide_route(d)
     return (f"attn_dq_wide_{route}mma_kernel",
             f"attn_dkdv_wide_{route}mma_kernel")
+
+
+def narrow_gradient_kernels(d: int) -> Tuple[str, str]:
+    """The names of the bf16 dq and dk/dv kernels that a launch at head
+    dim ``d`` up to ``CHUNK`` runs: the ``mma.sync`` kernels up to D = 64,
+    the ``wgmma`` kernels (TMA, the block's rows resident) at D = 80 and
+    128, after padding."""
+    padded = padded_head_dim(d)
+    if padded > CHUNK:
+        raise ValueError(f"head dim {d} runs on the wide kernels past "
+                         f"{CHUNK}")
+    route = "wgmma" if padded > 64 else "mma"
+    return f"attn_dq_{route}_kernel", f"attn_dkdv_{route}_kernel"
 
 
 def wide_occupancy(kernel: str, d: int) -> Tuple[int, int]:

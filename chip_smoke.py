@@ -9,9 +9,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. build: compiles every hand-written kernel under boosted_detr_torch/csrc/
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
    per source, all at once, and prints ptxas's registers and spill bytes
-   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64 and 128, the
-   chunked wide kernels for D = 128 n, n >= 2, and the resident bf16 dq
-   and dk/dv at D = 256 and 384) and the wide bf16 kernels' blocks an SM;
+   of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64, 80 and 128,
+   in bf16 dq and dk/dv on mma.sync at D <= 64 and on wgmma at 80 and 128,
+   the chunked wide kernels for D = 128 n, n >= 2, and the resident bf16
+   forward, dq and dk/dv at D = 256 and 384) and the wide bf16 kernels'
+   blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -22,8 +24,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    2065 columns, each against its serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores), up to D = 512 (in bf16 past 128, dq and dk/dv on the resident
-   kernels at 256 and 384 and on the chunked ones at 512); holds each
+   cores), up to D = 512 (in bf16 at D = 80 and 128 dq and dk/dv on the
+   wgmma kernels, each also launched twice for the same bits; past 128 on
+   the resident kernels at 256 and 384 and on the chunked ones at 512);
+   holds each
    result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and one PyTorch library call (where one computes
    the same function) with CUDA events;
@@ -50,7 +54,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    - the same two for the ViT-p16 backbone at 640x640 (width 384, depth 8,
      6 heads: K1 at P=16 -> 384 and K3 in the ViT blocks and in DETR);
    - the same two at ViT-Huge's widths (``vit_h16``: depth 32, width 1280,
-     16 heads of D = 80, which K3 pads to 128; 651,553,406 parameters):
+     16 heads of D = 80, which K3 takes as built; 651,553,406 parameters):
      K1 at P=16 -> 1280, K3 43 times a forward (32 blocks at
      [128, 1600, 1600, 80], DETR's 11 at D = 32), with each path's peak
      device memory;
@@ -293,7 +297,8 @@ K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
              # encoder_dim=384 over 8 heads: D = 48, padded with zeros to 64
              ("D=48 (encoder_dim 384, 8 heads) at 640", 64, 400, 400, 48),
              # vit_h16's blocks: 16 heads of D = 80 (ViT-Huge's widths),
-             # padded with zeros to 128
+             # as built (the TPU pads it to 128); bf16 dq and dk/dv on the
+             # wgmma kernels, as at D = 128
              ("ViT-H blocks", 128, 1600, 1600, 80),
              # vit_w512_h4 at batch 8: D = 128 as built
              ("vit_w512_h4 blocks", 32, 1600, 1600, 128),
@@ -396,9 +401,9 @@ def kernel_names() -> int:
     of its own once its timed phases are over: which device kernel each
     forward of the kernels phase runs, by name from a profile: the
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
-    the P=4 stem; the same for each weight gradient; past D = 128 in
-    bf16, the route of the forward, dq and dk/dv (resident or chunked),
-    and the wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
+    the P=4 stem; the same for each weight gradient; in bf16 the route
+    of dq and dk/dv (mma.sync or wgmma up to D = 128) and past D = 128 of
+    the forward, dq and dk/dv (resident or chunked), and the wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones."""
@@ -444,12 +449,14 @@ def kernel_names() -> int:
                            if dtype != torch.bfloat16
                            else A.wide_forward_kernel(d) if wide
                            else "attn_fwd_mma_kernel", what)
-            if wide and dtype == torch.bfloat16:
-                # the route of the wide gradients: resident, or chunked
+            if dtype == torch.bfloat16:
+                # the gradients' route: mma.sync or wgmma up to 128, past it
+                # resident or chunked
                 g = torch.randn_like(q)
                 out, lse = A.attention_fwd_reference(q, k, v)
                 args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
-                names = A.wide_gradient_kernels(d)
+                names = (A.wide_gradient_kernels(d) if wide
+                         else A.narrow_gradient_kernels(d))
                 _expect_kernel(lambda: A.attention_dq(*args), "attn_dq",
                                names[0], f"{what} dq")
                 _expect_kernel(lambda: A.attention_dkdv(*args), "attn_dkdv",
@@ -525,11 +532,13 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 30:
-        raise AssertionError(f"expected 30 K3 kernels (3 kernels, 2 dtypes, "
-                             f"D = 32, 64, 128, the 6 chunked wide ones and "
-                             f"the resident forward, dq and dk/dv at "
-                             f"D = 256 and 384), read {len(k3)}")
+    if len(k3) != 36:
+        raise AssertionError(f"expected 36 K3 kernels (3 kernels, 2 dtypes, "
+                             f"D = 32, 64, 80, 128, in bf16 dq and dk/dv on "
+                             f"mma.sync to 64 and on wgmma at 80 and 128, "
+                             f"the 6 chunked wide ones and the resident "
+                             f"forward, dq and dk/dv at D = 256 and 384), "
+                             f"read {len(k3)}")
     _say("[build] K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
     return k3
 
@@ -865,12 +874,15 @@ def _attention_label(label, bh, tq, tk, d, dtype):
     return f"K3 {label} [{bh}, {tq}, {tk}, {d}] {str(dtype)[6:]}"
 
 
-def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
+def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     """K3-fwd (with the lse), K3-dq and K3-dkdv at one shape against their
     plain versions; in bf16 (and float32 at D > 64) also timed, with
     F.scaled_dot_product_attention (forward, and forward + backward) as
     the library yardstick, which the port never calls, and the backward
-    alone beside it. Returns one row per kernel."""
+    alone beside it. In bf16 at D = 80 and 128 the rows of dq and dk/dv
+    also name their wgmma kernels with ptxas's registers and spills (from
+    ``ptxas``, ``ptxas_k3``'s rows), and each is launched a second time
+    and held to the first bit for bit. Returns one row per kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -919,6 +931,28 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
         rows[name] = {"shape": what, "max_abs_err": errs[name],
                       "library_ms": None}
         rows[name].update(_bound(n_bytes[name], ops[name], dtype))
+    padded = A.padded_head_dim(d)
+    if dtype == torch.bfloat16 and 64 < padded <= A.CHUNK:
+        # the wgmma gradient kernels: their names, ptxas's report, and a
+        # second launch of each, the same bits (no atomics, sums in a
+        # fixed order)
+        again = (A.attention_dq(*args), *A.attention_dkdv(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"{what}: a second launch of dq or dk/dv "
+                                 "gave other bits")
+        for name, kernel in zip(("dq", "dkdv"),
+                                A.narrow_gradient_kernels(d)):
+            report = (ptxas or {}).get(f"{kernel} D={padded}", {})
+            rows[name].update(kernel=f"{kernel}<{padded}>",
+                              repeats_bit_for_bit=True,
+                              registers=report.get("registers"),
+                              spill_bytes=report.get("spill_stores", 0)
+                              + report.get("spill_loads", 0))
+            _say(f"  {what} {name}: {rows[name]['kernel']}, "
+                 f"{rows[name]['registers']} registers, "
+                 f"{rows[name]['spill_bytes']} spill bytes; a second "
+                 "launch gave the same bits")
     # bf16 rows are timed; float32 ones (the CUDA-core kernels, off the
     # bf16 paths) only at the head dims over 64
     if dtype != torch.bfloat16 and d <= 64:
@@ -996,7 +1030,10 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush):
     return rows
 
 
-def phase_kernels():
+def phase_kernels(ptxas=None):
+    """Every kernel against its plain version at its cases; ``ptxas``
+    (``phase_build``'s K3 rows) names the registers of the wgmma gradient
+    kernels in their rows."""
     _say("[kernels] patchify_conv against patchify_conv_reference on the "
          f"card, x f32 [{BATCH}, res, res, 3]")
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
@@ -1015,7 +1052,7 @@ def phase_kernels():
     seed = K3_FIRST_SEED
     for dtype in (torch.bfloat16, torch.float32):  # the 1280 encoder first
         for shape in K3_SHAPES:
-            case = _attention_case(*shape, dtype, seed, flush)
+            case = _attention_case(*shape, dtype, seed, flush, ptxas)
             seed += 1
             for name in ("fwd", "dq", "dkdv"):
                 rows[f"attention_{name}"].append(case[name])
@@ -1188,8 +1225,8 @@ PATHS = {
                      attention_dq=19, attention_dkdv=19),
         serving_plain=("patchify_fwd",) + _K3),
     # ViT-Huge's widths (Dosovitskiy et al., ICLR 2021, Table 1: 32 layers,
-    # width 1280, MLP 5120, 16 heads, so D = 80, padded with zeros to 128 in
-    # K3) at patch 16, since 640 is no multiple of 14: 1600 patches, K1 at
+    # width 1280, MLP 5120, 16 heads, so D = 80, which K3 takes as built)
+    # at patch 16, since 640 is no multiple of 14: 1600 patches, K1 at
     # P=16 -> 1280, 32 fused attentions in the blocks and DETR's 11 at D=32
     "vit_h16": dict(
         res=RES, cfg=dict(backbone="vit_p16_d32_w1280_h16", norm="batchnorm",
@@ -3753,7 +3790,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     ptxas = phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels(ptxas)
     matchers = phase_matchers()
     report = {}
     for name in PATHS:

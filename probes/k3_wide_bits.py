@@ -1,6 +1,8 @@
-"""The bf16 K3 kernels past D = 128, bit for bit and timed, across trees.
+"""The bf16 K3 kernels past D = 128 (or at other head dims), bit for bit
+and timed, across trees.
 
-For every shape of ``chip_smoke.K3_SHAPES`` past D = 128 this script draws
+For every shape of ``chip_smoke.K3_SHAPES`` past D = 128 (with ``--dims
+80,128``, at those head dims instead) this script draws
 bf16 q, k, v and dO from a fixed seed on the card, runs ``attention_fwd``
 of the ``boosted_detr_torch`` package of each checkout it is given, forms
 the lse and delta in plain float32, runs ``attention_dq`` and
@@ -11,13 +13,14 @@ its own ``build/kernels/``). Give the checkouts in turns, a parent and a
 change for example, to compare them on one card:
 
     python3 probes/k3_wide_bits.py archive/parent . . archive/parent
+    python3 probes/k3_wide_bits.py --dims 80,128 archive/parent . . archive/parent
 
-(no argument: this checkout alone). It prints one line a checkout and
-shape, whether every checkout gave the same bits at each shape, and,
-where a checkout's forward differs from the first checkout's, the share
-of equal bf16 values of out, the largest difference in bf16 ulps and the
-largest difference of the lse; then the card's name and power limit. It
-exits 1 if a checkout failed.
+(no checkout: this one alone). It prints one line a checkout and shape,
+whether every checkout gave the same bits at each shape, and, where a
+checkout's out, dq, dk or dv differs from the first checkout's, the share
+of equal bf16 values, the largest difference in bf16 ulps (and for out
+the largest difference of the lse); then the card's name and power
+limit. It exits 1 if a checkout failed.
 """
 
 from __future__ import annotations
@@ -59,10 +62,11 @@ def _ordered(t: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, -(bits & 0x7FFF), bits)
 
 
-def run_one(root: str, dump: str) -> dict:
+def run_one(root: str, dump: str, dims: str) -> dict:
     """out and lse of the forward, and dq, dk and dv, of the package under
-    ``root`` at every wide shape: their sha256 and the three kernels'
-    times. The forward's out and lse go to ``dump`` as ``<shape>.pt``."""
+    ``root`` at every wide shape (or every shape at the head dims in
+    ``dims``, comma-separated): their sha256 and the three kernels' times.
+    The five go to ``dump`` as ``<shape>.pt``."""
     sys.path.insert(0, os.path.abspath(root))
     from boosted_detr_torch.ops import attention as A
 
@@ -70,7 +74,9 @@ def run_one(root: str, dump: str) -> dict:
     cs = _chip_smoke()
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     out = {}
-    wide = [s for s in cs.K3_SHAPES if s[-1] > 128]
+    wanted = {int(d) for d in dims.split(",")} if dims else None
+    wide = [s for s in cs.K3_SHAPES
+            if (s[-1] in wanted if wanted else s[-1] > 128)]
     for i, (label, bh, tq, tk, d) in enumerate(wide):
         gen = torch.Generator(device="cuda").manual_seed(FIRST_SEED + i)
         q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda")
@@ -78,8 +84,6 @@ def run_one(root: str, dump: str) -> dict:
         g_lse = torch.randn((bh, tq), generator=gen, device="cuda")
         out_k, lse_k = A.attention_fwd(q, k, v)
         torch.cuda.synchronize()
-        torch.save({"out": out_k.cpu(), "lse": lse_k.cpu()},
-                   os.path.join(dump, f"{i}.pt"))
         logits = (q.float() * d ** -0.5) @ k.float().transpose(1, 2)
         lse = torch.logsumexp(logits, -1)
         o = (torch.softmax(logits, -1) @ v.float()).bfloat16()
@@ -89,6 +93,9 @@ def run_one(root: str, dump: str) -> dict:
         dq = A.attention_dq(*args)
         dk, dv = A.attention_dkdv(*args)
         torch.cuda.synchronize()
+        torch.save({"out": out_k.cpu(), "lse": lse_k.cpu(), "dq": dq.cpu(),
+                    "dk": dk.cpu(), "dv": dv.cpu()},
+                   os.path.join(dump, f"{i}.pt"))
         row = {"out": _digest(out_k), "lse": _digest(lse_k.view(torch.int32)
                                                      .view(torch.int16)),
                "dq": _digest(dq), "dk": _digest(dk), "dv": _digest(dv)}
@@ -105,20 +112,24 @@ def run_one(root: str, dump: str) -> dict:
 
 def main() -> int:
     if sys.argv[1:2] == ["--one"]:
-        print("RESULT " + json.dumps(run_one(sys.argv[2], sys.argv[3])),
-              flush=True)
+        print("RESULT " + json.dumps(run_one(*sys.argv[2:5])), flush=True)
         return 0
     if not torch.cuda.is_available():
         print("k3_wide_bits: no CUDA card", file=sys.stderr)
         return 1
-    roots = sys.argv[1:] or [HERE]
+    args = sys.argv[1:]
+    dims = ""
+    if args[:1] == ["--dims"]:
+        dims, args = args[1], args[2:]
+    roots = args or [HERE]
     results, failed = [], False
     dumps = tempfile.mkdtemp(prefix="k3_wide_bits_")
     for n, root in enumerate(roots):
         dump = os.path.join(dumps, str(n))
         os.makedirs(dump)
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root, dump],
+            [sys.executable, os.path.abspath(__file__), "--one", root, dump,
+             dims],
             capture_output=True, text=True, check=False, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines()
                  if not ln.startswith("RESULT ")]
@@ -137,16 +148,18 @@ def main() -> int:
                      else f"{len(digests)} different results"), flush=True)
         first = torch.load(os.path.join(results[0][1], f"{i}.pt"))
         for root, dump, r in results[1:]:
-            if r[shape]["out"] == results[0][2][shape]["out"]:
-                continue
             other = torch.load(os.path.join(dump, f"{i}.pt"))
-            ulps = (_ordered(other["out"]) - _ordered(first["out"])).abs()
-            print(f"{shape} out of {root} against {results[0][0]}: "
-                  f"{(ulps == 0).double().mean().item():.6f} of the values "
-                  f"the same bf16, at most {ulps.max().item()} ulps apart; "
-                  f"lse at most "
-                  f"{(other['lse'] - first['lse']).abs().max().item():.3e} "
-                  f"apart", flush=True)
+            for name in ("out", "dq", "dk", "dv"):
+                if r[shape][name] == results[0][2][shape][name]:
+                    continue
+                ulps = (_ordered(other[name]) - _ordered(first[name])).abs()
+                lse = (f"; lse at most "
+                       f"{(other['lse'] - first['lse']).abs().max().item():.3e}"
+                       f" apart" if name == "out" else "")
+                print(f"{shape} {name} of {root} against {results[0][0]}: "
+                      f"{(ulps == 0).double().mean().item():.6f} of the "
+                      f"values the same bf16, at most {ulps.max().item()} "
+                      f"ulps apart{lse}", flush=True)
     shutil.rmtree(dumps, ignore_errors=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

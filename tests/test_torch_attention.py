@@ -119,9 +119,11 @@ def _pallas_k3(bh, tq, tk, d, dtype):
                                         (2, 300, 520, 64),  # straddles both
                                         (2, 17, 1000, 32),  # tiny q
                                         # ViT-Huge's D = 80 and D = 128,
-                                        # ragged
+                                        # ragged, both at their true width
                                         (2, 72, 130, 80),
-                                        (2, 72, 130, 128)])
+                                        (2, 72, 130, 128),
+                                        (2, 130, 70, 80),
+                                        (3, 17, 17, 128)])
 def test_k3_matches_the_pallas_kernel(bh, tq, tk, d, dtype):
     """out, lse, and the gradients of a random cotangent of both, the lse's
     included (it folds into delta), against fused_attention_with_lse run
@@ -273,15 +275,16 @@ def test_one_bf16_rounding_of_p_fails_the_forward_gate():
 
 @pytest.mark.parametrize("bh,tq,tk,d,built", [
     (2, 130, 200, 48, 64), (2, 96, 400, 48, 64),
-    # ViT-Huge's widths (1280 over 16 heads) padded to 128, and D = 128 as
-    # built (vit_w512_h4)
-    (2, 72, 130, 80, 128), (2, 72, 130, 128, 128)])
+    # ViT-Huge's widths (1280 over 16 heads) and D = 128 (vit_w512_h4),
+    # both as built (bf16 dq and dk/dv on the wgmma kernels), ragged
+    (2, 72, 130, 80, 80), (2, 72, 130, 128, 128), (2, 130, 70, 80, 80),
+    (3, 17, 17, 128, 128)])
 def test_padded_head_dim_arithmetic_matches_the_pallas_kernel(bh, tq, tk, d,
                                                               built):
-    """D = 48 (``encoder_dim=384, num_encoder_heads=8``) and D = 80, which
-    the kernels take padded with zeros to 64 and 128 and the true
-    1/sqrt(D), and D = 128 as built: the tensor-core arithmetic on the
-    padded tensors, sliced back, inside the card's gates against the plain
+    """D = 48 (``encoder_dim=384, num_encoder_heads=8``), which the
+    kernels take padded with zeros to 64 and the true 1/sqrt(D), and
+    D = 80 and 128 as built: the tensor-core arithmetic on the padded
+    tensors, sliced back, inside the card's gates against the plain
     versions at D and against JAX's Pallas kernels in interpret mode (which
     pad D to 128 themselves)."""
     scale = 1.0 / d ** 0.5

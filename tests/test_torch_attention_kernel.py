@@ -6,8 +6,9 @@ kernels against the plain PyTorch emulation of their arithmetic, the
 autograd ``FusedAttentionFn`` on the card against its CPU route, the
 kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
-tensor. Head dims 32, 64 and 128 run as built; 16, 48 and 80 (ViT-Huge's
-widths) padded with zeros to the next; past 128, multiples of 128 (256,
+tensor. Head dims 32, 64, 80 (ViT-Huge's, with no padded copy) and 128
+run as built, in bf16 dq and dk/dv at 80 and 128 on the wgmma kernels;
+16 and 48 padded with zeros to the next; past 128, multiples of 128 (256,
 384, 512) run on the wide kernels and any other D (160) padded to the
 next multiple: in bf16, the forward, dq and dk/dv on the resident
 kernels up to D = 384 (the forward on wgmma with TMA), on the chunked
@@ -78,8 +79,9 @@ def _assert_close(got, want, dtype, grad=False):
     # head dims padded with zeros to 64 and 32 (encoder_dim=384 over 8
     # heads: D = 48)
     (4, 400, 400, 48), (3, 96, 520, 48), (3, 130, 200, 16),
-    # D = 128 as built (vit_w512_h4) and ViT-Huge's D = 80 padded to it:
-    # 2 of vit_h16's 128 heads, and ragged lengths
+    # D = 128 (vit_w512_h4) and ViT-Huge's D = 80, both as built (bf16 dq
+    # and dk/dv on the wgmma kernels): 2 of vit_h16's 128 heads, and
+    # ragged lengths
     (2, 1600, 1600, 80), (2, 1600, 1600, 128), (3, 300, 520, 128),
     (3, 96, 520, 80), (3, 1, 300, 128), (3, 300, 1, 80), (3, 17, 17, 128),
     (3, 520, 17, 80),
@@ -335,6 +337,58 @@ def test_wide_gradients_launch_their_route(cuda, _profiled, d, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,route", [(32, "mma"), (64, "mma"), (80, "wgmma"),
+                                     (128, "wgmma")])
+def test_narrow_gradients_launch_their_kernels(cuda, _profiled, d, route):
+    """Up to D = 128 the bf16 dq and dk/dv run the mma.sync kernels at
+    D <= 64 and the wgmma kernels (TMA, the block's rows resident) at 80
+    and 128, by name from a profile, as ``narrow_gradient_kernels`` names
+    them; float32 keeps its CUDA-core kernels."""
+    names = _profiled[d]["grad"]
+    assert len(names["bfloat16"]) == 2, names
+    for kind, name in zip(("dq", "dkdv"), ta.narrow_gradient_kernels(d)):
+        assert name == f"attn_{kind}_{route}_kernel"
+        # a template's name is followed by its arguments
+        assert sum(f"{name}<{d}>" in n for n in names["bfloat16"]) == 1, names
+        assert sum(f"attn_{kind}_kernel<" in n
+                   for n in names["float32"]) == 1, names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_80_runs_without_a_padded_copy(cuda, monkeypatch, dtype):
+    """ViT-Huge's D = 80 runs at its true width: the forward, dq and
+    dk/dv launch once each with no ``F.pad`` (which would raise here) and
+    no slice, and hold their plain versions' gates."""
+    def refused(*args, **kwargs):
+        raise AssertionError("F.pad called at D = 80")
+
+    q, k, v, g, g_lse = _inputs(cuda, 3, 130, 200, 80, dtype, seed=9)
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    delta = (g.float() * want.float()).sum(-1) - g_lse
+    args = (q, k, v, g, want_lse, delta)
+    before = (ta.attention_fwd.launches, ta.attention_dq.launches,
+              ta.attention_dkdv.launches)
+    monkeypatch.setattr(torch.nn.functional, "pad", refused)
+    assert ta.padded_head_dim(80) == 80
+    out, lse = ta.attention_fwd(q, k, v)
+    dq = ta.attention_dq(*args)
+    dk, dv = ta.attention_dkdv(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert (ta.attention_fwd.launches, ta.attention_dq.launches,
+            ta.attention_dkdv.launches) == tuple(n + 1 for n in before)
+    for got in (out, dq, dk, dv):
+        assert got.shape[-1] == 80 and got.is_contiguous()
+    _assert_close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    for got, ref in ((dq, ta.attention_dq_reference(*args)), (dk, want_dk),
+                     (dv, want_dv)):
+        _assert_close(got, ref, dtype, grad=True)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d,route", [(160, ""), (256, ""), (384, ""),
                                      (512, "chunked_")])
 def test_wide_forward_launches_its_route(cuda, _profiled, d, route):
@@ -418,10 +472,10 @@ def _emulated(emulation, q, k, v, *rest):
 def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     """The bfloat16 gradient kernels against the plain PyTorch emulation of
     their arithmetic (64-row tiles, p and ds as bf16 hi + lo, the scale at
-    the end) on the same inputs, D = 80 padded to 128 as the kernels take
-    it: what is left between them is the order of the float32 sums inside
-    a tile and ex2.approx, so nearly every value is the same bf16 and the
-    rest its neighbour."""
+    the end) on the same inputs, D = 80 at its true width as the kernels
+    take it: what is left between them is the order of the float32 sums
+    inside a tile and ex2.approx, so nearly every value is the same bf16
+    and the rest its neighbour."""
     args = _gradient_args(cuda, bh, tq, tk, d, "bfloat16", seed=5)
     got = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
     want = (*_emulated(lambda *a, **kw: (ta.attention_dq_emulation(*a, **kw),),
@@ -439,7 +493,7 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     (3, 520, 300, 32),  # ragged lengths 1, 17, 96, 300, 520, Tq != Tk
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
     (4, 96, 96, 32),
-    # D = 128 as built and D = 80 padded to it
+    # D = 128 and D = 80 as built
     (3, 300, 520, 128), (3, 17, 1000, 80), (3, 1, 300, 128),
     (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128),
     # the wide forward: resident (wgmma, q staged once; 128 rows a block
@@ -486,7 +540,7 @@ def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
 
 
 # A bf16 ViT DETR whose blocks have width 160 over 2 heads: D = 80, which
-# the forward op pads to 128; the patch embed (P = 16 -> 160) takes the
+# the forward op takes as built; the patch embed (P = 16 -> 160) takes the
 # tensor-core K1, DETR's attentions D = 32. The same at width 256 over one
 # head: D = 256, the wide kernels.
 VIT_D80 = dict(image_size=(64, 64), backbone="vit_p16_d2_w160_h2",

@@ -41,10 +41,12 @@ CHUNKED = [(1, 40, 70, 512)]
 
 @pytest.mark.parametrize("d,padded", [(129, 256), (160, 256), (256, 256),
                                       (300, 384), (384, 384), (1000, 1024),
-                                      (80, 128), (48, 64), (128, 128)])
+                                      (80, 80), (48, 64), (128, 128),
+                                      (72, 80)])
 def test_head_dims_pad_as_the_tpu_kernel_does(d, padded):
-    """Up to 128 the next built width; past it the next multiple of 128,
-    the TPU kernel's padding of D (pallas_attention.py:86)."""
+    """Up to 128 the next built width (ViT-Huge's D = 80 is one: no
+    padded copy, where the TPU pads it to 128); past it the next multiple
+    of 128, the TPU kernel's padding of D (pallas_attention.py:86)."""
     assert ta.padded_head_dim(d) == padded
     x = torch.ones((1, 3, d))
     (p,) = ta._padded(x)

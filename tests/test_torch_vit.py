@@ -96,8 +96,8 @@ _VIT = dict(image_size=(64, 64), num_encoder_blocks=1, num_decoder_blocks=2,
     ("vit_p16_d2_w64_h2", True, True),    # K1 with its bias, K3 throughout
     ("vit_p16_d2_w64_h2_qk", True, True),  # with the QK-norm
     ("vit_p16_d2_w64_h2_qk", False, False),  # the plain ViT route
-    # head dims over 64: ViT-Huge's D = 80 (padded to 128 on the card) and
-    # D = 128
+    # head dims over 64: ViT-Huge's D = 80 and D = 128, both as built on
+    # the card
     ("vit_p16_d2_w160_h2", True, True),
     ("vit_p16_d2_w256_h2", True, True),
 ])
