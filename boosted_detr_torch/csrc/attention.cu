@@ -2,8 +2,8 @@
 // log-sum-exp, and the two kernels of its gradient.
 //
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
-//   attn_fwd_kernel, attn_fwd_mma_kernel (and past D = 128 attn_fwd_wide_*)
-//                    <- _attention_kernel (:45-80), called by
+//   attn_fwd_kernel, attn_fwd_mma_kernel, attn_fwd_wgmma_kernel
+//   (attn_fwd_wide_*) <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
 //   attn_dq_kernel, attn_dq_mma_kernel, attn_dq_wgmma_kernel
 //   (attn_dq_wide_*) <- _dq_kernel (:138-163), called by
@@ -55,9 +55,10 @@
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
 //     spilled registers to local memory).
 //
-// bfloat16 inputs run on the tensor cores (attn_fwd_mma_kernel, and at
-// D <= 64 attn_dq_mma_kernel and attn_dkdv_mma_kernel; at D = 80 and 128
-// dq and dk/dv take the wgmma kernels of their own section below):
+// bfloat16 inputs run on the tensor cores (at D <= 64 attn_fwd_mma_kernel,
+// attn_dq_mma_kernel and attn_dkdv_mma_kernel; at D = 80 and 128 the
+// forward, dq and dk/dv take the wgmma kernels of their own section
+// below):
 //   - every product is mma.sync.m16n8k16 on bf16 operands with float32
 //     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q
 //     (forward), q and dO (dq) or k and v (dk/dv) sit in registers as A
@@ -94,35 +95,28 @@
 //     tile i + 1 loads while tile i multiplies, with one __syncthreads a
 //     tile: after it every thread's copies of tile i have landed and every
 //     thread is done with tile i - 1, whose stage the next copies then
-//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80, 144, 176
-//     or 272 bytes): the eight 16-byte rows that an ldmatrix phase reads then fall
-//     into eight different bank groups, with or without .trans, so no read
-//     conflicts;
+//     overwrite. Staged rows are padded by 16 bytes (a pitch of 80 or 144
+//     bytes, 272 in the chunked wide kernels): the eight 16-byte rows that
+//     an ldmatrix phase reads then fall into eight different bank groups,
+//     with or without .trans, so no read conflicts;
 //   - dq and dk are multiplied by scale once, at the end;
-//   - what holds them at 11-16% of their bounds at the 1600-token shapes
+//   - what holds them at 8-16% of their bounds at the 1600-token shapes
 //     (PERF.md): mma.sync is not the card's fastest path (wgmma is), a third
 //     or more of the passes are the lo halves, and the float32 work on p and
 //     ds (mask, max, exp, sum, split) shares the issue slots with the MMAs.
 //
 // At D = 80 (ViT-Huge's; any D in (64, 80] padded to it) and 128 (any D
 // in (80, 128]):
-//   - the forward is attn_fwd_mma_kernel<80> and <128>: the staged rows'
-//     pitch of 88 bf16 (176 bytes: eleven 16-byte groups, so the eight
-//     rows of an ldmatrix phase fall into eight bank groups) at 80, 45 KB
-//     of tiles; at 128 the staged tiles outgrow the 48 KB of static shared
-//     memory (68 KB of double-buffered bf16 tiles, 64 KB of float32 k and v
-//     tiles), so every kernel takes its tiles from dynamic shared memory,
-//     sized at launch, and a launch above 48 KB first opts its kernel in
-//     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem). Zero
-//     columns add exact zeros to every sum, so the forward at 80 gives the
-//     bits it gave padded to 128;
-//   - registers: a warp's q fragments (32 a thread at 128), its 16 x D
-//     float32 accumulator (64) and a tile's S (32) pass the 128 that a hint
-//     of 4 blocks an SM allows, so the forward's hint drops to 2 (the 68 KB
-//     of tiles allow 3 blocks an SM anyway);
-//   - dq and dk/dv in bf16 are attn_dq_wgmma_kernel and
-//     attn_dkdv_wgmma_kernel (their section below: warpgroup products,
-//     TMA, the block's rows resident in shared memory);
+//   - the forward, dq and dk/dv in bf16 are attn_fwd_wgmma_kernel,
+//     attn_dq_wgmma_kernel and attn_dkdv_wgmma_kernel (their section
+//     below: warpgroup products, TMA, the block's rows resident in shared
+//     memory, rows staged 128 wide with TMA's zeros past dim 80). Zero
+//     columns add exact zeros to every sum, so D = 80 gives the bits it
+//     gave padded to 128;
+//   - every kernel takes its tiles from dynamic shared memory, sized at
+//     launch, and a launch above 48 KB first opts its kernel in
+//     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem): the
+//     float32 kernels' k and v tiles are 64 KB at D = 128;
 //   - the float32 kernels keep their layout, DPT dims a thread and TPR = 4
 //     threads a row (256 threads), the row sums xor-shuffled over those
 //     aligned lanes: 20 dims a thread at D = 80, 32 at 128; dk/dv takes one
@@ -766,15 +760,16 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // for the whole tile, the rows' new running max, one rescale of acc and
 // denom, then 16 keys at a time p = 2^(scale2 (s - max)) in registers,
 // summed as float32 into denom and repacked as hi + lo A fragments for
-// acc += P V.
-// At least 5 (D = 32), 4 (D = 64) and 2 (D = 80 and 128) blocks on an SM:
-// 96, 128 and 255 registers.
+// acc += P V. D = 32 and 64 (at 80 and 128, attn_fwd_wgmma_kernel below).
+// At least 5 (D = 32) and 4 (D = 64) blocks on an SM: 96 and 128
+// registers.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : 4)
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int Tq, int Tk, int tiles,
                     float scale) {
+  static_assert(D <= 64, "D = 80 and 128 take attn_fwd_wgmma_kernel");
   constexpr int PITCH = D + PAD;
   constexpr int STEPS = TILE / STEP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -912,8 +907,12 @@ constexpr int dkdv_mma_smem_bytes() {
   return mma_smem_bytes<D>() + 2 * 2 * TILE * 4;
 }
 
-// bf16 dq and dk/dv at D = 80 and 128: the wgmma kernels of the section
-// below (their launchers follow the tensor maps').
+// The bf16 forward, dq and dk/dv at D = 80 and 128: the wgmma kernels of
+// the section below (their launchers follow the tensor maps').
+template <int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int BH, int Tq, int Tk,
+                             float scale, cudaStream_t stream);
 template <int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* g, const void* lse, const void* delta,
@@ -933,7 +932,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* lse, int BH, int Tq, int Tk,
                        float scale, cudaStream_t stream) {
   const int tiles = tiles_of(Tq);
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && D > 64) {
+    return launch_fwd_wgmma<D>(q, k, v, out, lse, BH, Tq, Tk, scale, stream);
+  } else if constexpr (std::is_same_v<T, bf16>) {
     constexpr int smem = mma_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_fwd_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -2102,22 +2103,23 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_chunk(acc, inv, out + q_base * D + col0, D, r0, Tq, tig);
 }
 
-// ---- bf16 dq and dk/dv at D = 80 and 128: wgmma, TMA ----
+// ---- bf16 at D = 80 and 128: the forward, dq and dk/dv on wgmma, TMA ----
 //
-// attn_dq_mma_kernel and attn_dkdv_mma_kernel, designed for D <= 64, ran
-// D = 128 (and ViT-Huge's D = 80, padded to it) at 12.3% and 9.7% of
-// their bounds at [128, 1600, 1600, 80]: mma.sync with ldmatrix, 4 warps
-// of 16 rows, and dk/dv reading its own rows' A fragments from shared
-// memory at every product for want of registers (PERF.md). Here
-// attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D> (D = 80, 128)
-// take the design of the wide forward above instead:
-//   - two warpgroups a block, each owning 64 rows (query rows for dq, key
-//     rows for dk/dv; 128 a block), all D of their output. Thread 0 issues
-//     every copy with TMA: the block's own rows once (q and dO, or k and
-//     v), resident for the whole kernel, and the streamed operand (k and v,
-//     or q and dO) a 64-row tile at a time into a ring of NARROW_STAGES
-//     stages with a full and an empty mbarrier each; it refills a stage
-//     once every warp has released it (a third stage gained nothing);
+// The mma.sync kernels, designed for D <= 64, ran D = 128 (and ViT-Huge's
+// D = 80, padded to it) at 9-14% of their bounds at [128, 1600, 1600, 80]:
+// mma.sync with ldmatrix, 4 warps of 16 rows, dk/dv reading its own rows'
+// A fragments from shared memory at every product for want of registers,
+// the forward 152 / 198 registers (PERF.md). Here attn_fwd_wgmma_kernel<D>,
+// attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D> (D = 80, 128) take
+// the design of the wide forward above instead:
+//   - two warpgroups a block, each owning 64 rows (query rows for the
+//     forward and dq, key rows for dk/dv; 128 a block), all D of their
+//     output. Thread 0 issues every copy with TMA: the block's own rows
+//     once (q; q and dO; or k and v), resident for the whole kernel, and
+//     the streamed operand (k and v, or q and dO) a 64-row tile at a time
+//     into a ring of NARROW_STAGES stages with a full and an empty
+//     mbarrier each; it refills a stage once every warp has released it
+//     (a third stage gained nothing in dq);
 //   - the staged rows are 128 dims wide in TMA's 128-byte swizzle, two
 //     [64 x 64] slabs a tile, at both D: at D = 80 the second slab's box
 //     reaches past the tensor's 80 dims and TMA writes zeros there (and
@@ -2125,6 +2127,16 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     first products issue only the real 16-dim steps (5 at D = 80, 8 at
 //     128), the second products take N = D columns (wgmma m64n80k16 reads
 //     64 columns from the first slab and 16 from the second);
+//   - the forward: S = Q K^T is wgmma.m64n64k16 with both operands in
+//     shared memory (K-major) over the real 16-dim steps in order; the
+//     online softmax of attn_fwd_mma_kernel on the accumulator (its 8-column
+//     groups in order are mma.sync's s[c][j], so the max, p and the
+//     denominator are summed in that kernel's order: attention_fwd_emulation
+//     holds for both); p split into hi and lo is the register A operand of
+//     acc += P V, hi then lo for each 16-key step in order, the v tile read
+//     as MN-major B. Out and lse are plain guarded stores (each row's lse
+//     by one thread), as a 1-D TMA map of per-row values traps where a
+//     head's rows start off 16 bytes (dk/dv below);
 //   - dq: S = Q K^T and dP = dO V^T are wgmma.m64n64k16 with both operands
 //     in shared memory (K-major), 16 dims a step over the head dim in
 //     order; p = exp2_approx(s scale2 - lse2) and ds = p (dp - delta) in
@@ -2145,22 +2157,30 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     then overlaps them. Issuing the next tile's S and dP while dq's
 //     second products were still in flight made ptxas serialise the
 //     wgmmas (C7515) and dq slower: not kept;
-//   - the sums are those of the mma.sync kernels (attention_dq_emulation,
-//     attention_dkdv_emulation): 64-row tiles, 16-row steps in order, hi
-//     before lo, dq and dk scaled at the end; on the card dq, dk and dv
-//     come out the bits of the mma.sync kernels at D = 80 (padded to 128
-//     there) and 128. Every step of a tile is issued, the ragged tile's
-//     too (a masked p is 0 and TMA zero-fills the rows past T): a branch
-//     among the wgmmas made ptxas serialise them in the wide forward. Each
-//     output element is one thread's, summed in a fixed order: two
-//     launches give the same bits;
+//   - the sums are those of the mma.sync kernels (attention_fwd_emulation,
+//     attention_dq_emulation, attention_dkdv_emulation): 64-row tiles,
+//     16-row steps in order, hi before lo, dq and dk scaled at the end; on
+//     the card dq, dk and dv come out the bits of the mma.sync kernels at
+//     D = 80 (padded to 128 there) and 128. Every step of a tile is issued,
+//     the ragged tile's too (a masked p is 0 and TMA zero-fills the rows
+//     past T): a branch among the wgmmas made ptxas serialise them in the
+//     wide forward. Each output element is one thread's, summed in a fixed
+//     order: two launches give the same bits;
 //   - registers: dk/dv at D = 128 holds two 64 x 128 float32 accumulators
 //     (128 a thread) beside S^T and dP^T (64) and the hi and lo parts of p
 //     and ds (64); ptxas gives it 255, no spill, and dq 147 (D = 80) and
-//     154 (128); one block of 8 warps an SM;
-//   - shared memory: the block's rows (64 KB) and two stages of two tiles
-//     (64 KB), 129 KB with the alignment (NARROW_SMEM), and dk/dv's 2 KB
-//     of lse and delta.
+//     154 (128); one block of 8 warps an SM. The forward holds D / 2
+//     accumulators (40, 64) beside S (32) and p's hi and lo (32), which
+//     fit the 128 registers a thread of two blocks an SM with no spill;
+//     two blocks, one's softmax beside the other's products, ran faster
+//     than one block with more registers at both D (probes/
+//     k3_fwd_narrow.py, PERF.md). Issuing the next tile's S before the
+//     softmax instead (two S buffers, one block) made ptxas serialise the
+//     wgmmas: not kept;
+//   - shared memory: the block's rows (64 KB; the forward's q 32 KB) and
+//     two stages of two tiles (64 KB), 129 KB with the alignment
+//     (NARROW_SMEM; the forward's 97 KB, NARROW_FWD_SMEM, so that two
+//     blocks fit an SM), and dk/dv's 2 KB of lse and delta.
 
 constexpr int NARROW_WGS = 2;                      // warpgroups a block
 constexpr int NARROW_THREADS = 128 * NARROW_WGS;
@@ -2171,6 +2191,9 @@ constexpr int NTILE_BYTES = 2 * SLAB_BYTES;        // 64 rows x 128 dims
 // and v; dk/dv: q and dO)
 constexpr int NARROW_SMEM =
     SW_ALIGN + 2 * NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
+// the forward's: the block's q rows, then the stages' k and v tiles
+constexpr int NARROW_FWD_SMEM =
+    SW_ALIGN + NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
 
 // The first 1024-byte boundary at or after p (a swizzle atom's alignment).
 __device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* p) {
@@ -2211,6 +2234,160 @@ __device__ __forceinline__ void wgmma_over_rows(
     wgmma_rs<D>(acc, hi[cs], b);
     wgmma_rs<D>(acc, lo[cs], b);
   }
+}
+
+// The forward at D = 80 and 128: a block owns NARROW_ROWS query rows and
+// all D of their output; q_map, k_map and v_map are 3-D tensor maps of q,
+// k and v ([BH, T, D] bf16, boxes of 64 dims x 64 rows x 1, 128-byte
+// swizzle). Two blocks an SM: 128 registers a thread.
+template <int D>
+__global__ void __launch_bounds__(NARROW_THREADS, 2)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      bf16* __restrict__ out, float* __restrict__ lse,
+                      int Tq, int Tk, int tiles, float scale) {
+  constexpr int STEPS = TILE / STEP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t q_full, full[NARROW_STAGES], empty[NARROW_STAGES];
+  // q [NARROW_WGS][NTILE_BYTES], then the stages' k and v tiles
+  // [stage][2][NTILE_BYTES]
+  unsigned char* sq = swizzle_aligned(smem_raw);
+  unsigned char* skv = sq + NARROW_WGS * NTILE_BYTES;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * NARROW_ROWS;
+  const int n_tiles = (Tk + TILE - 1) / TILE;
+  if (threadIdx.x == 0) {
+    barrier_init(&q_full, 1);
+    // a stage is full after thread 0's one arrival and its bytes, empty
+    // after one arrival of each warp
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      barrier_init(&full[s], 1);
+      barrier_init(&empty[s], 4 * NARROW_WGS);
+    }
+    barrier_init_fence();
+  }
+  __syncthreads();
+  auto load_tile = [&](int i) {  // keys i * TILE .. + 63 of k and of v
+    const int st = i % NARROW_STAGES;
+    unsigned char* dst = skv + st * 2 * NTILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
+    for (int s = 0; s < 2; ++s) {
+      tma_load_3d(dst + s * SLAB_BYTES, &k_map, &full[st], s * SLAB,
+                  i * TILE, bh);
+      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
+                  s * SLAB, i * TILE, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&q_full, NARROW_WGS * NTILE_BYTES);
+    for (int w = 0; w < NARROW_WGS; ++w)
+      for (int s = 0; s < 2; ++s)
+        tma_load_3d(sq + w * NTILE_BYTES + s * SLAB_BYTES, &q_map, &q_full,
+                    s * SLAB, first + w * TILE, bh);
+    for (int i = 0; i < NARROW_STAGES && i < n_tiles; ++i) load_tile(i);
+  }
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int r0 = first + wg * TILE + warp * STEP + grp;  // rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const unsigned char* q_rows = sq + wg * NTILE_BYTES;
+  const float scale2 = scale * LOG2E;
+  // per row: the running max of the unscaled q.k, and this thread's share
+  // of the denominator (its 16 of a tile's 64 keys; summed over the row's
+  // four lanes at the end)
+  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  float(&acc_flat)[D / 2] = reinterpret_cast<float(&)[D / 2]>(acc);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+
+  barrier_wait(&q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NARROW_STAGES, k0 = i * TILE;
+    const unsigned char* k_tile = skv + st * 2 * NTILE_BYTES;
+    const unsigned char* v_tile = k_tile + NTILE_BYTES;
+    float s[STEPS][2][4];
+    float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
+    barrier_wait(&full[st], (i / NARROW_STAGES) & 1);
+    wgmma_fence();
+    wgmma_over_dims<D>(s_flat, q_rows, k_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s_flat);
+
+    // attn_fwd_mma_kernel's softmax step: keys past Tk (zero rows from
+    // TMA) are masked in the last tile; key k0 is real, so every row's
+    // max is a real logit
+    const bool ragged = k0 + TILE > Tk;  // the same for every thread
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
+          if (ragged && key >= Tk) s[cs][j][e] = NEG;
+          m_new[e / 2] = fmaxf(m_new[e / 2], s[cs][j][e]);
+        }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // over the four lanes of a row
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
+      shift[h] = m_new[h] * scale2;
+      m[h] = m_new[h];
+      denom[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
+    uint32_t hi[STEPS][4], lo[STEPS][4];
+#pragma unroll
+    for (int cs = 0; cs < STEPS; ++cs) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked key: 2^(-1e30 scale2 - shift) = 0
+          const float p = exp2_approx(fmaf(s[cs][j][e], scale2, -shift[e / 2]));
+          s[cs][j][e] = p;
+          denom[e / 2] += p;  // the float32 p, not its bf16 parts
+        }
+      split_fragment(s[cs], hi[cs], lo[cs]);
+    }
+
+    // acc += p v: hi, then lo, for each 16-key step in order, every step
+    wgmma_hold(acc_flat);
+    wgmma_fence();
+    wgmma_over_rows<D>(acc_flat, hi, lo, v_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(acc_flat);
+    // the stage is released; once every warp has, thread 0 refills it
+    if (lane == 0) barrier_arrive(&empty[st]);
+    if (threadIdx.x == 0 && i + NARROW_STAGES < n_tiles) {
+      barrier_wait(&empty[st], (i / NARROW_STAGES) & 1);
+      load_tile(i + NARROW_STAGES);
+    }
+    __syncwarp();
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    denom[h] = fmaxf(denom[h], FLOOR);
+    inv[h] = 1.f / denom[h];
+    if (tig == 0 && r0 + 8 * h < Tq)
+      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
+  }
+  store_accumulator<D>(acc, inv, out + q_base * D, r0, Tq, tig);
 }
 
 // dq at D = 80 and 128: a block owns NARROW_ROWS query rows; q_map, k_map,
@@ -2761,6 +2938,9 @@ static_assert(RESIDENT_MAX_NC == 3, "the launchers take NC = 2 and 3");
 static_assert(NARROW_SMEM <= 232448,
               "the wgmma gradient kernels' shared memory passes an H100 "
               "block's");
+static_assert(2 * (NARROW_FWD_SMEM + 1024) <= 233472,
+              "two blocks of the wgmma forward pass an H100 SM's shared "
+              "memory (with the 1 KB it keeps for each block)");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
                   resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448 &&
                   FwdPlan<2>::SMEM <= 232448 &&
@@ -2883,6 +3063,27 @@ cudaError_t narrow_tensor_maps(CUtensorMap (&maps)[4], const void* q,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int BH, int Tq, int Tk,
+                             float scale, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {Tq, Tk, Tk};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = rows_tensor_map(&maps[i], bases[i], BH, rows[i], D);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<D>, NARROW_FWD_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tq + NARROW_ROWS - 1) / NARROW_ROWS;
+  attn_fwd_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_FWD_SMEM,
+                             stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out),
+      static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -3134,6 +3335,17 @@ int attention_wide_occupancy(int kernel, int D, int* blocks, int* smem) {
                                   *smem, blocks);
   }
   return static_cast<int>(err);
+}
+
+// The same for the bf16 forward at D = 80 and 128, attn_fwd_wgmma_kernel.
+int attention_fwd_wgmma_occupancy(int D, int* blocks, int* smem) {
+  if (D != 80 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  *smem = NARROW_FWD_SMEM;
+  return static_cast<int>(
+      D == 80 ? occupancy(attn_fwd_wgmma_kernel<80>, NARROW_THREADS, *smem,
+                          blocks)
+              : occupancy(attn_fwd_wgmma_kernel<128>, NARROW_THREADS, *smem,
+                          blocks));
 }
 
 const char* attention_error_string(int code) {

@@ -26,8 +26,7 @@ and 128 at most 128, else to the next multiple of 128 (D = 160 to 256), as
 the TPU kernel pads D to a multiple of 128; the launch is given the true
 1/sqrt(D) and the outputs are sliced back. ViT-Huge's D = 80 runs at its
 true width (the TPU pads it to 128), in both dtypes: the wrappers make no
-padded copy and no slice there. At D = 128 the forward's tiles sit in
-dynamic shared memory (opted in above 48 KB). Past 128 the bf16 kernels at
+padded copy and no slice there. Past 128 the bf16 kernels at
 D = 256 and 384 (``RESIDENT_MAX_HEAD_DIM``) own all D of their rows'
 output and compute the logits once a streamed tile, summed over the head
 dim 16 dims a step in order. The forward runs Hopper's warpgroup products
@@ -51,15 +50,17 @@ heads into that layout before the call (one copy each of q, k and v), so
 the kernels need no strides. float32 inputs multiply in float32 on the
 CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
 D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: the forward,
-and dq and dk/dv up to D = 64, on ``mma.sync`` with bf16 operands and
-float32 sums, a block's 64 rows in registers, the other operand streamed
-in 64-row tiles two deep with ``cp.async`` (16 bytes at a time, so q, k, v
+dq and dk/dv up to D = 64 on ``mma.sync`` with bf16 operands and float32
+sums, a block's 64 rows in registers, the other operand streamed in
+64-row tiles two deep with ``cp.async`` (16 bytes at a time, so q, k, v
 and g must be aligned to that or the wrapper raises; the TMA kernels need
-the same); dq and dk/dv at D = 80 and 128 on ``wgmma`` and TMA
-(``attn_dq_wgmma_kernel``, ``attn_dkdv_wgmma_kernel``: two warpgroups of
-64 rows, the block's rows resident, the streamed tiles in a ring of
-stages, p and ds from registers as the A operand of the second products;
-``narrow_gradient_kernels`` names the route up to 128); the wide forward
+the same); the forward, dq and dk/dv at D = 80 and 128 on ``wgmma`` and
+TMA (``attn_fwd_wgmma_kernel``, ``attn_dq_wgmma_kernel``,
+``attn_dkdv_wgmma_kernel``: two warpgroups of 64 rows, the block's rows
+resident, the streamed tiles in a ring of stages, p and ds from
+registers as the A operand of the second products, the sums in the
+``mma.sync`` kernels' order; ``narrow_forward_kernel`` and
+``narrow_gradient_kernels`` name the route up to 128); the wide forward
 at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
 scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
 second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
@@ -318,9 +319,12 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
         fn.restype = ctypes.c_int
-    lib.attention_wide_occupancy.argtypes = [ctypes.c_int] * 2 + [
-        ctypes.POINTER(ctypes.c_int)] * 2
-    lib.attention_wide_occupancy.restype = ctypes.c_int
+    for name, ints in (("attention_wide_occupancy", 2),
+                       ("attention_fwd_wgmma_occupancy", 1)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_int] * ints
+                       + [ctypes.POINTER(ctypes.c_int)] * 2)
+        fn.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -381,17 +385,43 @@ def wide_gradient_kernels(d: int) -> Tuple[str, str]:
             f"attn_dkdv_wide_{route}mma_kernel")
 
 
+def _narrow_route(d: int) -> str:
+    """The bf16 kernels' route at head dim ``d`` up to ``CHUNK``, after
+    padding: ``"mma"`` (``mma.sync``) up to D = 64, ``"wgmma"`` (TMA, the
+    block's rows resident) at D = 80 and 128."""
+    padded = padded_head_dim(d)
+    if padded > CHUNK:
+        raise ValueError(f"head dim {d} runs on the wide kernels past "
+                         f"{CHUNK}")
+    return "wgmma" if padded > 64 else "mma"
+
+
+def narrow_forward_kernel(d: int) -> str:
+    """The name of the bf16 forward kernel that a launch at head dim ``d``
+    up to ``CHUNK`` runs: ``attn_fwd_mma_kernel`` up to D = 64,
+    ``attn_fwd_wgmma_kernel`` at D = 80 and 128, after padding."""
+    return f"attn_fwd_{_narrow_route(d)}_kernel"
+
+
 def narrow_gradient_kernels(d: int) -> Tuple[str, str]:
     """The names of the bf16 dq and dk/dv kernels that a launch at head
     dim ``d`` up to ``CHUNK`` runs: the ``mma.sync`` kernels up to D = 64,
     the ``wgmma`` kernels (TMA, the block's rows resident) at D = 80 and
     128, after padding."""
-    padded = padded_head_dim(d)
-    if padded > CHUNK:
-        raise ValueError(f"head dim {d} runs on the wide kernels past "
-                         f"{CHUNK}")
-    route = "wgmma" if padded > 64 else "mma"
+    route = _narrow_route(d)
     return f"attn_dq_{route}_kernel", f"attn_dkdv_{route}_kernel"
+
+
+def _occupancy(entry: str, *args: int) -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared memory in bytes) from the library's
+    occupancy entry ``entry`` called with ``args``."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _library()
+    rc = getattr(lib, entry)(*args, ctypes.byref(blocks), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"{entry}{args}: "
+                           f"{lib.attention_error_string(rc).decode()}")
+    return blocks.value, smem.value
 
 
 def wide_occupancy(kernel: str, d: int) -> Tuple[int, int]:
@@ -400,15 +430,14 @@ def wide_occupancy(kernel: str, d: int) -> Tuple[int, int]:
     ``d`` (a multiple of ``CHUNK`` past it) takes, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card."""
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    lib = _library()
-    rc = lib.attention_wide_occupancy(("fwd", "dq", "dkdv").index(kernel), d,
-                                      ctypes.byref(blocks),
-                                      ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"attention_wide_occupancy({kernel}, {d}): "
-                           f"{lib.attention_error_string(rc).decode()}")
-    return blocks.value, smem.value
+    return _occupancy("attention_wide_occupancy",
+                      ("fwd", "dq", "dkdv").index(kernel), d)
+
+
+def narrow_forward_occupancy(d: int) -> Tuple[int, int]:
+    """The same for the bf16 forward at D = 80 and 128
+    (``attn_fwd_wgmma_kernel``)."""
+    return _occupancy("attention_fwd_wgmma_occupancy", d)
 
 
 def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -10,10 +10,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
    per source, all at once, and prints ptxas's registers and spill bytes
    of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64, 80 and 128,
-   in bf16 dq and dk/dv on mma.sync at D <= 64 and on wgmma at 80 and 128,
-   the chunked wide kernels for D = 128 n, n >= 2, and the resident bf16
-   forward, dq and dk/dv at D = 256 and 384) and the wide bf16 kernels'
-   blocks an SM;
+   in bf16 the forward, dq and dk/dv on mma.sync at D <= 64 and on wgmma
+   at 80 and 128, the chunked wide kernels for D = 128 n, n >= 2, and the
+   resident bf16 forward, dq and dk/dv at D = 256 and 384) and the wgmma
+   forward's and the wide bf16 kernels' blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -24,9 +24,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    2065 columns, each against its serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores), up to D = 512 (in bf16 at D = 80 and 128 dq and dk/dv on the
-   wgmma kernels, each also launched twice for the same bits; past 128 on
-   the resident kernels at 256 and 384 and on the chunked ones at 512);
+   cores), up to D = 512 (in bf16 at D = 80 and 128 the forward, dq and
+   dk/dv on the wgmma kernels, each also launched twice for the same bits,
+   the forward also held against its emulation; past 128 on the resident
+   kernels at 256 and 384 and on the chunked ones at 512);
    holds each
    result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and one PyTorch library call (where one computes
@@ -56,8 +57,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    - the same two at ViT-Huge's widths (``vit_h16``: depth 32, width 1280,
      16 heads of D = 80, which K3 takes as built; 651,553,406 parameters):
      K1 at P=16 -> 1280, K3 43 times a forward (32 blocks at
-     [128, 1600, 1600, 80], DETR's 11 at D = 32), with each path's peak
-     device memory;
+     [128, 1600, 1600, 80] on ``attn_fwd_wgmma_kernel``, DETR's 11 at
+     D = 32), each held by name in the served forward's and the train
+     step's profiles, with each path's peak device memory;
    - the same two at ViT-Large's depth and widths over 4 heads
      (``vit_l16_h4``: depth 24, width 1024, MLP 4096, D = 256;
      318,726,526 parameters): K1 at P=16 -> 1024, K3 35 times a forward
@@ -402,8 +404,10 @@ def kernel_names() -> int:
     forward of the kernels phase runs, by name from a profile: the
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
     the P=4 stem; the same for each weight gradient; in bf16 the route
-    of dq and dk/dv (mma.sync or wgmma up to D = 128) and past D = 128 of
-    the forward, dq and dk/dv (resident or chunked), and the wide kernels' blocks an SM (``wide_occupancy``). Apart, because a
+    of the forward, dq and dk/dv (mma.sync or wgmma up to D = 128,
+    resident or chunked past it), and the wgmma forward's and the wide
+    kernels' blocks an SM (``narrow_forward_occupancy``,
+    ``wide_occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones."""
@@ -443,12 +447,13 @@ def kernel_names() -> int:
                      f"SDPA yardstick ran: {[n[:70] for n in ran]}")
             wide = "wide_" if A.padded_head_dim(d) > A.CHUNK else ""
             what = _attention_label(label, bh, tq, tk, d, dtype)
-            # past 128 the bf16 forward's route: resident, or chunked
+            # the bf16 forward's route: mma.sync or wgmma up to 128, past
+            # it resident or chunked
             _expect_kernel(lambda: A.attention_fwd(q, k, v), "attn_fwd",
                            f"attn_fwd_{wide}kernel"
                            if dtype != torch.bfloat16
                            else A.wide_forward_kernel(d) if wide
-                           else "attn_fwd_mma_kernel", what)
+                           else A.narrow_forward_kernel(d), what)
             if dtype == torch.bfloat16:
                 # the gradients' route: mma.sync or wgmma up to 128, past it
                 # resident or chunked
@@ -461,8 +466,10 @@ def kernel_names() -> int:
                                names[0], f"{what} dq")
                 _expect_kernel(lambda: A.attention_dkdv(*args), "attn_dkdv",
                                names[1], f"{what} dk/dv")
-    _say("  K3 wide bf16 kernels: " + json.dumps(wide_occupancy(ptxas_k3(
-        build.build("attention").with_suffix(".log").read_text()))))
+    k3 = ptxas_k3(build.build("attention").with_suffix(".log").read_text())
+    _say("  K3 wgmma bf16 forward: "
+         + json.dumps(narrow_forward_occupancy(k3)))
+    _say("  K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
     return 0
 
 
@@ -534,13 +541,38 @@ def phase_build():
          + json.dumps(k3))
     if len(k3) != 36:
         raise AssertionError(f"expected 36 K3 kernels (3 kernels, 2 dtypes, "
-                             f"D = 32, 64, 80, 128, in bf16 dq and dk/dv on "
-                             f"mma.sync to 64 and on wgmma at 80 and 128, "
-                             f"the 6 chunked wide ones and the resident "
-                             f"forward, dq and dk/dv at D = 256 and 384), "
-                             f"read {len(k3)}")
+                             f"D = 32, 64, 80, 128, in bf16 the forward, dq "
+                             f"and dk/dv on mma.sync to 64 and on wgmma at "
+                             f"80 and 128, the 6 chunked wide ones and the "
+                             f"resident forward, dq and dk/dv at D = 256 "
+                             f"and 384), read {len(k3)}")
+    _say("[build] K3 wgmma bf16 forward: "
+         + json.dumps(narrow_forward_occupancy(k3)))
     _say("[build] K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
     return k3
+
+
+def narrow_forward_occupancy(k3):
+    """{"attn_fwd_wgmma_kernel D=<D>": {"blocks_per_sm", "smem_bytes",
+    "registers", "spill_bytes"}} of the bf16 forward at D = 80 and 128:
+    blocks an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at
+    its shared memory, registers and spill bytes from ptxas
+    (``ptxas_k3``)."""
+    from boosted_detr_torch.ops import attention as A
+
+    out = {}
+    for d in (80, 128):
+        name = A.narrow_forward_kernel(d)
+        blocks, smem = A.narrow_forward_occupancy(d)
+        if blocks < 1:
+            raise AssertionError(f"{name} at D = {d}: no block fits an SM")
+        report = k3.get(f"{name} D={d}", {})
+        out[f"{name} D={d}"] = {
+            "blocks_per_sm": blocks, "smem_bytes": smem,
+            "registers": report.get("registers"),
+            "spill_bytes": report.get("spill_stores", 0)
+            + report.get("spill_loads", 0)}
+    return out
 
 
 def wide_occupancy(k3):
@@ -879,10 +911,12 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     plain versions; in bf16 (and float32 at D > 64) also timed, with
     F.scaled_dot_product_attention (forward, and forward + backward) as
     the library yardstick, which the port never calls, and the backward
-    alone beside it. In bf16 at D = 80 and 128 the rows of dq and dk/dv
-    also name their wgmma kernels with ptxas's registers and spills (from
-    ``ptxas``, ``ptxas_k3``'s rows), and each is launched a second time
-    and held to the first bit for bit. Returns one row per kernel."""
+    alone beside it. In bf16 at D = 80 and 128 the rows of the forward,
+    dq and dk/dv also name their wgmma kernels with ptxas's registers and
+    spills (from ``ptxas``, ``ptxas_k3``'s rows), each is launched a
+    second time and held to the first bit for bit, and the forward is held
+    against ``attention_fwd_emulation`` (one bf16 ulp, at least 99% of the
+    values equal; the lse within 1e-5). Returns one row per kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -933,16 +967,32 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
         rows[name].update(_bound(n_bytes[name], ops[name], dtype))
     padded = A.padded_head_dim(d)
     if dtype == torch.bfloat16 and 64 < padded <= A.CHUNK:
-        # the wgmma gradient kernels: their names, ptxas's report, and a
-        # second launch of each, the same bits (no atomics, sums in a
-        # fixed order)
-        again = (A.attention_dq(*args), *A.attention_dkdv(*args))
+        # the wgmma kernels: their names, ptxas's report, and a second
+        # launch of each, the same bits (no atomics, sums in a fixed order);
+        # the forward against the emulation of its arithmetic
+        again = (*A.attention_fwd(q, k, v), A.attention_dq(*args),
+                 *A.attention_dkdv(*args))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
-            raise AssertionError(f"{what}: a second launch of dq or dk/dv "
-                                 "gave other bits")
-        for name, kernel in zip(("dq", "dkdv"),
-                                A.narrow_gradient_kernels(d)):
+        if not all(torch.equal(a, b)
+                   for a, b in zip(again, (out, lse, dq, dk, dv))):
+            raise AssertionError(f"{what}: a second launch of the forward, "
+                                 "dq or dk/dv gave other bits")
+        emu, emu_lse = A.attention_fwd_emulation(*A._padded(q, k, v),
+                                                 scale=A._scale(d))
+        emu = emu[..., :d]
+        _close(out, emu, atol=1e-5 * emu.float().abs().max().item(),
+               rtol=2.0 ** -7, what=f"{what} out against the emulation")
+        _close(lse, emu_lse, atol=1e-5, rtol=1e-5,
+               what=f"{what} lse against the emulation")
+        share = (out == emu).float().mean().item()
+        _say(f"  {what} out: {share:.6f} of the values the emulation's bf16")
+        if share < 0.99:
+            raise AssertionError(f"{what}: out equals the emulation at "
+                                 f"{share:.6f} of the values, under 0.99")
+        rows["fwd"]["equal_to_emulation"] = share
+        for name, kernel in zip(("fwd", "dq", "dkdv"),
+                                (A.narrow_forward_kernel(d),
+                                 *A.narrow_gradient_kernels(d))):
             report = (ptxas or {}).get(f"{kernel} D={padded}", {})
             rows[name].update(kernel=f"{kernel}<{padded}>",
                               repeats_bit_for_bit=True,
@@ -1235,6 +1285,9 @@ PATHS = {
         forward=_expect(patchify_fwd=1, attention_fwd=43),
         step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=43,
                      attention_dq=43, attention_dkdv=43),
+        # the blocks' forward on wgmma, DETR's at D = 32 on mma.sync, by
+        # name in the served forward's and the train step's profiles
+        fwd_kernels=dict(attn_fwd_wgmma_kernel=32, attn_fwd_mma_kernel=11),
         serving_plain=("patchify_fwd",) + _K3),
     # ViT-Large's depth, width and MLP (Dosovitskiy et al., ICLR 2021,
     # Table 1: 24 layers, width 1024, MLP 4096) over 4 heads, so D = 256:
@@ -1786,14 +1839,28 @@ def phase_breakdown(name, model, codec, images):
     ours = {}  # by name, the head dims of K3 together
     for e in kernels:
         if "patchify_fwd_" in e.key or "attn_fwd_" in e.key:
-            name = re.search(r"(?:patchify|attn)_\w*?kernel", e.key)[0]
-            ours[name] = ours.get(name, 0) + e.count // n
+            kernel = re.search(r"(?:patchify|attn)_\w*?kernel", e.key)[0]
+            ours[kernel] = ours.get(kernel, 0) + e.count // n
     _say(f"  forward kernels of K1 and K3 per forward: {ours}")
     if not set(ours) <= {"patchify_fwd_mma_kernel", "attn_fwd_mma_kernel",
-                         "attn_fwd_wide_mma_kernel",
+                         "attn_fwd_wgmma_kernel", "attn_fwd_wide_mma_kernel",
                          "attn_fwd_wide_chunked_mma_kernel"}:
         raise AssertionError(f"a bf16 forward ran a CUDA-core kernel: {ours}")
+    _expect_forward_kernels(name, ours, "a forward", exact=True)
+    row["forward_kernels"] = ours
     return row
+
+
+def _expect_forward_kernels(name, ran, what, exact):
+    """Raises unless the K3 forward kernels that ``what`` of path ``name``
+    ran, {kernel: launches}, hold the path's ``fwd_kernels``: each as
+    many times, or (not ``exact``: a long step's profile, which has been
+    seen to drop kernels) each at least once."""
+    want = PATHS[name].get("fwd_kernels", {})
+    if any(ran.get(k, 0) < 1 or (exact and ran[k] != n)
+           for k, n in want.items()):
+        raise AssertionError(f"{name}: {what} ran the K3 forward kernels "
+                             f"{ran}, expected {want}")
 
 
 def _flagship_batch(cfg, batch_size, device):
@@ -2017,6 +2084,14 @@ def phase_training(name, warmup, steps):
                 for tag in ("fwd", "dq", "dkdv")}
             _say("  K3 by kernel (device ms): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in row["profile_k3_ms"].items()))
+            fwd = {}  # the K3 forward kernels by name, the head dims together
+            for e in kernels:
+                if "attn_fwd_" in e.key:
+                    kernel = re.search(r"attn_\w*?kernel", e.key)[0]
+                    fwd[kernel] = fwd.get(kernel, 0) + e.count
+            row["profile_k3_fwd_kernels"] = fwd
+            _say(f"  K3 forward kernels a step: {fwd}")
+            _expect_forward_kernels(name, fwd, "a train step", exact=False)
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
             _say(f"    {e.self_device_time_total / 1e3:8.3f} ms "
                  f"x{e.count:<4d} {e.key[:90]}")
@@ -3749,7 +3824,8 @@ def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
     encoder's in bf16 for K3), with its launches summed over the main
-    paths."""
+    paths; K3's entries also list, under ``routes``, the bf16 wgmma
+    kernels at D = 80 and 128 by name at their shapes."""
     out = []
     for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]
@@ -3760,6 +3836,12 @@ def _kernel_line(rows, paths):
                  for k in ("bound_share", "device_ms", "library_full_ms",
                            "longest_steps", "chain_ms", "chain_share")
                  if k in main_row}
+        routes = [{k: r[k] for k in ("kernel", "shape", "ms", "device_ms",
+                                     "bound_ms", "bound_share", "library_ms",
+                                     "registers", "spill_bytes")
+                   if k in r} for r in rows[name] if "kernel" in r]
+        if routes:
+            extra["routes"] = routes
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

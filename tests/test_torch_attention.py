@@ -276,7 +276,8 @@ def test_one_bf16_rounding_of_p_fails_the_forward_gate():
 @pytest.mark.parametrize("bh,tq,tk,d,built", [
     (2, 130, 200, 48, 64), (2, 96, 400, 48, 64),
     # ViT-Huge's widths (1280 over 16 heads) and D = 128 (vit_w512_h4),
-    # both as built (bf16 dq and dk/dv on the wgmma kernels), ragged
+    # both as built (the bf16 forward, dq and dk/dv on the wgmma kernels),
+    # ragged
     (2, 72, 130, 80, 80), (2, 72, 130, 128, 128), (2, 130, 70, 80, 80),
     (3, 17, 17, 128, 128)])
 def test_padded_head_dim_arithmetic_matches_the_pallas_kernel(bh, tq, tk, d,

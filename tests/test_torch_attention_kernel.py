@@ -7,14 +7,14 @@ autograd ``FusedAttentionFn`` on the card against its CPU route, the
 kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
 tensor. Head dims 32, 64, 80 (ViT-Huge's, with no padded copy) and 128
-run as built, in bf16 dq and dk/dv at 80 and 128 on the wgmma kernels;
-16 and 48 padded with zeros to the next; past 128, multiples of 128 (256,
-384, 512) run on the wide kernels and any other D (160) padded to the
-next multiple: in bf16, the forward, dq and dk/dv on the resident
-kernels up to D = 384 (the forward on wgmma with TMA), on the chunked
-ones (128-wide chunks) from 512 on. It needs a
-CUDA card and nvcc, and skips without a card. It imports nothing of JAX,
-so that it runs on a machine without it:
+run as built, in bf16 the forward, dq and dk/dv at 80 and 128 on the
+wgmma kernels; 16, 48, 72 and 96 padded with zeros to the next; past
+128, multiples of 128 (256, 384, 512) run on the wide kernels and any
+other D (160) padded to the next multiple: in bf16, the forward, dq and
+dk/dv on the resident kernels up to D = 384 (the forward on wgmma with
+TMA), on the chunked ones (128-wide chunks) from 512 on. It needs a CUDA
+card and nvcc, and skips without a card. It imports nothing of JAX, so
+that it runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_attention_kernel.py
 """
@@ -79,12 +79,13 @@ def _assert_close(got, want, dtype, grad=False):
     # head dims padded with zeros to 64 and 32 (encoder_dim=384 over 8
     # heads: D = 48)
     (4, 400, 400, 48), (3, 96, 520, 48), (3, 130, 200, 16),
-    # D = 128 (vit_w512_h4) and ViT-Huge's D = 80, both as built (bf16 dq
-    # and dk/dv on the wgmma kernels): 2 of vit_h16's 128 heads, and
-    # ragged lengths
+    # D = 128 (vit_w512_h4) and ViT-Huge's D = 80, both as built (bf16
+    # forward, dq and dk/dv on the wgmma kernels): 2 of vit_h16's 128
+    # heads, ragged lengths, and 72 and 96 padded with zeros to 80 and 128
     (2, 1600, 1600, 80), (2, 1600, 1600, 128), (3, 300, 520, 128),
     (3, 96, 520, 80), (3, 1, 300, 128), (3, 300, 1, 80), (3, 17, 17, 128),
-    (3, 520, 17, 80),
+    (3, 520, 17, 80), (2, 130, 70, 80), (2, 130, 70, 128),
+    (3, 130, 200, 72), (3, 130, 200, 96),
     # past 128: the wide kernels, D = 256 and 384 as they are, 160 padded
     # to 256 (vit_l16_h4's blocks: 2 of their 32 heads); in bf16 dq and
     # dk/dv on the resident kernels there, on the chunked ones at 512
@@ -256,7 +257,9 @@ def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
     wide = "wide_" if d > 128 else ""
     assert len(names["float32"]) == len(names["bfloat16"]) == 1, names
     assert f"attn_fwd_{wide}kernel" in names["float32"][0], names
-    assert f"attn_fwd_{wide}mma_kernel" in names["bfloat16"][0], names
+    tensor_core = (ta.wide_forward_kernel(d) if wide
+                   else ta.narrow_forward_kernel(d))
+    assert tensor_core in names["bfloat16"][0], names
     out, lse = ta.attention_fwd(*inputs["float32"])
     want, want_lse = ta.attention_fwd_reference(*inputs["float32"])
     # a few float32 ulps of sums over 330 keys; one bf16 or TF32 rounding
@@ -352,6 +355,24 @@ def test_narrow_gradients_launch_their_kernels(cuda, _profiled, d, route):
         assert sum(f"{name}<{d}>" in n for n in names["bfloat16"]) == 1, names
         assert sum(f"attn_{kind}_kernel<" in n
                    for n in names["float32"]) == 1, names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,route", [(32, "mma"), (64, "mma"), (80, "wgmma"),
+                                     (128, "wgmma")])
+def test_narrow_forward_launches_its_kernel(cuda, _profiled, d, route):
+    """Up to D = 128 the bf16 forward runs ``attn_fwd_mma_kernel`` at
+    D <= 64 and ``attn_fwd_wgmma_kernel`` (wgmma, TMA, q resident) at 80
+    and 128, by name from a profile in a fresh process, as
+    ``narrow_forward_kernel`` names it; float32 keeps its CUDA-core
+    kernel."""
+    names = _profiled[d]["fwd"]
+    assert len(names["bfloat16"]) == len(names["float32"]) == 1, names
+    name = ta.narrow_forward_kernel(d)
+    assert name == f"attn_fwd_{route}_kernel"
+    # a template's name is followed by its arguments
+    assert f"{name}<{d}>" in names["bfloat16"][0], names
+    assert "attn_fwd_kernel<" in names["float32"][0], names
 
 
 @pytest.mark.gpu
@@ -493,9 +514,12 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     (3, 520, 300, 32),  # ragged lengths 1, 17, 96, 300, 520, Tq != Tk
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
     (4, 96, 96, 32),
-    # D = 128 and D = 80 as built
+    # D = 128 and D = 80 as built (wgmma, TMA, q resident), ragged too,
+    # and 72 and 96 padded with zeros to them
     (3, 300, 520, 128), (3, 17, 1000, 80), (3, 1, 300, 128),
     (3, 520, 17, 80), (2, 1600, 1600, 80), (2, 1600, 1600, 128),
+    (2, 130, 70, 80), (2, 130, 70, 128), (3, 130, 200, 72),
+    (3, 130, 200, 96),
     # the wide forward: resident (wgmma, q staged once; 128 rows a block
     # at D = 256, 64 at 384), ragged too, and chunked at 512
     (3, 300, 520, 256), (2, 1600, 1600, 256), (3, 17, 1000, 160),
@@ -525,6 +549,7 @@ def test_tensor_core_forward_matches_its_emulation(cuda, bh, tq, tk, d):
                                         (5, 300, 520, 32),
                                         (4, 1600, 1600, 80),
                                         (5, 300, 520, 128),
+                                        (2, 130, 70, 80),
                                         (2, 1600, 1600, 256),
                                         (3, 400, 400, 384)])
 def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):

@@ -1,9 +1,9 @@
 """The fused attention (K3) at ViT head dims (D = 80 and 128), on the CPU,
 with no JAX: D = 80 run at its true width against D = 80 padded with
 zeros to 128, bit for bit, in the tensor-core emulations (the bf16
-forward on ``mma.sync``, dq and dk/dv on ``wgmma``) and the plain
-versions' products; and the route ``narrow_gradient_kernels`` names,
-read against csrc/attention.cu. tests/test_torch_attention.py holds these
+forward, dq and dk/dv on ``wgmma``) and the plain versions' products;
+and the routes ``narrow_forward_kernel`` and ``narrow_gradient_kernels``
+name, read against csrc/attention.cu. tests/test_torch_attention.py holds these
 versions against JAX's Pallas kernel in interpret mode at D = 80 and 128,
 and tests/test_torch_attention_kernel.py the kernels against them on the
 card."""
@@ -65,27 +65,33 @@ def test_head_dim_80_at_its_width_equals_it_padded_to_128(bh, tq, tk):
         assert torch.equal(x @ rows, (x @ rows_p)[..., :80])
 
 
-@pytest.mark.parametrize("d,route", [(16, "mma"), (48, "mma"), (64, "mma"),
-                                     (65, "wgmma"), (80, "wgmma"),
+@pytest.mark.parametrize("d,route", [(16, "mma"), (33, "mma"), (48, "mma"),
+                                     (64, "mma"), (65, "wgmma"),
+                                     (80, "wgmma"), (81, "wgmma"),
                                      (100, "wgmma"), (128, "wgmma")])
 def test_narrow_gradient_route_follows_the_source(d, route):
-    """``narrow_gradient_kernels`` names the kernels csrc/attention.cu
-    launches up to D = 128: the launchers send bf16 past D = 64 to the
-    wgmma kernels, every built head dim has its launcher, and D in
-    (64, 80] runs at 80 with no padding."""
+    """``narrow_forward_kernel`` and ``narrow_gradient_kernels`` name the
+    kernels csrc/attention.cu launches up to D = 128: the launchers send
+    bf16 past D = 64 to the wgmma kernels (the forward's too: the
+    ``mma.sync`` forward keeps D = 32 and 64 alone), every built head dim
+    has its launcher, D in (64, 80] runs at 80 with no padding and D in
+    (80, 128] at 128; past 128 both raise."""
     src = (Path(ta.__file__).resolve().parents[1] / "csrc"
            / "attention.cu").read_text()
-    names = ta.narrow_gradient_kernels(d)
-    assert names == (f"attn_dq_{route}_kernel", f"attn_dkdv_{route}_kernel")
+    names = (ta.narrow_forward_kernel(d), *ta.narrow_gradient_kernels(d))
+    assert names == (f"attn_fwd_{route}_kernel", f"attn_dq_{route}_kernel",
+                     f"attn_dkdv_{route}_kernel")
     for name in names:
         assert f"\n{name}(" in src  # a kernel of that name is defined
-    for kind in ("dq", "dkdv"):
+    for kind in ("fwd", "dq", "dkdv"):
         body = src.split(f"cudaError_t launch_{kind}(")[1].split("\n}\n")[0]
         assert "std::is_same_v<T, bf16> && D > 64" in body
         assert f"return launch_{kind}_wgmma<D>(" in body
+    assert 'static_assert(D <= 64, "D = 80 and 128 take attn_fwd_wgmma' in src
     for built in ta.SUPPORTED_HEAD_DIMS:
         assert f"else if ((D) == {built})" in src
-    if 64 < d <= 80:
-        assert ta.padded_head_dim(d) == 80
-    with pytest.raises(ValueError):
-        ta.narrow_gradient_kernels(129)
+    assert ta.padded_head_dim(d) == next(
+        n for n in ta.SUPPORTED_HEAD_DIMS if n >= d)
+    for name in (ta.narrow_forward_kernel, ta.narrow_gradient_kernels):
+        with pytest.raises(ValueError):
+            name(129)

@@ -206,9 +206,10 @@ def test_no_card_no_fallback(monkeypatch, capsys):
 
 
 # Kernel names from profiles of the 640 flagship's train step and of the
-# 1280 one with the fused attention (profile_step.py), and the resident
-# wide forward from vit_l16_h4's (chip_smoke.py), on an NVIDIA H100 80GB
-# HBM3, torch 2.11.0+cu128, with the category each belongs to (the
+# 1280 one with the fused attention (profile_step.py), the resident wide
+# forward from vit_l16_h4's (chip_smoke.py) and the wgmma forward from a
+# profile of attention_fwd at vit_h16's head dim, D = 80, on an NVIDIA
+# H100 80GB HBM3, torch 2.11.0+cu128, with the category each belongs to (the
 # library's names cut at 200 characters, as the profile prints them).
 CHIP_KERNELS = {
     "void (anonymous namespace)::patchify_fwd_mma_kernel<5, 2, "
@@ -226,6 +227,9 @@ CHIP_KERNELS = {
     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
     "float*, int, int, int, float)": "K3-fwd",
     "void (anonymous namespace)::attn_fwd_wide_mma_kernel<2>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, int, int, "
+    "float)": "K3-fwd",
+    "void (anonymous namespace)::attn_fwd_wgmma_kernel<80>(CUtensorMap_st, "
     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, int, int, "
     "float)": "K3-fwd",
     "void (anonymous namespace)::attn_dq_mma_kernel<32>(__nv_bfloat16 "
