@@ -55,10 +55,13 @@
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
 //     spilled registers to local memory).
 //
-// bfloat16 inputs run on the tensor cores (at D <= 64 attn_fwd_mma_kernel,
-// attn_dq_mma_kernel and attn_dkdv_mma_kernel; at D = 80 and 128 the
-// forward, dq and dk/dv take the wgmma kernels of their own section
-// below):
+// bfloat16 inputs run on the tensor cores. The design below is the
+// forward's at D <= 64 (attn_fwd_mma_kernel), dq's at D = 32 and dk/dv's
+// at D <= 64 over a stream of at most SHORT_STREAM rows
+// (attn_dq_mma_kernel, attn_dkdv_mma_kernel) and the chunked wide kernels'
+// (past D = 384); dq and dk/dv otherwise up to D = 128, and the forward at
+// D = 80 and 128, take the wgmma kernels of their own section further
+// down:
 //   - every product is mma.sync.m16n8k16 on bf16 operands with float32
 //     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q
 //     (forward), q and dO (dq) or k and v (dk/dv) sit in registers as A
@@ -100,7 +103,7 @@
 //     an ldmatrix phase reads then fall into eight different bank groups,
 //     with or without .trans, so no read conflicts;
 //   - dq and dk are multiplied by scale once, at the end;
-//   - what holds them at 8-16% of their bounds at the 1600-token shapes
+//   - what held them at 8-16% of their bounds at the 1600-token shapes
 //     (PERF.md): mma.sync is not the card's fastest path (wgmma is), a third
 //     or more of the passes are the lo halves, and the float32 work on p and
 //     ds (mask, max, exp, sum, split) shares the issue slots with the MMAs.
@@ -112,7 +115,9 @@
 //     below: warpgroup products, TMA, the block's rows resident in shared
 //     memory, rows staged 128 wide with TMA's zeros past dim 80). Zero
 //     columns add exact zeros to every sum, so D = 80 gives the bits it
-//     gave padded to 128;
+//     gave padded to 128. At D = 32 and 64 dq and dk/dv (but dq at 32
+//     and dk/dv over a stream of at most SHORT_STREAM rows) are the same
+//     kernels with rows staged 64 wide (TMA's zeros past dim 32);
 //   - every kernel takes its tiles from dynamic shared memory, sized at
 //     launch, and a launch above 48 KB first opts its kernel in
 //     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem): the
@@ -586,6 +591,14 @@ __device__ __forceinline__ void store_accumulator(const float (&acc)[D / 8][4],
   store_accumulator<D>(acc, both, base, r0, n_rows, tig);
 }
 
+// dq of bfloat16 inputs at D = 32 and dk/dv at D <= 64 where the other
+// operand's stream is short (SHORT_STREAM rows at most: Tk for dq, Tq for
+// dk/dv; the DETR decoder's self- and cross-attention): a block of 4 warps
+// owns 64 rows, 16 a warp, as in the forward below. There the wgmma
+// kernels' 128-row blocks fill the card half as often and each loads its
+// rows for one or two tiles; both routes give the same bits. dq at D = 64
+// keeps the wgmma kernel over short streams too, where it was 4-13% faster
+// (probes/k3_grad_narrow.py, PERF.md).
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -893,7 +906,7 @@ __host__ __device__ constexpr int dkdv_dpt() {
 
 // Dynamic shared memory of each kernel, in bytes: the float32 kernels'
 // tiles of the other operand (and dk/dv's lse and delta), the bf16
-// kernels' two stages of two tiles (and dk/dv's lse and delta).
+// mma.sync kernels' two stages of two tiles (and dk/dv's lse and delta).
 template <int D>
 constexpr int f32_smem_bytes() { return 2 * TILE * D * 4; }
 template <int D>
@@ -907,8 +920,9 @@ constexpr int dkdv_mma_smem_bytes() {
   return mma_smem_bytes<D>() + 2 * 2 * TILE * 4;
 }
 
-// The bf16 forward, dq and dk/dv at D = 80 and 128: the wgmma kernels of
-// the section below (their launchers follow the tensor maps').
+// The bf16 forward at D = 80 and 128, and dq and dk/dv at every D up to
+// 128 but over short streams at D <= 64: the wgmma kernels of the section
+// below (their launchers follow the tensor maps').
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* out, void* lse, int BH, int Tq, int Tk,
@@ -926,6 +940,11 @@ cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v,
                               cudaStream_t stream);
 
 int tiles_of(int rows) { return (rows + ROWS - 1) / ROWS; }
+
+// The longest stream of the other operand (Tk for dq, Tq for dk/dv) that
+// bf16 dq at D = 32 and dk/dv at D <= 64 run on the mma.sync kernels; past
+// it they run on the wgmma kernels (probes/k3_grad_narrow.py, PERF.md).
+constexpr int SHORT_STREAM = 2 * TILE;
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
@@ -963,10 +982,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const int tiles = tiles_of(Tq);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
-  if constexpr (std::is_same_v<T, bf16> && D > 64) {
-    return launch_dq_wgmma<D>(q, k, v, g, lse, delta, dq, BH, Tq, Tk, scale,
-                              stream);
-  } else if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && D == 32) {
+    if (Tk > SHORT_STREAM)
+      return launch_dq_wgmma<D>(q, k, v, g, lse, delta, dq, BH, Tq, Tk,
+                                scale, stream);
     constexpr int smem = mma_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_dq_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -974,6 +993,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, scale);
+  } else if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dq_wgmma<D>(q, k, v, g, lse, delta, dq, BH, Tq, Tk, scale,
+                              stream);
   } else {
     constexpr int DPT = fwd_dpt<D>(), TPR = D / DPT;
     constexpr int smem = f32_smem_bytes<D>();
@@ -995,10 +1017,10 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   const int tiles = tiles_of(Tk);
   const float* row_lse = static_cast<const float*>(lse);
   const float* row_delta = static_cast<const float*>(delta);
-  if constexpr (std::is_same_v<T, bf16> && D > 64) {
-    return launch_dkdv_wgmma<D>(q, k, v, g, lse, delta, dk, dv, BH, Tq, Tk,
-                                scale, stream);
-  } else if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16> && D <= 64) {
+    if (Tq > SHORT_STREAM)
+      return launch_dkdv_wgmma<D>(q, k, v, g, lse, delta, dk, dv, BH, Tq, Tk,
+                                  scale, stream);
     constexpr int smem = dkdv_mma_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_dkdv_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -1007,6 +1029,9 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
         tiles, scale);
+  } else if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dkdv_wgmma<D>(q, k, v, g, lse, delta, dk, dv, BH, Tq, Tk,
+                                scale, stream);
   } else {
     constexpr int DPT = dkdv_dpt<D>(), TPR = D / DPT;
     constexpr int smem = f32_dkdv_smem_bytes<D>();
@@ -2103,15 +2128,19 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_chunk(acc, inv, out + q_base * D + col0, D, r0, Tq, tig);
 }
 
-// ---- bf16 at D = 80 and 128: the forward, dq and dk/dv on wgmma, TMA ----
+// ---- bf16 on wgmma and TMA: the forward at D = 80 and 128, dq and dk/dv
+// at D = 32, 64, 80 and 128 ----
 //
 // The mma.sync kernels, designed for D <= 64, ran D = 128 (and ViT-Huge's
 // D = 80, padded to it) at 9-14% of their bounds at [128, 1600, 1600, 80]:
 // mma.sync with ldmatrix, 4 warps of 16 rows, dk/dv reading its own rows'
 // A fragments from shared memory at every product for want of registers,
-// the forward 152 / 198 registers (PERF.md). Here attn_fwd_wgmma_kernel<D>,
-// attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D> (D = 80, 128) take
-// the design of the wide forward above instead:
+// the forward 152 / 198 registers (PERF.md). Here attn_fwd_wgmma_kernel<D>
+// (D = 80, 128), attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D>
+// (D = 32, 64, 80, 128) take the design of the wide forward above instead
+// (at D <= 64 the mma.sync dq and dk/dv ran at 16-17% of their bounds;
+// dq at D = 32 and dk/dv keep streams of at most SHORT_STREAM rows, and the
+// forward there keeps mma.sync):
 //   - two warpgroups a block, each owning 64 rows (query rows for the
 //     forward and dq, key rows for dk/dv; 128 a block), all D of their
 //     output. Thread 0 issues every copy with TMA: the block's own rows
@@ -2121,12 +2150,20 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     mbarrier each; it refills a stage once every warp has released it
 //     (a third stage gained nothing in dq);
 //   - the staged rows are 128 dims wide in TMA's 128-byte swizzle, two
-//     [64 x 64] slabs a tile, at both D: at D = 80 the second slab's box
-//     reaches past the tensor's 80 dims and TMA writes zeros there (and
-//     counts their bytes), so no padded copy exists in device memory. The
-//     first products issue only the real 16-dim steps (5 at D = 80, 8 at
-//     128), the second products take N = D columns (wgmma m64n80k16 reads
-//     64 columns from the first slab and 16 from the second);
+//     [64 x 64] slabs a tile, at D = 80 and 128: at D = 80 the second
+//     slab's box reaches past the tensor's 80 dims and TMA writes zeros
+//     there (and counts their bytes), so no padded copy exists in device
+//     memory. The first products issue only the real 16-dim steps (5 at
+//     D = 80, 8 at 128), the second products take N = D columns (wgmma
+//     m64n80k16 reads 64 columns from the first slab and 16 from the
+//     second). dq and dk/dv stage D = 32 and 64 in one slab (GradPlan):
+//     D = 32's 64-byte rows fit no 128-byte swizzle row, so its box, 64
+//     dims wide, also reaches past the tensor and TMA zero-fills dims
+//     32-63; the first products issue 2 steps and the second take N = 32
+//     (m64n32k16 reads the first half of each swizzled row). This layout
+//     shares every descriptor with D = 64; a 64-byte-swizzled one (its own
+//     descriptors, half the shared memory, which registers make moot) gave
+//     the same bits, dq in the same time and dk/dv 1.3% slower (PERF.md);
 //   - the forward: S = Q K^T is wgmma.m64n64k16 with both operands in
 //     shared memory (K-major) over the real 16-dim steps in order; the
 //     online softmax of attn_fwd_mma_kernel on the accumulator (its 8-column
@@ -2140,23 +2177,31 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //   - dq: S = Q K^T and dP = dO V^T are wgmma.m64n64k16 with both operands
 //     in shared memory (K-major), 16 dims a step over the head dim in
 //     order; p = exp2_approx(s scale2 - lse2) and ds = p (dp - delta) in
-//     registers (keys past Tk masked to p = 0), split into hi and lo and
-//     fed as the register A operand of dQ += dS K, hi then lo for each
-//     16-key step in order, the k tile read as MN-major B;
+//     registers (keys past Tk set to p = 0: at D <= 64 in the last tile
+//     alone, once no product is in flight, where a compare and a select on
+//     every value of every tile cost dq 2-5%; at D = 80 value by value,
+//     the last-tile mask 3% slower there), split into hi and lo and fed as
+//     the register A operand of dQ += dS K, hi then lo for each 16-key step
+//     in order, the k tile read as MN-major B;
 //   - dk/dv: S^T = K Q^T and dP^T = V dO^T the same way with the block's k
 //     and v rows as A; p and ds the same arithmetic (queries past Tq masked
-//     to p = 0), then dV += P^T dO and dK += dS^T Q from registers, hi then
-//     lo for each 16-query step, the q and dO tiles read again as MN-major
-//     B. A tile's lse and delta are loaded by the warpgroup's threads, one
-//     value each (its load in flight during the first products), into a
-//     double buffer of the warpgroup's, read after a named barrier: the
-//     rows of a tile start anywhere in the [BH Tq] rows, where TMA would
-//     need 16-byte aligned ones;
+//     to p = 0 value by value in every tile: dq's last-tile mask left
+//     dk/dv at D = 32 more spills and 4% slower), then dV += P^T dO and
+//     dK += dS^T Q from registers, hi then lo for each 16-query step, the
+//     q and dO tiles read again as MN-major B. A tile's lse and delta are
+//     loaded by the warpgroup's threads, one value each (its load in
+//     flight during the first products), into a double buffer of the
+//     warpgroup's, read after a named barrier: the rows of a tile start
+//     anywhere in the [BH Tq] rows, where TMA would need 16-byte aligned
+//     ones;
 //   - S and dP are two commit groups, so that p is computed while dP is
-//     in flight; dk/dv issues dV's products before it splits ds, which
-//     then overlaps them. Issuing the next tile's S and dP while dq's
-//     second products were still in flight made ptxas serialise the
-//     wgmmas (C7515) and dq slower: not kept;
+//     in flight; at one block an SM dk/dv issues dV's products before it
+//     splits ds, which then overlaps them; at two (D = 32) that keeps p's
+//     and ds's parts live together past 128 registers, ptxas serialises
+//     the wgmmas (C7515), and ds is split first. Issuing the next tile's S
+//     and dP while dq's second products were still in flight made ptxas
+//     serialise the wgmmas (C7515) at D = 128 and at D = 32 and 64 at two
+//     blocks an SM, and ran slower at one: not kept (PERF.md);
 //   - the sums are those of the mma.sync kernels (attention_fwd_emulation,
 //     attention_dq_emulation, attention_dkdv_emulation): 64-row tiles,
 //     16-row steps in order, hi before lo, dq and dk scaled at the end; on
@@ -2169,9 +2214,16 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //   - registers: dk/dv at D = 128 holds two 64 x 128 float32 accumulators
 //     (128 a thread) beside S^T and dP^T (64) and the hi and lo parts of p
 //     and ds (64); ptxas gives it 255, no spill, and dq 147 (D = 80) and
-//     154 (128); one block of 8 warps an SM. The forward holds D / 2
-//     accumulators (40, 64) beside S (32) and p's hi and lo (32), which
-//     fit the 128 registers a thread of two blocks an SM with no spill;
+//     154 (128); one block of 8 warps an SM. At D <= 64 registers decide
+//     the blocks an SM (dq_wgmma_blocks, dkdv_wgmma_blocks): dq at D = 32
+//     and 64 and dk/dv at 32 fit two blocks (128 registers a thread, a few
+//     bytes spilled), dk/dv at D = 64 does not (its two accumulators, S^T
+//     and dP^T are 128 a thread alone; at two blocks it spilled 772 bytes
+//     and ran 50% slower than at one). One dq block an SM ran as fast at
+//     D = 32 and 13-18% slower at 64 (probes/k3_grad_narrow.py, PERF.md).
+//     The forward holds D / 2 accumulators (40, 64) beside S (32) and p's
+//     hi and lo (32), which fit the 128 registers a thread of two blocks an
+//     SM with no spill;
 //     two blocks, one's softmax beside the other's products, ran faster
 //     than one block with more registers at both D (probes/
 //     k3_fwd_narrow.py, PERF.md). Issuing the next tile's S before the
@@ -2179,18 +2231,37 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     wgmmas: not kept;
 //   - shared memory: the block's rows (64 KB; the forward's q 32 KB) and
 //     two stages of two tiles (64 KB), 129 KB with the alignment
-//     (NARROW_SMEM; the forward's 97 KB, NARROW_FWD_SMEM, so that two
-//     blocks fit an SM), and dk/dv's 2 KB of lse and delta.
+//     (GradPlan<D>::SMEM; the forward's 97 KB, NARROW_FWD_SMEM, so that two
+//     blocks fit an SM), and dk/dv's 2 KB of lse and delta; at D <= 64
+//     half of that (65 KB), which two blocks an SM fit.
 
 constexpr int NARROW_WGS = 2;                      // warpgroups a block
 constexpr int NARROW_THREADS = 128 * NARROW_WGS;
 constexpr int NARROW_ROWS = TILE * NARROW_WGS;     // rows a block owns
 constexpr int NARROW_STAGES = 2;
 constexpr int NTILE_BYTES = 2 * SLAB_BYTES;        // 64 rows x 128 dims
-// the block's rows of two operands, then the stages' tiles of two (dq: k
-// and v; dk/dv: q and dO)
-constexpr int NARROW_SMEM =
-    SW_ALIGN + 2 * NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
+
+// The gradient kernels' staged rows at head dim D: one 64-dim slab at
+// D <= 64 (at D = 32 TMA zero-fills dims 32-63), two at 80 and 128.
+template <int D>
+struct GradPlan {
+  static constexpr int SLABS = D > SLAB ? 2 : 1;
+  static constexpr int TILE_BYTES = SLABS * SLAB_BYTES;  // 64 staged rows
+  // the block's rows of two operands, then the stages' tiles of two (dq:
+  // k and v; dk/dv: q and dO)
+  static constexpr int SMEM = SW_ALIGN + 2 * NARROW_WGS * TILE_BYTES +
+                              NARROW_STAGES * 2 * TILE_BYTES;
+};
+// Blocks an SM each gradient kernel asks registers for (__launch_bounds__):
+// two (128 registers a thread) for dq at D <= 64 and dk/dv at D = 32, one
+// for dk/dv at 64 (its two accumulators, S^T and dP^T alone are 128 a
+// thread) and for both at 80 and 128.
+template <int D>
+__host__ __device__ constexpr int dq_wgmma_blocks() { return D > SLAB ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkdv_wgmma_blocks() {
+  return D > 32 ? 1 : 2;
+}
 // the forward's: the block's q rows, then the stages' k and v tiles
 constexpr int NARROW_FWD_SMEM =
     SW_ALIGN + NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
@@ -2204,6 +2275,19 @@ __device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* p) {
 // 1 + wg; 0 is __syncthreads').
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// Zeros the columns from n on of a 64-column wgmma accumulator x (this
+// thread's values: column cs * 16 + 8 j + 2 tig + e % 2 of x[cs][j][e]).
+__device__ __forceinline__ void mask_columns(float (&x)[TILE / STEP][2][4],
+                                             int n, int tig) {
+#pragma unroll
+  for (int cs = 0; cs < TILE / STEP; ++cs)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (cs * STEP + 8 * j + 2 * tig + e % 2 >= n) x[cs][j][e] = 0.f;
 }
 
 // x[64 x 64] = a[64 x D] . b[64 x D]^T over the real 16-dim steps of D, a
@@ -2390,11 +2474,11 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_accumulator<D>(acc, inv, out + q_base * D, r0, Tq, tig);
 }
 
-// dq at D = 80 and 128: a block owns NARROW_ROWS query rows; q_map, k_map,
-// v_map and g_map are 3-D tensor maps of q, k, v and dO ([BH, T, D] bf16,
-// boxes of 64 dims x 64 rows x 1, 128-byte swizzle).
+// dq at D = 32, 64, 80 and 128: a block owns NARROW_ROWS query rows;
+// q_map, k_map, v_map and g_map are 3-D tensor maps of q, k, v and dO
+// ([BH, T, D] bf16, boxes of 64 dims x 64 rows x 1, 128-byte swizzle).
 template <int D>
-__global__ void __launch_bounds__(NARROW_THREADS, 1)
+__global__ void __launch_bounds__(NARROW_THREADS, dq_wgmma_blocks<D>())
 attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
@@ -2402,14 +2486,15 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dq,
                      int Tq, int Tk, int tiles, float scale) {
+  using P = GradPlan<D>;
   constexpr int STEPS = TILE / STEP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t rows_full, full[NARROW_STAGES], empty[NARROW_STAGES];
-  // q [NARROW_WGS][NTILE_BYTES], dO the same, then the stages' k and v
-  // tiles [stage][2][NTILE_BYTES]
+  // q [NARROW_WGS][TILE_BYTES], dO the same, then the stages' k and v
+  // tiles [stage][2][TILE_BYTES]
   unsigned char* sq = swizzle_aligned(smem_raw);
-  unsigned char* sg = sq + NARROW_WGS * NTILE_BYTES;
-  unsigned char* skv = sg + NARROW_WGS * NTILE_BYTES;
+  unsigned char* sg = sq + NARROW_WGS * P::TILE_BYTES;
+  unsigned char* skv = sg + NARROW_WGS * P::TILE_BYTES;
   const int bh = blockIdx.x / tiles;
   const int first = (blockIdx.x % tiles) * NARROW_ROWS;
   const int n_tiles = (Tk + TILE - 1) / TILE;
@@ -2427,20 +2512,20 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
   auto load_tile = [&](int i) {  // keys i * TILE .. + 63 of k and of v
     const int st = i % NARROW_STAGES;
-    unsigned char* dst = skv + st * 2 * NTILE_BYTES;
-    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
-    for (int s = 0; s < 2; ++s) {
+    unsigned char* dst = skv + st * 2 * P::TILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * P::TILE_BYTES);
+    for (int s = 0; s < P::SLABS; ++s) {
       tma_load_3d(dst + s * SLAB_BYTES, &k_map, &full[st], s * SLAB,
                   i * TILE, bh);
-      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
+      tma_load_3d(dst + P::TILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
                   s * SLAB, i * TILE, bh);
     }
   };
   if (threadIdx.x == 0) {
-    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * NTILE_BYTES);
+    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * P::TILE_BYTES);
     for (int w = 0; w < NARROW_WGS; ++w)
-      for (int s = 0; s < 2; ++s) {
-        const int at = w * NTILE_BYTES + s * SLAB_BYTES;
+      for (int s = 0; s < P::SLABS; ++s) {
+        const int at = w * P::TILE_BYTES + s * SLAB_BYTES;
         tma_load_3d(sq + at, &q_map, &rows_full, s * SLAB, first + w * TILE,
                     bh);
         tma_load_3d(sg + at, &g_map, &rows_full, s * SLAB, first + w * TILE,
@@ -2453,8 +2538,8 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int grp = lane / 4, tig = lane % 4;
   const int r0 = first + wg * TILE + warp * STEP + grp;  // rows r0, r0 + 8
   const long long q_base = static_cast<long long>(bh) * Tq;
-  const unsigned char* q_rows = sq + wg * NTILE_BYTES;
-  const unsigned char* g_rows = sg + wg * NTILE_BYTES;
+  const unsigned char* q_rows = sq + wg * P::TILE_BYTES;
+  const unsigned char* g_rows = sg + wg * P::TILE_BYTES;
   const float scale2 = scale * LOG2E;
   float row_lse2[2], row_delta[2];  // lse times log2(e)
 #pragma unroll
@@ -2471,8 +2556,8 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   barrier_wait(&rows_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % NARROW_STAGES, k0 = i * TILE;
-    const unsigned char* k_tile = skv + st * 2 * NTILE_BYTES;
-    const unsigned char* v_tile = k_tile + NTILE_BYTES;
+    const unsigned char* k_tile = skv + st * 2 * P::TILE_BYTES;
+    const unsigned char* v_tile = k_tile + P::TILE_BYTES;
     float s[STEPS][2][4], dp[STEPS][2][4];
     float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
     float(&dp_flat)[32] = reinterpret_cast<float(&)[32]>(dp);
@@ -2485,20 +2570,26 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_commit();
     wgmma_wait<1>();
     wgmma_hold(s_flat);
+    // keys past Tk (TMA's zero rows) are masked out of p: at D = 80 and
+    // 128 value by value, at D <= 64 in the last tile alone, once no
+    // product is in flight (each the faster where it runs)
 #pragma unroll
     for (int cs = 0; cs < STEPS; ++cs)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          // keys past Tk are masked out of p
           const int key = k0 + cs * STEP + 8 * j + 2 * tig + e % 2;
           s[cs][j][e] =
-              key < Tk ? exp2_approx(s[cs][j][e] * scale2 - row_lse2[e / 2])
-                       : 0.f;
+              D <= SLAB || key < Tk
+                  ? exp2_approx(s[cs][j][e] * scale2 - row_lse2[e / 2])
+                  : 0.f;
         }
     wgmma_wait<0>();
     wgmma_hold(dp_flat);
+    if constexpr (D <= SLAB) {
+      if (k0 + TILE > Tk) mask_columns(s, Tk - k0, tig);
+    }
     uint32_t hi[STEPS][4], lo[STEPS][4];
 #pragma unroll
     for (int cs = 0; cs < STEPS; ++cs) {
@@ -2526,10 +2617,10 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_accumulator<D>(acc, scale, dq + q_base * D, r0, Tq, tig);
 }
 
-// dk/dv at D = 80 and 128: a block owns NARROW_ROWS key rows; the tensor
-// maps as dq's.
+// dk/dv at D = 32, 64, 80 and 128: a block owns NARROW_ROWS key rows; the
+// tensor maps as dq's.
 template <int D>
-__global__ void __launch_bounds__(NARROW_THREADS, 1)
+__global__ void __launch_bounds__(NARROW_THREADS, dkdv_wgmma_blocks<D>())
 attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
@@ -2538,16 +2629,21 @@ attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
                        int Tk, int tiles, float scale) {
+  using P = GradPlan<D>;
   constexpr int STEPS = TILE / STEP;
+  // at two blocks an SM (128 registers) ds is split before dV's products
+  // are issued: overlapping them keeps p's and ds's parts live together,
+  // past the registers ptxas has, and it serialises the wgmmas
+  constexpr bool SPLIT_FIRST = dkdv_wgmma_blocks<D>() == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t rows_full, full[NARROW_STAGES], empty[NARROW_STAGES];
   // each warpgroup's double buffer of a tile's lse and delta
   __shared__ __align__(8) float stats[NARROW_WGS][2][2][TILE];
-  // k [NARROW_WGS][NTILE_BYTES], v the same, then the stages' q and dO
-  // tiles [stage][2][NTILE_BYTES]
+  // k [NARROW_WGS][TILE_BYTES], v the same, then the stages' q and dO
+  // tiles [stage][2][TILE_BYTES]
   unsigned char* sk = swizzle_aligned(smem_raw);
-  unsigned char* sv = sk + NARROW_WGS * NTILE_BYTES;
-  unsigned char* stages = sv + NARROW_WGS * NTILE_BYTES;
+  unsigned char* sv = sk + NARROW_WGS * P::TILE_BYTES;
+  unsigned char* stages = sv + NARROW_WGS * P::TILE_BYTES;
   const int bh = blockIdx.x / tiles;
   const int first = (blockIdx.x % tiles) * NARROW_ROWS;
   const int n_tiles = (Tq + TILE - 1) / TILE;
@@ -2563,20 +2659,20 @@ attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
   auto load_tile = [&](int i) {  // queries i * TILE .. + 63
     const int st = i % NARROW_STAGES;
-    unsigned char* dst = stages + st * 2 * NTILE_BYTES;
-    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
-    for (int s = 0; s < 2; ++s) {
+    unsigned char* dst = stages + st * 2 * P::TILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * P::TILE_BYTES);
+    for (int s = 0; s < P::SLABS; ++s) {
       tma_load_3d(dst + s * SLAB_BYTES, &q_map, &full[st], s * SLAB,
                   i * TILE, bh);
-      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &g_map, &full[st],
+      tma_load_3d(dst + P::TILE_BYTES + s * SLAB_BYTES, &g_map, &full[st],
                   s * SLAB, i * TILE, bh);
     }
   };
   if (threadIdx.x == 0) {
-    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * NTILE_BYTES);
+    barrier_expect_bytes(&rows_full, 2 * NARROW_WGS * P::TILE_BYTES);
     for (int w = 0; w < NARROW_WGS; ++w)
-      for (int s = 0; s < 2; ++s) {
-        const int at = w * NTILE_BYTES + s * SLAB_BYTES;
+      for (int s = 0; s < P::SLABS; ++s) {
+        const int at = w * P::TILE_BYTES + s * SLAB_BYTES;
         tma_load_3d(sk + at, &k_map, &rows_full, s * SLAB, first + w * TILE,
                     bh);
         tma_load_3d(sv + at, &v_map, &rows_full, s * SLAB, first + w * TILE,
@@ -2594,8 +2690,8 @@ attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // (t < 64) or of delta
   const int t = threadIdx.x % 128;
   const float* stat_rows = (t < TILE ? lse : delta) + q_base;
-  const unsigned char* k_rows = sk + wg * NTILE_BYTES;
-  const unsigned char* v_rows = sv + wg * NTILE_BYTES;
+  const unsigned char* k_rows = sk + wg * P::TILE_BYTES;
+  const unsigned char* v_rows = sv + wg * P::TILE_BYTES;
   const float scale2 = scale * LOG2E;
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   float(&dk_flat)[D / 2] = reinterpret_cast<float(&)[D / 2]>(dk_acc);
@@ -2606,8 +2702,8 @@ attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   barrier_wait(&rows_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % NARROW_STAGES, q0 = i * TILE;
-    const unsigned char* q_tile = stages + st * 2 * NTILE_BYTES;
-    const unsigned char* g_tile = q_tile + NTILE_BYTES;
+    const unsigned char* q_tile = stages + st * 2 * P::TILE_BYTES;
+    const unsigned char* g_tile = q_tile + P::TILE_BYTES;
     const float* s_lse = stats[wg][i & 1][0];
     const float* s_delta = stats[wg][i & 1][1];
     const int q_row = q0 + t % TILE;
@@ -2657,17 +2753,20 @@ attn_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           dp[cs][j][e] = s[cs][j][e] * (dp[cs][j][e] - dlt[e % 2]);
       }
       split_fragment(s[cs], p_hi[cs], p_lo[cs]);
+      if constexpr (SPLIT_FIRST) split_fragment(dp[cs], ds_hi[cs], ds_lo[cs]);
     }
-    // dV first; ds is split while its products run
+    // dV first; at one block an SM ds is split while its products run
     wgmma_hold(dv_flat);
     wgmma_hold(dk_flat);
     wgmma_fence();
     wgmma_over_rows<D>(dv_flat, p_hi, p_lo, g_tile);
-    wgmma_commit();
+    if constexpr (!SPLIT_FIRST) {
+      wgmma_commit();
 #pragma unroll
-    for (int cs = 0; cs < STEPS; ++cs)
-      split_fragment(dp[cs], ds_hi[cs], ds_lo[cs]);
-    wgmma_fence();
+      for (int cs = 0; cs < STEPS; ++cs)
+        split_fragment(dp[cs], ds_hi[cs], ds_lo[cs]);
+      wgmma_fence();
+    }
     wgmma_over_rows<D>(dk_flat, ds_hi, ds_lo, q_tile);
     wgmma_commit();
     wgmma_wait<0>();
@@ -2935,9 +3034,14 @@ constexpr int wide_dkdv_smem_bytes() {
 // warps; the forward one block for FwdPlan<NC>::BLOCK_ROWS rows, three
 // warpgroups.
 static_assert(RESIDENT_MAX_NC == 3, "the launchers take NC = 2 and 3");
-static_assert(NARROW_SMEM <= 232448,
+static_assert(GradPlan<128>::SMEM <= 232448,
               "the wgmma gradient kernels' shared memory passes an H100 "
               "block's");
+static_assert(2 * (GradPlan<64>::SMEM + 1024) <= 233472 &&
+                  GradPlan<32>::SMEM == GradPlan<64>::SMEM,
+              "two blocks of the wgmma gradient kernels at D <= 64 pass an "
+              "H100 SM's shared memory (with the 1 KB it keeps for each "
+              "block)");
 static_assert(2 * (NARROW_FWD_SMEM + 1024) <= 233472,
               "two blocks of the wgmma forward pass an H100 SM's shared "
               "memory (with the 1 KB it keeps for each block)");
@@ -3094,11 +3198,11 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap maps[4];
   cudaError_t err = narrow_tensor_maps(maps, q, k, v, g, BH, Tq, Tk, D);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_dq_wgmma_kernel<D>, NARROW_SMEM);
+  constexpr int smem = GradPlan<D>::SMEM;
+  err = allow_smem(attn_dq_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Tq + NARROW_ROWS - 1) / NARROW_ROWS;
-  attn_dq_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_SMEM,
-                            stream>>>(
+  attn_dq_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), Tq, Tk, tiles,
       scale);
@@ -3114,11 +3218,11 @@ cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap maps[4];
   cudaError_t err = narrow_tensor_maps(maps, q, k, v, g, BH, Tq, Tk, D);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_dkdv_wgmma_kernel<D>, NARROW_SMEM);
+  constexpr int smem = GradPlan<D>::SMEM;
+  err = allow_smem(attn_dkdv_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Tk + NARROW_ROWS - 1) / NARROW_ROWS;
-  attn_dkdv_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_SMEM,
-                              stream>>>(
+  attn_dkdv_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Tq, Tk, tiles, scale);
@@ -3236,6 +3340,35 @@ cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Blocks an SM of the bf16 wgmma dq (dq) or dk/dv kernel at head dim D and
+// its dynamic shared memory.
+template <int D>
+cudaError_t grad_wgmma_occupancy(bool dq, int* blocks, int* smem) {
+  *smem = GradPlan<D>::SMEM;
+  return dq ? occupancy(attn_dq_wgmma_kernel<D>, NARROW_THREADS, *smem, blocks)
+            : occupancy(attn_dkdv_wgmma_kernel<D>, NARROW_THREADS, *smem,
+                        blocks);
+}
+
+// Blocks an SM of the bf16 wgmma kernel `kernel` at D = 80 and 128 (the
+// forward; dq and dk/dv at 32 and 64 too).
+cudaError_t narrow_occupancy(int kernel, int D, int* blocks, int* smem) {
+  if (kernel == 0) {
+    if (D != 80 && D != 128) return cudaErrorInvalidValue;
+    *smem = NARROW_FWD_SMEM;
+    return D == 80 ? occupancy(attn_fwd_wgmma_kernel<80>, NARROW_THREADS,
+                               *smem, blocks)
+                   : occupancy(attn_fwd_wgmma_kernel<128>, NARROW_THREADS,
+                               *smem, blocks);
+  }
+  const bool dq = kernel == 1;
+  return D == 32    ? grad_wgmma_occupancy<32>(dq, blocks, smem)
+         : D == 64  ? grad_wgmma_occupancy<64>(dq, blocks, smem)
+         : D == 80  ? grad_wgmma_occupancy<80>(dq, blocks, smem)
+         : D == 128 ? grad_wgmma_occupancy<128>(dq, blocks, smem)
+                    : cudaErrorInvalidValue;
+}
+
 bool valid(int BH, int Tq, int Tk) { return BH > 0 && Tq > 0 && Tk > 0; }
 
 }  // namespace
@@ -3297,11 +3430,16 @@ int attention_dkdv(const void* q, const void* k, const void* v,
 }
 
 // Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the bf16
-// wide kernel `kernel` (0 the forward, 1 dq, 2 dk/dv) that a launch at head
-// dim D takes; *smem gets its dynamic shared memory in bytes.
-int attention_wide_occupancy(int kernel, int D, int* blocks, int* smem) {
-  if (D <= CD || D % CD != 0 || kernel < 0 || kernel > 2)
+// kernel `kernel` (0 the forward, 1 dq, 2 dk/dv) on the wgmma route at
+// head dim D up to 128 (see narrow_occupancy) or on the wide route that a
+// launch at D past 128, a multiple of it, takes; *smem gets its dynamic
+// shared memory in bytes.
+int attention_occupancy(int kernel, int D, int* blocks, int* smem) {
+  if (kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= CD)
+    return static_cast<int>(narrow_occupancy(kernel, D, blocks, smem));
+  if (D % CD != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nc = D / CD;
   const bool resident = nc <= RESIDENT_MAX_NC;
   cudaError_t err;
@@ -3335,17 +3473,6 @@ int attention_wide_occupancy(int kernel, int D, int* blocks, int* smem) {
                                   *smem, blocks);
   }
   return static_cast<int>(err);
-}
-
-// The same for the bf16 forward at D = 80 and 128, attn_fwd_wgmma_kernel.
-int attention_fwd_wgmma_occupancy(int D, int* blocks, int* smem) {
-  if (D != 80 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  *smem = NARROW_FWD_SMEM;
-  return static_cast<int>(
-      D == 80 ? occupancy(attn_fwd_wgmma_kernel<80>, NARROW_THREADS, *smem,
-                          blocks)
-              : occupancy(attn_fwd_wgmma_kernel<128>, NARROW_THREADS, *smem,
-                          blocks));
 }
 
 const char* attention_error_string(int code) {

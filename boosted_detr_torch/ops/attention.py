@@ -49,19 +49,24 @@ model either. They take contiguous [BH, T, D] tensors: the MHA folds its
 heads into that layout before the call (one copy each of q, k and v), so
 the kernels need no strides. float32 inputs multiply in float32 on the
 CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
-D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: the forward,
-dq and dk/dv up to D = 64 on ``mma.sync`` with bf16 operands and float32
-sums, a block's 64 rows in registers, the other operand streamed in
-64-row tiles two deep with ``cp.async`` (16 bytes at a time, so q, k, v
-and g must be aligned to that or the wrapper raises; the TMA kernels need
-the same); the forward, dq and dk/dv at D = 80 and 128 on ``wgmma`` and
-TMA (``attn_fwd_wgmma_kernel``, ``attn_dq_wgmma_kernel``,
-``attn_dkdv_wgmma_kernel``: two warpgroups of 64 rows, the block's rows
-resident, the streamed tiles in a ring of stages, p and ds from
-registers as the A operand of the second products, the sums in the
-``mma.sync`` kernels' order; ``narrow_forward_kernel`` and
-``narrow_gradient_kernels`` name the route up to 128); the wide forward
-at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
+D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: the forward
+up to D = 64 on ``mma.sync`` with bf16 operands and float32 sums, a
+block's 64 rows in registers, the other operand streamed in 64-row tiles
+two deep with ``cp.async`` (16 bytes at a time, so q, k, v and g must be
+aligned to that or the wrapper raises; the TMA kernels need the same);
+dq at D = 32 and dk/dv too where the other operand's stream is short (at
+most ``SHORT_STREAM`` rows: the DETR decoder's attention); dq and dk/dv
+otherwise up to D = 128, and the forward at 80 and 128, on ``wgmma`` and
+TMA (``attn_dq_wgmma_kernel``,
+``attn_dkdv_wgmma_kernel``, ``attn_fwd_wgmma_kernel``: two warpgroups of
+64 rows, the block's rows resident, the streamed tiles in a ring of
+stages, p and ds from registers as the A operand of the second products,
+the sums in the ``mma.sync`` kernels' order, so that the same emulations
+describe both; rows staged 64 dims wide at D <= 64, TMA's zeros past
+dim 32 at D = 32; ``narrow_forward_kernel`` and
+``narrow_gradient_kernels`` name the route up to 128,
+``kernel_occupancy`` gives their blocks an SM); the wide forward at
+D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
 scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
 second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
 bf16 rounding of p moves a tenth of the forward's outputs past one ulp.
@@ -101,6 +106,10 @@ CHUNK = SUPPORTED_HEAD_DIMS[-1]
 # rows resident in shared memory (csrc/attention.cu, RESIDENT_MAX_NC
 # chunks); wider ones take the chunked kernels.
 RESIDENT_MAX_HEAD_DIM = 3 * CHUNK
+# The longest stream of the other operand (Tk for dq, Tq for dk/dv) that
+# bf16 dq at D = 32 and dk/dv at D <= 64 run on the ``mma.sync`` kernels
+# (csrc/attention.cu, SHORT_STREAM); longer ones take the wgmma kernels.
+SHORT_STREAM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
 
@@ -319,12 +328,9 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
         fn.restype = ctypes.c_int
-    for name, ints in (("attention_wide_occupancy", 2),
-                       ("attention_fwd_wgmma_occupancy", 1)):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_int] * ints
-                       + [ctypes.POINTER(ctypes.c_int)] * 2)
-        fn.restype = ctypes.c_int
+    lib.attention_occupancy.argtypes = ([ctypes.c_int] * 2
+                                        + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.attention_occupancy.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -385,59 +391,57 @@ def wide_gradient_kernels(d: int) -> Tuple[str, str]:
             f"attn_dkdv_wide_{route}mma_kernel")
 
 
-def _narrow_route(d: int) -> str:
-    """The bf16 kernels' route at head dim ``d`` up to ``CHUNK``, after
-    padding: ``"mma"`` (``mma.sync``) up to D = 64, ``"wgmma"`` (TMA, the
-    block's rows resident) at D = 80 and 128."""
+def _narrow_padded(d: int) -> int:
+    """``padded_head_dim(d)`` for a head dim up to ``CHUNK``; raises past
+    it (the wide kernels' dims)."""
     padded = padded_head_dim(d)
     if padded > CHUNK:
         raise ValueError(f"head dim {d} runs on the wide kernels past "
                          f"{CHUNK}")
-    return "wgmma" if padded > 64 else "mma"
+    return padded
 
 
 def narrow_forward_kernel(d: int) -> str:
     """The name of the bf16 forward kernel that a launch at head dim ``d``
-    up to ``CHUNK`` runs: ``attn_fwd_mma_kernel`` up to D = 64,
-    ``attn_fwd_wgmma_kernel`` at D = 80 and 128, after padding."""
-    return f"attn_fwd_{_narrow_route(d)}_kernel"
+    up to ``CHUNK`` runs: ``attn_fwd_mma_kernel`` (``mma.sync``) up to
+    D = 64, ``attn_fwd_wgmma_kernel`` (TMA, q resident) at D = 80 and 128,
+    after padding."""
+    route = "wgmma" if _narrow_padded(d) > 64 else "mma"
+    return f"attn_fwd_{route}_kernel"
 
 
-def narrow_gradient_kernels(d: int) -> Tuple[str, str]:
+def narrow_gradient_kernels(d: int, tq: int, tk: int) -> Tuple[str, str]:
     """The names of the bf16 dq and dk/dv kernels that a launch at head
-    dim ``d`` up to ``CHUNK`` runs: the ``mma.sync`` kernels up to D = 64,
-    the ``wgmma`` kernels (TMA, the block's rows resident) at D = 80 and
-    128, after padding."""
-    route = _narrow_route(d)
-    return f"attn_dq_{route}_kernel", f"attn_dkdv_{route}_kernel"
+    dim ``d`` up to ``CHUNK``, ``tq`` queries and ``tk`` keys runs: over
+    a stream of at most ``SHORT_STREAM`` rows (``tk`` for dq, ``tq`` for
+    dk/dv) the ``mma.sync`` kernels (64-row blocks), dq at a padded D of
+    32 and dk/dv at 32 and 64; else the ``wgmma`` kernels (TMA, the
+    block's 128 rows resident), as at D = 80 and 128."""
+    padded = _narrow_padded(d)
+
+    def name(kind, widest, stream):
+        short = padded <= widest and stream <= SHORT_STREAM
+        return f"attn_{kind}_{'mma' if short else 'wgmma'}_kernel"
+
+    return name("dq", 32, tk), name("dkdv", 64, tq)
 
 
-def _occupancy(entry: str, *args: int) -> Tuple[int, int]:
-    """(blocks an SM, dynamic shared memory in bytes) from the library's
-    occupancy entry ``entry`` called with ``args``."""
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    lib = _library()
-    rc = getattr(lib, entry)(*args, ctypes.byref(blocks), ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"{entry}{args}: "
-                           f"{lib.attention_error_string(rc).decode()}")
-    return blocks.value, smem.value
-
-
-def wide_occupancy(kernel: str, d: int) -> Tuple[int, int]:
-    """(blocks an SM, dynamic shared memory in bytes) of the bf16 wide
-    ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkdv"``) that a launch at head dim
-    ``d`` (a multiple of ``CHUNK`` past it) takes, from
+def kernel_occupancy(kernel: str, d: int) -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared memory in bytes) of the bf16
+    ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkdv"``) on the wgmma route at
+    head dim ``d`` up to ``CHUNK`` as built (the forward at 80 and 128, dq
+    and dk/dv at 32, 64, 80 and 128), or on the wide route that a launch at
+    ``d`` past it (a multiple of it) takes, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card."""
-    return _occupancy("attention_wide_occupancy",
-                      ("fwd", "dq", "dkdv").index(kernel), d)
-
-
-def narrow_forward_occupancy(d: int) -> Tuple[int, int]:
-    """The same for the bf16 forward at D = 80 and 128
-    (``attn_fwd_wgmma_kernel``)."""
-    return _occupancy("attention_fwd_wgmma_occupancy", d)
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _library()
+    rc = lib.attention_occupancy(("fwd", "dq", "dkdv").index(kernel), d,
+                                 ctypes.byref(blocks), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"attention_occupancy({kernel}, {d}): "
+                           f"{lib.attention_error_string(rc).decode()}")
+    return blocks.value, smem.value
 
 
 def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -10,10 +10,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (patchify.cu, lap.cu, attention.cu) with nvcc for sm_90a, one process
    per source, all at once, and prints ptxas's registers and spill bytes
    of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64, 80 and 128,
-   in bf16 the forward, dq and dk/dv on mma.sync at D <= 64 and on wgmma
-   at 80 and 128, the chunked wide kernels for D = 128 n, n >= 2, and the
-   resident bf16 forward, dq and dk/dv at D = 256 and 384) and the wgmma
-   forward's and the wide bf16 kernels' blocks an SM;
+   in bf16 the forward on mma.sync at D <= 64 and on wgmma at 80 and 128,
+   dq and dk/dv on wgmma at all four, the chunked wide kernels for
+   D = 128 n, n >= 2, and the resident bf16 forward, dq and dk/dv at
+   D = 256 and 384) and the wgmma forward's, the wgmma gradient kernels'
+   and the wide bf16 kernels' blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -25,9 +26,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
    cores), up to D = 512 (in bf16 at D = 80 and 128 the forward, dq and
-   dk/dv on the wgmma kernels, each also launched twice for the same bits,
-   the forward also held against its emulation; past 128 on the resident
-   kernels at 256 and 384 and on the chunked ones at 512);
+   dk/dv on the wgmma kernels, at D <= 64 dq and dk/dv, each kernel up to
+   D = 128 also launched twice for the same bits and held against its
+   emulation; past 128 on the resident kernels at 256 and 384 and on the
+   chunked ones at 512);
    holds each
    result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and one PyTorch library call (where one computes
@@ -184,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -201,6 +204,10 @@ import torch
 # operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# ex2.approx results a clock on an SM (the special-function units; the CUDA
+# C++ Programming Guide's throughput table, compute capability 9.0): each
+# bf16 K3 kernel takes one a query-key pair for p
+EX2_PER_CLOCK_PER_SM = 16
 WARMUP, REPEATS = 3, 25
 # cycles of the card's clock (about half a millisecond) that it spins before
 # a launch timed as ``device_ms``
@@ -405,9 +412,8 @@ def kernel_names() -> int:
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
     the P=4 stem; the same for each weight gradient; in bf16 the route
     of the forward, dq and dk/dv (mma.sync or wgmma up to D = 128,
-    resident or chunked past it), and the wgmma forward's and the wide
-    kernels' blocks an SM (``narrow_forward_occupancy``,
-    ``wide_occupancy``). Apart, because a
+    resident or chunked past it), and the wgmma and wide kernels' blocks
+    an SM (``occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones."""
@@ -455,21 +461,20 @@ def kernel_names() -> int:
                            else A.wide_forward_kernel(d) if wide
                            else A.narrow_forward_kernel(d), what)
             if dtype == torch.bfloat16:
-                # the gradients' route: mma.sync or wgmma up to 128, past it
+                # the gradients' route: up to 128 wgmma but mma.sync over
+                # short streams (dq at D = 32, dk/dv at D <= 64), past it
                 # resident or chunked
                 g = torch.randn_like(q)
                 out, lse = A.attention_fwd_reference(q, k, v)
                 args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
                 names = (A.wide_gradient_kernels(d) if wide
-                         else A.narrow_gradient_kernels(d))
+                         else A.narrow_gradient_kernels(d, tq, tk))
                 _expect_kernel(lambda: A.attention_dq(*args), "attn_dq",
                                names[0], f"{what} dq")
                 _expect_kernel(lambda: A.attention_dkdv(*args), "attn_dkdv",
                                names[1], f"{what} dk/dv")
     k3 = ptxas_k3(build.build("attention").with_suffix(".log").read_text())
-    _say("  K3 wgmma bf16 forward: "
-         + json.dumps(narrow_forward_occupancy(k3)))
-    _say("  K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
+    _say("  K3 wgmma and wide bf16 kernels: " + json.dumps(occupancy(k3)))
     return 0
 
 
@@ -539,66 +544,56 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 36:
-        raise AssertionError(f"expected 36 K3 kernels (3 kernels, 2 dtypes, "
-                             f"D = 32, 64, 80, 128, in bf16 the forward, dq "
-                             f"and dk/dv on mma.sync to 64 and on wgmma at "
-                             f"80 and 128, the 6 chunked wide ones and the "
-                             f"resident forward, dq and dk/dv at D = 256 "
-                             f"and 384), read {len(k3)}")
-    _say("[build] K3 wgmma bf16 forward: "
-         + json.dumps(narrow_forward_occupancy(k3)))
-    _say("[build] K3 wide bf16 kernels: " + json.dumps(wide_occupancy(k3)))
+    if len(k3) != 39:
+        raise AssertionError(f"expected 39 K3 kernels (3 kernels, 2 dtypes, "
+                             f"D = 32, 64, 80, 128, in bf16 the forward on "
+                             f"mma.sync to 64 and on wgmma at 80 and 128, "
+                             f"dq and dk/dv on wgmma at all four, dq on "
+                             f"mma.sync at 32 and dk/dv at 32 and 64, the "
+                             f"6 chunked wide ones and the resident "
+                             f"forward, dq and dk/dv at D = 256 and 384), "
+                             f"read {len(k3)}")
+    _say("[build] K3 wgmma and wide bf16 kernels: "
+         + json.dumps(occupancy(k3)))
     return k3
 
 
-def narrow_forward_occupancy(k3):
-    """{"attn_fwd_wgmma_kernel D=<D>": {"blocks_per_sm", "smem_bytes",
-    "registers", "spill_bytes"}} of the bf16 forward at D = 80 and 128:
-    blocks an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at
-    its shared memory, registers and spill bytes from ptxas
-    (``ptxas_k3``)."""
+def occupancy(k3):
+    """{"<kernel> D=<D>": {"blocks_per_sm", "smem_bytes", "registers",
+    "spill_bytes"}} of K3's bf16 kernels that TMA feeds: the wgmma forward
+    at D = 80 and 128, the wgmma dq and dk/dv at D = 32, 64, 80 and 128,
+    and the wide forward, dq and dk/dv on the route a launch at D = 256,
+    384 and 512 takes (resident, then chunked: the design whose shared
+    memory and threads do not depend on D); blocks an SM from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
+    shared memory (``kernel_occupancy``), registers and spill bytes from
+    ptxas (``ptxas_k3``)."""
     from boosted_detr_torch.ops import attention as A
 
+    cases = ([("fwd", d) for d in (80, 128)]
+             + [(kind, d) for d in (32, 64, 80, 128)
+                for kind in ("dq", "dkdv")]
+             + [(kind, d) for kind in ("fwd", "dq", "dkdv")
+                for d in (256, 384, 512)])
     out = {}
-    for d in (80, 128):
-        name = A.narrow_forward_kernel(d)
-        blocks, smem = A.narrow_forward_occupancy(d)
+    for kind, d in cases:
+        if d > A.CHUNK:
+            names = (A.wide_forward_kernel(d), *A.wide_gradient_kernels(d))
+        else:  # the wgmma route: the gradients' over a long stream
+            long = A.SHORT_STREAM + 1
+            names = (A.narrow_forward_kernel(d),
+                     *A.narrow_gradient_kernels(d, long, long))
+        name = names[("fwd", "dq", "dkdv").index(kind)]
+        blocks, smem = A.kernel_occupancy(kind, d)
         if blocks < 1:
             raise AssertionError(f"{name} at D = {d}: no block fits an SM")
-        report = k3.get(f"{name} D={d}", {})
+        key = "D=128n" if "chunked" in name else f"D={d}"
+        report = k3.get(f"{name} {key}", {})
         out[f"{name} D={d}"] = {
             "blocks_per_sm": blocks, "smem_bytes": smem,
             "registers": report.get("registers"),
             "spill_bytes": report.get("spill_stores", 0)
             + report.get("spill_loads", 0)}
-    return out
-
-
-def wide_occupancy(k3):
-    """{"<kernel> D=<D>": {"blocks_per_sm", "smem_bytes", "registers"}} of
-    the bf16 wide kernels: the forward, dq and dk/dv on the route a launch
-    at D = 256, 384 and 512 takes (resident, then chunked: the design
-    whose shared memory and threads do not depend on D); blocks an SM from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
-    shared memory, registers from ptxas (``ptxas_k3``)."""
-    from boosted_detr_torch.ops import attention as A
-
-    cases = [(kind, d) for kind in ("fwd", "dq", "dkdv")
-             for d in (256, 384, 512)]
-    out = {}
-    for kind, d in cases:
-        blocks, smem = A.wide_occupancy(kind, d)
-        if kind == "fwd":
-            name = A.wide_forward_kernel(d)
-        else:
-            name = A.wide_gradient_kernels(d)[("dq", "dkdv").index(kind)]
-        key = "D=128n" if "chunked" in name else f"D={d}"
-        if blocks < 1:
-            raise AssertionError(f"{name} at D = {d}: no block fits an SM")
-        out[f"{name} D={d}"] = {
-            "blocks_per_sm": blocks, "smem_bytes": smem,
-            "registers": k3.get(f"{name} {key}", {}).get("registers")}
     return out
 
 
@@ -690,6 +685,19 @@ def _patchify_case(patch, c_out, dtype, seed, res, flush):
          f"{row['device_ms']:.4f} ms with the launch enqueued ahead of the "
          f"card")
     return row
+
+
+@functools.cache
+def _ex2_per_s():
+    """ex2 a second on every SM of card 0 at its top SM clock (nvidia-smi's
+    ``clocks.max.sm``): the floor the exponentials set, below the clock a
+    card holds under load."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def _bound(n_bytes, ops, dtype):
@@ -911,12 +919,16 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     plain versions; in bf16 (and float32 at D > 64) also timed, with
     F.scaled_dot_product_attention (forward, and forward + backward) as
     the library yardstick, which the port never calls, and the backward
-    alone beside it. In bf16 at D = 80 and 128 the rows of the forward,
-    dq and dk/dv also name their wgmma kernels with ptxas's registers and
-    spills (from ``ptxas``, ``ptxas_k3``'s rows), each is launched a
-    second time and held to the first bit for bit, and the forward is held
-    against ``attention_fwd_emulation`` (one bf16 ulp, at least 99% of the
-    values equal; the lse within 1e-5). Returns one row per kernel."""
+    alone beside it. In bf16 up to D = 128 the rows of the forward, dq
+    and dk/dv also name their kernels (wgmma, but mma.sync for the
+    forward at D <= 64 and over short streams for dq at D = 32 and dk/dv
+    at D <= 64)
+    with ptxas's registers and spills (from ``ptxas``, ``ptxas_k3``'s
+    rows), each is launched a second time and held to the
+    first bit for bit, and each is held against its emulation
+    (``attention_fwd_emulation``, ``attention_dq_emulation``,
+    ``attention_dkdv_emulation``: one bf16 ulp, at least 99% of the values
+    equal; the lse within 1e-5). Returns one row per kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -965,11 +977,14 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
         rows[name] = {"shape": what, "max_abs_err": errs[name],
                       "library_ms": None}
         rows[name].update(_bound(n_bytes[name], ops[name], dtype))
+        if dtype == torch.bfloat16:  # one ex2 a query-key pair for p
+            rows[name]["ex2_floor_ms"] = bh * tq * tk / _ex2_per_s() * 1e3
     padded = A.padded_head_dim(d)
-    if dtype == torch.bfloat16 and 64 < padded <= A.CHUNK:
-        # the wgmma kernels: their names, ptxas's report, and a second
-        # launch of each, the same bits (no atomics, sums in a fixed order);
-        # the forward against the emulation of its arithmetic
+    if dtype == torch.bfloat16 and padded <= A.CHUNK:
+        # the kernels up to D = 128 (wgmma, mma.sync as named above):
+        # their names, ptxas's report, and a second launch of each, the
+        # same bits (no atomics, sums in a fixed order); each against the
+        # emulation of its arithmetic
         again = (*A.attention_fwd(q, k, v), A.attention_dq(*args),
                  *A.attention_dkdv(*args))
         torch.cuda.synchronize()
@@ -990,9 +1005,27 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
             raise AssertionError(f"{what}: out equals the emulation at "
                                  f"{share:.6f} of the values, under 0.99")
         rows["fwd"]["equal_to_emulation"] = share
+        padded_args = (*A._padded(q, k, v, g), ref_lse, delta)
+        emulated = (A.attention_dq_emulation(*padded_args, scale=A._scale(d)),
+                    *A.attention_dkdv_emulation(*padded_args,
+                                                scale=A._scale(d)))
+        shares = {}
+        for part, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                   emulated):
+            want = want[..., :d]
+            _close(got, want, atol=1e-5 * want.float().abs().max().item(),
+                   rtol=2.0 ** -7, what=f"{what} {part} against the emulation")
+            shares[part] = (got == want).float().mean().item()
+        _say(f"  {what} dq, dk, dv: {json.dumps(shares)} of the values the "
+             "emulation's bf16")
+        if min(shares.values()) < 0.99:
+            raise AssertionError(f"{what}: the gradients equal the emulation "
+                                 f"at {shares} of the values, under 0.99")
+        rows["dq"]["equal_to_emulation"] = shares["dq"]
+        rows["dkdv"]["equal_to_emulation"] = min(shares["dk"], shares["dv"])
         for name, kernel in zip(("fwd", "dq", "dkdv"),
                                 (A.narrow_forward_kernel(d),
-                                 *A.narrow_gradient_kernels(d))):
+                                 *A.narrow_gradient_kernels(d, tq, tk))):
             report = (ptxas or {}).get(f"{kernel} D={padded}", {})
             rows[name].update(kernel=f"{kernel}<{padded}>",
                               repeats_bit_for_bit=True,
@@ -1069,9 +1102,11 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
              f"{r['plain_ms']:.4f} ms, SDPA "
              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none")
              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-             f"{100 * r['bound_share']:.1f}% of it reached{passes}); "
-             f"{r['device_ms']:.4f} ms with the launch enqueued ahead of the "
-             "card")
+             f"{100 * r['bound_share']:.1f}% of it reached{passes}"
+             + (f"; ex2 floor {r['ex2_floor_ms']:.4f} ms"
+                if "ex2_floor_ms" in r else "")
+             + f"); {r['device_ms']:.4f} ms with the launch enqueued ahead "
+             "of the card")
     _say(f"  {what} forward + backward: kernels "
          f"{fb['kernels_fwd_bwd_ms']:.4f} ms, SDPA "
          f"{fb['sdpa_fwd_bwd_ms']:.4f} ms; backward alone (delta, dq, "
@@ -3824,8 +3859,8 @@ def _kernel_line(rows, paths):
     """The ``kernels`` JSON line: each kernel at its main shape (the first
     row of its list: the 640px flagship's for K1 and K2, the 1280px
     encoder's in bf16 for K3), with its launches summed over the main
-    paths; K3's entries also list, under ``routes``, the bf16 wgmma
-    kernels at D = 80 and 128 by name at their shapes."""
+    paths; K3's entries also list, under ``routes``, the bf16 kernels up
+    to D = 128 by name at their shapes."""
     out = []
     for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]

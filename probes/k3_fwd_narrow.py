@@ -54,7 +54,7 @@ _ONE_BLOCK = "__launch_bounds__(NARROW_THREADS, 1)\nattn_fwd_wgmma_kernel("
 _KERNEL_START = """template <int D>
 __global__ void __launch_bounds__(NARROW_THREADS, 2)
 attn_fwd_wgmma_kernel("""
-_KERNEL_END = "\n// dq at D = 80 and 128:"
+_KERNEL_END = "\n// dq at D = 32, 64, 80 and 128:"
 _OVERLAP = r"""template <int D>
 __global__ void __launch_bounds__(NARROW_THREADS, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,

@@ -7,7 +7,11 @@ bf16 q, k, v and dO from a fixed seed on the card, runs ``attention_fwd``
 of the ``boosted_detr_torch`` package of each checkout it is given, forms
 the lse and delta in plain float32, runs ``attention_dq`` and
 ``attention_dkdv``, and prints the sha256 of out, lse, dq, dk and dv with
-each kernel's ``ms`` and ``device_ms`` (``chip_smoke._time_ms``). Each
+each kernel's ``ms`` and ``device_ms`` (``chip_smoke._time_ms``), whether
+a second launch of each gave the same bits (``repeats``), and the share of
+out, dq, dk and dv equal to the bf16 of the tree's own emulation of the
+kernels' arithmetic (``attention_*_emulation`` on the inputs padded as the
+kernels take them, with the true 1/sqrt(D): ``equal_to_emulation``). Each
 checkout runs in a process of its own and builds its own kernels (into
 its own ``build/kernels/``). Give the checkouts in turns, a parent and a
 change for example, to compare them on one card:
@@ -99,6 +103,22 @@ def run_one(root: str, dump: str, dims: str) -> dict:
         row = {"out": _digest(out_k), "lse": _digest(lse_k.view(torch.int32)
                                                      .view(torch.int16)),
                "dq": _digest(dq), "dk": _digest(dk), "dv": _digest(dv)}
+        again = (*A.attention_fwd(q, k, v), A.attention_dq(*args),
+                 *A.attention_dkdv(*args))
+        row["repeats"] = all(torch.equal(a, b) for a, b in
+                             zip(again, (out_k, lse_k, dq, dk, dv)))
+        padded = A._padded(q, k, v, g)
+        scale = d ** -0.5
+        emulated = {
+            "out": A.attention_fwd_emulation(*padded[:3], scale=scale)[0],
+            "dq": A.attention_dq_emulation(*padded, lse, delta, scale=scale)}
+        emulated["dk"], emulated["dv"] = A.attention_dkdv_emulation(
+            *padded, lse, delta, scale=scale)
+        got = {"out": out_k, "dq": dq, "dk": dk, "dv": dv}
+        row["equal_to_emulation"] = {
+            name: (got[name] == want[..., :d]).double().mean().item()
+            for name, want in emulated.items()}
+        del emulated, padded
         for name, fn in (("fwd", lambda: A.attention_fwd(q, k, v)),
                          ("dq", lambda: A.attention_dq(*args)),
                          ("dkdv", lambda: A.attention_dkdv(*args))):

@@ -7,8 +7,9 @@ autograd ``FusedAttentionFn`` on the card against its CPU route, the
 kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
 tensor. Head dims 32, 64, 80 (ViT-Huge's, with no padded copy) and 128
-run as built, in bf16 the forward, dq and dk/dv at 80 and 128 on the
-wgmma kernels; 16, 48, 72 and 96 padded with zeros to the next; past
+run as built, in bf16 dq and dk/dv at all four and the forward at 80 and
+128 on the wgmma kernels (the forward at 32 and 64 on mma.sync); 16, 48,
+72 and 96 padded with zeros to the next; past
 128, multiples of 128 (256, 384, 512) run on the wide kernels and any
 other D (160) padded to the next multiple: in bf16, the forward, dq and
 dk/dv on the resident kernels up to D = 384 (the forward on wgmma with
@@ -196,22 +197,30 @@ def _recorded(names_of, launched):
     return names
 
 
+# (Tq, Tk) of the profiled gradients: streams past SHORT_STREAM rows, and
+# at D <= 64 (dq over 96 keys, dk/dv over 96 queries) short ones too
+PROFILED_GRADIENTS = {"grad": (200, 330), "grad_short": (96, 96)}
+
+
 def profiled_names(d):
     """{kind: {dtype: names}} of the forward and of the gradient kernels
     at head dim ``d`` and the inputs of the tests below, each built and
     loaded before its profile."""
     cuda = torch.device("cuda")
-    out = {"fwd": {}, "grad": {}}
+    out = {"fwd": {}}
     for dtype in ("float32", "bfloat16"):
         qkv = _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
         ta.attention_fwd(*qkv)
         out["fwd"][dtype] = _recorded(
             lambda: _kernel_names(lambda: ta.attention_fwd(*qkv)), 1)
-        args = _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
-        ta.attention_dq(*args)
-        ta.attention_dkdv(*args)
-        out["grad"][dtype] = _recorded(
-            lambda: _gradient_kernel_names(args), 2)
+        for kind, (tq, tk) in PROFILED_GRADIENTS.items():
+            if kind == "grad_short" and d > 64:
+                continue
+            args = _gradient_args(cuda, 3, tq, tk, d, dtype, seed=3)
+            ta.attention_dq(*args)
+            ta.attention_dkdv(*args)
+            out.setdefault(kind, {})[dtype] = _recorded(
+                lambda: _gradient_kernel_names(args), 2)
     return out
 
 
@@ -340,16 +349,23 @@ def test_wide_gradients_launch_their_route(cuda, _profiled, d, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,route", [(32, "mma"), (64, "mma"), (80, "wgmma"),
-                                     (128, "wgmma")])
-def test_narrow_gradients_launch_their_kernels(cuda, _profiled, d, route):
-    """Up to D = 128 the bf16 dq and dk/dv run the mma.sync kernels at
-    D <= 64 and the wgmma kernels (TMA, the block's rows resident) at 80
-    and 128, by name from a profile, as ``narrow_gradient_kernels`` names
-    them; float32 keeps its CUDA-core kernels."""
-    names = _profiled[d]["grad"]
+@pytest.mark.parametrize("d,profile,routes", [
+    (32, "grad", ("wgmma", "wgmma")), (64, "grad", ("wgmma", "wgmma")),
+    (80, "grad", ("wgmma", "wgmma")), (128, "grad", ("wgmma", "wgmma")),
+    (32, "grad_short", ("mma", "mma")), (64, "grad_short", ("wgmma", "mma"))])
+def test_narrow_gradients_launch_their_kernels(cuda, _profiled, d, profile,
+                                               routes):
+    """Up to D = 128 the bf16 dq and dk/dv run the wgmma kernels (TMA,
+    the block's rows resident) at every built D, 32, 64, 80 and 128, but
+    over streams of at most ``SHORT_STREAM`` rows the ``mma.sync`` ones
+    for dq at D = 32 and for dk/dv at 32 and 64, by name from a profile,
+    as ``narrow_gradient_kernels`` names them (``routes``: dq's, dk/dv's);
+    float32 keeps its CUDA-core kernels."""
+    names = _profiled[d][profile]
     assert len(names["bfloat16"]) == 2, names
-    for kind, name in zip(("dq", "dkdv"), ta.narrow_gradient_kernels(d)):
+    for kind, route, name in zip(("dq", "dkdv"), routes,
+                                 ta.narrow_gradient_kernels(
+                                     d, *PROFILED_GRADIENTS[profile])):
         assert name == f"attn_{kind}_{route}_kernel"
         # a template's name is followed by its arguments
         assert sum(f"{name}<{d}>" in n for n in names["bfloat16"]) == 1, names
@@ -481,6 +497,11 @@ def _emulated(emulation, q, k, v, *rest):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,tq,tk,d", [
     (3, 300, 520, 64), (3, 17, 1000, 32),  # ragged
+    # the edges of TMA's zero fill at D <= 64: one query, one key, both
+    # under a 16-row step (where the stream is short, the mma.sync
+    # kernels), and one row past SHORT_STREAM in the streamed operand
+    (3, 1, 300, 32), (3, 300, 1, 64), (3, 17, 17, 64), (3, 17, 129, 64),
+    (3, 129, 17, 32),
     (4, 1600, 1600, 32), (4, 1600, 1600, 64), (4, 96, 1600, 32),
     (3, 300, 520, 128), (3, 17, 1000, 80), (2, 1600, 1600, 80),
     (2, 1600, 1600, 128),

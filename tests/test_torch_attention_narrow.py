@@ -1,10 +1,13 @@
-"""The fused attention (K3) at ViT head dims (D = 80 and 128), on the CPU,
-with no JAX: D = 80 run at its true width against D = 80 padded with
-zeros to 128, bit for bit, in the tensor-core emulations (the bf16
-forward, dq and dk/dv on ``wgmma``) and the plain versions' products;
-and the routes ``narrow_forward_kernel`` and ``narrow_gradient_kernels``
-name, read against csrc/attention.cu. tests/test_torch_attention.py holds these
-versions against JAX's Pallas kernel in interpret mode at D = 80 and 128,
+"""The fused attention (K3) up to D = 128, on the CPU, with no JAX: D = 80
+run at its true width against D = 80 padded with zeros to 128, bit for
+bit, in the tensor-core emulations (the bf16 forward, dq and dk/dv on
+``wgmma``) and the plain versions' products; D = 32's gradient products
+over rows staged 64 dims wide with zeros past dim 32, as the wgmma dq and
+dk/dv stage them, against D = 32; and the routes (by head dim, and for
+the gradients at D <= 64 by the length of the stream)
+``narrow_forward_kernel`` and ``narrow_gradient_kernels`` name, read
+against csrc/attention.cu. tests/test_torch_attention.py holds these
+versions against JAX's Pallas kernel in interpret mode at D = 32 to 128,
 and tests/test_torch_attention_kernel.py the kernels against them on the
 card."""
 
@@ -65,6 +68,37 @@ def test_head_dim_80_at_its_width_equals_it_padded_to_128(bh, tq, tk):
         assert torch.equal(x @ rows, (x @ rows_p)[..., :80])
 
 
+@pytest.mark.parametrize("bh,tq,tk", [(2, 130, 70), (3, 17, 17)])
+def test_head_dim_32_in_a_64_dim_slab_equals_it_at_32(bh, tq, tk):
+    """The wgmma dq and dk/dv stage D = 32's rows in one 64-dim slab, TMA
+    writing zeros past dim 32: the first products issue D = 32's two
+    16-dim steps and the second take N = 32. Zero columns add exact zeros:
+    the emulations of dq and dk/dv over the rows zero-filled to 64 dims,
+    with the true 1/sqrt(32), give D = 32's bits, and the plain versions'
+    float32 products over the zero-filled rows D = 32's."""
+    q, k, v, g, lse, delta = _bf16_gradient_inputs(bh, tq, tk, 32, seed=1)
+    slab = [torch.nn.functional.pad(t, (0, 32)) for t in (q, k, v, g)]
+    scale = ta._scale(32)
+    native = (ta.attention_dq_emulation(q, k, v, g, lse, delta),
+              *ta.attention_dkdv_emulation(q, k, v, g, lse, delta))
+    staged = (ta.attention_dq_emulation(*slab, lse, delta, scale=scale),
+              *ta.attention_dkdv_emulation(*slab, lse, delta, scale=scale))
+    for name, a, b in zip(("dq", "dk", "dv"), native, staged):
+        assert not b[..., 32:].any(), name
+        assert torch.equal(a, b[..., :32]), name
+    f = [t.float() for t in (q, k, v, g)]
+    fs = [t.float() for t in slab]
+    assert torch.equal(f[0] @ f[1].transpose(1, 2),
+                       fs[0] @ fs[1].transpose(1, 2))
+    assert torch.equal(f[3] @ f[2].transpose(1, 2),
+                       fs[3] @ fs[2].transpose(1, 2))
+    _, p, ds = ta._rebuilt(q, k, v, g, lse, delta)
+    for rows, rows_s, x in ((f[1], fs[1], ds),
+                            (f[3], fs[3], p.transpose(1, 2)),
+                            (f[0], fs[0], ds.transpose(1, 2))):
+        assert torch.equal(x @ rows, (x @ rows_s)[..., :32])
+
+
 @pytest.mark.parametrize("d,route", [(16, "mma"), (33, "mma"), (48, "mma"),
                                      (64, "mma"), (65, "wgmma"),
                                      (80, "wgmma"), (81, "wgmma"),
@@ -72,26 +106,53 @@ def test_head_dim_80_at_its_width_equals_it_padded_to_128(bh, tq, tk):
 def test_narrow_gradient_route_follows_the_source(d, route):
     """``narrow_forward_kernel`` and ``narrow_gradient_kernels`` name the
     kernels csrc/attention.cu launches up to D = 128: the launchers send
-    bf16 past D = 64 to the wgmma kernels (the forward's too: the
-    ``mma.sync`` forward keeps D = 32 and 64 alone), every built head dim
-    has its launcher, D in (64, 80] runs at 80 with no padding and D in
-    (80, 128] at 128; past 128 both raise."""
+    the bf16 forward past D = 64 to the wgmma kernel (``route``: the
+    ``mma.sync`` forward keeps D = 32 and 64 alone), and bf16 dq and dk/dv
+    to the wgmma kernels at every built D but over a stream of at most
+    ``SHORT_STREAM`` rows (Tk for dq, Tq for dk/dv), which the
+    ``mma.sync`` ones keep for dq at D = 32 and for dk/dv at 32 and 64;
+    every built head dim has its
+    launcher, D in (64, 80] runs at 80 with no padding and D in (80, 128]
+    at 128; past 128 both raise."""
     src = (Path(ta.__file__).resolve().parents[1] / "csrc"
            / "attention.cu").read_text()
-    names = (ta.narrow_forward_kernel(d), *ta.narrow_gradient_kernels(d))
-    assert names == (f"attn_fwd_{route}_kernel", f"attn_dq_{route}_kernel",
-                     f"attn_dkdv_{route}_kernel")
-    for name in names:
-        assert f"\n{name}(" in src  # a kernel of that name is defined
+    assert ta.narrow_forward_kernel(d) == f"attn_fwd_{route}_kernel"
+    short, long = ta.SHORT_STREAM, ta.SHORT_STREAM + 1
+    dq_short = "mma" if ta.padded_head_dim(d) == 32 else "wgmma"
+    dkdv_short = "mma" if ta.padded_head_dim(d) <= 64 else "wgmma"
+    for tq, tk, dq, dkdv in ((long, long, "wgmma", "wgmma"),
+                             (short, long, "wgmma", dkdv_short),
+                             (long, short, dq_short, "wgmma"),
+                             (1, 1, dq_short, dkdv_short)):
+        assert ta.narrow_gradient_kernels(d, tq, tk) == (
+            f"attn_dq_{dq}_kernel", f"attn_dkdv_{dkdv}_kernel")
     for kind in ("fwd", "dq", "dkdv"):
+        for kernel in ("mma", "wgmma"):  # a kernel of that name is defined
+            assert f"\nattn_{kind}_{kernel}_kernel(" in src
+    # the widest D whose dq (32) and dk/dv (64) keep mma.sync over short
+    # streams
+    tile = int(src.split("constexpr int TILE = ")[1].split(";")[0])
+    assert "constexpr int SHORT_STREAM = 2 * TILE;" in src
+    assert ta.SHORT_STREAM == 2 * tile
+    body = src.split("cudaError_t launch_fwd(")[1].split("\n}\n")[0]
+    assert ("if constexpr (std::is_same_v<T, bf16> && D > 64) {\n"
+            "    return launch_fwd_wgmma<D>(") in body
+    for kind, stream, widest in (("dq", "Tk", "D == 32"),
+                                 ("dkdv", "Tq", "D <= 64")):
         body = src.split(f"cudaError_t launch_{kind}(")[1].split("\n}\n")[0]
-        assert "std::is_same_v<T, bf16> && D > 64" in body
-        assert f"return launch_{kind}_wgmma<D>(" in body
+        branch, _ = body.split(
+            "} else if constexpr (std::is_same_v<T, bf16>) {\n"
+            f"    return launch_{kind}_wgmma<D>(")
+        assert (f"if constexpr (std::is_same_v<T, bf16> && {widest}) {{\n"
+                f"    if ({stream} > SHORT_STREAM)\n"
+                f"      return launch_{kind}_wgmma<D>(") in branch
+        assert f"attn_{kind}_mma_kernel<D><<<" in branch
     assert 'static_assert(D <= 64, "D = 80 and 128 take attn_fwd_wgmma' in src
     for built in ta.SUPPORTED_HEAD_DIMS:
         assert f"else if ((D) == {built})" in src
     assert ta.padded_head_dim(d) == next(
         n for n in ta.SUPPORTED_HEAD_DIMS if n >= d)
-    for name in (ta.narrow_forward_kernel, ta.narrow_gradient_kernels):
-        with pytest.raises(ValueError):
-            name(129)
+    with pytest.raises(ValueError):
+        ta.narrow_forward_kernel(129)
+    with pytest.raises(ValueError):
+        ta.narrow_gradient_kernels(129, long, long)
