@@ -2,7 +2,9 @@
 and inference throughput on one CUDA card (bench.py for
 ``boosted_detr_torch``).
 
-Run from the root of a checkout: ``python3 bench_torch.py``. Prints ONE
+Run from the root of a checkout: ``python3 bench_torch.py [--steps N]``
+(N steps a chunk, ``STEPS_PER_CHUNK`` by default; fewer for a quick
+check, as ``chip_smoke.py`` runs it). Prints ONE
 JSON line: {"metric", "value", "unit", "vs_baseline", ...extras}, with
 bench.py's keys, plus ``device``, ``power_limit_w`` (nvidia-smi) and
 ``kernel_launches`` (each hand-written kernel's launches over the timed
@@ -123,4 +125,9 @@ def main(env=os.environ, device=None, steps: int = STEPS_PER_CHUNK):
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=STEPS_PER_CHUNK,
+                        help="steps a chunk")
+    main(steps=parser.parse_args().steps)

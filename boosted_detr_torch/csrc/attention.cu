@@ -2,7 +2,7 @@
 // log-sum-exp, and the two kernels of its gradient.
 //
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
-//   attn_fwd_kernel, attn_fwd_mma_kernel, attn_fwd_wgmma_kernel
+//   attn_fwd_kernel, attn_fwd_wgmma_kernel
 //   (attn_fwd_wide_*) <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
 //   attn_dq_kernel, attn_dq_mma_kernel, attn_dq_wgmma_kernel
@@ -55,13 +55,12 @@
 //     per 512-key block; dq and dk/dv take 4 rows at a time (chunks of 8
 //     spilled registers to local memory).
 //
-// bfloat16 inputs run on the tensor cores. The design below is the
-// forward's at D <= 64 (attn_fwd_mma_kernel), dq's at D = 32 and dk/dv's
-// at D <= 64 over a stream of at most SHORT_STREAM rows
+// bfloat16 inputs run on the tensor cores. The design below is dq's at
+// D = 32 and dk/dv's at D <= 64 over a stream of at most SHORT_STREAM rows
 // (attn_dq_mma_kernel, attn_dkdv_mma_kernel) and the chunked wide kernels'
-// (past D = 384); dq and dk/dv otherwise up to D = 128, and the forward at
-// D = 80 and 128, take the wgmma kernels of their own section further
-// down:
+// (past D = 384); the forward up to D = 128, and dq and dk/dv otherwise,
+// take the wgmma kernels of their own section further down, which keep
+// this design's order of sums:
 //   - every product is mma.sync.m16n8k16 on bf16 operands with float32
 //     accumulators. A block of 4 warps owns 64 rows, 16 a warp, whose q
 //     (forward), q and dO (dq) or k and v (dk/dv) sit in registers as A
@@ -115,9 +114,10 @@
 //     below: warpgroup products, TMA, the block's rows resident in shared
 //     memory, rows staged 128 wide with TMA's zeros past dim 80). Zero
 //     columns add exact zeros to every sum, so D = 80 gives the bits it
-//     gave padded to 128. At D = 32 and 64 dq and dk/dv (but dq at 32
-//     and dk/dv over a stream of at most SHORT_STREAM rows) are the same
-//     kernels with rows staged 64 wide (TMA's zeros past dim 32);
+//     gave padded to 128. At D = 32 and 64 the forward, dq and dk/dv (but
+//     dq at 32 and dk/dv over a stream of at most SHORT_STREAM rows) are the
+//     same kernels with rows staged 64 wide (TMA's zeros past dim 32), the
+//     forward in 64-row blocks of one warpgroup;
 //   - every kernel takes its tiles from dynamic shared memory, sized at
 //     launch, and a launch above 48 KB first opts its kernel in
 //     (cudaFuncAttributeMaxDynamicSharedMemorySize; allow_smem): the
@@ -768,126 +768,6 @@ attn_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_accumulator<D>(dv_acc, 1.f, dv + k_base * D, r0, Tk, tig);
 }
 
-// The forward of bfloat16 inputs: a block of 4 warps owns 64 query rows, 16
-// a warp, and streams the keys and values in 64-row tiles. Per tile: S = Q K^T
-// for the whole tile, the rows' new running max, one rescale of acc and
-// denom, then 16 keys at a time p = 2^(scale2 (s - max)) in registers,
-// summed as float32 into denom and repacked as hi + lo A fragments for
-// acc += P V. D = 32 and 64 (at 80 and 128, attn_fwd_wgmma_kernel below).
-// At least 5 (D = 32) and 4 (D = 64) blocks on an SM: 96 and 128
-// registers.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 32 ? 5 : 4)
-attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int Tq, int Tk, int tiles,
-                    float scale) {
-  static_assert(D <= 64, "D = 80 and 128 take attn_fwd_wgmma_kernel");
-  constexpr int PITCH = D + PAD;
-  constexpr int STEPS = TILE / STEP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // [2][TILE * PITCH] each: two stages of k and of v (mma_smem_bytes)
-  bf16 (*sk)[TILE * PITCH] = reinterpret_cast<bf16 (*)[TILE * PITCH]>(smem);
-  bf16 (*sv)[TILE * PITCH] = sk + 2;
-  const int bh = blockIdx.x / tiles;
-  const int lane = threadIdx.x % 32, grp = lane / 4, tig = lane % 4;
-  // this thread's query rows: r0 and r0 + 8
-  const int r0 = (blockIdx.x % tiles) * ROWS + (threadIdx.x / 32) * 16 + grp;
-  const long long q_base = static_cast<long long>(bh) * Tq;
-  const bf16* kb = k + static_cast<long long>(bh) * Tk * D;
-  const bf16* vb = v + static_cast<long long>(bh) * Tk * D;
-  const int b_off = (lane % 8 + 8 * (lane / 16)) * PITCH + 8 * ((lane / 8) % 2);
-  const int t_off = (lane % 16) * PITCH + 8 * (lane / 16);
-
-  uint32_t qa[D / 16][4];
-  load_a_fragments<D>(q + q_base * D, r0, Tq, tig, qa);
-  const float scale2 = scale * LOG2E;
-  // per row: the running max of the unscaled q.k, and this thread's share of
-  // the denominator (its 16 of a tile's 64 keys; summed over the row's four
-  // lanes at the end)
-  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  const int n_tiles = (Tk + TILE - 1) / TILE;
-  stage_async<D>(kb, min(TILE, Tk), sk[0]);
-  stage_async<D>(vb, min(TILE, Tk), sv[0]);
-  commit_copies();
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % 2, k0 = i * TILE;
-    wait_copies<0>();  // this thread's part of tile i has landed
-    // every thread's part has, and every thread is done with tile i - 1
-    __syncthreads();
-    if (i + 1 < n_tiles) {  // tile i + 1 loads while tile i multiplies
-      const int n = min(TILE, Tk - k0 - TILE);
-      stage_async<D>(kb + static_cast<long long>(k0 + TILE) * D, n, sk[st ^ 1]);
-      stage_async<D>(vb + static_cast<long long>(k0 + TILE) * D, n, sv[st ^ 1]);
-      commit_copies();
-    }
-    // keys past Tk are staged as zeros and masked here (in the last tile
-    // only); key k0 is real, so every row's max is a real logit
-    const bool ragged = k0 + TILE > Tk;  // the same for every thread
-    float s[STEPS][2][4];
-    float m_new[2] = {m[0], m[1]};
-#pragma unroll
-    for (int c = 0; c < STEPS; ++c) {
-      mma_over_dims<D>(s[c], qa, sk[st] + c * STEP * PITCH, b_off);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + c * STEP + 8 * j + 2 * tig + e % 2;
-          if (ragged && key >= Tk) s[c][j][e] = NEG;
-          m_new[e / 2] = fmaxf(m_new[e / 2], s[c][j][e]);
-        }
-    }
-    float alpha[2], shift[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // over the four lanes of a row
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
-      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
-      shift[h] = m_new[h] * scale2;
-      m[h] = m_new[h];
-      denom[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
-#pragma unroll
-    for (int c = 0; c < STEPS; ++c) {
-      if (k0 + c * STEP >= Tk) break;  // the same for every thread
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // a masked key: 2^(-1e30 scale2 - shift) = 0
-          const float p = exp2_approx(fmaf(s[c][j][e], scale2, -shift[e / 2]));
-          s[c][j][e] = p;
-          denom[e / 2] += p;  // the float32 p, not its bf16 parts
-        }
-      uint32_t hi[4], lo[4];
-      split_fragment(s[c], hi, lo);
-      mma_over_rows<D>(acc, hi, lo, sv[st] + c * STEP * PITCH, t_off);
-    }
-  }
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
-    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
-    denom[h] = fmaxf(denom[h], FLOOR);
-    inv[h] = 1.f / denom[h];
-    if (tig == 0 && r0 + 8 * h < Tq)
-      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
-  }
-  store_accumulator<D>(acc, inv, out + q_base * D, r0, Tq, tig);
-}
-
 // Dims a thread of the CUDA-core kernels owns: 32 in the forward and dq (one
 // exp per row and key per thread; at D = 128, 4 threads a row, 256 a
 // block), and in dk/dv, which holds four row slices (k, v and both sums)
@@ -920,9 +800,9 @@ constexpr int dkdv_mma_smem_bytes() {
   return mma_smem_bytes<D>() + 2 * 2 * TILE * 4;
 }
 
-// The bf16 forward at D = 80 and 128, and dq and dk/dv at every D up to
-// 128 but over short streams at D <= 64: the wgmma kernels of the section
-// below (their launchers follow the tensor maps').
+// The bf16 forward, dq and dk/dv at every D up to 128 (but the gradients'
+// routes below keep mma.sync over short streams): the wgmma kernels of the
+// section below (their launchers follow the tensor maps').
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* out, void* lse, int BH, int Tq, int Tk,
@@ -950,18 +830,10 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* lse, int BH, int Tq, int Tk,
                        float scale, cudaStream_t stream) {
-  const int tiles = tiles_of(Tq);
-  if constexpr (std::is_same_v<T, bf16> && D > 64) {
+  if constexpr (std::is_same_v<T, bf16>) {
     return launch_fwd_wgmma<D>(q, k, v, out, lse, BH, Tq, Tk, scale, stream);
-  } else if constexpr (std::is_same_v<T, bf16>) {
-    constexpr int smem = mma_smem_bytes<D>();
-    const cudaError_t err = allow_smem(attn_fwd_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    attn_fwd_mma_kernel<D><<<BH * tiles, MMA_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out),
-        static_cast<float*>(lse), Tq, Tk, tiles, scale);
   } else {
+    const int tiles = tiles_of(Tq);
     constexpr int DPT = fwd_dpt<D>(), TPR = D / DPT;
     constexpr int smem = f32_smem_bytes<D>();
     const cudaError_t err = allow_smem(attn_fwd_kernel<DPT, TPR>, smem);
@@ -2128,27 +2000,31 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_chunk(acc, inv, out + q_base * D + col0, D, r0, Tq, tig);
 }
 
-// ---- bf16 on wgmma and TMA: the forward at D = 80 and 128, dq and dk/dv
-// at D = 32, 64, 80 and 128 ----
+// ---- bf16 on wgmma and TMA: the forward, dq and dk/dv at D = 32, 64, 80
+// and 128 ----
 //
 // The mma.sync kernels, designed for D <= 64, ran D = 128 (and ViT-Huge's
 // D = 80, padded to it) at 9-14% of their bounds at [128, 1600, 1600, 80]:
 // mma.sync with ldmatrix, 4 warps of 16 rows, dk/dv reading its own rows'
 // A fragments from shared memory at every product for want of registers,
-// the forward 152 / 198 registers (PERF.md). Here attn_fwd_wgmma_kernel<D>
-// (D = 80, 128), attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D>
-// (D = 32, 64, 80, 128) take the design of the wide forward above instead
-// (at D <= 64 the mma.sync dq and dk/dv ran at 16-17% of their bounds;
-// dq at D = 32 and dk/dv keep streams of at most SHORT_STREAM rows, and the
-// forward there keeps mma.sync):
+// the forward 152 / 198 registers (PERF.md). Here attn_fwd_wgmma_kernel<D>,
+// attn_dq_wgmma_kernel<D> and attn_dkdv_wgmma_kernel<D> (D = 32, 64, 80,
+// 128) take the design of the wide forward above instead (at D <= 64 the
+// mma.sync kernels ran at 13-17% of their bounds; dq at D = 32 and dk/dv
+// keep streams of at most SHORT_STREAM rows on mma.sync):
 //   - two warpgroups a block, each owning 64 rows (query rows for the
 //     forward and dq, key rows for dk/dv; 128 a block), all D of their
-//     output. Thread 0 issues every copy with TMA: the block's own rows
+//     output; the forward at D <= 64 launches blocks of one warpgroup (64
+//     rows, FwdNarrowPlan<D>), which at D = 64 fit four an SM where
+//     registers allow two of 128 rows, and over the DETR decoder's 96
+//     queries launch twice the blocks. Thread 0 issues every copy with
+//     TMA: the block's own rows
 //     once (q; q and dO; or k and v), resident for the whole kernel, and
 //     the streamed operand (k and v, or q and dO) a 64-row tile at a time
 //     into a ring of NARROW_STAGES stages with a full and an empty
 //     mbarrier each; it refills a stage once every warp has released it
-//     (a third stage gained nothing in dq);
+//     (a third stage gained nothing in dq and cost the forward at D <= 64
+//     blocks an SM);
 //   - the staged rows are 128 dims wide in TMA's 128-byte swizzle, two
 //     [64 x 64] slabs a tile, at D = 80 and 128: at D = 80 the second
 //     slab's box reaches past the tensor's 80 dims and TMA writes zeros
@@ -2163,13 +2039,15 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     (m64n32k16 reads the first half of each swizzled row). This layout
 //     shares every descriptor with D = 64; a 64-byte-swizzled one (its own
 //     descriptors, half the shared memory, which registers make moot) gave
-//     the same bits, dq in the same time and dk/dv 1.3% slower (PERF.md);
+//     the same bits, dq in the same time, dk/dv 1.3% and the forward 0.7%
+//     slower (PERF.md);
 //   - the forward: S = Q K^T is wgmma.m64n64k16 with both operands in
 //     shared memory (K-major) over the real 16-dim steps in order; the
-//     online softmax of attn_fwd_mma_kernel on the accumulator (its 8-column
-//     groups in order are mma.sync's s[c][j], so the max, p and the
-//     denominator are summed in that kernel's order: attention_fwd_emulation
-//     holds for both); p split into hi and lo is the register A operand of
+//     online softmax of the mma.sync design above on the accumulator (its
+//     8-column groups in order are an mma.sync kernel's s[c][j], so the
+//     max, p and the denominator are summed in the order of the mma.sync
+//     forward it replaced at D <= 64: attention_fwd_emulation holds for
+//     it); p split into hi and lo is the register A operand of
 //     acc += P V, hi then lo for each 16-key step in order, the v tile read
 //     as MN-major B. Out and lse are plain guarded stores (each row's lse
 //     by one thread), as a 1-D TMA map of per-row values traps where a
@@ -2221,25 +2099,25 @@ attn_fwd_wide_mma_kernel(const __grid_constant__ CUtensorMap q_map,
 //     and dP^T are 128 a thread alone; at two blocks it spilled 772 bytes
 //     and ran 50% slower than at one). One dq block an SM ran as fast at
 //     D = 32 and 13-18% slower at 64 (probes/k3_grad_narrow.py, PERF.md).
-//     The forward holds D / 2 accumulators (40, 64) beside S (32) and p's
-//     hi and lo (32), which fit the 128 registers a thread of two blocks an
-//     SM with no spill;
+//     The forward holds D / 2 accumulators (16, 32, 40, 64) beside S (32)
+//     and p's hi and lo (32), which fit 128 registers a thread with no
+//     spill, and at D = 32 80 (FwdNarrowPlan<D>::BLOCKS; at 64 80 spilled);
 //     two blocks, one's softmax beside the other's products, ran faster
-//     than one block with more registers at both D (probes/
+//     than one block with more registers at D = 80 and 128 (probes/
 //     k3_fwd_narrow.py, PERF.md). Issuing the next tile's S before the
 //     softmax instead (two S buffers, one block) made ptxas serialise the
 //     wgmmas: not kept;
 //   - shared memory: the block's rows (64 KB; the forward's q 32 KB) and
 //     two stages of two tiles (64 KB), 129 KB with the alignment
-//     (GradPlan<D>::SMEM; the forward's 97 KB, NARROW_FWD_SMEM, so that two
-//     blocks fit an SM), and dk/dv's 2 KB of lse and delta; at D <= 64
-//     half of that (65 KB), which two blocks an SM fit.
+//     (GradPlan<D>::SMEM; the forward's 97 KB, FwdNarrowPlan<D>::SMEM, so
+//     that two blocks fit an SM), and dk/dv's 2 KB of lse and delta; at
+//     D <= 64 half of that (65 KB; the forward's 41 KB in its blocks of one
+//     warpgroup, five an SM).
 
 constexpr int NARROW_WGS = 2;                      // warpgroups a block
 constexpr int NARROW_THREADS = 128 * NARROW_WGS;
 constexpr int NARROW_ROWS = TILE * NARROW_WGS;     // rows a block owns
 constexpr int NARROW_STAGES = 2;
-constexpr int NTILE_BYTES = 2 * SLAB_BYTES;        // 64 rows x 128 dims
 
 // The gradient kernels' staged rows at head dim D: one 64-dim slab at
 // D <= 64 (at D = 32 TMA zero-fills dims 32-63), two at 80 and 128.
@@ -2262,9 +2140,39 @@ template <int D>
 __host__ __device__ constexpr int dkdv_wgmma_blocks() {
   return D > 32 ? 1 : 2;
 }
-// the forward's: the block's q rows, then the stages' k and v tiles
-constexpr int NARROW_FWD_SMEM =
-    SW_ALIGN + NARROW_WGS * NTILE_BYTES + NARROW_STAGES * 2 * NTILE_BYTES;
+// The forward's blocks at D = 32 and 64: one warpgroup of 64 query rows
+// (FWD_NARROW_WGS), against two at 80 and 128: more blocks (twice as many
+// over the DETR decoder's 96 queries, 128 for 64 heads on 132 SMs) and
+// more of them an SM, 2-20% faster than blocks of two at D = 64 and at the
+// 1280 encoder's shape, 1-3% slower at D = 32 over 192-400 queries alone.
+// The blocks an SM that its registers are sized for (__launch_bounds__):
+// six leave 80 a thread at D = 32 (its accumulator 16), where shared
+// memory fits five blocks an SM, against four at the 115 registers of
+// four, 2% faster at the 1280 encoder's shape and 2-3% slower over 96-400
+// queries; at D = 64 80 registers spilled 2.3 KB and serialised the
+// wgmmas (8.7 times slower), and four blocks (128 registers) fit. A third
+// stage of the k and v ring (8 KB a tile each at D <= 64) left fewer
+// blocks an SM: 13% slower at both D (probes/k3_fwd_narrow.py, PERF.md).
+constexpr int FWD_NARROW_WGS = 1;
+constexpr int FWD_BLOCKS_32 = 6;
+constexpr int FWD_BLOCKS_64 = 4;
+constexpr int FWD_NARROW_STAGES = 2;
+// The forward's blocks at head dim D: warpgroups, threads, the blocks an
+// SM its registers are sized for, its staged rows (GradPlan's), its
+// stages, and its shared memory: the block's q rows, then the stages' k
+// and v tiles. At 80 and 128 two warpgroups and two blocks an SM.
+template <int D>
+struct FwdNarrowPlan {
+  static constexpr int WGS = D > SLAB ? NARROW_WGS : FWD_NARROW_WGS;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int BLOCKS =
+      D <= 32 ? FWD_BLOCKS_32 : D <= SLAB ? FWD_BLOCKS_64 : 2;
+  static constexpr int SLABS = GradPlan<D>::SLABS;
+  static constexpr int TILE_BYTES = GradPlan<D>::TILE_BYTES;
+  static constexpr int STAGES = D > SLAB ? NARROW_STAGES : FWD_NARROW_STAGES;
+  static constexpr int SMEM =
+      SW_ALIGN + WGS * TILE_BYTES + STAGES * 2 * TILE_BYTES;
+};
 
 // The first 1024-byte boundary at or after p (a swizzle atom's alignment).
 __device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* p) {
@@ -2320,64 +2228,66 @@ __device__ __forceinline__ void wgmma_over_rows(
   }
 }
 
-// The forward at D = 80 and 128: a block owns NARROW_ROWS query rows and
-// all D of their output; q_map, k_map and v_map are 3-D tensor maps of q,
-// k and v ([BH, T, D] bf16, boxes of 64 dims x 64 rows x 1, 128-byte
-// swizzle). Two blocks an SM: 128 registers a thread.
+// The forward at D = 32, 64, 80 and 128: a block of FwdNarrowPlan<D>::WGS
+// warpgroups owns 64 of their query rows each and all D of their output;
+// q_map, k_map and v_map are 3-D tensor maps of q, k and v ([BH, T, D]
+// bf16, boxes of 64 dims x 64 rows x 1, 128-byte swizzle).
 template <int D>
-__global__ void __launch_bounds__(NARROW_THREADS, 2)
+__global__ void __launch_bounds__(FwdNarrowPlan<D>::THREADS,
+                                  FwdNarrowPlan<D>::BLOCKS)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       bf16* __restrict__ out, float* __restrict__ lse,
                       int Tq, int Tk, int tiles, float scale) {
-  constexpr int STEPS = TILE / STEP;
+  using P = FwdNarrowPlan<D>;
+  constexpr int STEPS = TILE / STEP, STAGES = P::STAGES, wgs = P::WGS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ uint64_t q_full, full[NARROW_STAGES], empty[NARROW_STAGES];
-  // q [NARROW_WGS][NTILE_BYTES], then the stages' k and v tiles
-  // [stage][2][NTILE_BYTES]
+  __shared__ uint64_t q_full, full[STAGES], empty[STAGES];
+  // q [wgs][TILE_BYTES], then the stages' k and v tiles
+  // [stage][2][TILE_BYTES] (FwdNarrowPlan<D>::SMEM)
   unsigned char* sq = swizzle_aligned(smem_raw);
-  unsigned char* skv = sq + NARROW_WGS * NTILE_BYTES;
+  unsigned char* skv = sq + wgs * P::TILE_BYTES;
   const int bh = blockIdx.x / tiles;
-  const int first = (blockIdx.x % tiles) * NARROW_ROWS;
+  const int first = (blockIdx.x % tiles) * wgs * TILE;
   const int n_tiles = (Tk + TILE - 1) / TILE;
   if (threadIdx.x == 0) {
     barrier_init(&q_full, 1);
     // a stage is full after thread 0's one arrival and its bytes, empty
     // after one arrival of each warp
 #pragma unroll
-    for (int s = 0; s < NARROW_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       barrier_init(&full[s], 1);
-      barrier_init(&empty[s], 4 * NARROW_WGS);
+      barrier_init(&empty[s], 4 * wgs);
     }
     barrier_init_fence();
   }
   __syncthreads();
   auto load_tile = [&](int i) {  // keys i * TILE .. + 63 of k and of v
-    const int st = i % NARROW_STAGES;
-    unsigned char* dst = skv + st * 2 * NTILE_BYTES;
-    barrier_expect_bytes(&full[st], 2 * NTILE_BYTES);
-    for (int s = 0; s < 2; ++s) {
+    const int st = i % STAGES;
+    unsigned char* dst = skv + st * 2 * P::TILE_BYTES;
+    barrier_expect_bytes(&full[st], 2 * P::TILE_BYTES);
+    for (int s = 0; s < P::SLABS; ++s) {
       tma_load_3d(dst + s * SLAB_BYTES, &k_map, &full[st], s * SLAB,
                   i * TILE, bh);
-      tma_load_3d(dst + NTILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
+      tma_load_3d(dst + P::TILE_BYTES + s * SLAB_BYTES, &v_map, &full[st],
                   s * SLAB, i * TILE, bh);
     }
   };
   if (threadIdx.x == 0) {
-    barrier_expect_bytes(&q_full, NARROW_WGS * NTILE_BYTES);
-    for (int w = 0; w < NARROW_WGS; ++w)
-      for (int s = 0; s < 2; ++s)
-        tma_load_3d(sq + w * NTILE_BYTES + s * SLAB_BYTES, &q_map, &q_full,
-                    s * SLAB, first + w * TILE, bh);
-    for (int i = 0; i < NARROW_STAGES && i < n_tiles; ++i) load_tile(i);
+    barrier_expect_bytes(&q_full, wgs * P::TILE_BYTES);
+    for (int w = 0; w < wgs; ++w)
+      for (int s = 0; s < P::SLABS; ++s)
+        tma_load_3d(sq + w * P::TILE_BYTES + s * SLAB_BYTES, &q_map,
+                    &q_full, s * SLAB, first + w * TILE, bh);
+    for (int i = 0; i < STAGES && i < n_tiles; ++i) load_tile(i);
   }
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int grp = lane / 4, tig = lane % 4;
   const int r0 = first + wg * TILE + warp * STEP + grp;  // rows r0, r0 + 8
   const long long q_base = static_cast<long long>(bh) * Tq;
-  const unsigned char* q_rows = sq + wg * NTILE_BYTES;
+  const unsigned char* q_rows = sq + wg * P::TILE_BYTES;
   const float scale2 = scale * LOG2E;
   // per row: the running max of the unscaled q.k, and this thread's share
   // of the denominator (its 16 of a tile's 64 keys; summed over the row's
@@ -2390,19 +2300,19 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   barrier_wait(&q_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % NARROW_STAGES, k0 = i * TILE;
-    const unsigned char* k_tile = skv + st * 2 * NTILE_BYTES;
-    const unsigned char* v_tile = k_tile + NTILE_BYTES;
+    const int st = i % STAGES, k0 = i * TILE;
+    const unsigned char* k_tile = skv + st * 2 * P::TILE_BYTES;
+    const unsigned char* v_tile = k_tile + P::TILE_BYTES;
     float s[STEPS][2][4];
     float(&s_flat)[32] = reinterpret_cast<float(&)[32]>(s);
-    barrier_wait(&full[st], (i / NARROW_STAGES) & 1);
+    barrier_wait(&full[st], (i / STAGES) & 1);
     wgmma_fence();
     wgmma_over_dims<D>(s_flat, q_rows, k_tile);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_hold(s_flat);
 
-    // attn_fwd_mma_kernel's softmax step: keys past Tk (zero rows from
+    // the mma.sync design's softmax step: keys past Tk (zero rows from
     // TMA) are masked in the last tile; key k0 is real, so every row's
     // max is a real logit
     const bool ragged = k0 + TILE > Tk;  // the same for every thread
@@ -2455,9 +2365,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_hold(acc_flat);
     // the stage is released; once every warp has, thread 0 refills it
     if (lane == 0) barrier_arrive(&empty[st]);
-    if (threadIdx.x == 0 && i + NARROW_STAGES < n_tiles) {
-      barrier_wait(&empty[st], (i / NARROW_STAGES) & 1);
-      load_tile(i + NARROW_STAGES);
+    if (threadIdx.x == 0 && i + STAGES < n_tiles) {
+      barrier_wait(&empty[st], (i / STAGES) & 1);
+      load_tile(i + STAGES);
     }
     __syncwarp();
   }
@@ -3042,9 +2952,10 @@ static_assert(2 * (GradPlan<64>::SMEM + 1024) <= 233472 &&
               "two blocks of the wgmma gradient kernels at D <= 64 pass an "
               "H100 SM's shared memory (with the 1 KB it keeps for each "
               "block)");
-static_assert(2 * (NARROW_FWD_SMEM + 1024) <= 233472,
-              "two blocks of the wgmma forward pass an H100 SM's shared "
-              "memory (with the 1 KB it keeps for each block)");
+static_assert(2 * (FwdNarrowPlan<128>::SMEM + 1024) <= 233472,
+              "two blocks of the wgmma forward at D = 80 and 128 pass an "
+              "H100 SM's shared memory (with the 1 KB it keeps for each "
+              "block)");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
                   resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448 &&
                   FwdPlan<2>::SMEM <= 232448 &&
@@ -3173,6 +3084,7 @@ template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* out, void* lse, int BH, int Tq, int Tk,
                              float scale, cudaStream_t stream) {
+  using P = FwdNarrowPlan<D>;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   const int rows[3] = {Tq, Tk, Tk};
@@ -3180,11 +3092,10 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
     const cudaError_t err = rows_tensor_map(&maps[i], bases[i], BH, rows[i], D);
     if (err != cudaSuccess) return err;
   }
-  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<D>, NARROW_FWD_SMEM);
+  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<D>, P::SMEM);
   if (err != cudaSuccess) return err;
-  const int tiles = (Tq + NARROW_ROWS - 1) / NARROW_ROWS;
-  attn_fwd_wgmma_kernel<D><<<BH * tiles, NARROW_THREADS, NARROW_FWD_SMEM,
-                             stream>>>(
+  const int tiles = (Tq + P::WGS * TILE - 1) / (P::WGS * TILE);
+  attn_fwd_wgmma_kernel<D><<<BH * tiles, P::THREADS, P::SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out),
       static_cast<float*>(lse), Tq, Tk, tiles, scale);
   return cudaGetLastError();
@@ -3350,17 +3261,24 @@ cudaError_t grad_wgmma_occupancy(bool dq, int* blocks, int* smem) {
                         blocks);
 }
 
-// Blocks an SM of the bf16 wgmma kernel `kernel` at D = 80 and 128 (the
-// forward; dq and dk/dv at 32 and 64 too).
+// Blocks an SM of the bf16 wgmma forward at head dim D as launch_fwd
+// launches it (FwdNarrowPlan<D>), and its dynamic shared memory.
+template <int D>
+cudaError_t fwd_wgmma_occupancy(int* blocks, int* smem) {
+  *smem = FwdNarrowPlan<D>::SMEM;
+  return occupancy(attn_fwd_wgmma_kernel<D>, FwdNarrowPlan<D>::THREADS,
+                   *smem, blocks);
+}
+
+// Blocks an SM of the bf16 wgmma kernel `kernel` (the forward, dq or
+// dk/dv) at D = 32, 64, 80 and 128.
 cudaError_t narrow_occupancy(int kernel, int D, int* blocks, int* smem) {
-  if (kernel == 0) {
-    if (D != 80 && D != 128) return cudaErrorInvalidValue;
-    *smem = NARROW_FWD_SMEM;
-    return D == 80 ? occupancy(attn_fwd_wgmma_kernel<80>, NARROW_THREADS,
-                               *smem, blocks)
-                   : occupancy(attn_fwd_wgmma_kernel<128>, NARROW_THREADS,
-                               *smem, blocks);
-  }
+  if (kernel == 0)
+    return D == 32    ? fwd_wgmma_occupancy<32>(blocks, smem)
+           : D == 64  ? fwd_wgmma_occupancy<64>(blocks, smem)
+           : D == 80  ? fwd_wgmma_occupancy<80>(blocks, smem)
+           : D == 128 ? fwd_wgmma_occupancy<128>(blocks, smem)
+                      : cudaErrorInvalidValue;
   const bool dq = kernel == 1;
   return D == 32    ? grad_wgmma_occupancy<32>(dq, blocks, smem)
          : D == 64  ? grad_wgmma_occupancy<64>(dq, blocks, smem)

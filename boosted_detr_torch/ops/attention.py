@@ -49,24 +49,23 @@ model either. They take contiguous [BH, T, D] tensors: the MHA folds its
 heads into that layout before the call (one copy each of q, k and v), so
 the kernels need no strides. float32 inputs multiply in float32 on the
 CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
-D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: the forward
-up to D = 64 on ``mma.sync`` with bf16 operands and float32 sums, a
-block's 64 rows in registers, the other operand streamed in 64-row tiles
-two deep with ``cp.async`` (16 bytes at a time, so q, k, v and g must be
-aligned to that or the wrapper raises; the TMA kernels need the same);
-dq at D = 32 and dk/dv too where the other operand's stream is short (at
-most ``SHORT_STREAM`` rows: the DETR decoder's attention); dq and dk/dv
-otherwise up to D = 128, and the forward at 80 and 128, on ``wgmma`` and
-TMA (``attn_dq_wgmma_kernel``,
-``attn_dkdv_wgmma_kernel``, ``attn_fwd_wgmma_kernel``: two warpgroups of
-64 rows, the block's rows resident, the streamed tiles in a ring of
-stages, p and ds from registers as the A operand of the second products,
-the sums in the ``mma.sync`` kernels' order, so that the same emulations
-describe both; rows staged 64 dims wide at D <= 64, TMA's zeros past
-dim 32 at D = 32; ``narrow_forward_kernel`` and
-``narrow_gradient_kernels`` name the route up to 128,
-``kernel_occupancy`` gives their blocks an SM); the wide forward at
-D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
+D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: dq at D = 32
+and dk/dv at D <= 64 where the other operand's stream is short (at most
+``SHORT_STREAM`` rows: the DETR decoder's attention) on ``mma.sync`` with
+bf16 operands and float32 sums, a block's 64 rows in registers, the other
+operand streamed in 64-row tiles two deep with ``cp.async`` (16 bytes at
+a time, so q, k, v and g must be aligned to that or the wrapper raises;
+the TMA kernels need the same); the forward, and dq and dk/dv otherwise,
+up to D = 128 on ``wgmma`` and TMA (``attn_fwd_wgmma_kernel``,
+``attn_dq_wgmma_kernel``, ``attn_dkdv_wgmma_kernel``: warpgroups of 64
+rows, two a block but one in the forward at D <= 64, the block's rows
+resident, the streamed tiles in a ring of stages, p and ds from registers
+as the A operand of the second products, the sums in the ``mma.sync``
+kernels' order, so that the same emulations describe both; rows staged 64
+dims wide at D <= 64, TMA's zeros past dim 32 at D = 32;
+``narrow_forward_kernel`` and ``narrow_gradient_kernels`` name the route
+up to 128, ``kernel_occupancy`` gives their blocks an SM); the wide
+forward at D = 256 and 384 on ``wgmma`` as above. The exact bf16 q.k product is
 scaled as a float32 logit, and p and ds, float32 on the TPU, enter the
 second products as two bf16 values each (hi + lo, ~16 mantissa bits): one
 bf16 rounding of p moves a tenth of the forward's outputs past one ulp.
@@ -403,11 +402,11 @@ def _narrow_padded(d: int) -> int:
 
 def narrow_forward_kernel(d: int) -> str:
     """The name of the bf16 forward kernel that a launch at head dim ``d``
-    up to ``CHUNK`` runs: ``attn_fwd_mma_kernel`` (``mma.sync``) up to
-    D = 64, ``attn_fwd_wgmma_kernel`` (TMA, q resident) at D = 80 and 128,
-    after padding."""
-    route = "wgmma" if _narrow_padded(d) > 64 else "mma"
-    return f"attn_fwd_{route}_kernel"
+    up to ``CHUNK`` runs: ``attn_fwd_wgmma_kernel`` (TMA, q resident), in
+    blocks of one warpgroup up to D = 64 and of two at 80 and 128, after
+    padding."""
+    _narrow_padded(d)
+    return "attn_fwd_wgmma_kernel"
 
 
 def narrow_gradient_kernels(d: int, tq: int, tk: int) -> Tuple[str, str]:
@@ -429,9 +428,10 @@ def narrow_gradient_kernels(d: int, tq: int, tk: int) -> Tuple[str, str]:
 def kernel_occupancy(kernel: str, d: int) -> Tuple[int, int]:
     """(blocks an SM, dynamic shared memory in bytes) of the bf16
     ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkdv"``) on the wgmma route at
-    head dim ``d`` up to ``CHUNK`` as built (the forward at 80 and 128, dq
-    and dk/dv at 32, 64, 80 and 128), or on the wide route that a launch at
-    ``d`` past it (a multiple of it) takes, from
+    head dim ``d`` up to ``CHUNK`` as built (32, 64, 80 and 128; the
+    forward in the blocks it launches, of one warpgroup at D <= 64 and of
+    two at 80 and 128), or on the wide route that a launch at ``d`` past
+    it (a multiple of it) takes, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card."""
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)

@@ -7,10 +7,10 @@ autograd ``FusedAttentionFn`` on the card against its CPU route, the
 kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
 tensor. Head dims 32, 64, 80 (ViT-Huge's, with no padded copy) and 128
-run as built, in bf16 dq and dk/dv at all four and the forward at 80 and
-128 on the wgmma kernels (the forward at 32 and 64 on mma.sync); 16, 48,
-72 and 96 padded with zeros to the next; past
-128, multiples of 128 (256, 384, 512) run on the wide kernels and any
+run as built, in bf16 the forward, dq and dk/dv at all four on the wgmma
+kernels (the forward at D <= 64 in blocks of one warpgroup; dq and dk/dv
+on mma.sync over short streams); 16, 48, 72 and 96 padded with zeros to
+the next; past 128, multiples of 128 (256, 384, 512) run on the wide kernels and any
 other D (160) padded to the next multiple: in bf16, the forward, dq and
 dk/dv on the resident kernels up to D = 384 (the forward on wgmma with
 TMA), on the chunked ones (128-wide chunks) from 512 on. It needs a CUDA
@@ -200,6 +200,10 @@ def _recorded(names_of, launched):
 # (Tq, Tk) of the profiled gradients: streams past SHORT_STREAM rows, and
 # at D <= 64 (dq over 96 keys, dk/dv over 96 queries) short ones too
 PROFILED_GRADIENTS = {"grad": (200, 330), "grad_short": (96, 96)}
+# (Tq, Tk) of the profiled forwards: streams of several key tiles, over
+# 200 queries and the decoder's 96, and at D <= 64 one key tile
+PROFILED_FORWARDS = {"fwd": (200, 330), "fwd_short": (96, 330),
+                     "fwd_one_tile": (200, 50)}
 
 
 def profiled_names(d):
@@ -207,12 +211,15 @@ def profiled_names(d):
     at head dim ``d`` and the inputs of the tests below, each built and
     loaded before its profile."""
     cuda = torch.device("cuda")
-    out = {"fwd": {}}
+    out = {}
     for dtype in ("float32", "bfloat16"):
-        qkv = _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
-        ta.attention_fwd(*qkv)
-        out["fwd"][dtype] = _recorded(
-            lambda: _kernel_names(lambda: ta.attention_fwd(*qkv)), 1)
+        for kind, (tq, tk) in PROFILED_FORWARDS.items():
+            if kind != "fwd" and d > 64:
+                continue
+            qkv = _inputs(cuda, 3, tq, tk, d, dtype, seed=3)[:3]
+            ta.attention_fwd(*qkv)
+            out.setdefault(kind, {})[dtype] = _recorded(
+                lambda: _kernel_names(lambda: ta.attention_fwd(*qkv)), 1)
         for kind, (tq, tk) in PROFILED_GRADIENTS.items():
             if kind == "grad_short" and d > 64:
                 continue
@@ -374,21 +381,25 @@ def test_narrow_gradients_launch_their_kernels(cuda, _profiled, d, profile,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,route", [(32, "mma"), (64, "mma"), (80, "wgmma"),
-                                     (128, "wgmma")])
+@pytest.mark.parametrize("d,route", [(32, "wgmma"), (64, "wgmma"),
+                                     (80, "wgmma"), (128, "wgmma")])
 def test_narrow_forward_launches_its_kernel(cuda, _profiled, d, route):
-    """Up to D = 128 the bf16 forward runs ``attn_fwd_mma_kernel`` at
-    D <= 64 and ``attn_fwd_wgmma_kernel`` (wgmma, TMA, q resident) at 80
-    and 128, by name from a profile in a fresh process, as
+    """Up to D = 128 the bf16 forward runs ``attn_fwd_wgmma_kernel``
+    (wgmma, TMA, q resident; ``route``; at D <= 64 in blocks of one
+    warpgroup, over several key tiles or one, 200 queries or the decoder's
+    96), by name from a profile in a fresh process, as
     ``narrow_forward_kernel`` names it; float32 keeps its CUDA-core
     kernel."""
-    names = _profiled[d]["fwd"]
-    assert len(names["bfloat16"]) == len(names["float32"]) == 1, names
-    name = ta.narrow_forward_kernel(d)
-    assert name == f"attn_fwd_{route}_kernel"
-    # a template's name is followed by its arguments
-    assert f"{name}<{d}>" in names["bfloat16"][0], names
-    assert "attn_fwd_kernel<" in names["float32"][0], names
+    for kind in PROFILED_FORWARDS:
+        if kind != "fwd" and d > 64:
+            continue
+        names = _profiled[d][kind]
+        assert len(names["bfloat16"]) == len(names["float32"]) == 1, names
+        name = ta.narrow_forward_kernel(d)
+        assert name == f"attn_fwd_{route}_kernel"
+        # a template's name is followed by its arguments
+        assert f"{name}<{d}>" in names["bfloat16"][0], names
+        assert "attn_fwd_kernel<" in names["float32"][0], names
 
 
 @pytest.mark.gpu
@@ -583,6 +594,44 @@ def test_forward_repeats_bit_for_bit(cuda, bh, tq, tk, d, dtype):
     for a, b in zip(first, second):
         assert a.abs().sum() > 0
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    # ragged lengths 17, 70, 130, 300 and 520 at D = 32, 48 (padded to 64)
+    # and 64
+    (3, 17, 70, 32), (3, 130, 520, 64), (3, 300, 17, 48), (3, 520, 130, 32),
+    (3, 70, 300, 48), (3, 520, 300, 64),
+    # one key tile and one key past it, over 256 and 257 queries, and a
+    # single real key
+    (3, 256, 64, 32), (3, 257, 64, 64), (3, 256, 65, 48), (3, 129, 17, 32),
+    (3, 300, 1, 32), (3, 17, 1, 64), (3, 130, 1, 48),
+    # the DETR decoder's and the 1280 encoder's, 2 of their heads
+    (2, 96, 96, 32), (2, 96, 1600, 32), (2, 1600, 1600, 32),
+    (2, 1600, 1600, 64)])
+def test_narrow_forward_matches_plain_and_emulation(cuda, bh, tq, tk, d):
+    """The bf16 forward at D <= 64 (``attn_fwd_wgmma_kernel`` in blocks of
+    one warpgroup) against the plain version (one bf16 ulp over 1e-5; the
+    lse within 1e-5) and the emulation of its arithmetic (at least 99.7%
+    of the values equal, the others a neighbour: wgmma may sum inside a
+    16-dim step otherwise than ``mma.sync``, whose order the emulation
+    follows; the lse within 1e-5); a second launch gives the same bits,
+    and each adds one to ``attention_fwd.launches``."""
+    q, k, v = _inputs(cuda, bh, tq, tk, d, "bfloat16", seed=8)[:3]
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    emu, emu_lse = _emulated(ta.attention_fwd_emulation, q, k, v)
+    before = ta.attention_fwd.launches
+    out, lse = ta.attention_fwd(q, k, v)
+    again = ta.attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert ta.attention_fwd.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    _assert_close(out, want, "bfloat16")
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    share = _one_bf16_ulp(out, emu)
+    print(f"equal to the emulation (out): {share}")
+    assert share >= 0.997, share
+    torch.testing.assert_close(lse, emu_lse, atol=1e-5, rtol=1e-5)
 
 
 # A bf16 ViT DETR whose blocks have width 160 over 2 heads: D = 80, which

@@ -5,7 +5,8 @@ their launches counted; small bf16 models exported for ``cuda``, whose
 loaded programs equal the live models bit for bit and count one launch of
 each op a forward; and, in a process of its own (a profiler once attached
 stays attached in its process), the loaded artifacts' device kernels by
-name: ``patchify_fwd_mma_kernel`` and ``attn_fwd_mma_kernel``. It needs a
+name: ``patchify_fwd_mma_kernel`` and the bf16 forward at D = 32 that
+``narrow_forward_kernel`` names (``attn_fwd_wgmma_kernel``). It needs a
 CUDA card and nvcc, skips without a card, and imports nothing of JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_serving_kernel.py
@@ -146,4 +147,6 @@ def test_loaded_artifacts_run_the_tensor_core_kernels(cuda, tmp_path):
     assert any("patchify_fwd_mma_kernel" in n for n in names["resnet"]), names
     assert not any("attn_" in n for n in names["resnet"]), names
     assert any("patchify_fwd_mma_kernel" in n for n in names["vit"]), names
-    assert any("attn_fwd_mma_kernel" in n for n in names["vit"]), names
+    # 16 patches and 16 object queries, D = 32
+    assert any(ta.narrow_forward_kernel(32) in n
+               for n in names["vit"]), names
