@@ -11,13 +11,12 @@
 //     problem's cost rows and two ints a column slot fit in the 227 KB of
 //     shared memory a block may use: the flagship's [8, 32, 96] and every
 //     shape up to C = 1024 at O * P <= ~57,000;
-//   - lap_columns_kernel (the columns route) for every other shape, such as
-//     DINO's 900 queries at 120 objects (C = 1021, but 432 KB of cost rows)
-//     or P = 2000 (C = 2065): the cost rows stay in device memory and the
-//     step reads row i0 from L2, and the column state (v, minv, way, used,
-//     the owners) lives in shared memory, 17 bytes a column, or, past
-//     ~13,600 columns, in a scratch buffer in device memory that the caller
-//     allocates (generic pointers: the same code reads either).
+//   - lap_columns_kernel<K> (the columns route) for every other shape, such
+//     as DINO's 900 queries at 120 objects (C = 1021, but 432 KB of cost
+//     rows) or P = 2000 (C = 2065): the cost rows stay in device memory
+//     (prefetched into L2) and every step reads row i0 from there; the
+//     column state lives in K register slots a thread up to C = 4096, past
+//     that in a scratch buffer in device memory that the caller allocates.
 //
 // Columns: the P real ones, then one private dummy column per row (cost
 // -BIG to its row when the row is inactive, +BIG otherwise), then a virtual
@@ -30,8 +29,8 @@
 // chain: O augmentations of up to i + 1 Dijkstra steps each, every step a
 // dependent min over C columns, then a walk back. The TPU kernel advances
 // all problems in lockstep on its vector lanes; here each problem has its
-// own warp, and the slots route's design shortens that warp's dependent
-// chain:
+// own block, and the slots route's design shortens the dependent chain of
+// the one warp that solves:
 //   - one block of 8 warps per problem: all 256 threads copy its cost
 //     rows into shared memory (16-byte cp.async, all in flight at once)
 //     and write its mask (16-byte stores), warp 0 alone solves;
@@ -56,18 +55,51 @@
 //     makes its columns' tags from them when a row's search starts; lane 0
 //     walks back along way (copied to shared memory at the end of each
 //     search), two loads and a store a step.
-// The columns route keeps the same warp and the same arithmetic but loops:
-// lane l takes columns l, l + 32, ... in each step, its minimum is the
-// first of the smallest in column order, and the warp's argmin takes the
-// lowest column among the lanes at the minimum; the next row is then one
-// read of the owners. Its step costs ~C / 32 loop turns of shared-memory
-// reads where the slots route's is straight-line registers: correct and
-// simple, not fast (ROADMAP Queue 2).
+// The columns route cannot hold its cost rows in one block's shared
+// memory, so a step waits on an L2 read; its design keeps that read the
+// one long wait of the step and spreads the rest over the block:
+//   - one block of 256 threads a problem, every thread in every step:
+//     column j lives in thread j % 256, slot j / 256, with v, minv, way
+//     and its tag in registers and its used flag in a bit mask (K slots,
+//     3 to 16, a template argument fitted to C); at C = 1021 that is 4
+//     columns a thread where the first design looped 32 times in one warp;
+//   - the step is straight-line: all of a thread's cost reads of row i0
+//     issued at once (coalesced across the warp; a search's first step,
+//     on row i, reads registers filled during the last search's walk
+//     back, since most searches take that one step alone), the last
+//     step's dual update applied to each column at the top of the next
+//     step's pass (the same operations on each column, in the same
+//     order), the relaxation, the thread's first smallest by halves;
+//   - the block's argmin in two levels: the warp's two redux.sync over the
+//     order-preserving key and the tag (the owner in its low bits, so the
+//     next row needs no load), each warp's pair to shared memory, one
+//     __syncthreads (two rooms alternate by step), two redux.sync over the
+//     8 pairs in every warp;
+//   - row r's dual u lives in thread r with its `hit` flag; the duals of
+//     rows not yet visited in a search do not change in it, so a step reads
+//     u[i0] from shared memory, written at the end of each search;
+//   - the problem's cost rows are prefetched into L2 at the start: most
+//     searches are one step on a row read for the first time;
+//   - the walk back stays serial: each thread writes its columns' way to
+//     shared memory at the end of a search and thread 0 walks, while the
+//     others write that search's row of the mask as zeros (one SM's store
+//     rate would make the whole mask ~14 us at [120, 900]); the ones go in
+//     after the last search;
+//   - past 16 slots a thread the same block loops over its columns with
+//     their state in device memory, and the next row is one read of the
+//     owners.
+// Measured against this design (probes/lap_phases.py --variants; PERF.md,
+// PR 23) and not kept: the cost rows in the shared memory of a
+// thread-block cluster of 2 or 4 blocks a problem, the argmin through
+// distributed shared memory and a cluster barrier a step (2.3-3.0x
+// slower: the cluster barrier costs more than the L2 read it saves); the
+// step's barrier as an mbarrier phase; the cross-warp argmin as a tree in
+// each thread; the largest L1 carveout.
 // On both routes the float32 arithmetic is the plain version's
 // (ops/lap.py), operation for operation and in its order, so the two give
-// the same mask, ties included. A step count cap of C per search and per augmentation cannot
-// bind on finite costs (each step marks a new column used) and keeps NaN
-// costs from hanging the card.
+// the same mask, ties included. A step count cap of C per search and per
+// augmentation cannot bind on finite costs (each step marks a new column
+// used) and keeps NaN costs from hanging the card.
 //
 // Built with -DLAP_PHASES (probes/lap_phases.py), the kernel stamps its
 // phases with clock64() into the buffer given to lap_phase_buffer; the
@@ -85,6 +117,11 @@ constexpr int MAX_OBJECTS = 120;  // rows: 4 row slots a lane
 // Columns a lane may hold; the kernel takes the fewest that hold C.
 constexpr int SLOT_CHOICES[] = {5, 8, 12, 16, 24, 32};
 constexpr int SMEM_LIMIT = 232448;  // the most a block may use on an H100
+// The columns route: the threads of one problem's block, and the column
+// slots a thread may hold in registers (it takes the fewest that hold C).
+constexpr int COLUMN_THREADS = 256;
+constexpr int COLUMN_WARPS = COLUMN_THREADS / WARP;
+constexpr int COLUMN_SLOT_CHOICES[] = {3, 4, 6, 8, 10, 12, 16};
 constexpr float BIG = 1e9f;
 constexpr float INF = 1e30f;
 
@@ -107,6 +144,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
                "l"(src)
                : "memory");
+}
+
+// Asks L2 for the 128-byte line at `p`, without waiting for it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // The minimum over the lanes of (value, index) in every lane, the lowest
@@ -136,6 +178,63 @@ __device__ __forceinline__ int walk_back(const int* __restrict__ way,
     j0 = j1;
   }
   return step;
+}
+
+// The order-preserving key of a float32 (-0.0 + 0.0 is +0.0, then
+// negative floats flipped whole and positive ones above them), and back.
+__device__ __forceinline__ unsigned order_key(float value) {
+  const unsigned bits = __float_as_uint(__fadd_rn(value, 0.f));
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// The least (key, tag) over the threads of a columns-route block, the
+// lowest tag winning a tie, in every thread: two redux.sync in each warp,
+// each warp's pair to `room`, one barrier, then two redux.sync over the
+// warps' pairs. Steps alternate between two rooms, so that no thread
+// writes one before every thread has read it.
+__device__ __forceinline__ unsigned long long block_argmin(
+    unsigned key, unsigned tag, unsigned long long* room) {
+  const unsigned least = __reduce_min_sync(0xffffffffu, key);
+  const unsigned first =
+      __reduce_min_sync(0xffffffffu, key == least ? tag : ~0u);
+  const int lane = threadIdx.x % WARP;
+  if (lane == 0)
+    room[threadIdx.x / WARP] =
+        static_cast<unsigned long long>(least) << 32 | first;
+  __syncthreads();
+  const unsigned long long theirs = lane < COLUMN_WARPS ? room[lane] : ~0ull;
+  const unsigned key_w = static_cast<unsigned>(theirs >> 32);
+  const unsigned block_least = __reduce_min_sync(0xffffffffu, key_w);
+  const unsigned block_first = __reduce_min_sync(
+      0xffffffffu,
+      key_w == block_least ? static_cast<unsigned>(theirs) : ~0u);
+  return static_cast<unsigned long long>(block_least) << 32 | block_first;
+}
+
+// The cost of column j from row i0 (`row` = its costs): a real column's,
+// or the dummies' -BIG for an inactive row's own and +BIG otherwise.
+__device__ __forceinline__ float column_cost(const float* row, int j, int P,
+                                             int i0, bool i0_inactive) {
+  float c = (j == P + i0 && i0_inactive) ? -BIG : BIG;
+  if (j < P) c = __ldg(row + j);
+  return c;
+}
+
+// One column's part of a Dijkstra step from row i0 (dual u_i0, cost c to
+// the column): its distance and predecessor, and what it offers the argmin
+// (INF once used). The plain version's float32 operations, in its order.
+__device__ __forceinline__ float relax(float c, float u_i0, float v,
+                                      bool used, int j0, float& minv,
+                                      int& way) {
+  const float reduced = __fsub_rn(__fsub_rn(c, u_i0), v);
+  const bool better = !used && reduced < minv;
+  minv = better ? reduced : minv;
+  way = better ? j0 : way;
+  return used ? INF : minv;
 }
 
 template <int S, int R>
@@ -354,123 +453,290 @@ int launch_rows(const float* cost, const int* num_objects, float* out, int B,
                                   stream);
 }
 
-// The columns route: one problem a block, warp 0 solves, every thread
-// clears the column state and writes the mask. The cost rows are read
-// from device memory; the column state sits at `scratch` + b * stride when
-// the caller gives a scratch buffer, else in dynamic shared memory.
-__global__ void __launch_bounds__(THREADS)
+// The columns route. One problem a block of COLUMN_THREADS threads, and
+// every thread takes part in every Dijkstra step: column j belongs to
+// thread j % COLUMN_THREADS, slot j / COLUMN_THREADS.
+//   - K > 0 (C <= K * COLUMN_THREADS, K from COLUMN_SLOT_CHOICES): a
+//     column's dual v, distance minv, predecessor way and tag live in
+//     registers and its used flag in a bit mask; the owners (match) and the
+//     predecessors of the walk back sit in shared memory;
+//   - K == 0 (past the slots, C > 16 * COLUMN_THREADS): every column's
+//     state sits at `scratch` + b * stride (17 bytes a column) and each
+//     thread loops over its columns.
+// A step reads row i0 of the cost from L2 (each thread its columns, all at
+// once, coalesced; with K > 0 a search's first step reads row i from
+// registers filled during the last walk back), applies the last step's
+// dual update (fused: each column sees the plain version's operations in
+// its order), relaxes, takes the thread's first smallest, then the
+// block's argmin (block_argmin: one barrier). With K > 0 the argmin runs
+// over tags, so it gives the next row too; with K == 0 the next row is one
+// read of the owners. Thread r < O keeps row r's dual u in a register; the
+// duals of the rows not yet visited in a search do not change in it, so a
+// step reads u[i0] from shared memory (written at the end of each
+// search). Search i writes row i of the mask as zeros during its walk
+// back, and the ones go in after the last search.
+template <int K>
+__global__ void __launch_bounds__(COLUMN_THREADS, 1)
 lap_columns_kernel(const float* __restrict__ cost,
                    const int* __restrict__ num_objects,
                    float* __restrict__ out, unsigned char* __restrict__ scratch,
-                   long long stride, int O, int P) {
-  extern __shared__ __align__(16) unsigned char smem[];
+                   long long stride, int O, int P, int vec) {
+  constexpr int T = COLUMN_THREADS;
+  constexpr int HELD = K > 0 ? K * T : 1;  // columns in registers
+  __shared__ unsigned long long s_room[2][COLUMN_WARPS];
+  __shared__ float s_u[MAX_OBJECTS];
+  __shared__ int s_match[HELD];
+  __shared__ int s_way[HELD];
+  LAP_ONLY(const long long t_entry = clock64();
+           long long t_dj = 0, n_dj = 0, t_aug = 0, n_aug = 0;)
+
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int C = P + O + 1;
   const int virt = C - 1;
   const int free_row = O;
-  unsigned char* state = scratch != nullptr ? scratch + b * stride : smem;
-  float* v = reinterpret_cast<float*>(state);  // [C] each, then used [C]
-  float* minv = v + C;
-  int* way = reinterpret_cast<int*>(minv + C);
-  int* match = way + C;
-  unsigned char* used = reinterpret_cast<unsigned char*>(match + C);
-  const long long base = static_cast<long long>(b) * O * P;
   const int n = num_objects[b];
-  for (int j = tid; j < C; j += THREADS) {
-    v[j] = 0.f;
-    match[j] = free_row;
+  const long long base = static_cast<long long>(b) * O * P;
+  int* match = s_match;
+  int* way_at = s_way;
+  float* v_at = nullptr;
+  float* minv_at = nullptr;
+  unsigned char* used_at = nullptr;
+  if constexpr (K == 0) {  // v, minv [C] float; way, match [C] int; used [C]
+    unsigned char* state = scratch + b * stride;
+    v_at = reinterpret_cast<float*>(state);
+    minv_at = v_at + C;
+    way_at = reinterpret_cast<int*>(minv_at + C);
+    match = way_at + C;
+    used_at = reinterpret_cast<unsigned char*>(match + C);
   }
+  // The problem's cost rows into L2, row 0 first, while the searches
+  // start: search i's first step reads row i, most often for the first
+  // time, and most searches take one step.
+  const char* rows = reinterpret_cast<const char*>(cost + base);
+  for (long long at = 128LL * tid; at < 4LL * O * P; at += 128LL * T)
+    prefetch_l2(rows + at);
+  for (int j = tid; j < (K > 0 ? HELD : C); j += T) {
+    match[j] = free_row;
+    if constexpr (K == 0) v_at[j] = 0.f;
+  }
+  if (tid < MAX_OBJECTS) s_u[tid] = 0.f;
+  float v[K > 0 ? K : 1];
+#pragma unroll
+  for (int s = 0; s < K; ++s) v[s] = 0.f;
+  // the costs of the next search's first step, row i's: read ahead, while
+  // the last search walks back (most searches take that one step alone)
+  float first[K > 0 ? K : 1];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    first[s] = column_cost(cost + base, s * T + tid, P, 0, 0 >= n);
+  float u = 0.f;  // the dual of row tid (tid < O)
+  int parity = 0;
   __syncthreads();
+  LAP_ONLY(const long long t_landed = clock64();)
 
-  if (tid < WARP) {
-    constexpr int R = MAX_OBJECTS / WARP + 1;  // row slots a lane: 4
-    const int lane = tid;
-    float u[R];
-    bool hit[R];
+  for (int i = 0; i < O; ++i) {
+    int j0 = virt;
+    int i0 = i;
+    float delta = 0.f;  // the last step's, applied in the next (x - 0 is x)
+    bool hit = false;   // row tid owns a used column
+    LAP_ONLY(const long long t_search = clock64();)
+    if constexpr (K > 0) {
+      // A column's tag is its index above its owner (the row inserted
+      // owns the virtual column), as on the slots route.
+      unsigned tag[K];
+      float minv[K];
+      int way[K];
+      unsigned used = 0;  // bit s: slot s's column is used
 #pragma unroll
-    for (int r = 0; r < R; ++r) u[r] = 0.f;
-
-    for (int i = 0; i < O; ++i) {
-      for (int j = lane; j < C; j += WARP) {
-        minv[j] = INF;
-        way[j] = virt;
-        used[j] = 0;
+      for (int s = 0; s < K; ++s) {
+        const int j = s * T + tid;
+        tag[s] = static_cast<unsigned>(j) << 8 |
+                 static_cast<unsigned>(j == virt ? i : match[j]);
+        minv[s] = INF;
+        way[s] = virt;
+        used |= (j >= C ? 1u : 0u) << s;  // the columns past C: never taken
       }
-      if (lane == 0) match[virt] = i;  // owned by the row inserted
-#pragma unroll
-      for (int r = 0; r < R; ++r) hit[r] = false;
-      __syncwarp();
-      int j0 = virt;
-      int i0 = i;
       for (int step = 0; step < C; ++step) {
+        LAP_ONLY(++n_dj;)
         if (i0 == free_row) break;  // j0 is free: the path ends there
-        float mine = u[0];
-#pragma unroll
-        for (int r = 1; r < R; ++r) mine = i0 >= r * WARP ? u[r] : mine;
-        const float u_i0 = __shfl_sync(0xffffffffu, mine, i0 & (WARP - 1));
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (r * WARP + lane == i0) hit[r] = true;
-        const bool i0_inactive = i0 >= n;
         const float* row = cost + base + static_cast<long long>(i0) * P;
-        // the lane's minimum in column order: the first of the smallest
-        float best = INF;
+        float c[K];
+        if (step == 0) {  // a branch, so that no load waits in this step
+#pragma unroll
+          for (int s = 0; s < K; ++s) c[s] = first[s];
+        } else {
+#pragma unroll
+          for (int s = 0; s < K; ++s)
+            c[s] = column_cost(row, s * T + tid, P, i0, i0 >= n);
+        }
+        const float u_i0 = s_u[i0];
+        // the last step's update: used columns lose delta, the others'
+        // distances shrink by it, rows owning used columns gain it
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          const bool taken = used >> s & 1u;
+          v[s] = taken ? __fsub_rn(v[s], delta) : v[s];
+          minv[s] = taken ? minv[s] : __fsub_rn(minv[s], delta);
+        }
+        u = hit ? __fadd_rn(u, delta) : u;
+        hit = hit || tid == i0;
+        if ((j0 & (T - 1)) == tid) used |= 1u << (j0 / T);
+        float masked[K];
+        unsigned pick[K];
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          masked[s] = relax(c[s], u_i0, v[s], used >> s & 1u, j0, minv[s],
+                            way[s]);
+          pick[s] = tag[s];
+        }
+        // the thread's minimum in column order, by halves: the lower slot
+        // keeps a tie
+#pragma unroll
+        for (int w = 1; w < K; w *= 2)
+#pragma unroll
+          for (int s = 0; s + w < K; s += 2 * w)
+            if (masked[s + w] < masked[s]) {
+              masked[s] = masked[s + w];
+              pick[s] = pick[s + w];
+            }
+        const unsigned long long best =
+            block_argmin(order_key(masked[0]), pick[0], s_room[parity]);
+        parity ^= 1;
+        delta = key_value(static_cast<unsigned>(best >> 32));
+        j0 = static_cast<int>(static_cast<unsigned>(best) >> 8);
+        i0 = static_cast<int>(best & 0xffu);
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if (used >> s & 1u) v[s] = __fsub_rn(v[s], delta);
+        way_at[s * T + tid] = way[s];
+      }
+      if (i + 1 < O) {
+        const float* next = cost + base + static_cast<long long>(i + 1) * P;
+#pragma unroll
+        for (int s = 0; s < K; ++s)
+          first[s] = column_cost(next, s * T + tid, P, i + 1, i + 1 >= n);
+      }
+    } else {
+      for (int j = tid; j < C; j += T) {
+        minv_at[j] = INF;
+        way_at[j] = virt;
+        used_at[j] = 0;
+      }
+      for (int step = 0; step < C; ++step) {
+        LAP_ONLY(++n_dj;)
+        if (i0 == free_row) break;
+        const float* row = cost + base + static_cast<long long>(i0) * P;
+        const float u_i0 = s_u[i0];
+        u = hit ? __fadd_rn(u, delta) : u;
+        hit = hit || tid == i0;
+        float low = INF;  // the thread's first smallest, in column order
         unsigned pick = ~0u;
-        for (int j = lane; j < C; j += WARP) {
-          if (j == j0) used[j] = 1;
-          float c = (j == P + i0 && i0_inactive) ? -BIG : BIG;
-          if (j < P) c = __ldg(row + j);
-          const bool taken = used[j];
-          const float reduced = __fsub_rn(__fsub_rn(c, u_i0), v[j]);
-          float dist = minv[j];
-          if (!taken && reduced < dist) {
-            dist = reduced;
-            minv[j] = reduced;
-            way[j] = j0;
+        for (int j = tid; j < C; j += T) {
+          const float c = column_cost(row, j, P, i0, i0 >= n);
+          bool taken = used_at[j];
+          float vj = v_at[j];
+          float mj = minv_at[j];
+          int wj = way_at[j];
+          if (taken)
+            vj = __fsub_rn(vj, delta);
+          else
+            mj = __fsub_rn(mj, delta);
+          if (j == j0) {
+            taken = true;
+            used_at[j] = 1;
           }
-          const float masked = taken ? INF : dist;
-          if (j == lane || masked < best) {
-            best = masked;
+          const float masked = relax(c, u_i0, vj, taken, j0, mj, wj);
+          v_at[j] = vj;
+          minv_at[j] = mj;
+          way_at[j] = wj;
+          if (pick == ~0u || masked < low) {
+            low = masked;
             pick = static_cast<unsigned>(j);
           }
         }
-        warp_argmin(best, pick);
-        // as the slots route: rows owning used columns gain delta, used
-        // columns lose it, the others' distances shrink by it
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          u[r] = hit[r] ? __fadd_rn(u[r], best) : u[r];
-        for (int j = lane; j < C; j += WARP) {
-          if (used[j])
-            v[j] = __fsub_rn(v[j], best);
-          else
-            minv[j] = __fsub_rn(minv[j], best);
-        }
-        j0 = static_cast<int>(pick);
+        const unsigned long long best = block_argmin(
+            pick == ~0u ? ~0u : order_key(low), pick, s_room[parity]);
+        parity ^= 1;
+        delta = key_value(static_cast<unsigned>(best >> 32));
+        j0 = static_cast<int>(static_cast<unsigned>(best));
         i0 = match[j0];  // owners change only in the walk back
       }
-      __syncwarp();  // every lane's way, before lane 0 walks
-      if (lane == 0) walk_back(way, match, j0, virt, C);
-      __syncwarp();  // the new owners, before any lane reads them
+      for (int j = tid; j < C; j += T)
+        if (used_at[j]) v_at[j] = __fsub_rn(v_at[j], delta);
     }
+    u = hit ? __fadd_rn(u, delta) : u;
+    if (tid < O) s_u[tid] = u;
+    LAP_ONLY(const long long t_searched = clock64();
+             t_dj += t_searched - t_search;)
+    __syncthreads();  // every column's predecessor, before the walk
+    // row i of the mask to zeros while thread 0 walks: one SM writes the
+    // whole mask of its problem, at a rate that would take ~14 us at
+    // [120, 900] after the last search; 16-byte stores where `vec` (P % 4
+    // == 0, `out` 16-byte aligned)
+    float* dst = out + base + static_cast<long long>(i) * P;
+    if (vec) {
+      for (int q = tid; q < P / 4; q += T)
+        reinterpret_cast<float4*>(dst)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int j = tid; j < P; j += T) dst[j] = 0.f;
+    }
+    if (tid == 0) {
+      match[virt] = i;  // the virtual column is owned by the row inserted
+      LAP_ONLY(n_aug +=) walk_back(way_at, match, j0, virt, C);
+    }
+    __syncthreads();  // the new owners, before any thread reads them
+    LAP_ONLY(t_aug += clock64() - t_searched;)
   }
-  __syncthreads();
+  LAP_ONLY(const long long t_solved = clock64();)
 
-  float* dst = out + base;
-  for (long long e = tid; e < static_cast<long long>(O) * P; e += THREADS) {
-    const int r = static_cast<int>(e / P);
-    dst[e] = (r < n && match[e - static_cast<long long>(r) * P] == r) ? 1.f
-                                                                       : 0.f;
+  // the mask's ones, after every row's zeros (the barrier above orders
+  // them): column j goes to its owner where the owner is active
+  for (int j = tid; j < P; j += T) {
+    const int r = match[j];
+    if (r < n) out[base + static_cast<long long>(r) * P + j] = 1.f;
   }
+
+  LAP_ONLY(
+      const long long t_end = clock64();
+      if (tid == 0 && lap_phase_out != nullptr) {
+        long long* rec = lap_phase_out + 8LL * b;
+        rec[0] = t_landed - t_entry;
+        rec[1] = t_dj;
+        rec[2] = n_dj;
+        rec[3] = t_aug;
+        rec[4] = n_aug;
+        rec[5] = t_end - t_solved;
+        rec[6] = t_end - t_entry;
+      })
 }
 
-// Bytes of one problem's column state on the columns route: v and minv
-// (float32), way and the owners (int32), a used flag, for each of the C
-// columns, rounded up to 16.
+// The register slots a thread of the columns route takes for O rows and P
+// columns: the fewest of COLUMN_SLOT_CHOICES that hold C, else 0 (the
+// column state in device memory).
+int column_slots_for(int O, int P) {
+  const long long C = static_cast<long long>(P) + O + 1;
+  for (int k : COLUMN_SLOT_CHOICES)
+    if (C <= static_cast<long long>(COLUMN_THREADS) * k) return k;
+  return 0;
+}
+
+// Bytes of one problem's column state in device memory past the register
+// slots: v and minv (float32), way and the owners (int32), a used flag, for
+// each of the C columns, rounded up to 16.
 long long columns_bytes(int O, int P) {
   const long long C = static_cast<long long>(P) + O + 1;
   return (17 * C + 15) / 16 * 16;
+}
+
+template <int K>
+int launch_columns(const float* cost, const int* num_objects, float* out,
+                   unsigned char* scratch, long long stride, int B, int O,
+                   int P, int vec, cudaStream_t stream) {
+  lap_columns_kernel<K><<<B, COLUMN_THREADS, 0, stream>>>(
+      cost, num_objects, out, scratch, stride, O, P, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -510,31 +776,50 @@ int lap_solve(const void* cost, const void* num_objects, void* out, int B,
   }
 }
 
-// Bytes of one problem's column state on the columns route (in shared
-// memory up to the 227 KB limit, else in the caller's scratch buffer).
-long long lap_columns_bytes(int O, int P) { return columns_bytes(O, P); }
+// The register slots a thread of the columns route takes for O rows and P
+// columns; 0 where C passes them and the column state is in device memory.
+int lap_columns_slots(int O, int P) { return column_slots_for(O, P); }
+
+// Bytes of device memory one problem's column state takes on the columns
+// route: 0 where it fits the register slots, else the scratch a problem.
+long long lap_columns_bytes(int O, int P) {
+  return column_slots_for(O, P) ? 0 : columns_bytes(O, P);
+}
 
 // Solves B problems by the columns route on `stream` and returns
-// cudaGetLastError(). As lap_solve, plus `scratch`: null to keep the
-// column state in shared memory (lap_columns_bytes(O, P) <= 232,448), else
-// a device buffer of B * lap_columns_bytes(O, P) bytes.
+// cudaGetLastError(). As lap_solve, plus `scratch`: a device buffer of
+// B * lap_columns_bytes(O, P) bytes, 16-byte aligned (null where that is
+// 0).
 int lap_solve_columns(const void* cost, const void* num_objects, void* out,
                       void* scratch, int B, int O, int P, void* stream) {
   if (B <= 0 || O <= 0 || P <= 0 || O > MAX_OBJECTS ||
       static_cast<long long>(P) + O + 1 > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long bytes = columns_bytes(O, P);
-  const long long smem = scratch == nullptr ? bytes : 0;
-  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  static unsigned long long raised = 0;
-  const cudaError_t err = allow_smem_once(lap_columns_kernel, raised);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lap_columns_kernel<<<B, THREADS, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cost), static_cast<const int*>(num_objects),
-      static_cast<float*>(out), static_cast<unsigned char*>(scratch), bytes,
-      O, P);
-  return static_cast<int>(cudaGetLastError());
+  const int slots = column_slots_for(O, P);
+  if (slots == 0 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec =
+      P % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  const float* c = static_cast<const float*>(cost);
+  const int* n = static_cast<const int*>(num_objects);
+  float* o = static_cast<float*>(out);
+  unsigned char* state = static_cast<unsigned char*>(scratch);
+  const long long stride = columns_bytes(O, P);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (slots) {
+    case 3: return launch_columns<3>(c, n, o, state, stride, B, O, P, vec, st);
+    case 4: return launch_columns<4>(c, n, o, state, stride, B, O, P, vec, st);
+    case 6: return launch_columns<6>(c, n, o, state, stride, B, O, P, vec, st);
+    case 8: return launch_columns<8>(c, n, o, state, stride, B, O, P, vec, st);
+    case 10:
+      return launch_columns<10>(c, n, o, state, stride, B, O, P, vec, st);
+    case 12:
+      return launch_columns<12>(c, n, o, state, stride, B, O, P, vec, st);
+    case 16:
+      return launch_columns<16>(c, n, o, state, stride, B, O, P, vec, st);
+    default:
+      return launch_columns<0>(c, n, o, state, stride, B, O, P, vec, st);
+  }
 }
 
 const char* lap_error_string(int code) {

@@ -20,18 +20,19 @@ deterministically, with the lowest index winning a tie in the argmin
 (``torch.min`` over a dim returns the first minimum, as ``jnp.argmin``
 does). It is also the port's ``matcher="hungarian"`` solver.
 
-The kernels, ``csrc/lap.cu``, are CUDA C++ for ``sm_90a``: one warp solves
-each problem, the row duals in registers, a ``redux.sync`` argmin. They
-take O <= 120 rows (the TPU kernel's limit) and any P, on two routes that
-``kernel_plan`` chooses from the shape: ``lap_kernel`` (the "slots" route)
-spreads the C columns over the 32 lanes in a number of register slots
-fitted to C and keeps the cost rows in shared memory, where C <= 1024 and
-the rows fit in the 227 KB a block may use; ``lap_columns_kernel`` takes
-every other shape, reading the cost rows from device memory and keeping
-the column state in shared memory ("columns_shared") or, past ~13,600
-columns, in a scratch buffer the wrapper allocates ("columns_global").
-Both repeat the plain version's float32 arithmetic operation for
-operation, so they give its mask, ties included.
+The kernels, ``csrc/lap.cu``, are CUDA C++ for ``sm_90a``, one block a
+problem, an argmin on ``redux.sync``. They take O <= 120 rows (the TPU
+kernel's limit) and any P, on routes that ``kernel_plan`` chooses from the
+shape: ``lap_kernel`` (the "slots" route, one warp solving) spreads the C
+columns over the 32 lanes in a number of register slots fitted to C and
+keeps the cost rows in shared memory, where C <= 1024 and the rows fit in
+the 227 KB a block may use; ``lap_columns_kernel`` takes every other
+shape, its 256 threads all taking part in every Dijkstra step and reading
+the cost rows from L2: the column state in a number of register slots a
+thread fitted to C ("columns", up to 4096 columns) or, past them, in a
+scratch buffer the wrapper allocates ("columns_global"). All repeat the
+plain version's float32 arithmetic operation for operation, so they give
+its mask, ties included.
 """
 
 from __future__ import annotations
@@ -44,25 +45,32 @@ import torch
 _INF = 1e30
 _BIG = 1e9
 WARP = 32
+THREADS = 256  # the slots route's block of one problem
 # The kernel's limits, as csrc/lap.cu states them: the rows it takes (4
-# row slots a lane), the columns a lane may hold (it takes the fewest that
-# hold C), and the most shared memory one thread block may use on an H100.
+# row slots a lane), the columns a lane may hold on the slots route (it
+# takes the fewest that hold C), and the most shared memory one thread
+# block may use on an H100; the columns route's threads a block and the
+# column slots a thread may hold in registers (the fewest that hold C).
 MAX_OBJECTS = 120
 SLOT_CHOICES = (5, 8, 12, 16, 24, 32)
 SMEM_LIMIT = 232448
+COLUMN_THREADS = 256
+COLUMN_SLOT_CHOICES = (3, 4, 6, 8, 10, 12, 16)
 
 
 class LapPlan(NamedTuple):
     """How the kernels solve a problem of O rows and P columns."""
-    route: str  # "slots", "columns_shared" or "columns_global"
-    slots: int  # columns a lane holds in registers (slots route), else 0
+    route: str  # "slots", "columns" or "columns_global"
+    slots: int  # columns a lane (slots) or a thread (columns) holds, else 0
     smem: int   # dynamic shared memory of one problem's block, in bytes
     scratch: int  # device-memory bytes of one problem's column state
+    threads: int  # the block of one problem
 
 
 def columns_bytes(o: int, p: int) -> int:
-    """One problem's column state on the columns route (``lap.cu``'s
-    ``columns_bytes``): 17 bytes a column, rounded up to 16."""
+    """One problem's column state in device memory past the columns
+    route's register slots (``lap.cu``'s ``columns_bytes``): 17 bytes a
+    column, rounded up to 16."""
     return (17 * (p + o + 1) + 15) // 16 * 16
 
 
@@ -70,8 +78,9 @@ def kernel_plan(o: int, p: int) -> LapPlan:
     """The kernels' plan for O rows and P columns: the slots route where
     C = P + O + 1 <= 1024 and the cost rows fit beside two ints a column
     slot in shared memory, else the columns route, its column state in
-    shared memory while it fits. Raises ValueError, naming the limit, for
-    O > 120, the TPU kernel's own limit."""
+    registers up to 16 slots a thread, past that in device memory. Raises
+    ValueError, naming the limit, for O > 120, the TPU kernel's own
+    limit."""
     if o < 1 or p < 1:
         raise ValueError(f"hungarian_lap: O={o} and P={p} must be positive")
     if o > MAX_OBJECTS:
@@ -81,11 +90,24 @@ def kernel_plan(o: int, p: int) -> LapPlan:
     slots = next((s for s in SLOT_CHOICES if columns <= WARP * s), 0)
     smem = 4 * (o * p + 2 * WARP * slots)
     if slots and smem <= SMEM_LIMIT:
-        return LapPlan("slots", slots, smem, 0)
-    state = columns_bytes(o, p)
-    if state <= SMEM_LIMIT:
-        return LapPlan("columns_shared", 0, state, 0)
-    return LapPlan("columns_global", 0, 0, state)
+        return LapPlan("slots", slots, smem, 0, THREADS)
+    k = next((s for s in COLUMN_SLOT_CHOICES
+              if columns <= COLUMN_THREADS * s), 0)
+    if k:
+        return LapPlan("columns", k, 0, 0, COLUMN_THREADS)
+    return LapPlan("columns_global", 0, 0, columns_bytes(o, p),
+                   COLUMN_THREADS)
+
+
+def kernel_name(o: int, p: int) -> str:
+    """The device kernel ``hungarian_lap`` launches for O rows and P
+    columns, as a profile names it (``lap.cu``'s dispatch: the slots
+    route's row slots R = 1 up to 32 rows, else 4; the columns route's
+    register slots, 0 for the column state in device memory)."""
+    plan = kernel_plan(o, p)
+    if plan.route == "slots":
+        return f"lap_kernel<{plan.slots}, {1 if o <= WARP else 4}>"
+    return f"lap_columns_kernel<{plan.slots}>"
 
 
 def _check(cost: torch.Tensor, num_objects: torch.Tensor):
@@ -195,6 +217,8 @@ def _library() -> ctypes.CDLL:
     for name in ("lap_smem_bytes", "lap_columns_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int] * 2
         getattr(lib, name).restype = ctypes.c_longlong
+    lib.lap_columns_slots.argtypes = [ctypes.c_int] * 2
+    lib.lap_columns_slots.restype = ctypes.c_int
     lib.lap_error_string.argtypes = [ctypes.c_int]
     lib.lap_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,7 +21,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (also at W = 4096 and 8192, where a block takes a span of a row), the
    exact matcher (K2; also at 300 queries, 120 objects and 1023 columns,
    and on its columns route at DINO's 900 queries with 120 objects and at
-   2065 columns, each against its serial-chain yardstick), and the fused
+   2065 columns, each row naming its kernel and held against its route's
+   serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
    cores), up to D = 512 (in bf16 up to D = 128 the forward, dq and dk/dv
@@ -296,6 +297,17 @@ K2_CASES = ((8, 32, 96, 8, False), (8, 32, 96, 9, True),
 # one step of the walk back, at the H100 SXM's top SM clock.
 K2_CHAIN_CYCLES = {"dijkstra": 370, "augmentation": 100}
 K2_CHAIN_HZ = 1.98e9
+# The columns route's (csrc/lap.cu's lap_columns_kernel<K>), counted from
+# its source at K = 4 (the flagship_900q's [8, 120, 900]): the dependent
+# chain of a Dijkstra step from i0 to the next i0 is the row's address (4
+# cycles), its L2 read (260), the relaxation (two subtractions, a compare
+# and two selects: 21), the thread's minimum over its slots (2 levels of
+# compare and select: 16; K = 10 has 4, +16), the order-preserving key
+# (12), two redux.sync with a select between (68), the warp's pair to
+# shared memory and the barrier (40), its read back (30), two redux.sync
+# (68) and the decode of the next column and row (4): 523, taken as 520;
+# a walk-back step as the slots route's.
+K2_COLUMNS_CHAIN_CYCLES = {"dijkstra": 520, "augmentation": 100}
 K3_FIRST_SEED = 11  # K3's cases take seeds from here on, bf16 first
 # K3 at the shapes the new main paths give it: (label, BH, Tq, Tk, D)
 K3_SHAPES = (("1280 encoder", 64, 1600, 1600, 32),
@@ -418,9 +430,11 @@ def kernel_names() -> int:
     an SM (``occupancy``). Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
-    short ones."""
+    short ones. K2's cases too: the slots or columns kernel, and its
+    slots, that each shape launches."""
     from boosted_detr_torch.ops import attention as A
     from boosted_detr_torch.ops import build
+    from boosted_detr_torch.ops import lap as L
     from boosted_detr_torch.ops import patchify as P
 
     for patch, c_out, dtype, seed, res in K1_CASES:
@@ -475,6 +489,11 @@ def kernel_names() -> int:
                                names[0], f"{what} dq")
                 _expect_kernel(lambda: A.attention_dkdv(*args), "attn_dkdv",
                                names[1], f"{what} dk/dv")
+    for b, o, p, seed, edges in K2_CASES:
+        cost_np, n_np = _lap_inputs(b, o, p, seed, edges)
+        cost, n = (torch.from_numpy(a).cuda() for a in (cost_np, n_np))
+        _expect_kernel(lambda: L.hungarian_lap(cost, n), "lap_",
+                       L.kernel_name(o, p), f"LAP [{b}, {o}, {p}]")
     k3 = ptxas_k3(build.build("attention").with_suffix(".log").read_text())
     _say("  K3 wgmma and wide bf16 kernels: " + json.dumps(occupancy(k3)))
     return 0
@@ -841,9 +860,13 @@ def _lap_case(b, o, p, seed, flush, edges):
                       L.hungarian_lap_reference.augmentation_steps))
     torch.cuda.synchronize()
 
+    kernel = L.kernel_name(o, p)
+    chain = (K2_CHAIN_CYCLES if L.kernel_plan(o, p).route == "slots"
+             else K2_COLUMNS_CHAIN_CYCLES)
+
     def chain_cycles(counts):
-        return (K2_CHAIN_CYCLES["dijkstra"] * counts[0]
-                + K2_CHAIN_CYCLES["augmentation"] * counts[1])
+        return (chain["dijkstra"] * counts[0]
+                + chain["augmentation"] * counts[1])
 
     longest = max(steps, key=chain_cycles)
     what = f"LAP [{b}, {o}, {p}]" + (" n=0 and n=O" if edges else "")
@@ -870,7 +893,7 @@ def _lap_case(b, o, p, seed, flush, edges):
     # took, 6 float32 operations per column in each Dijkstra step (two
     # subtractions and a compare for the relaxation, a compare for the
     # argmin, the dual or distance update).
-    row = {"shape": what, "max_abs_err": max_abs,
+    row = {"shape": what, "kernel": kernel, "max_abs_err": max_abs,
            "relaxations": relaxations,
            "longest_steps": max(s[0] for s in steps),
            "longest_augmentation_steps": longest[1],
@@ -891,13 +914,15 @@ def _lap_case(b, o, p, seed, flush, edges):
                device_ms=_time_ms(lambda: L.hungarian_lap(cost, n), flush,
                                   spin_cycles=SPIN_CYCLES))
     row["chain_share"] = row["chain_ms"] / row["device_ms"]
-    _say(f"  {what}: kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms "
-         f"with the launch enqueued ahead of the card), plain "
+    _say(f"  {what}: {kernel} {row['ms']:.4f} ms ({row['device_ms']:.4f} "
+         f"ms with the launch enqueued ahead of the card), plain "
          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
          f"({row['bound_by']}, {relaxations} Dijkstra steps, the longest "
          f"problem {row['longest_steps']}); serial-chain yardstick "
          f"{row['chain_ms']:.4f} ms ({longest[0]} Dijkstra and {longest[1]} "
-         f"walk-back steps; {100 * row['chain_share']:.1f}% of the card "
+         f"walk-back steps at {chain['dijkstra']} and "
+         f"{chain['augmentation']} cycles; {100 * row['chain_share']:.1f}% "
+         f"of the card "
          f"time); no PyTorch call computes a LAP; note: scipy on the host, "
          f"D2H copy included, {row['scipy_host_ms']:.4f} ms")
     return row
@@ -3888,7 +3913,8 @@ def _kernel_line(rows, paths):
     row of its list: the 640px flagship's for K1 and K2, the 1280px
     encoder's in bf16 for K3), with its launches summed over the main
     paths; K3's entries also list, under ``routes``, the bf16 kernels up
-    to D = 128 by name at their shapes."""
+    to D = 128 by name at their shapes, and K2's its slots and columns
+    kernels at each of its shapes."""
     out = []
     for name, (*_, source, replaces) in KERNELS.items():
         main_row = rows[name][0]

@@ -4,7 +4,7 @@ The plain solver (``hungarian_lap_reference``, the arithmetic the CUDA
 kernel repeats) against the Pallas kernel run through the interpreter and
 against scipy at shapes past the old 256-column cap; and
 ``kernel_plan`` (which shapes the kernel takes, how many column slots a
-lane holds, its shared memory) against the C source
+lane or a thread holds, its shared memory, its threads) against the C source
 ``boosted_detr_torch/csrc/lap.cu``, which states the same rule. Costs are
 random floats, so they are tie-free and the optimal assignment is unique.
 """
@@ -62,34 +62,42 @@ def _constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
 
+def _choices(name):
+    return [int(s) for s in re.search(
+        rf"constexpr int {name}\[\] = \{{([^}}]*)\}};", SOURCE)
+        .group(1).split(",")]
+
+
 def _c_plan(o, p):
-    """The C source's rule, read from its text: ``slots_for``'s choices,
-    ``lap_solve``'s limits, ``lap_smem_bytes``'s and ``columns_bytes``'s
-    formulas. (route, slots, smem, scratch), or None where it refuses."""
+    """The C source's rule, read from its text: ``slots_for``'s and
+    ``column_slots_for``'s choices, ``lap_solve``'s limits, the threads a
+    block of each route, ``lap_smem_bytes``'s and ``columns_bytes``'s
+    formulas. (route, slots, smem, scratch, threads), or None where it
+    refuses."""
     warp = _constant("WARP")
     if not (0 < o <= _constant("MAX_OBJECTS") and p > 0):
         return None
-    choices = [int(s) for s in re.search(
-        r"constexpr int SLOT_CHOICES\[\] = \{([^}]*)\};", SOURCE)
-        .group(1).split(",")]
-    slots = next((s for s in choices if p + o + 1 <= warp * s), 0)
+    slots = next((s for s in _choices("SLOT_CHOICES")
+                  if p + o + 1 <= warp * s), 0)
     body = re.search(r"long long lap_smem_bytes\(int O, int P\) \{\s*"
                      r"return ([^;]*);", SOURCE).group(1)
     expr = (body.replace("4LL", "4").replace("static_cast<long long>(O)", "O")
             .replace("slots_for(O, P)", "slots").replace("WARP", str(warp)))
     smem = eval(expr, {}, {"O": o, "P": p, "slots": slots})  # noqa: S307
-    limit = _constant("SMEM_LIMIT")
-    if slots and smem <= limit:
-        return "slots", slots, smem, 0
+    if slots and smem <= _constant("SMEM_LIMIT"):
+        return "slots", slots, smem, 0, _constant("THREADS")
+    threads = _constant("COLUMN_THREADS")
     c_expr, rounded = re.search(
         r"long long columns_bytes\(int O, int P\) \{\s*"
         r"const long long C = ([^;]*);\s*return ([^;]*);", SOURCE).groups()
     columns = eval(c_expr.replace("static_cast<long long>(P)", "P"),  # noqa: S307
                    {}, {"O": o, "P": p})
+    k = next((s for s in _choices("COLUMN_SLOT_CHOICES")
+              if columns <= threads * s), 0)
+    if k:
+        return "columns", k, 0, 0, threads
     state = eval(rounded.replace("/", "//"), {}, {"C": columns})  # noqa: S307
-    if state <= limit:
-        return "columns_shared", 0, state, 0
-    return "columns_global", 0, 0, state
+    return "columns_global", 0, 0, state, threads
 
 
 @pytest.mark.parametrize("o,p", [
@@ -97,7 +105,14 @@ def _c_plan(o, p):
     (1, 1), (120, 1), (31, 96), (32, 127), (33, 126), (64, 64),
     (120, 400), (120, 420), (120, 480), (121, 8), (32, 991), (32, 992),
     (1, 1022), (1, 1023), (60, 800), (100, 480), (128, 100), (120, 900),
-    (64, 2000), (8, 20000)])
+    (64, 2000), (8, 20000),
+    # the columns route's register slots, one column below, at and above
+    # each multiple of its 256 threads: C = 767-769 ... 4095-4097
+    (120, 646), (120, 647), (120, 648), (120, 902), (120, 903), (120, 904),
+    (120, 1414), (120, 1415), (120, 1416), (120, 1926), (120, 1927),
+    (120, 1928), (120, 2438), (120, 2439), (120, 2440), (120, 2950),
+    (120, 2951), (120, 2952), (120, 3974), (120, 3975), (120, 3976),
+    (1, 4094), (1, 4095)])
 def test_kernel_plan_is_the_c_sources_rule(o, p):
     want = _c_plan(o, p)
     if want is None:
@@ -107,11 +122,12 @@ def test_kernel_plan_is_the_c_sources_rule(o, p):
     plan = tlap.kernel_plan(o, p)
     assert tuple(plan) == want
     assert plan.smem <= tlap.SMEM_LIMIT
-    assert tlap.SLOT_CHOICES == tuple(
-        int(s) for s in re.search(r"SLOT_CHOICES\[\] = \{([^}]*)\}",
-                                  SOURCE).group(1).split(","))
-    assert (tlap.MAX_OBJECTS, tlap.SMEM_LIMIT) == (
-        _constant("MAX_OBJECTS"), _constant("SMEM_LIMIT"))
+    assert tlap.SLOT_CHOICES == tuple(_choices("SLOT_CHOICES"))
+    assert tlap.COLUMN_SLOT_CHOICES == tuple(_choices("COLUMN_SLOT_CHOICES"))
+    assert (tlap.MAX_OBJECTS, tlap.SMEM_LIMIT, tlap.THREADS,
+            tlap.COLUMN_THREADS) == (
+        _constant("MAX_OBJECTS"), _constant("SMEM_LIMIT"),
+        _constant("THREADS"), _constant("COLUMN_THREADS"))
 
 
 @pytest.mark.parametrize("b,o,p,slots", [
@@ -129,21 +145,25 @@ def test_kernel_plan_at_the_main_and_widened_shapes(b, o, p, slots):
         [s for s in tlap.SLOT_CHOICES if s < plan.slots], default=0)
 
 
-@pytest.mark.parametrize("o,p,route,why", [
+@pytest.mark.parametrize("o,p,route,why,slots", [
     # C = 1025: past the 32 register slots of a lane
-    (32, 992, "columns_shared", "columns"),
+    (32, 992, "columns", "columns", 6),
     # C = 601, but 120 x 480 cost rows take 236,544 bytes
-    (120, 480, "columns_shared", "cost rows"),
-    # DINO's 900 queries at max_objects=120: 432,000 bytes of cost rows
-    (120, 900, "columns_shared", "cost rows"),
-    (64, 2000, "columns_shared", "columns"),  # C = 2065
-    # 17 bytes a column pass the shared memory past ~13,600 columns
-    (8, 20000, "columns_global", "column state"),
+    (120, 480, "columns", "cost rows", 3),
+    # DINO's 900 queries at max_objects=120: 432,000 bytes of cost rows;
+    # C = 1021, four columns a thread
+    (120, 900, "columns", "cost rows", 4),
+    (64, 2000, "columns", "columns", 10),  # C = 2065
+    (120, 3975, "columns", "columns", 16),  # C = 4096: the most in registers
+    # past 16 columns a thread: the column state in device memory
+    (120, 3976, "columns_global", "column state", 0),
+    (8, 20000, "columns_global", "column state", 0),
 ])
 def test_kernel_plan_takes_the_columns_route_past_the_slots(o, p, route,
-                                                            why):
+                                                            why, slots):
     plan = tlap.kernel_plan(o, p)
-    assert plan.route == route and plan.slots == 0
+    assert plan.route == route and plan.slots == slots
+    assert plan.threads == tlap.COLUMN_THREADS
     columns = p + o + 1
     state = tlap.columns_bytes(o, p)
     assert state >= 17 * columns and state % 16 == 0
@@ -152,11 +172,41 @@ def test_kernel_plan_takes_the_columns_route_past_the_slots(o, p, route,
     elif why == "cost rows":
         assert columns <= 32 * tlap.SLOT_CHOICES[-1]
         assert 4 * o * p > tlap.SMEM_LIMIT - 4 * 2 * 32 * 32
-    if route == "columns_shared":
-        assert (plan.smem, plan.scratch) == (state, 0)
+    if route == "columns":
+        # the fewest slots a thread that hold C
+        assert (plan.smem, plan.scratch) == (0, 0)
+        fewer = max([s for s in tlap.COLUMN_SLOT_CHOICES if s < slots],
+                    default=0)
+        assert tlap.COLUMN_THREADS * slots >= columns
+        assert columns > tlap.COLUMN_THREADS * fewer
     else:
         assert (plan.smem, plan.scratch) == (0, state)
-        assert state > tlap.SMEM_LIMIT
+        assert columns > tlap.COLUMN_THREADS * tlap.COLUMN_SLOT_CHOICES[-1]
+
+
+@pytest.mark.parametrize("o,p", [
+    (32, 96), (33, 96), (1, 1022), (120, 300), (32, 992), (120, 480),
+    (120, 900), (64, 2000), (120, 3975), (120, 3976), (8, 20000)])
+def test_kernel_name_is_the_c_sources_dispatch(o, p):
+    """``kernel_name`` (what ``chip_smoke.py`` holds a profile to) against
+    ``lap.cu``'s dispatch: the slots route's row slots by O, the columns
+    route's template argument by its register slots (0 past them)."""
+    plan = tlap.kernel_plan(o, p)
+    name = tlap.kernel_name(o, p)
+    if plan.route == "slots":
+        few, many = re.search(r"O <= WARP \? launch<S, (\d+)>\(.*?\)\s*"
+                              r": launch<S, (\d+)>\(", SOURCE,
+                              flags=re.S).groups()
+        rows = few if o <= _constant("WARP") else many
+        assert name == f"lap_kernel<{plan.slots}, {rows}>"
+        return
+    cases = dict(re.findall(r"case (\d+):\s*return launch_columns<(\d+)>",
+                            SOURCE))
+    default = re.search(r"default:\s*return launch_columns<(\d+)>",
+                        SOURCE).group(1)
+    assert sorted(map(int, cases)) == sorted(tlap.COLUMN_SLOT_CHOICES)
+    assert name == f"lap_columns_kernel<{cases.get(str(plan.slots), default)}>"
+    assert plan.slots or default == "0"
 
 
 @pytest.mark.parametrize("o,p,limit", [(121, 8, "O <= 120 rows")])

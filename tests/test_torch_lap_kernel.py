@@ -128,10 +128,10 @@ def test_kernel_refuses_what_it_cannot_hold(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,o,p,route", [
-    (8, 120, 900, "columns_shared"),   # DINO's 900 queries, 120 objects
-    (2, 64, 2000, "columns_shared"),   # C = 2065
-    (2, 32, 992, "columns_shared"),    # C = 1025
-    (3, 7, 1101, "columns_shared"),    # O * P % 4 != 0
+    (8, 120, 900, "columns"),          # DINO's 900 queries, 120 objects
+    (2, 64, 2000, "columns"),          # C = 2065
+    (2, 32, 992, "columns"),           # C = 1025
+    (3, 7, 1101, "columns"),           # O * P % 4 != 0
     (2, 8, 20000, "columns_global"),   # the column state in device memory
 ])
 def test_columns_route_matches_plain_version(cuda, b, o, p, route):
@@ -140,6 +140,30 @@ def test_columns_route_matches_plain_version(cuda, b, o, p, route):
     cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
     n = rng.integers(1, o + 1, (b,)).astype(np.int32)
     n[0], n[-1] = 0, o
+    got, want = _solve_both(cuda, cost, n)
+    _check_optimal(got, cost, n)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,o,p,slots", [
+    # C one below, at and one above a multiple of the block's 256 threads,
+    # where the register slots a thread change: 3 | 4, 4 | 6, 8 | 10
+    (2, 120, 646, 3), (2, 120, 647, 3), (2, 120, 648, 4),
+    (3, 120, 902, 4), (3, 120, 903, 4), (3, 120, 904, 6),
+    (2, 120, 1926, 8), (2, 120, 1927, 8), (2, 120, 1928, 10),
+    # the most columns in registers, then the column state in device memory
+    (2, 120, 3975, 16), (2, 120, 3976, 0),
+    # one row
+    (3, 1, 1100, 6), (2, 1, 4094, 16), (2, 1, 4095, 0),
+])
+def test_columns_route_at_the_slot_edges(cuda, b, o, p, slots):
+    plan = lap.kernel_plan(o, p)
+    assert plan.route.startswith("columns") and plan.slots == slots
+    rng = np.random.default_rng(o * 7 + p)
+    cost = rng.uniform(0, 10, (b, o, p)).astype(np.float32)
+    n = rng.integers(1, o + 1, (b,)).astype(np.int32)
+    n[0], n[-1] = 0, o  # no objects, and every row taking part
     got, want = _solve_both(cuda, cost, n)
     _check_optimal(got, cost, n)
     np.testing.assert_array_equal(got, want)
@@ -158,16 +182,52 @@ def test_columns_route_on_ties(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("o,p", [(120, 600), (4, 4500)])
+def test_columns_route_ties_minus_zero_with_plus_zero(cuda, o, p):
+    """The lowest column wins a tie of -0.0 with +0.0 on the columns
+    route, in registers (120 x 600) and in device memory (C = 4505)."""
+    assert lap.kernel_plan(o, p).route.startswith("columns")
+    for first in ([1.0, 0.0, 5.0, -0.0], [1.0, -0.0, 5.0, 0.0]):
+        cost = np.full((1, o, p), 9.0, np.float32)
+        cost[0, 0, :4] = first
+        got, want = _solve_both(cuda, cost, np.array([1], np.int32))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[0, 0, :4], [0.0, 1.0, 0.0, 0.0])
+    # signed zeros all over: ties in every step, a mask equal to the plain
+    # version's on the CPU
+    rng = np.random.default_rng(o + p)
+    cost = rng.choice(np.array([-0.0, 0.0, 1.0, 2.0], np.float32), (3, o, p))
+    n = np.array([o, o // 2, 0], np.int32)
+    got, _ = _solve_both(cuda, cost, n)
+    _check_optimal(got, cost, n)
+    np.testing.assert_array_equal(got, lap.hungarian_lap_reference(
+        torch.from_numpy(cost), torch.from_numpy(n)).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("o,p", [(120, 900), (8, 5000)])
+def test_columns_route_ends_on_nan_costs(cuda, o, p):
+    assert lap.kernel_plan(o, p).route.startswith("columns")
+    cost = torch.full((2, o, p), float("nan"), device=cuda)
+    before = lap.hungarian_lap.launches
+    out = lap.hungarian_lap(cost, torch.tensor([o, 1], device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (2, o, p)
+    assert lap.hungarian_lap.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_library_states_the_wrappers_plan(cuda):
     lib = lap._library()
     for o in (1, 7, 32, 33, 100, 120):
-        for p in (1, 8, 96, 120, 300, 480, 900, 990, 2000, 20000):
+        for p in (1, 8, 96, 120, 300, 480, 900, 990, 2000, 3975, 3976,
+                  20000):
             plan = lap.kernel_plan(o, p)
             if plan.route == "slots":
                 assert lib.lap_smem_bytes(o, p) == plan.smem
             else:
-                assert lib.lap_columns_bytes(o, p) == max(plan.smem,
-                                                          plan.scratch)
+                assert lib.lap_columns_slots(o, p) == plan.slots
+                assert lib.lap_columns_bytes(o, p) == plan.scratch
 
 
 @pytest.mark.gpu
