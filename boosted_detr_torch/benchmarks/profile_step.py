@@ -13,7 +13,8 @@ warm-up steps, then ``--steps`` steps under ``torch.profiler`` with CUDA
 activity and the input shapes recorded, and prints device ms per step
 
 - by category of kernel name (``categorize``): each hand-written kernel by
-  its name in ``csrc/*.cu`` (K1-fwd, K1-dW, K2, K3-fwd, K3-dq, K3-dkdv),
+  its name in ``csrc/*.cu`` (K1-fwd, K1-dW, K2, K3-fwd, K3-dq, K3-dkdv, and
+  the split pass of the float32 K3 gradients, K3-tf32 split),
   cuDNN convolution, CUDA-core (float32) GEMM, tensor-core GEMM,
   BatchNorm, copies, reduction, elementwise, other;
 - by activation resolution, from the input shapes of the operator that
@@ -79,6 +80,8 @@ CATEGORY_RULES = (
     ("K3-fwd", ("attn_fwd",)),
     ("K3-dq", ("attn_dq",)),
     ("K3-dkdv", ("attn_dkdv",)),
+    # the split pass of the float32 dq and dk/dv at D = 256
+    ("K3-tf32 split", ("tf32_split",)),
     ("cuDNN convolution", ("cudnn", "conv", "fprop", "dgrad", "wgrad")),
     # float32 GEMMs run on the CUDA cores (TF32 is off): cuBLAS's ffma
     # and simt kernels

@@ -6,7 +6,8 @@
 //   (attn_fwd_wide_*) <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
 //   attn_dq_kernel, attn_dq_mma_kernel, attn_dq_wgmma_kernel
-//   (attn_dq_wide_*) <- _dq_kernel (:138-163), called by
+//   (attn_dq_wide_*, with tf32_split_kernel before the TF32 one)
+//                    <- _dq_kernel (:138-163), called by
 //                       _fused_attention_bwd_impl (:202-255, call :233);
 //   attn_dkdv_kernel, attn_dkdv_mma_kernel, attn_dkdv_wgmma_kernel
 //   (attn_dkdv_wide_*) <- _dkdv_kernel (:166-199), same function, call :257.
@@ -40,8 +41,11 @@
 // us.)
 //
 // Float32 inputs multiply in float32 on the CUDA cores, whose peak (67
-// TFLOP/s) puts a floor ~15x above that bound (they stay there: tensor cores
-// would make them TF32):
+// TFLOP/s) puts a floor ~15x above that bound (one TF32 pass of the tensor
+// cores would lose float32's accuracy), but for dq and dk/dv at D = 256,
+// which take three TF32 products a product on the tensor cores
+// (attn_dq_wide_tf32_kernel, attn_dkdv_wide_tf32_kernel; their section
+// below); on the CUDA cores:
 //   - a block owns 64 rows (query rows for the forward and dq, key rows for
 //     dk/dv) and keeps their float32 slices in registers: each thread owns
 //     DPT of the D dims of one row, TPR = D / DPT neighbouring lanes share a
@@ -2179,10 +2183,19 @@ __device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* p) {
   return p + (SW_ALIGN - shared_address(p) % SW_ALIGN) % SW_ALIGN;
 }
 
+// Named barrier `id` of `count` threads: wait for all of them, or arrive
+// and go on.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // Waits until the 128 threads of warpgroup wg have arrived (named barrier
 // 1 + wg; 0 is __syncthreads').
 __device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  named_barrier_sync(1 + wg, 128);
 }
 
 // Zeros the columns from n on of a 64-column wgmma accumulator x (this
@@ -2928,6 +2941,631 @@ attn_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- float32 at D = 256 on the tensor cores: three TF32 products ----
+//
+// The CUDA-core kernels above run float32 dq and dk/dv past D = 128 at 8-9%
+// of their CUDA-core bound at [32, 1600, 1600, 256], every block computing
+// the logits and dP again for each 128-wide chunk of its output (PERF.md).
+// At D = 256 (any D in (128, 256], padded) attn_dq_wide_tf32_kernel and
+// attn_dkdv_wide_tf32_kernel run them on the tensor cores instead, with
+// float32's accuracy kept by three TF32 products a product (mma.cuh:
+// hi hi + hi lo + lo hi, hi the word with its low 13 bits dropped, lo the
+// same of the exact remainder; off a product by at most 2^-20 of it). The
+// bound is then the operations: 3 (6 or 8) BH Tq Tk D at 495 TFLOP/s,
+// 0.76 and 1.02 ms at [32, 1600, 1600, 256], against 1.88 and 2.50 for
+// one pass on the CUDA cores. What the design does about the card:
+//   - wgmma takes TF32 operands from shared memory K-major only. S = q k^T
+//     and dP = dO v^T contract over D, K-major as the tensors lie; the
+//     second products (dq += ds k, dv += p^T dO, dk += ds^T q) contract over
+//     the streamed rows, so they read a transposed copy of the streamed
+//     operand, [BH, D, T8] (T8: T rounded up to 8, zeros past T). The
+//     split and transposed operands (k's lo, v's lo, k^T and its lo for dq;
+//     q's, dO's, their transposes and lo's for dk/dv) are written by one
+//     pass, tf32_split_kernel, into scratch the wrapper allocates
+//     (~0.1 ms at [32, 1600, 256]: bytes, not operations), so that every
+//     streamed tile comes by TMA as it is used, with no thread staging it;
+//   - p and ds become the A operand of the second products from registers:
+//     an accumulator's thread holds columns 2 tig and 2 tig + 1 of each
+//     8-column group, where the TF32 A fragment wants tig and tig + 4, so
+//     the transposed copies store each group of 8 rows in the order
+//     0, 2, 4, 6, 1, 3, 5, 7 (tf32_split_kernel), and the fragment is the
+//     accumulator's own values, split in registers (tf32_parts);
+//   - shared memory: a 64-row block's own rows at D = 256 are 64 KB an
+//     operand (q and dO; k and v), 128 KB with no lo, so the rows stay
+//     resident as they stand and their lo is formed in registers, 8 dims a
+//     step, as the A operand of the lo hi product (tf32_lo_fragment); the
+//     hi products read them from shared memory. The streamed operand comes
+//     in units of two [32 x 32] float32 boxes (8 KB: a box and its lo), a
+//     32-dim slab of 32 rows for the first products, 32 dims of the
+//     transposed copy over the tile's 32 rows for the second, through a
+//     ring of stages (dq 12, 96 KB; dk/dv 5 a warpgroup), each with a full
+//     mbarrier; a stage is refilled by the warpgroup's thread 0 once the
+//     warpgroup has passed a named barrier after its products: 225 KB and
+//     217 KB a block, one block an SM. At 8 stages ptxas spilled dq and it
+//     ran 20% slower; 3 stages of dk/dv ran within 2% (PERF.md);
+//   - registers: dq holds its 64 x 256 float32 accumulator (128 a thread)
+//     in one warpgroup beside S, dP and dP's slab sum (16 each, 32-row
+//     tiles) and the lo fragments of q and dO (16 each): 241, no spill.
+//     dk and dv would be 256 in one
+//     warpgroup: dk/dv runs two, each owning one accumulator, as the bf16
+//     resident kernels split the work: warpgroup 0 computes S^T from k and
+//     p, hands p to warpgroup 1 through shared memory (named barriers), and
+//     sums dV; warpgroup 1 computes dP^T from v, ds from p, and sums dK.
+//     Each warpgroup streams its own units (q then dO^T; dO then q^T);
+//     252 registers, no spill;
+//   - work once: a block owns all D of its rows and computes S and dP once
+//     a tile, over the head dim 8 dims a step in order (hi hi, hi lo, lo hi
+//     a step): dq's S in one sum, dq's dP and dk/dv's S^T and dP^T slab by
+//     slab (tf32_add_slab: the tensor cores' adds truncate, and dP - delta
+//     cancels where a row's keys are few); then the second products 32
+//     output dims at a time (hi hi, hi lo, lo hi for each 8-row step of the
+//     tile, in order); dq and dk scaled at the end (attention_dq_emulation
+//     and attention_dkdv_emulation with tf32: the same sums, rounded to
+//     nearest where the tensor cores truncate: within 3.4e-5 of the largest
+//     value at [32, 1600, 1600, 256]);
+//   - every commit group of wgmmas (the products of one unit) stays in
+//     flight while the next unit's lo fragments are formed and its
+//     products issued (TF32_IN_FLIGHT; done one unit at a time they ran
+//     4-5% slower); a unit is released once its group is done. At D = 384
+//     the rows (96 KB an operand) and dq's 192 accumulator registers fit no
+//     block: D = 384 and past keep the CUDA-core kernels.
+
+constexpr int TF32_D = 256;                    // the head dim they take
+constexpr int TF32_SLAB = 32;                  // words of a swizzled row
+constexpr int TF32_SLABS = TF32_D / TF32_SLAB;
+constexpr int TF32_TILE = 32;                  // streamed rows a tile
+constexpr int TF32_BOX = TF32_TILE * TF32_SLAB * 4;       // [32 x 32] float32
+constexpr int TF32_UNIT = 2 * TF32_BOX;                   // a box and its lo
+constexpr int TF32_ROWS = TILE;                           // rows a block owns
+constexpr int TF32_ROWS_BYTES = TF32_ROWS * TF32_D * 4;   // 64 KB
+constexpr int TF32_DQ_STAGES = 12;
+constexpr int TF32_DKDV_STAGES = 5;  // a warpgroup
+// units a tile: dq k and v of each slab, then 8 of k^T; dk/dv (each
+// warpgroup) its operand's 8 slabs, then 8 of the other's transpose
+constexpr int TF32_DQ_UNITS = 3 * TF32_SLABS;
+constexpr int TF32_DKDV_UNITS = 2 * TF32_SLABS;
+constexpr int TF32_DQ_SMEM =
+    SW_ALIGN + 2 * TF32_ROWS_BYTES + TF32_DQ_STAGES * TF32_UNIT;
+constexpr int TF32_XCHG_BYTES = 128 * 16 * 4;  // warpgroup 0's p, to 1
+constexpr int TF32_DKDV_SMEM = SW_ALIGN + 2 * TF32_ROWS_BYTES +
+                               2 * TF32_DKDV_STAGES * TF32_UNIT +
+                               TF32_XCHG_BYTES;
+// named barriers of dk/dv's p: written (warpgroup 0 arrives, 1 waits), read
+// (1 arrives, 0 waits before it writes the next tile's); 1 and 2 are the
+// warpgroups' own (warpgroup_sync)
+constexpr int TF32_P_WRITTEN = 3, TF32_P_READ = 4;
+// commit groups of wgmmas left in flight when a unit is released: the
+// products of one unit run while the next unit's are issued
+constexpr int TF32_IN_FLIGHT = 1;
+
+// Splits x [BH, T, D] float32 (D = 256) for the TF32 kernels: lo [BH, T, D]
+// (x less its TF32 part, exact) and, unless xt is null,
+// its transpose xt [BH, D, T8] as it stands and xt_lo its lo, each group of
+// 8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7, zeros past T. blockIdx.z runs
+// over BH for x0 and then over BH for x1 (null: one tensor). A block moves
+// one [32 rows x 32 dims] square through shared memory; 32 x 8 threads.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ x0, float* __restrict__ lo0,
+                  float* __restrict__ xt0, float* __restrict__ xt_lo0,
+                  const float* __restrict__ x1, float* __restrict__ lo1,
+                  float* __restrict__ xt1, float* __restrict__ xt_lo1, int BH,
+                  int T, int T8) {
+  __shared__ float square[32][33];
+  const bool second = static_cast<int>(blockIdx.z) >= BH;
+  const int bh = blockIdx.z - (second ? BH : 0);
+  const float* x = second ? x1 : x0;
+  float* lo = second ? lo1 : lo0;
+  float* xt = second ? xt1 : xt0;
+  float* xt_lo = second ? xt_lo1 : xt_lo0;
+  const int t0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const long long base = static_cast<long long>(bh) * T * TF32_D;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int t = t0 + r;
+    const long long at = base + static_cast<long long>(t) * TF32_D + d0 + tx;
+    const float v = t < T ? x[at] : 0.f;
+    square[r][tx] = v;
+    if (t < T) lo[at] = v - __uint_as_float(tf32_bits(v));
+  }
+  if (xt == nullptr) return;
+  __syncthreads();
+  // row 8 g + l of the transpose holds row 8 g + (l < 4 ? 2 l : 2 l - 7)
+  const int l = tx % 8;
+  const int src = tx - l + (l < 4 ? 2 * l : 2 * l - 7);
+  const long long tbase = static_cast<long long>(bh) * TF32_D * T8;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int t = t0 + tx;
+    if (t >= T8) continue;
+    const float v = square[src][r];
+    const long long at = tbase + static_cast<long long>(d0 + r) * T8 + t;
+    xt[at] = v;
+    xt_lo[at] = v - __uint_as_float(tf32_bits(v));
+  }
+}
+
+// The lo A fragment (TF32 bits) of 8-dim step kk of a resident slab: a
+// [64 rows x 32 dims] float32 tile in the 128-byte swizzle (16-byte piece
+// c of row r at c ^ (r % 8)); this thread's rows 16 warp + grp and + 8,
+// dims 8 kk + tig and + 4.
+__device__ __forceinline__ void tf32_lo_fragment(const unsigned char* slab,
+                                                 int kk, int warp, int grp,
+                                                 int tig, uint32_t (&a)[4]) {
+  const unsigned char* row = slab + (16 * warp + grp) * 128 + 4 * tig;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int at = ((2 * kk + e) ^ grp) << 4;
+    a[2 * e] = tf32_lo_bits(*reinterpret_cast<const float*>(row + at));
+    a[2 * e + 1] =
+        tf32_lo_bits(*reinterpret_cast<const float*>(row + 8 * 128 + at));
+  }
+}
+
+// The TF32 hi and lo A fragments of a 64 x 32 accumulator x over its 32
+// columns (4 steps of 8): step kk takes columns 8 kk + 2 tig (as column tig)
+// and + 1 (as tig + 4), the order the transposed copies store.
+__device__ __forceinline__ void tf32_parts(const float (&x)[16],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float v[4] = {x[4 * kk], x[4 * kk + 2], x[4 * kk + 1],
+                        x[4 * kk + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[kk][e] = tf32_bits(v[e]);
+      lo[kk][e] = tf32_lo_bits(v[e]);
+    }
+  }
+}
+
+// x (+)= a . b over one 32-dim slab, 8 dims a step in order, each step
+// hi hi, hi lo, lo hi: a the resident slab (its lo fragments in a_lo), b a
+// unit (the box, then its lo). The first step's scale-d of 0 starts the sum
+// when `start`.
+__device__ __forceinline__ void tf32_over_slab(float (&x)[16],
+                                               const unsigned char* a,
+                                               const uint32_t (&a_lo)[4][4],
+                                               const unsigned char* b,
+                                               bool start) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ad = sw128_descriptor(a + 32 * kk, 0);
+    const uint64_t bd = sw128_descriptor(b + 32 * kk, 0);
+    wgmma_tf32_ss(x, ad, bd, !(start && kk == 0));
+    wgmma_tf32_ss(x, ad, sw128_descriptor(b + TF32_BOX + 32 * kk, 0), 1);
+    wgmma_tf32_rs(x, a_lo[kk], bd);
+  }
+}
+
+// total (=)+ slab, in registers, rounded to nearest: the tensor cores add
+// into their float32 sums truncating (each add loses up to an ulp of the
+// sum, the products are exact), so a sum over all 256 dims in them (96
+// adds) is ~7x further off than one rounded to nearest, where summing each
+// 32-dim slab apart (12 adds) and the slabs here is ~1.7x (a model of the
+// adds on the CPU); what dP - delta cancels, ds keeps.
+__device__ __forceinline__ void tf32_add_slab(float (&total)[16],
+                                              const float (&slab)[16],
+                                              bool first) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) total[e] = first ? slab[e] : total[e] + slab[e];
+}
+
+// acc[64 x 32] += (hi + lo)[64 x 32 rows] . b[32 rows x 32 dims] (b a unit
+// of the transposed copy: the box, then its lo), 8 rows a step in order,
+// each step hi hi, hi lo, lo hi.
+__device__ __forceinline__ void tf32_over_rows(float (&acc)[16],
+                                               const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4],
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = sw128_descriptor(b + 32 * kk, 0);
+    wgmma_tf32_rs(acc, hi[kk], bd);
+    wgmma_tf32_rs(acc, hi[kk],
+                  sw128_descriptor(b + TF32_BOX + 32 * kk, 0));
+    wgmma_tf32_rs(acc, lo[kk], bd);
+  }
+}
+
+// A block's resident rows of one operand: 8 slabs of [64 x 32], each as two
+// [32 x 32] boxes, counted into `bar` (thread 0 of the loading warpgroup).
+__device__ __forceinline__ void tf32_load_rows(unsigned char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int first,
+                                               int bh) {
+  for (int s = 0; s < TF32_SLABS; ++s)
+    for (int h = 0; h < 2; ++h)
+      tma_load_3d(dst + (2 * s + h) * TF32_BOX, map, bar, s * TF32_SLAB,
+                  first + h * TF32_TILE, bh);
+}
+
+// One unit into its stage: the box at (c0, c1) of `hi` and of `lo`.
+__device__ __forceinline__ void tf32_load_unit(unsigned char* dst,
+                                               const CUtensorMap* hi,
+                                               const CUtensorMap* lo,
+                                               uint64_t* full, int c0, int c1,
+                                               int bh) {
+  barrier_expect_bytes(full, TF32_UNIT);
+  tma_load_3d(dst, hi, full, c0, c1, bh);
+  tma_load_3d(dst + TF32_BOX, lo, full, c0, c1, bh);
+}
+
+// Stores rows r, r + 8 of a 64 x 32 float32 accumulator times mul into
+// out's columns col0 .. col0 + 31 (out [rows, TF32_D], rows past n not).
+__device__ __forceinline__ void tf32_store(const float (&acc)[16], float mul,
+                                           float* out, int r, int n, int col0,
+                                           int tig) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= n) continue;
+    float* row = out + static_cast<long long>(r + 8 * h) * TF32_D + col0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * tig) =
+          make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// dq at D = 256, float32: a block of one warpgroup owns 64 query rows; q_map
+// and g_map map q and dO, k_map .. vlo_map k, k's lo, v, v's lo ([BH, T,
+// 256]), kt_map and ktlo_map k^T and its lo ([BH, 256, Tk8]); every box
+// [32 x 32] float32, 128-byte swizzle.
+__global__ void __launch_bounds__(128, 1)
+attn_dq_wide_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap g_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap klo_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap vlo_map,
+                         const __grid_constant__ CUtensorMap kt_map,
+                         const __grid_constant__ CUtensorMap ktlo_map,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int Tq, int Tk, int tiles,
+                         float scale) {
+  constexpr int STAGES = TF32_DQ_STAGES, UNITS = TF32_DQ_UNITS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t rows_full, full[STAGES];
+  // q [8 slabs][64 x 32], dO the same, then the ring's units
+  unsigned char* sq = swizzle_aligned(smem_raw);
+  unsigned char* sg = sq + TF32_ROWS_BYTES;
+  unsigned char* ring = sg + TF32_ROWS_BYTES;
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * TF32_ROWS;
+  const int n_tiles = (Tk + TF32_TILE - 1) / TF32_TILE;
+  const int total = n_tiles * UNITS;
+  if (threadIdx.x == 0) {
+    barrier_init(&rows_full, 1);
+    // a stage is full after thread 0's one arrival and its bytes
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) barrier_init(&full[s], 1);
+    barrier_init_fence();
+  }
+  __syncthreads();
+  // unit u of tile i: 2 s (k) and 2 s + 1 (v) of slab s, then 16 + h (k^T's
+  // dims 32 h .. 32 h + 31)
+  auto load_unit = [&](int n) {
+    const int i = n / UNITS, u = n % UNITS, st = n % STAGES;
+    unsigned char* dst = ring + st * TF32_UNIT;
+    if (u < 2 * TF32_SLABS) {
+      const bool is_v = u & 1;
+      tf32_load_unit(dst, is_v ? &v_map : &k_map, is_v ? &vlo_map : &klo_map,
+                     &full[st], (u / 2) * TF32_SLAB, i * TF32_TILE, bh);
+    } else {
+      tf32_load_unit(dst, &kt_map, &ktlo_map, &full[st], i * TF32_TILE,
+                     (u - 2 * TF32_SLABS) * TF32_SLAB, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&rows_full, 2 * TF32_ROWS_BYTES);
+    tf32_load_rows(sq, &q_map, &rows_full, first, bh);
+    tf32_load_rows(sg, &g_map, &rows_full, first, bh);
+    for (int n = 0; n < STAGES && n < total; ++n) load_unit(n);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int r0 = first + warp * STEP + grp;  // rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const float scale2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];  // lse times log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = r0 + 8 * h < Tq;
+    row_lse2[h] = live ? lse[q_base + r0 + 8 * h] * LOG2E : 0.f;
+    row_delta[h] = live ? delta[q_base + r0 + 8 * h] : 0.f;
+  }
+  auto unit_of = [&](int n) {
+    const int st = n % STAGES;
+    barrier_wait(&full[st], (n / STAGES) & 1);
+    __syncwarp();
+    return ring + st * TF32_UNIT;
+  };
+  // the unit's products are done in every warp: thread 0 refills its stage
+  // (a barrier, not a wait on a barrier in memory, between the wgmmas)
+  auto release = [&](int n) {
+    warpgroup_sync(0);
+    if (threadIdx.x == 0 && n + STAGES < total) load_unit(n + STAGES);
+    __syncwarp();
+  };
+  float acc[TF32_SLABS][16];  // dims 32 h .. 32 h + 31 in acc[h]
+  float(&acc_flat)[TF32_SLABS * 16] =
+      reinterpret_cast<float(&)[TF32_SLABS * 16]>(acc);
+#pragma unroll
+  for (int i = 0; i < TF32_SLABS * 16; ++i) acc_flat[i] = 0.f;
+
+  barrier_wait(&rows_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int base = i * UNITS, k0 = i * TF32_TILE;
+    // S in one sum; dP a slab at a time (dp_slab), the slabs added in
+    // registers (tf32_add_slab)
+    float s[16], dp[16], dp_slab[16];
+    uint32_t q_lo[4][4], g_lo[4][4];
+    // S and dP over the head dim, a slab at a time, each product a group
+    // that stays in flight while the other's lo fragments are formed
+#pragma unroll
+    for (int sl = 0; sl < TF32_SLABS; ++sl) {
+      const unsigned char* q_slab = sq + sl * 2 * TF32_BOX;
+      const unsigned char* g_slab = sg + sl * 2 * TF32_BOX;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_lo_fragment(q_slab, kk, warp, grp, tig, q_lo[kk]);
+      const unsigned char* k_unit = unit_of(base + 2 * sl);
+      wgmma_fence();
+      tf32_over_slab(s, q_slab, q_lo, k_unit, sl == 0);
+      wgmma_commit();
+      if (sl > 0) {  // dP's group of the slab before is done
+        wgmma_wait<TF32_IN_FLIGHT>();
+        wgmma_hold(dp_slab);
+        tf32_add_slab(dp, dp_slab, sl == 1);
+        release(base + 2 * sl - 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_lo_fragment(g_slab, kk, warp, grp, tig, g_lo[kk]);
+      const unsigned char* v_unit = unit_of(base + 2 * sl + 1);
+      wgmma_fence();
+      tf32_over_slab(dp_slab, g_slab, g_lo, v_unit, true);
+      wgmma_commit();
+      wgmma_wait<TF32_IN_FLIGHT>();  // S's group of this slab is done
+      release(base + 2 * sl);
+    }
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    wgmma_hold(dp_slab);
+    tf32_add_slab(dp, dp_slab, TF32_SLABS == 1);
+    release(base + 2 * TF32_SLABS - 1);
+    // p (keys past Tk masked out), ds, and ds's TF32 parts
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * tig + e % 2;
+        const float p =
+            key < Tk ? exp2_approx(s[4 * j + e] * scale2 - row_lse2[e / 2])
+                     : 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - row_delta[e / 2]);
+      }
+    uint32_t hi[4][4], lo[4][4];
+    tf32_parts(dp, hi, lo);
+    // dq += ds k, 32 output dims a unit of k^T
+    wgmma_hold(acc_flat);
+#pragma unroll
+    for (int h = 0; h < TF32_SLABS; ++h) {
+      const unsigned char* kt_unit = unit_of(base + 2 * TF32_SLABS + h);
+      wgmma_fence();
+      tf32_over_rows(acc[h], hi, lo, kt_unit);
+      wgmma_commit();
+      if (h > 0) {
+        wgmma_wait<TF32_IN_FLIGHT>();
+        release(base + 2 * TF32_SLABS + h - 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_hold(acc_flat);
+    release(base + UNITS - 1);
+  }
+  float* dq_rows = dq + q_base * TF32_D;
+#pragma unroll
+  for (int h = 0; h < TF32_SLABS; ++h)
+    tf32_store(acc[h], scale, dq_rows, r0, Tq, h * TF32_SLAB, tig);
+}
+
+// dk/dv at D = 256, float32: a block of two warpgroups owns 64 key rows;
+// k_map and v_map map k and v, q_map .. glo_map q, q's lo, dO, dO's lo ([BH,
+// T, 256]), qt_map .. gtlo_map q^T, its lo, dO^T, its lo ([BH, 256, Tq8]);
+// every box [32 x 32] float32, 128-byte swizzle. Warpgroup 0 sums dV,
+// warpgroup 1 dK (see above).
+__global__ void __launch_bounds__(256, 1)
+attn_dkdv_wide_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap qlo_map,
+                           const __grid_constant__ CUtensorMap g_map,
+                           const __grid_constant__ CUtensorMap glo_map,
+                           const __grid_constant__ CUtensorMap qt_map,
+                           const __grid_constant__ CUtensorMap qtlo_map,
+                           const __grid_constant__ CUtensorMap gt_map,
+                           const __grid_constant__ CUtensorMap gtlo_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int Tq, int Tk, int tiles, float scale) {
+  constexpr int STAGES = TF32_DKDV_STAGES, UNITS = TF32_DKDV_UNITS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t rows_full, full[2][STAGES];
+  // k [8 slabs][64 x 32], v the same, each warpgroup's ring, then p
+  unsigned char* sk = swizzle_aligned(smem_raw);
+  unsigned char* sv = sk + TF32_ROWS_BYTES;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  unsigned char* ring = sv + TF32_ROWS_BYTES + wg * STAGES * TF32_UNIT;
+  float4* xchg = reinterpret_cast<float4*>(sv + TF32_ROWS_BYTES +
+                                           2 * STAGES * TF32_UNIT);
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * TF32_ROWS;
+  const int n_tiles = (Tq + TF32_TILE - 1) / TF32_TILE;
+  const int total = n_tiles * UNITS;
+  if (threadIdx.x == 0) {
+    barrier_init(&rows_full, 1);
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) barrier_init(&full[w][s], 1);
+    barrier_init_fence();
+  }
+  __syncthreads();
+  // unit u of tile i: s < 8 the slab s of this warpgroup's operand (q or
+  // dO), then 8 + h the other's transpose (dO^T or q^T), dims 32 h ..
+  const CUtensorMap* slab_hi = wg == 0 ? &q_map : &g_map;
+  const CUtensorMap* slab_lo = wg == 0 ? &qlo_map : &glo_map;
+  const CUtensorMap* rows_hi = wg == 0 ? &gt_map : &qt_map;
+  const CUtensorMap* rows_lo = wg == 0 ? &gtlo_map : &qtlo_map;
+  auto load_unit = [&](int n) {
+    const int i = n / UNITS, u = n % UNITS, st = n % STAGES;
+    unsigned char* dst = ring + st * TF32_UNIT;
+    if (u < TF32_SLABS)
+      tf32_load_unit(dst, slab_hi, slab_lo, &full[wg][st], u * TF32_SLAB,
+                     i * TF32_TILE, bh);
+    else
+      tf32_load_unit(dst, rows_hi, rows_lo, &full[wg][st], i * TF32_TILE,
+                     (u - TF32_SLABS) * TF32_SLAB, bh);
+  };
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&rows_full, 2 * TF32_ROWS_BYTES);
+    tf32_load_rows(sk, &k_map, &rows_full, first, bh);
+    tf32_load_rows(sv, &v_map, &rows_full, first, bh);
+  }
+  if (t == 0)
+    for (int n = 0; n < STAGES && n < total; ++n) load_unit(n);
+  const int warp = t / 32, lane = t % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int r0 = first + warp * STEP + grp;  // key rows r0, r0 + 8
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const long long k_base = static_cast<long long>(bh) * Tk;
+  // warpgroup 0 reads the lse of each tile's queries, 1 delta
+  const float* stat_rows = (wg == 0 ? lse : delta) + q_base;
+  const unsigned char* own = wg == 0 ? sk : sv;
+  const float scale2 = scale * LOG2E;
+  auto unit_of = [&](int n) {
+    const int st = n % STAGES;
+    barrier_wait(&full[wg][st], (n / STAGES) & 1);
+    __syncwarp();
+    return ring + st * TF32_UNIT;
+  };
+  auto release = [&](int n) {
+    warpgroup_sync(wg);
+    if (t == 0 && n + STAGES < total) load_unit(n + STAGES);
+    __syncwarp();
+  };
+  float acc[TF32_SLABS][16];  // dV (warpgroup 0) or dK (1), dims 32 h ..
+  float(&acc_flat)[TF32_SLABS * 16] =
+      reinterpret_cast<float(&)[TF32_SLABS * 16]>(acc);
+#pragma unroll
+  for (int i = 0; i < TF32_SLABS * 16; ++i) acc_flat[i] = 0.f;
+
+  barrier_wait(&rows_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int base = i * UNITS, q0 = i * TF32_TILE;
+    // this thread's queries' lse (times log2 e) or delta: columns
+    // 8 j + 2 tig + e of the tile, e = 0, 1
+    float stat[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + 8 * j + 2 * tig + e;
+        stat[j][e] = q < Tq ? __ldg(stat_rows + q) : 0.f;
+      }
+    // S^T = k q^T (warpgroup 0) or dP^T = v dO^T (1) over the head dim, a
+    // slab at a time into part, the slabs added in registers; the lo
+    // fragments and the parts double-buffered so that one group stays in
+    // flight
+    float x[16], part[2][16];
+    uint32_t a_lo[2][4][4];
+#pragma unroll
+    for (int sl = 0; sl < TF32_SLABS; ++sl) {
+      const unsigned char* slab = own + sl * 2 * TF32_BOX;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_lo_fragment(slab, kk, warp, grp, tig, a_lo[sl % 2][kk]);
+      const unsigned char* unit = unit_of(base + sl);
+      wgmma_fence();
+      tf32_over_slab(part[sl % 2], slab, a_lo[sl % 2], unit, true);
+      wgmma_commit();
+      if (sl > 0) {
+        wgmma_wait<TF32_IN_FLIGHT>();
+        wgmma_hold(part[(sl - 1) % 2]);
+        tf32_add_slab(x, part[(sl - 1) % 2], sl == 1);
+        release(base + sl - 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_hold(part[(TF32_SLABS - 1) % 2]);
+    tf32_add_slab(x, part[(TF32_SLABS - 1) % 2], TF32_SLABS == 1);
+    release(base + TF32_SLABS - 1);
+    if (wg == 0) {
+      // p, queries past Tq masked out; handed to warpgroup 1
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] =
+              q0 + 8 * j + 2 * tig + e % 2 < Tq
+                  ? exp2_approx(x[4 * j + e] * scale2 -
+                                stat[j][e % 2] * LOG2E)
+                  : 0.f;
+      if (i > 0) named_barrier_sync(TF32_P_READ, 256);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        xchg[c * 128 + t] = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2],
+                                        x[4 * c + 3]);
+      named_barrier_arrive(TF32_P_WRITTEN, 256);
+    } else {
+      // ds = p (dP - delta)
+      named_barrier_sync(TF32_P_WRITTEN, 256);
+      float p[16];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 f = xchg[c * 128 + t];
+        p[4 * c] = f.x;
+        p[4 * c + 1] = f.y;
+        p[4 * c + 2] = f.z;
+        p[4 * c + 3] = f.w;
+      }
+      if (i + 1 < n_tiles) named_barrier_arrive(TF32_P_READ, 256);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = p[4 * j + e] * (x[4 * j + e] - stat[j][e % 2]);
+    }
+    uint32_t hi[4][4], lo[4][4];
+    tf32_parts(x, hi, lo);
+    // dV += p^T dO (0) or dK += ds^T q (1), 32 output dims a unit
+    wgmma_hold(acc_flat);
+#pragma unroll
+    for (int h = 0; h < TF32_SLABS; ++h) {
+      const unsigned char* unit = unit_of(base + TF32_SLABS + h);
+      wgmma_fence();
+      tf32_over_rows(acc[h], hi, lo, unit);
+      wgmma_commit();
+      if (h > 0) {
+        wgmma_wait<TF32_IN_FLIGHT>();
+        release(base + TF32_SLABS + h - 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_hold(acc_flat);
+    release(base + UNITS - 1);
+  }
+  float* out = (wg == 0 ? dv : dk) + k_base * TF32_D;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int h = 0; h < TF32_SLABS; ++h)
+    tf32_store(acc[h], mul, out, r0, Tk, h * TF32_SLAB, tig);
+}
+
 // Dynamic shared memory of the wide tensor-core kernels: `slots` staged
 // [64 x 128] chunks a stage, two stages; dk/dv's stages hold two 64-row
 // chunks and four 32-row ones, then the two stages' lse and delta.
@@ -2956,6 +3594,9 @@ static_assert(2 * (FwdNarrowPlan<128>::SMEM + 1024) <= 233472,
               "two blocks of the wgmma forward at D = 80 and 128 pass an "
               "H100 SM's shared memory (with the 1 KB it keeps for each "
               "block)");
+static_assert(TF32_DQ_SMEM <= 232448 - 128 && TF32_DKDV_SMEM <= 232448 - 128,
+              "the TF32 kernels' shared memory (with their barriers) passes "
+              "an H100 block's");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
                   resident_smem_bytes<RESIDENT_MAX_NC>(true) <= 232448 &&
                   FwdPlan<2>::SMEM <= 232448 &&
@@ -3140,6 +3781,108 @@ cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The tensor map of the contiguous float32 [BH, rows, inner] at base for
+// the TF32 kernels: boxes of 32 x 32 x 1, 128-byte swizzle (a box row is
+// one swizzled row), zeros past each extent.
+cudaError_t tf32_tensor_map(CUtensorMap* map, const void* base, int BH,
+                            int rows, int inner) {
+  static const EncodeTiled encode = driver_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {  // bytes, of dims 1 and 2
+      static_cast<cuuint64_t>(inner) * sizeof(float),
+      static_cast<cuuint64_t>(rows) * inner * sizeof(float)};
+  const cuuint32_t box[3] = {TF32_SLAB, TF32_TILE, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rows rounded up to 8: the transposed copies' inner extent.
+int tf32_rows8(int rows) { return (rows + 7) / 8 * 8; }
+
+// tf32_split_kernel over x0 (and x1 unless null), [BH, T, 256] each.
+cudaError_t launch_tf32_split(const void* x0, void* lo0, void* xt0,
+                              void* xt_lo0, const void* x1, void* lo1,
+                              void* xt1, void* xt_lo1, int BH, int T,
+                              cudaStream_t stream) {
+  const int T8 = tf32_rows8(T);
+  const dim3 grid((T8 + 31) / 32, TF32_D / 32, BH * (x1 == nullptr ? 1 : 2));
+  tf32_split_kernel<<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(x0), static_cast<float*>(lo0),
+      static_cast<float*>(xt0), static_cast<float*>(xt_lo0),
+      static_cast<const float*>(x1), static_cast<float*>(lo1),
+      static_cast<float*>(xt1), static_cast<float*>(xt_lo1), BH, T, T8);
+  return cudaGetLastError();
+}
+
+// The float32 dq at D = 256: the split of k (its lo, k^T and its lo) and of
+// v (its lo) into the caller's scratch, then attn_dq_wide_tf32_kernel.
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
+                           const void* g, const void* lse, const void* delta,
+                           void* dq, void* k_lo, void* v_lo, void* kt,
+                           void* kt_lo, int BH, int Tq, int Tk, float scale,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_tf32_split(k, k_lo, kt, kt_lo, v, v_lo, nullptr,
+                                      nullptr, BH, Tk, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[8];
+  const void* bases[8] = {q, g, k, k_lo, v, v_lo, kt, kt_lo};
+  const int Tk8 = tf32_rows8(Tk);
+  for (int i = 0; i < 8; ++i) {
+    err = i < 6 ? tf32_tensor_map(&maps[i], bases[i], BH, i < 2 ? Tq : Tk,
+                                  TF32_D)
+                : tf32_tensor_map(&maps[i], bases[i], BH, TF32_D, Tk8);
+    if (err != cudaSuccess) return err;
+  }
+  err = allow_smem(attn_dq_wide_tf32_kernel, TF32_DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tq + TF32_ROWS - 1) / TF32_ROWS;
+  attn_dq_wide_tf32_kernel<<<BH * tiles, 128, TF32_DQ_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
+// The float32 dk/dv at D = 256: the split of q and of dO (each its lo, its
+// transpose and that one's lo) into the caller's scratch, then
+// attn_dkdv_wide_tf32_kernel.
+cudaError_t launch_dkdv_tf32(const void* q, const void* k, const void* v,
+                             const void* g, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             void* q_lo, void* g_lo, void* qt, void* qt_lo,
+                             void* gt, void* gt_lo, int BH, int Tq, int Tk,
+                             float scale, cudaStream_t stream) {
+  cudaError_t err = launch_tf32_split(q, q_lo, qt, qt_lo, g, g_lo, gt, gt_lo,
+                                      BH, Tq, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[10];
+  const void* bases[10] = {k, v, q, q_lo, g, g_lo, qt, qt_lo, gt, gt_lo};
+  const int Tq8 = tf32_rows8(Tq);
+  for (int i = 0; i < 10; ++i) {
+    err = i < 6 ? tf32_tensor_map(&maps[i], bases[i], BH, i < 2 ? Tk : Tq,
+                                  TF32_D)
+                : tf32_tensor_map(&maps[i], bases[i], BH, TF32_D, Tq8);
+    if (err != cudaSuccess) return err;
+  }
+  err = allow_smem(attn_dkdv_wide_tf32_kernel, TF32_DKDV_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tk + TF32_ROWS - 1) / TF32_ROWS;
+  attn_dkdv_wide_tf32_kernel<<<BH * tiles, 256, TF32_DKDV_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
+      maps[8], maps[9], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
 // Blocks an SM of `kernel` launched with `threads` and `smem` bytes of
 // dynamic shared memory (after the opt-in its launch makes).
 template <typename Kernel>
@@ -3154,8 +3897,10 @@ cudaError_t occupancy(Kernel* kernel, int threads, int smem, int* blocks) {
 // arguments, then the chunks nc and the dtype (bf: bfloat16). In bf16 the
 // forward, dq and dk/dv take the resident kernels up to RESIDENT_MAX_NC
 // chunks (their rows at D = 512 would pass a block's shared memory) and
-// the chunked ones past it; float32 takes the chunked kernels. Each is a
-// route chosen by shape: a failed map, opt-in or launch is returned.
+// the chunked ones past it; float32 takes the chunked kernels (its dq and
+// dk/dv at D = 256 the TF32 kernels, through their own entries: these
+// refuse it). Each is a route chosen by shape: a failed map, opt-in or
+// launch is returned.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* out, void* lse, int BH, int Tq, int Tk,
                             float scale, cudaStream_t stream, int nc,
@@ -3208,6 +3953,7 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<const bf16*>(g), row_lse,
         row_delta, static_cast<bf16*>(dq), Tq, Tk, tiles, nc, scale);
   } else {
+    if (nc * CD == TF32_D) return cudaErrorInvalidValue;  // the TF32 route's
     attn_dq_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
@@ -3242,6 +3988,7 @@ cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v,
         row_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk,
         tiles, nc, scale);
   } else {
+    if (nc * CD == TF32_D) return cudaErrorInvalidValue;  // the TF32 route's
     attn_dkdv_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g), row_lse,
@@ -3347,14 +4094,25 @@ int attention_dkdv(const void* q, const void* k, const void* v,
                 Tk, scale, static_cast<cudaStream_t>(stream));
 }
 
-// Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the bf16
-// kernel `kernel` (0 the forward, 1 dq, 2 dk/dv) on the wgmma route at
+// Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of kernel
+// `kernel` (0 the forward, 1 dq, 2 dk/dv): in bf16 on the wgmma route at
 // head dim D up to 128 (see narrow_occupancy) or on the wide route that a
-// launch at D past 128, a multiple of it, takes; *smem gets its dynamic
-// shared memory in bytes.
-int attention_occupancy(int kernel, int D, int* blocks, int* smem) {
+// launch at D past 128, a multiple of it, takes; in float32 the TF32 dq or
+// dk/dv at D = TF32_D (no other); *smem gets its dynamic shared memory in
+// bytes.
+int attention_occupancy(int kernel, int D, int bf16, int* blocks,
+                        int* smem) {
   if (kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!bf16) {
+    if (D != TF32_D || kernel == 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    *smem = kernel == 1 ? TF32_DQ_SMEM : TF32_DKDV_SMEM;
+    return static_cast<int>(
+        kernel == 1
+            ? occupancy(attn_dq_wide_tf32_kernel, 128, *smem, blocks)
+            : occupancy(attn_dkdv_wide_tf32_kernel, 256, *smem, blocks));
+  }
   if (D <= CD)
     return static_cast<int>(narrow_occupancy(kernel, D, blocks, smem));
   if (D % CD != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -3391,6 +4149,36 @@ int attention_occupancy(int kernel, int D, int* blocks, int* smem) {
                                   *smem, blocks);
   }
   return static_cast<int>(err);
+}
+
+// The float32 dq and dk/dv at D = 256 (the TF32 kernels): the entries
+// above' arguments (D must be TF32_D, bf16 0), with the caller's scratch for
+// the split operands after the outputs, each contiguous float32: dq's k_lo,
+// v_lo [BH, Tk, 256] and kt, kt_lo [BH, 256, Tk8]; dk/dv's q_lo, g_lo [BH,
+// Tq, 256] and qt, qt_lo, gt, gt_lo [BH, 256, Tq8] (T8: T rounded up to
+// 8). Every tensor 16-byte aligned (TMA).
+int attention_dq_tf32(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dq, void* k_lo, void* v_lo, void* kt, void* kt_lo,
+                      int BH, int Tq, int Tk, int D, int bf16, float scale,
+                      void* stream) {
+  if (!valid(BH, Tq, Tk) || D != TF32_D || bf16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dq_tf32(
+      q, k, v, g, lse, delta, dq, k_lo, v_lo, kt, kt_lo, BH, Tq, Tk, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int attention_dkdv_tf32(const void* q, const void* k, const void* v,
+                        const void* g, const void* lse, const void* delta,
+                        void* dk, void* dv, void* q_lo, void* g_lo, void* qt,
+                        void* qt_lo, void* gt, void* gt_lo, int BH, int Tq,
+                        int Tk, int D, int bf16, float scale, void* stream) {
+  if (!valid(BH, Tq, Tk) || D != TF32_D || bf16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dkdv_tf32(
+      q, k, v, g, lse, delta, dk, dv, q_lo, g_lo, qt, qt_lo, gt, gt_lo, BH,
+      Tq, Tk, scale, static_cast<cudaStream_t>(stream)));
 }
 
 const char* attention_error_string(int code) {

@@ -428,4 +428,61 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---- TF32 on wgmma (K = 8 a step: 8 float32 words, 32 bytes) ----
+//
+// The tensor cores read a float32 word as TF32 from its top 19 bits (sign,
+// exponent, 10 fraction bits): the low 13 are dropped, a truncation. A
+// float32 x is carried as hi = x with those bits cleared and lo = the same
+// of x - hi (x - hi is exact); a product a b as hi_a hi_b + hi_a lo_b +
+// lo_a hi_b, each term exact in float32. Operands read from shared memory
+// are read as they stand (the hardware drops the bits); operands from
+// registers have them cleared first (tf32_bits, tf32_lo_bits).
+// The A fragment from registers of m64nNk8 .tf32 is mma.sync.m16n8k8's:
+// a0 row grp, column tig; a1 row grp + 8, column tig; a2 row grp, column
+// tig + 4; a3 row grp + 8, column tig + 4 (each warp its 16 rows).
+
+constexpr uint32_t TF32_HI = 0xffffe000u;  // the bits TF32 keeps
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return __float_as_uint(x) & TF32_HI;
+}
+// lo of x: x less its TF32 part (exact), itself cut to TF32
+__device__ __forceinline__ uint32_t tf32_lo_bits(float x) {
+  return tf32_bits(x - __uint_as_float(tf32_bits(x)));
+}
+
+// d[64 x 32] (+)= a[64 x 8] . b[8 x 32], both read from shared memory
+// through descriptors, K-major (TF32 takes no transpose); the sum is added
+// to d unless scale_d is 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 32] += a[64 x 8] . b[8 x 32]: a from registers (the layout above,
+// TF32 bits), b from shared memory through a descriptor, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 }  // namespace

@@ -49,8 +49,17 @@ model either. They take contiguous [BH, T, D] tensors: the MHA folds its
 heads into that layout before the call (one copy each of q, k and v), so
 the kernels need no strides. float32 inputs multiply in float32 on the
 CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
-D = 80, 32 at 128). bfloat16 inputs run on the tensor cores: dq at D = 32
-and dk/dv at D <= 64 where the other operand's stream is short (at most
+D = 80, 32 at 128), but dq and dk/dv at a padded ``TF32_HEAD_DIM`` (256)
+run on the tensor cores at float32's accuracy: each product as three
+TF32 products (hi hi + hi lo + lo hi, ``_tf32_parts``: hi the word with
+its low 13 bits dropped, as the tensor cores read it, lo the same of the
+remainder), ``attn_dq_wide_tf32_kernel`` and
+``attn_dkdv_wide_tf32_kernel`` after a split pass into scratch the
+wrapper allocates (``wide_gradient_kernels(d, dtype)`` names the route;
+``attention_dq_emulation`` and ``attention_dkdv_emulation`` take their
+arithmetic for float32 there). bfloat16 inputs run on the tensor
+cores: dq at D = 32 and dk/dv at D <= 64 where the other operand's
+stream is short (at most
 ``SHORT_STREAM`` rows: the DETR decoder's attention) on ``mma.sync`` with
 bf16 operands and float32 sums, a block's 64 rows in registers, the other
 operand streamed in 64-row tiles two deep with ``cp.async`` (16 bytes at
@@ -109,6 +118,16 @@ RESIDENT_MAX_HEAD_DIM = 3 * CHUNK
 # bf16 dq at D = 32 and dk/dv at D <= 64 run on the ``mma.sync`` kernels
 # (csrc/attention.cu, SHORT_STREAM); longer ones take the wgmma kernels.
 SHORT_STREAM = 128
+# The head dim at which float32 dq and dk/dv run on the tensor cores as
+# three TF32 products a product (csrc/attention.cu, TF32_D); float32 at
+# other head dims stays on the CUDA cores.
+TF32_HEAD_DIM = 2 * CHUNK
+# The bits of a float32 word that a TF32 operand keeps (0xffffe000).
+_TF32_HI = -(1 << 13)
+# streamed rows a tile of the TF32 kernels, dims (rows) a step, and dims a
+# slab: the span over which the tensor cores sum before a sum is added in
+# registers
+_TF32_TILE, _TF32_STEP, _TF32_SLAB = 32, 8, 32
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
 
@@ -216,6 +235,73 @@ def _two_bf16(x: torch.Tensor, split: bool) -> Tuple[torch.Tensor, ...]:
     return (hi, (x - hi).bfloat16().float()) if split else (hi,)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x as the tensor cores read it as TF32: the low 13 bits of
+    each word dropped (a truncation toward zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & _TF32_HI).view(torch.float32)
+
+
+def _tf32_parts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as the two TF32 values that stand for it in the float32
+    tensor-core kernels: hi = x with its low 13 bits dropped, lo = the same
+    of x - hi (which is exact). |x - hi - lo| <= 2^-21 |x|."""
+    hi = _tf32(x)
+    return hi, _tf32(x.float() - hi)
+
+
+def _tf32_product(a_parts, b_parts, out: torch.Tensor) -> torch.Tensor:
+    """out + a @ b as the TF32 kernels sum it: 8 rows of the contraction a
+    step in order, each step hi hi, then hi lo, then lo hi, added one
+    product at a time into the float32 sum (a [.., M, K], b [.., K, N],
+    each as its ``_tf32_parts``)."""
+    (ah, al), (bh, bl) = a_parts, b_parts
+    for c0 in range(0, ah.shape[-1], _TF32_STEP):
+        c = slice(c0, c0 + _TF32_STEP)
+        out = out + ah[..., c] @ bh[..., c, :]
+        out = out + ah[..., c] @ bl[..., c, :]
+        out = out + al[..., c] @ bh[..., c, :]
+    return out
+
+
+def _tf32_logits(a: torch.Tensor, b: torch.Tensor,
+                 by_slab: bool) -> torch.Tensor:
+    """a @ b^T over the head dim as the TF32 kernels sum it: in one sum
+    (``_tf32_product``), or with ``by_slab`` each 32-dim slab in a sum of
+    its own, the slabs added in order."""
+    a_parts = _tf32_parts(a)
+    b_parts = _tf32_parts(b.transpose(1, 2))
+    zero = torch.zeros(a.shape[:2] + (b.shape[1],), device=a.device)
+    if not by_slab:
+        return _tf32_product(a_parts, b_parts, zero)
+    out = None
+    for c0 in range(0, a.shape[-1], _TF32_SLAB):
+        c = slice(c0, c0 + _TF32_SLAB)
+        part = _tf32_product([t[..., c] for t in a_parts],
+                             [t[..., c, :] for t in b_parts], zero)
+        out = part if out is None else out + part
+    return out
+
+
+def _tf32_tiles(q, k, v, g, lse, delta, over_keys: bool, scale: float):
+    """What the float32 tensor-core gradient kernels compute, tile by tile
+    (``_emulated_tiles``' counterpart): S and dP over the head dim as
+    ``_tf32_logits`` sums them (dq: S in one sum, dP slab by slab; dk/dv:
+    both slab by slab), p = exp(s scale - lse) and ds = p (dp - delta)
+    float32. Yields (slice of the streamed rows, p, ds), the stream
+    running over 32-row key tiles (dq) or query tiles (dk/dv)."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    rows = k.shape[1] if over_keys else q.shape[1]
+    for r0 in range(0, rows, _TF32_TILE):
+        tile = slice(r0, r0 + _TF32_TILE)
+        qs, ks = (slice(None), tile) if over_keys else (tile, slice(None))
+        p = torch.exp(_tf32_logits(qf[:, qs], kf[:, ks], not over_keys)
+                      * scale - lse[:, qs, None])
+        ds = p * (_tf32_logits(gf[:, qs], vf[:, ks], True)
+                  - delta[:, qs, None])
+        yield tile, p, ds
+
+
 def _emulated_tiles(q, k, v, g, lse, delta, over_keys: bool, split: bool,
                     scale: float):
     """What the tensor-core gradient kernels compute, tile by tile: the
@@ -283,11 +369,21 @@ def attention_dq_emulation(q, k, v, g, lse, delta, split: bool = True,
     model calls it): ds enters ``ds @ k`` as bf16 hi + lo, one product
     each into one float32 sum, and the sum is scaled at the end. With
     ``split=False`` ds is rounded to one bf16 value instead; ``scale`` as
-    the forward's emulation takes it."""
+    the forward's emulation takes it. Where the route is the TF32 kernel
+    (float32 at a padded ``TF32_HEAD_DIM``, ``_on_tf32``:
+    ``attn_dq_wide_tf32_kernel``'s arithmetic) every product is three TF32
+    products (``_tf32_product``) over 32-key tiles: S and dP, then
+    ``ds @ k``, each in its kernel's order of sums; ``split`` is not read
+    there."""
     _check(q, k, v)
     _check_grad(q, g, lse, delta)
     scale = _scale(q.shape[-1]) if scale is None else scale
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    if _on_tf32(q):
+        for tile, _, ds in _tf32_tiles(q, k, v, g, lse, delta, True, scale):
+            acc = _tf32_product(_tf32_parts(ds),
+                                _tf32_parts(k[:, tile].float()), acc)
+        return (acc * scale).to(q.dtype)
     for tile, _, ds_parts in _emulated_tiles(q, k, v, g, lse, delta, True,
                                              split, scale):
         for part in ds_parts:
@@ -301,12 +397,23 @@ def attention_dkdv_emulation(q, k, v, g, lse, delta, split: bool = True,
     """(dk, dv) by the arithmetic of the tensor-core dk/dv kernel (for the
     tests; no model calls it): p and ds enter ``p^T @ g`` and ``ds^T @ q``
     as bf16 hi + lo, and dk is scaled at the end; ``scale`` as the
-    forward's emulation takes it."""
+    forward's emulation takes it. Where the route is the TF32 kernel
+    (``_on_tf32``: ``attn_dkdv_wide_tf32_kernel``'s arithmetic) every
+    product is three TF32 products over 32-query tiles; ``split`` is not
+    read there."""
     _check(q, k, v)
     _check_grad(q, g, lse, delta)
     scale = _scale(q.shape[-1]) if scale is None else scale
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
+    if _on_tf32(q):
+        for tile, p, ds in _tf32_tiles(q, k, v, g, lse, delta, False,
+                                       scale):
+            dv = _tf32_product(_tf32_parts(p.transpose(1, 2)),
+                               _tf32_parts(g[:, tile].float()), dv)
+            dk = _tf32_product(_tf32_parts(ds.transpose(1, 2)),
+                               _tf32_parts(q[:, tile].float()), dk)
+        return (dk * scale).to(k.dtype), dv.to(v.dtype)
     for tile, p_parts, ds_parts in _emulated_tiles(q, k, v, g, lse, delta,
                                                    False, split, scale):
         for part in p_parts:
@@ -323,11 +430,12 @@ def _library() -> ctypes.CDLL:
     lib = build.load("attention")
     tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     for name, pointers in (("attention_fwd", 5), ("attention_dq", 7),
-                           ("attention_dkdv", 8)):
+                           ("attention_dkdv", 8), ("attention_dq_tf32", 11),
+                           ("attention_dkdv_tf32", 14)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
         fn.restype = ctypes.c_int
-    lib.attention_occupancy.argtypes = ([ctypes.c_int] * 2
+    lib.attention_occupancy.argtypes = ([ctypes.c_int] * 3
                                         + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.attention_occupancy.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
@@ -381,13 +489,26 @@ def wide_forward_kernel(d: int) -> str:
     return f"attn_fwd_wide_{_wide_route(d)}mma_kernel"
 
 
-def wide_gradient_kernels(d: int) -> Tuple[str, str]:
-    """The names of the bf16 dq and dk/dv kernels that a launch at head dim
-    ``d`` past ``CHUNK`` runs: the resident kernels up to
-    ``RESIDENT_MAX_HEAD_DIM``, the chunked ones past it."""
+def wide_gradient_kernels(d: int, dtype: torch.dtype = torch.bfloat16
+                          ) -> Tuple[str, str]:
+    """The names of the dq and dk/dv kernels that a launch at head dim
+    ``d`` past ``CHUNK`` runs in ``dtype``: in bf16 the resident kernels
+    up to ``RESIDENT_MAX_HEAD_DIM``, the chunked ones past it; in float32
+    the TF32 kernels at a padded ``TF32_HEAD_DIM``, the CUDA-core ones at
+    every other."""
     route = _wide_route(d)
+    if dtype == torch.float32:
+        route = "tf32_" if padded_head_dim(d) == TF32_HEAD_DIM else ""
+        return f"attn_dq_wide_{route}kernel", f"attn_dkdv_wide_{route}kernel"
     return (f"attn_dq_wide_{route}mma_kernel",
             f"attn_dkdv_wide_{route}mma_kernel")
+
+
+def _on_tf32(q: torch.Tensor) -> bool:
+    """Whether dq and dk/dv of q (as the wrapper pads it) take the TF32
+    kernels."""
+    return (q.dtype == torch.float32
+            and padded_head_dim(q.shape[-1]) == TF32_HEAD_DIM)
 
 
 def _narrow_padded(d: int) -> int:
@@ -425,18 +546,21 @@ def narrow_gradient_kernels(d: int, tq: int, tk: int) -> Tuple[str, str]:
     return name("dq", 32, tk), name("dkdv", 64, tq)
 
 
-def kernel_occupancy(kernel: str, d: int) -> Tuple[int, int]:
+def kernel_occupancy(kernel: str, d: int,
+                     dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """(blocks an SM, dynamic shared memory in bytes) of the bf16
     ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkdv"``) on the wgmma route at
     head dim ``d`` up to ``CHUNK`` as built (32, 64, 80 and 128; the
     forward in the blocks it launches, of one warpgroup at D <= 64 and of
     two at 80 and 128), or on the wide route that a launch at ``d`` past
-    it (a multiple of it) takes, from
+    it (a multiple of it) takes; in float32, of the TF32 dq or dk/dv at
+    ``TF32_HEAD_DIM`` (the entry refuses any other); from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card."""
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     lib = _library()
     rc = lib.attention_occupancy(("fwd", "dq", "dkdv").index(kernel), d,
+                                 int(dtype == torch.bfloat16),
                                  ctypes.byref(blocks), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"attention_occupancy({kernel}, {d}): "
@@ -459,10 +583,11 @@ def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def _check_aligned(name: str, q, *tensors):
     # the tensor-core kernels copy 16 bytes at a time
-    if (q.dtype == torch.bfloat16
+    if ((q.dtype == torch.bfloat16 or _on_tf32(q))
             and any(t.data_ptr() % 16 for t in (q,) + tensors)):
-        raise ValueError(f"{name}: the bfloat16 kernels copy rows 16 bytes "
-                         f"at a time and take q, k, v and g aligned to that")
+        raise ValueError(f"{name}: the tensor-core kernels copy rows 16 "
+                         f"bytes at a time and take q, k, v and g aligned "
+                         f"to that")
 
 
 def _launch(fn: str, q, k, scale: float, *pointers):
@@ -480,6 +605,19 @@ def _launch(fn: str, q, k, scale: float, *pointers):
                            f"{lib.attention_error_string(rc).decode()} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)} "
                            f"{q.dtype})")
+
+
+def _tf32_scratch(x: torch.Tensor,
+                  transposed: int) -> Tuple[torch.Tensor, ...]:
+    """Scratch of the TF32 kernels' split operands for two [BH, T, D]
+    tensors shaped as ``x``, in the entries' order: the lo of each ([BH,
+    T, D]), then for the first ``transposed`` of them the transpose and
+    its lo ([BH, D, T8], T8 = T rounded up to 8)."""
+    bh, t, d = x.shape
+    t8 = -(-t // 8) * 8
+    return (torch.empty_like(x), torch.empty_like(x),
+            *(torch.empty((bh, d, t8), dtype=x.dtype, device=x.device)
+              for _ in range(2 * transposed)))
 
 
 def _sliced(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -534,9 +672,15 @@ def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
     q, k, v, g = _padded(q, k, v, g)
     _check_aligned("attention_dq", q, k, v, g)
     dq = torch.empty_like(q)
-    _launch("attention_dq", q, k, _scale(d), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr())
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    if _on_tf32(q):
+        # k's and v's lo, k^T and its lo (csrc/attention.cu, tf32_split)
+        scratch = _tf32_scratch(k, 1)
+        _launch("attention_dq_tf32", q, k, _scale(d), *pointers,
+                *(t.data_ptr() for t in scratch))
+    else:
+        _launch("attention_dq", q, k, _scale(d), *pointers)
     attention_dq.launches += 1
     return _sliced(dq, d)
 
@@ -555,9 +699,16 @@ def attention_dkdv(q, k, v, g, lse, delta
     q, k, v, g = _padded(q, k, v, g)
     _check_aligned("attention_dkdv", q, k, v, g)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("attention_dkdv", q, k, _scale(d), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr())
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr())
+    if _on_tf32(q):
+        # q's and dO's lo, their transposes and those ones' lo
+        scratch = _tf32_scratch(q, 2)
+        _launch("attention_dkdv_tf32", q, k, _scale(d), *pointers,
+                *(t.data_ptr() for t in scratch))
+    else:
+        _launch("attention_dkdv", q, k, _scale(d), *pointers)
     attention_dkdv.launches += 1
     return _sliced(dk, d), _sliced(dv, d)
 

@@ -12,8 +12,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64, 80 and 128,
    in bf16 the forward, dq and dk/dv on wgmma at all four, dq on mma.sync
    at 32 and dk/dv at 32 and 64, the chunked wide kernels for D = 128 n,
-   n >= 2, and the resident bf16 forward, dq and dk/dv at D = 256 and
-   384) and the wgmma kernels' and the wide bf16 kernels' blocks an SM;
+   n >= 2, the resident bf16 forward, dq and dk/dv at D = 256 and 384, and
+   the float32 TF32 dq and dk/dv at D = 256) and the wgmma kernels', the
+   wide bf16 kernels' and the TF32 kernels' blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -25,9 +26,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores), up to D = 512 (in bf16 up to D = 128 the forward, dq and dk/dv
-   on the wgmma kernels, dq at D = 32 and dk/dv at D <= 64 on mma.sync
-   over short streams, each also launched twice for the same bits and
+   cores; dq and dk/dv at a padded D = 256 on the tensor cores as three
+   TF32 products a product, each named, launched twice for the same bits
+   and held against its emulation too, SDPA's own float32 differences
+   printed on every float32 row), up to D = 512 (in bf16 up to D = 128
+   the forward, dq and dk/dv on the wgmma kernels, dq at D = 32 and
+   dk/dv at D <= 64 on mma.sync over short streams, each also launched
+   twice for the same bits and
    held against its emulation, SDPA timed as ``device_ms`` too; past 128
    on the resident kernels at 256 and 384 and on the chunked ones at
    512);
@@ -69,6 +74,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      318,726,526 parameters): K1 at P=16 -> 1024, K3 35 times a forward
      (24 blocks at [32, 1600, 1600, 256] on the wide kernels, DETR's 11 at
      D = 32);
+   - ``vit_l16_h4`` in float32 (``vit_l16_h4_f32``,
+     ``compute_dtype="float32"``), trained only (one warm-up and three
+     timed steps, within the run's time limit): the 24 blocks' dq and
+     dk/dv on the TF32 kernels, held by name and count in the train step's
+     profile, the forward and DETR's 11 attentions on the float32
+     CUDA-core kernels; its step, busy share, K3's device ms by kernel and
+     peak memory;
    - one train step of the 640 flagship at DINO's 900 queries and
      ``max_objects=120`` (``flagship_900q``): K2 once on its columns route
      at [8, 120, 900], the loss held to the plain step's;
@@ -207,6 +219,17 @@ import torch
 # operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the TF32 rate of the tensor cores: the float32 dq and dk/dv at D = 256
+# run on them as three TF32 products a product, and their ``bound_ms`` is
+# that work at this rate (the CUDA-core figure stays beside it as
+# ``bound_cuda_core_ms``)
+TF32_OPS_PER_S = 495e12
+# how far the TF32 kernels' dq, dk and dv may lie from the emulation of
+# their arithmetic, of the largest value: the tensor cores add truncating
+# where the emulation rounds (tests/test_torch_attention_kernel.py,
+# TF32_EMULATION_GATE; dq's 3.4e-5 at [32, 1600, 1600, 256] is the most
+# measured, PERF.md)
+TF32_EMULATION_GATE = 1e-4
 # ex2.approx results a clock on an SM (the special-function units; the CUDA
 # C++ Programming Guide's throughput table, compute capability 9.0): each
 # bf16 K3 kernel takes one a query-key pair for p
@@ -426,8 +449,10 @@ def kernel_names() -> int:
     tensor-core kernels for bf16, the CUDA-core ones for float32 and for
     the P=4 stem; the same for each weight gradient; in bf16 the route
     of the forward, dq and dk/dv (mma.sync or wgmma up to D = 128,
-    resident or chunked past it), and the wgmma and wide kernels' blocks
-    an SM (``occupancy``). Apart, because a
+    resident or chunked past it), in float32 past 128 the route of dq and
+    dk/dv (the TF32 kernels at a padded 256, the CUDA-core ones past it),
+    and the wgmma, wide and TF32 kernels' blocks an SM (``occupancy``).
+    Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
     short ones. K2's cases too: the slots or columns kernel, and its
@@ -476,14 +501,15 @@ def kernel_names() -> int:
                            if dtype != torch.bfloat16
                            else A.wide_forward_kernel(d) if wide
                            else A.narrow_forward_kernel(d), what)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or wide:
                 # the gradients' route: up to 128 wgmma but mma.sync over
                 # short streams (dq at D = 32, dk/dv at D <= 64), past it
-                # resident or chunked
+                # resident or chunked; float32 past 128 the TF32 kernels at
+                # a padded 256, else the CUDA-core ones
                 g = torch.randn_like(q)
                 out, lse = A.attention_fwd_reference(q, k, v)
                 args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
-                names = (A.wide_gradient_kernels(d) if wide
+                names = (A.wide_gradient_kernels(d, dtype) if wide
                          else A.narrow_gradient_kernels(d, tq, tk))
                 _expect_kernel(lambda: A.attention_dq(*args), "attn_dq",
                                names[0], f"{what} dq")
@@ -517,7 +543,8 @@ def ptxas_k3(log):
     kernels' dims a thread times threads a row, the resident wide kernels'
     (attn_<kind>_wide_mma_kernel<NC>, the forward's too) 128 times theirs
     (the chunks); the chunked wide kernels (no template) read
-    "D=128n"."""
+    "D=128n", the float32 TF32 ones (``attn_*_wide_tf32_kernel``, no
+    template) "D=256"."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
@@ -532,7 +559,8 @@ def ptxas_k3(log):
             name = f"{entry.group(1)} D={d}"
             continue
         if wide:
-            name = f"{wide.group(1)} D=128n"
+            tf32 = "_tf32_" in wide.group(1)
+            name = f"{wide.group(1)} D={256 if tf32 else '128n'}"
             continue
         if "Compiling entry" in line:
             name = None
@@ -558,21 +586,28 @@ def phase_build():
          f"{time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log").read_text()
+        notes = {}  # ptxas's C75xx notes by code (C7515: wgmmas serialised)
         for line in log.splitlines():
-            if ("registers" in line or "spill" in line
+            note = re.search(r"\((C75\d\d)\)", line)
+            if note:
+                notes[note[1]] = notes.get(note[1], 0) + 1
+            elif ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 _say(f"  {name}: {line.strip()}")
+        if notes:
+            _say(f"  {name}: ptxas notes by code: {notes}")
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 39:
-        raise AssertionError(f"expected 39 K3 kernels (3 kernels, 2 dtypes, "
+    if len(k3) != 41:
+        raise AssertionError(f"expected 41 K3 kernels (3 kernels, 2 dtypes, "
                              f"D = 32, 64, 80, 128, in bf16 the forward, "
                              f"dq and dk/dv on wgmma at all four, dq on "
                              f"mma.sync at 32 and dk/dv at 32 and 64, the "
-                             f"6 chunked wide ones and the resident "
-                             f"forward, dq and dk/dv at D = 256 and 384), "
-                             f"read {len(k3)}")
+                             f"6 chunked wide ones, the resident "
+                             f"forward, dq and dk/dv at D = 256 and 384, "
+                             f"and the float32 TF32 dq and dk/dv at "
+                             f"D = 256), read {len(k3)}")
     _say("[build] K3 wgmma and wide bf16 kernels: "
          + json.dumps(occupancy(k3)))
     return k3
@@ -580,12 +615,13 @@ def phase_build():
 
 def occupancy(k3):
     """{"<kernel> D=<D>": {"blocks_per_sm", "smem_bytes", "registers",
-    "spill_bytes"}} of K3's bf16 kernels that TMA feeds: the wgmma forward
+    "spill_bytes"}} of K3's kernels that TMA feeds: the bf16 wgmma forward
     (in the blocks it launches: one warpgroup at D <= 64, two at 80 and
     128), dq and dk/dv at D = 32, 64, 80 and 128,
     and the wide forward, dq and dk/dv on the route a launch at D = 256,
     384 and 512 takes (resident, then chunked: the design whose shared
-    memory and threads do not depend on D); blocks an SM from
+    memory and threads do not depend on D), and the float32 TF32 dq and
+    dk/dv at D = 256; blocks an SM from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
     shared memory (``kernel_occupancy``), registers and spill bytes from
     ptxas (``ptxas_k3``)."""
@@ -610,6 +646,19 @@ def occupancy(k3):
         key = "D=128n" if "chunked" in name else f"D={d}"
         report = k3.get(f"{name} {key}", {})
         out[f"{name} D={d}"] = {
+            "blocks_per_sm": blocks, "smem_bytes": smem,
+            "registers": report.get("registers"),
+            "spill_bytes": report.get("spill_stores", 0)
+            + report.get("spill_loads", 0)}
+    # the float32 dq and dk/dv on the tensor cores (three TF32 products)
+    for kind, name in zip(("dq", "dkdv"), A.wide_gradient_kernels(
+            A.TF32_HEAD_DIM, torch.float32)):
+        blocks, smem = A.kernel_occupancy(kind, A.TF32_HEAD_DIM,
+                                          torch.float32)
+        if blocks < 1:
+            raise AssertionError(f"{name}: no block fits an SM")
+        report = k3.get(f"{name} D={A.TF32_HEAD_DIM}", {})
+        out[f"{name} D={A.TF32_HEAD_DIM}"] = {
             "blocks_per_sm": blocks, "smem_bytes": smem,
             "registers": report.get("registers"),
             "spill_bytes": report.get("spill_stores", 0)
@@ -720,9 +769,9 @@ def _ex2_per_s():
     return EX2_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
-def _bound(n_bytes, ops, dtype):
+def _bound(n_bytes, ops, dtype, rate=None):
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    ops_ms = ops / (rate or PEAK_OPS_PER_S[dtype]) * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -940,6 +989,28 @@ def _attention_label(label, bh, tq, tk, d, dtype):
     return f"K3 {label} [{bh}, {tq}, {tk}, {d}] {str(dtype)[6:]}"
 
 
+def _sdpa_errors(q, k, v, g, ref, ref_lse):
+    """SDPA's largest differences from the plain versions on [1, BH, T, D]
+    views: its out, and dq, dk and dv of the cotangent ``g`` of out alone
+    (SDPA has no lse to take one of), so that its float32 route is known to
+    be float32-accurate where it is the yardstick."""
+    import torch.nn.functional as F
+
+    from boosted_detr_torch.ops import attention as A
+
+    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4)
+    grads = torch.autograd.grad(out, (q4, k4, v4), g.unsqueeze(0))
+    args = (q, k, v, g, ref_lse, (g.float() * ref.float()).sum(-1))
+    want = (A.attention_dq_reference(*args),
+            *A.attention_dkdv_reference(*args))
+    errs = {"out": (out[0].detach() - ref).abs().max().item()}
+    errs.update({name: (a[0] - b).abs().max().item()
+                 for name, a, b in zip(("dq", "dk", "dv"), grads, want)})
+    return errs
+
+
 def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     """K3-fwd (with the lse), K3-dq and K3-dkdv at one shape against their
     plain versions; in bf16 (and float32 at D > 64) also timed, with
@@ -953,7 +1024,14 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     first bit for bit, and each is held against its emulation
     (``attention_fwd_emulation``, ``attention_dq_emulation``,
     ``attention_dkdv_emulation``: one bf16 ulp, at least 99% of the values
-    equal; the lse within 1e-5). Returns one row per kernel."""
+    equal; the lse within 1e-5). In float32 at a padded D = 256 (the TF32
+    dq and dk/dv) the gradients' rows do the same: their kernels by name,
+    ptxas's report and blocks an SM, a second launch, and the emulation
+    (``TF32_EMULATION_GATE``), their ``bound_ms`` that of three TF32
+    products a product on the tensor cores, with the CUDA-core one
+    (``bound_cuda_core_ms``) beside it; every float32 row prints
+    SDPA's own differences from the plain versions. Returns one row per
+    kernel."""
     import torch.nn.functional as F
 
     from boosted_detr_torch.ops import attention as A
@@ -1005,6 +1083,58 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
         if dtype == torch.bfloat16:  # one ex2 a query-key pair for p
             rows[name]["ex2_floor_ms"] = bh * tq * tk / _ex2_per_s() * 1e3
     padded = A.padded_head_dim(d)
+    if dtype == torch.float32:
+        sdpa = _sdpa_errors(q, k, v, g, ref, ref_lse)
+        _say(f"  {what} SDPA float32 against the plain versions: max abs "
+             "err " + ", ".join(f"{n} {e:.3e}" for n, e in sdpa.items()))
+        for name in rows:
+            rows[name]["sdpa_max_abs_err"] = sdpa
+    if dtype == torch.float32 and padded == A.TF32_HEAD_DIM:
+        # dq and dk/dv on the tensor cores, three TF32 products a product:
+        # a second launch, the same bits; against the emulation of their
+        # arithmetic
+        again = (A.attention_dq(*args), *A.attention_dkdv(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"{what}: a second launch of dq or dk/dv "
+                                 "gave other bits")
+        padded_args = (*A._padded(q, k, v, g), ref_lse, delta)
+        emulated = (A.attention_dq_emulation(*padded_args, scale=A._scale(d)),
+                    *A.attention_dkdv_emulation(*padded_args,
+                                                scale=A._scale(d)))
+        off = {}
+        for part, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                   emulated):
+            want = want[..., :d]
+            big = want.abs().max().item()
+            _close(got, want, atol=TF32_EMULATION_GATE * big, rtol=0.0,
+                   what=f"{what} {part} against the emulation")
+            off[part] = (got - want).abs().max().item() / big
+        _say(f"  {what} dq, dk, dv off the emulation by "
+             f"{json.dumps(off)} of their largest values")
+        rows["dq"]["off_emulation"] = off["dq"]
+        rows["dkdv"]["off_emulation"] = max(off["dk"], off["dv"])
+        for name, kernel in zip(("dq", "dkdv"),
+                                A.wide_gradient_kernels(d, dtype)):
+            report = (ptxas or {}).get(f"{kernel} D={padded}", {})
+            blocks, smem = A.kernel_occupancy(name, padded, dtype)
+            # the bound of the work they do: three TF32 products a
+            # product on the tensor cores; beside it the same function on
+            # the CUDA cores, and its own products at the TF32 rate
+            rows[name].update(
+                kernel=kernel, repeats_bit_for_bit=True,
+                registers=report.get("registers"),
+                spill_bytes=report.get("spill_stores", 0)
+                + report.get("spill_loads", 0), blocks_per_sm=blocks,
+                smem_bytes=smem,
+                bound_cuda_core_ms=rows[name]["bound_ms"],
+                bound_one_tf32_ms=ops[name] / TF32_OPS_PER_S * 1e3,
+                **_bound(n_bytes[name], 3 * ops[name], dtype,
+                         TF32_OPS_PER_S))
+            _say(f"  {what} {name}: {kernel}, {rows[name]['registers']} "
+                 f"registers, {rows[name]['spill_bytes']} spill bytes, "
+                 f"{blocks} block(s) an SM at {smem} bytes of shared "
+                 "memory; a second launch gave the same bits")
     if dtype == torch.bfloat16 and padded <= A.CHUNK:
         # the kernels up to D = 128 (wgmma, mma.sync as named above):
         # their names, ptxas's report, and a second launch of each, the
@@ -1134,7 +1264,11 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
         r = rows[name]
         r["bound_share"] = r["bound_ms"] / r["ms"]
         passes = (f", {_k3_passes(name, d)} tensor-core passes a tile pair"
-                  if dtype == torch.bfloat16 else ", CUDA cores")
+                  if dtype == torch.bfloat16
+                  else f", three TF32 products a product; on the CUDA "
+                  f"cores {r['bound_cuda_core_ms']:.4f} ms, one TF32 "
+                  f"product {r['bound_one_tf32_ms']:.4f} ms"
+                  if "bound_cuda_core_ms" in r else ", CUDA cores")
         _say(f"  {what} {name}: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, SDPA "
              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] else "none")
@@ -1323,7 +1457,9 @@ _FRESH_SELF_ATTENTION = ("self_attention.attention.query_projection.weight",
 # forward (serving) and per train step, and the kernels the plain
 # comparison swaps out; a path that runs the fused attention names its K3
 # forward kernels, {name: launches a forward}, which its profiles are held
-# to; a path may also name its parameter count (the JAX
+# to, and may name its gradient kernels (``grad_kernels``, {name: launches
+# a train step}), which its train step's profile is held to; a path may
+# also name its parameter count (the JAX
 # model's, by jax.eval_shape on the CPU), and the boosted path its model,
 # its TrainConfig keywords, its matcher problem, the weak learner its
 # staged steps train and their launches.
@@ -1381,6 +1517,25 @@ PATHS = {
         fwd_kernels=dict(attn_fwd_wide_mma_kernel=24,
                          attn_fwd_wgmma_kernel=11),
         serving_plain=("patchify_fwd",) + _K3),
+    # vit_l16_h4 in float32 (compute_dtype="float32", as a user sets it in
+    # ModelConfig), trained only (one warm-up and three timed steps: the
+    # run's time limit; its forward kernels are unchanged and held in the
+    # kernels phase): its 24 blocks run the float32 forward on the CUDA
+    # cores (attn_fwd_wide_kernel) and dq and dk/dv at [32, 1600, 1600,
+    # 256] on the tensor cores, three TF32 products a product; DETR's 11
+    # attentions at D = 32 the float32 CUDA-core kernels; K1 its float32
+    # route
+    "vit_l16_h4_f32": dict(
+        res=RES, cfg=dict(backbone="vit_p16_d24_w1024_h4", norm="batchnorm",
+                          use_pallas_attention=True,
+                          compute_dtype="float32"),
+        params=318_726_526, train_only=(1, 3),
+        step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=35,
+                     attention_dq=35, attention_dkdv=35),
+        fwd_kernels=dict(attn_fwd_wide_kernel=24, attn_fwd_kernel=11),
+        grad_kernels=dict(attn_dq_wide_tf32_kernel=24,
+                          attn_dkdv_wide_tf32_kernel=24, attn_dq_kernel=11,
+                          attn_dkdv_kernel=11)),
     # 4 weak learners (a 1-block encoder, a decoder block and three heads
     # of hidden width 256 each); the intermediate losses fold the 4 blocks'
     # matching into one K2 launch
@@ -1921,17 +2076,23 @@ def phase_breakdown(name, model, codec, images):
         _say(f"    {e.self_device_time_total / n / 1e3:8.3f} ms "
              f"{100 * e.self_device_time_total / busy_us:5.1f}% "
              f"x{e.count // n:<4d} {e.key[:90]}")
-    # the bf16 paths run the tensor-core forwards of K1 and K3 only
+    # the bf16 paths run the tensor-core forwards of K1 and K3 only, the
+    # float32 ones the CUDA-core forwards
     ours = {}  # by name, the head dims of K3 together
     for e in kernels:
         if "patchify_fwd_" in e.key or "attn_fwd_" in e.key:
             kernel = re.search(r"(?:patchify|attn)_\w*?kernel", e.key)[0]
             ours[kernel] = ours.get(kernel, 0) + e.count // n
     _say(f"  forward kernels of K1 and K3 per forward: {ours}")
-    if not set(ours) <= {"patchify_fwd_mma_kernel", "attn_fwd_wgmma_kernel",
-                         "attn_fwd_wide_mma_kernel",
-                         "attn_fwd_wide_chunked_mma_kernel"}:
-        raise AssertionError(f"a bf16 forward ran a CUDA-core kernel: {ours}")
+    dtype = PATHS[name]["cfg"].get("compute_dtype", "bfloat16")
+    allowed = ({"patchify_fwd_kernel", "attn_fwd_kernel",
+                "attn_fwd_wide_kernel"} if dtype == "float32" else
+               {"patchify_fwd_mma_kernel", "attn_fwd_wgmma_kernel",
+                "attn_fwd_wide_mma_kernel",
+                "attn_fwd_wide_chunked_mma_kernel"})
+    if not set(ours) <= allowed:
+        raise AssertionError(f"a {dtype} forward ran a kernel of the other "
+                             f"dtype's route: {ours}")
     _expect_forward_kernels(name, ours, "a forward", exact=True)
     row["forward_kernels"] = ours
     return row
@@ -2006,7 +2167,8 @@ def _profile_split(prof, wall_us):
     split = dict.fromkeys(profile_step.PHASES + ("other",), 0.0)
     for r in rows:
         split[r["phase"]] += r["us"] / 1e3
-    attention_ms = sum(r["us"] for r in rows if "attn_" in r["name"]) / 1e3
+    attention_ms = sum(r["us"] for r in rows if "attn_" in r["name"]
+                       or "tf32_split" in r["name"]) / 1e3
     return split, sum(split.values()), wall_us / 1e3, attention_ms
 
 
@@ -2051,7 +2213,8 @@ def phase_training(name, warmup, steps):
          f"of {type(model).__name__}: batch "
          f"{BATCH} at {res}x{res}, backbone {cfg.backbone}, norm {cfg.norm}, "
          f"{n_params} parameters, fused attention "
-         f"{cfg.use_pallas_attention}, bf16, matcher {cfg.matcher}, SGD "
+         f"{cfg.use_pallas_attention}, {cfg.compute_dtype}, matcher "
+         f"{cfg.matcher}, SGD "
          f"Nesterov {tcfg.momentum}, clipnorm {tcfg.clipnorm}, "
          f"{tcfg.lr_schedule}, intermediate losses "
          f"{tcfg.use_intermediate_losses}; {warmup} warm-up and {steps} "
@@ -2178,6 +2341,32 @@ def phase_training(name, warmup, steps):
             row["profile_k3_fwd_kernels"] = fwd
             _say(f"  K3 forward kernels a step: {fwd}")
             _expect_forward_kernels(name, fwd, "a train step", exact=False)
+            # K3's gradient kernels by name, held to the path's
+            # ``grad_kernels``: no other ran, and each at least once and
+            # at most its count (a long step's profile has been seen to
+            # drop kernels, never to add one); and every K3 kernel's
+            # device ms, the TF32 route's split pass included
+            grad, by_kernel = {}, {}
+            for e in kernels:
+                found = re.search(r"attn_\w*?kernel|tf32_split_kernel",
+                                  e.key)
+                if not found:
+                    continue
+                by_kernel[found[0]] = (by_kernel.get(found[0], 0)
+                                       + e.self_device_time_total / 1e3)
+                if "attn_dq" in e.key or "attn_dkdv" in e.key:
+                    grad[found[0]] = grad.get(found[0], 0) + e.count
+            row["profile_k3_grad_kernels"] = grad
+            row["profile_k3_kernels_ms"] = by_kernel
+            _say(f"  K3 gradient kernels a step: {grad}; K3 device ms by "
+                 "kernel: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in by_kernel.items()))
+            want = path.get("grad_kernels")
+            if want is not None and (set(grad) != set(want) or any(
+                    not 1 <= grad[k] <= n for k, n in want.items())):
+                raise AssertionError(f"{name}: a train step ran the K3 "
+                                     f"gradient kernels {grad}, expected "
+                                     f"{want}")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
             _say(f"    {e.self_device_time_total / 1e3:8.3f} ms "
                  f"x{e.count:<4d} {e.key[:90]}")
@@ -3926,7 +4115,8 @@ def _kernel_line(rows, paths):
                            "longest_steps", "chain_ms", "chain_share")
                  if k in main_row}
         routes = [{k: r[k] for k in ("kernel", "shape", "ms", "device_ms",
-                                     "bound_ms", "bound_share", "library_ms",
+                                     "bound_ms", "bound_cuda_core_ms",
+                                     "bound_share", "library_ms",
                                      "library_device_ms", "registers",
                                      "spill_bytes")
                    if k in r} for r in rows[name] if "kernel" in r]

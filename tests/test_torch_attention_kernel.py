@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels of the fused attention
 (boosted_detr_torch/csrc/attention.cu: K3's forward with the lse, dq and
 dk/dv; bfloat16 inputs on the tensor cores, float32 inputs on the CUDA
-cores) against their plain PyTorch versions on the card, the tensor-core
-kernels against the plain PyTorch emulation of their arithmetic, the
+cores but dq and dk/dv at a padded D = 256 on the tensor cores as three
+TF32 products a product) against their plain PyTorch versions on the
+card, the tensor-core kernels against the plain PyTorch emulation of
+their arithmetic, the
 autograd ``FusedAttentionFn`` on the card against its CPU route, the
 kernels' repeatability bit for bit, ViT artifacts at head dims 80 and
 256 that keep the forward op, and the refusal of a misaligned bfloat16
@@ -287,14 +289,22 @@ def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_float32_gradients_stay_on_the_cuda_cores(cuda, _profiled, d):
-    """float32 inputs take the float32 kernels (tensor cores would make
-    them TF32 or bf16) and keep their float32 accuracy; bfloat16 inputs
-    take the tensor-core kernels."""
+    """float32 inputs take the float32 kernels and keep their float32
+    accuracy: on the CUDA cores, but at D = 256 on the tensor cores as
+    three TF32 products a product (``attn_dq_wide_tf32_kernel``,
+    ``attn_dkdv_wide_tf32_kernel``; one TF32 or bf16 rounding of an
+    operand would leave the gates below); bfloat16 inputs take the
+    bf16 tensor-core kernels."""
     args = {dtype: _gradient_args(cuda, 3, 200, 330, d, dtype, seed=3)
             for dtype in ("float32", "bfloat16")}
     names = _profiled[d]["grad"]
     assert len(names["float32"]) == len(names["bfloat16"]) == 2, names
-    assert not any("mma" in n for n in names["float32"]), names
+    if d == ta.TF32_HEAD_DIM:
+        for name in ta.wide_gradient_kernels(d, torch.float32):
+            assert sum(f"{name}(" in n for n in names["float32"]) == 1, names
+    else:
+        assert not any("mma" in n or "tf32" in n
+                       for n in names["float32"]), names
     assert all("mma" in n for n in names["bfloat16"]), names
     assert all(("wide" in n) == (d > 128)
                for n in names["float32"] + names["bfloat16"]), names
@@ -343,16 +353,20 @@ def test_head_dims_past_128_launch_the_wide_kernels(cuda, dtype, d):
 def test_wide_gradients_launch_their_route(cuda, _profiled, d, route):
     """Past D = 128 the bf16 dq and dk/dv run the resident kernels up to
     D = 384 (160 padded to 256) and the chunked ones from 512 on, by name
-    from a profile; float32 keeps its CUDA-core wide kernels."""
+    from a profile; float32 takes the TF32 kernels at a padded 256 and
+    keeps its CUDA-core wide kernels at 384 and 512."""
     names = _profiled[d]["grad"]
     assert len(names["bfloat16"]) == 2, names
-    for kind, name in zip(("dq", "dkdv"), ta.wide_gradient_kernels(d)):
+    f32_route = "tf32_" if ta.padded_head_dim(d) == ta.TF32_HEAD_DIM else ""
+    for kind, name, f32_name in zip(
+            ("dq", "dkdv"), ta.wide_gradient_kernels(d),
+            ta.wide_gradient_kernels(d, torch.float32)):
         assert name == f"attn_{kind}_wide_{route}mma_kernel"
         # a template's name is followed by its arguments, a plain one's by (
         assert sum(any(f"{name}{c}" in n for c in "<(")
                    for n in names["bfloat16"]) == 1, names
-        assert sum(f"attn_{kind}_wide_kernel" in n
-                   for n in names["float32"]) == 1, names
+        assert f32_name == f"attn_{kind}_wide_{f32_route}kernel"
+        assert sum(f"{f32_name}(" in n for n in names["float32"]) == 1, names
 
 
 @pytest.mark.gpu
@@ -537,6 +551,54 @@ def test_tensor_core_kernels_match_their_emulation(cuda, bh, tq, tk, d):
     shares = [_one_bf16_ulp(a, b) for a, b in zip(got, want)]
     print(f"equal to the emulation (dq, dk, dv): {shares}")
     assert min(shares) >= 0.99, shares
+
+
+# The TF32 kernels against the emulation of their arithmetic: both take
+# the same TF32 parts and sum the same products in the same order, but
+# the tensor cores add into their float32 sums truncating (the products
+# are exact), where the emulation rounds to nearest. Over S's and dP's
+# chains of 96 adds a step of 8 dims, that is ~4e-5 of a dot product of
+# unit-scale rows (a model of truncated adds on the CPU), and through
+# dP - delta, which cancels where a row's keys are few, more of ds: held
+# to 1e-4 of the largest value, as measured on the card (PERF.md).
+TF32_EMULATION_GATE = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    # ragged: no multiple of the 32-row tiles or the 64-row blocks, one
+    # query, and 160 padded to 256; vit_l16_h4's blocks, 2 of 32 heads
+    (3, 70, 130, 256), (3, 130, 70, 160), (3, 1, 130, 256),
+    (3, 1, 300, 160), (3, 300, 520, 256), (3, 17, 1000, 160),
+    (3, 520, 17, 256), (3, 33, 65, 256), (2, 1600, 1600, 256)])
+def test_tf32_gradients_match_plain_and_emulation(cuda, bh, tq, tk, d):
+    """float32 dq and dk/dv at a padded D = 256 (the TF32 kernels) inside
+    the float32 gates against the plain versions and within
+    ``TF32_EMULATION_GATE`` of the emulation of their arithmetic; a
+    second launch gives the same bits, and each adds one to its
+    wrapper's launches."""
+    args = _gradient_args(cuda, bh, tq, tk, d, "float32", seed=9)
+    before = (ta.attention_dq.launches, ta.attention_dkdv.launches)
+    got = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
+    torch.cuda.synchronize()
+    assert (ta.attention_dq.launches,
+            ta.attention_dkdv.launches) == (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    for a, b in zip(got, (ta.attention_dq_reference(*args), want_dk,
+                          want_dv)):
+        _assert_close(a, b, "float32", grad=True)
+    emulated = (*_emulated(
+        lambda *a, **kw: (ta.attention_dq_emulation(*a, **kw),), *args),
+        *_emulated(ta.attention_dkdv_emulation, *args))
+    for a, b in zip(got, emulated):
+        big = b.abs().max().item()
+        print(f"off the emulation by {(a - b).abs().max().item() / big:.3e} "
+              "of the largest value")
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TF32_EMULATION_GATE * big)
+    again = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

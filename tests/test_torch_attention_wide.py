@@ -72,6 +72,29 @@ def test_k3_matches_the_pallas_kernel_past_128(bh, tq, tk, d, dtype):
         _close(t.grad, j, K3_GRAD_TOL[dtype], f"d{name}")
 
 
+def test_tf32_arithmetic_matches_the_pallas_kernel():
+    """The float32 route's arithmetic at D = 256 (the TF32 dq and dk/dv:
+    three TF32 products a product over 32-row tiles, which the
+    emulations take for float32 there, as the route does) against the gradients of JAX's Pallas
+    kernels in interpret mode on the same float32 inputs, at the card's
+    float32 gate (1e-5 of the largest value, at least 1e-5, plus 1e-4
+    relative; one TF32 product leaves it,
+    tests/test_torch_attention_tf32.py)."""
+    bh, tq, tk, d = WIDE[1]
+    q, k, v, g, g_lse = (torch.tensor(a) for a in _k3_inputs(bh, tq, tk, d))
+    j_grads = _pallas_k3(bh, tq, tk, d, "float32")[2:]
+    out, lse = ta.attention_fwd_reference(q, k, v)
+    args = (q, k, v, g, lse, (g * out).sum(-1) - g_lse)
+    got = (ta.attention_dq_emulation(*args),
+           *ta.attention_dkdv_emulation(*args))
+    assert got[0].dtype == torch.float32 and d == ta.TF32_HEAD_DIM
+    for name, a, j in zip(("dq", "dk", "dv"), got, j_grads):
+        want = torch.tensor(j)
+        torch.testing.assert_close(
+            a, want, rtol=1e-4, atol=1e-5 * max(want.abs().max().item(), 1),
+            msg=name)
+
+
 @pytest.mark.parametrize("bh,tq,tk,d", WIDE + CHUNKED)
 def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
     """The emulations on the padded tensors (the logits summed 128-wide
