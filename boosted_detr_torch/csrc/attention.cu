@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of boosted_detr_tpu/ops/pallas_attention.py:
 //   attn_fwd_kernel, attn_fwd_wgmma_kernel
-//   (attn_fwd_wide_*) <- _attention_kernel (:45-80), called by
+//   (attn_fwd_wide_*, with tf32_split_kernel before the TF32 one)
+//                    <- _attention_kernel (:45-80), called by
 //                       _fused_attention_fwd_impl (:97-135, call :112);
 //   attn_dq_kernel, attn_dq_mma_kernel, attn_dq_wgmma_kernel
 //   (attn_dq_wide_*, with tf32_split_kernel before the TF32 one)
@@ -42,9 +43,10 @@
 //
 // Float32 inputs multiply in float32 on the CUDA cores, whose peak (67
 // TFLOP/s) puts a floor ~15x above that bound (one TF32 pass of the tensor
-// cores would lose float32's accuracy), but for dq and dk/dv at D = 256,
-// which take three TF32 products a product on the tensor cores
-// (attn_dq_wide_tf32_kernel, attn_dkdv_wide_tf32_kernel; their section
+// cores would lose float32's accuracy), but for the forward at D = 256 and
+// 384 and dq and dk/dv at D = 256, which take three TF32 products a
+// product on the tensor cores (attn_fwd_wide_tf32_kernel,
+// attn_dq_wide_tf32_kernel, attn_dkdv_wide_tf32_kernel; their sections
 // below); on the CUDA cores:
 //   - a block owns 64 rows (query rows for the forward and dq, key rows for
 //     dk/dv) and keeps their float32 slices in registers: each thread owns
@@ -3038,18 +3040,19 @@ constexpr int TF32_P_WRITTEN = 3, TF32_P_READ = 4;
 // products of one unit run while the next unit's are issued
 constexpr int TF32_IN_FLIGHT = 1;
 
-// Splits x [BH, T, D] float32 (D = 256) for the TF32 kernels: lo [BH, T, D]
-// (x less its TF32 part, exact) and, unless xt is null,
-// its transpose xt [BH, D, T8] as it stands and xt_lo its lo, each group of
-// 8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7, zeros past T. blockIdx.z runs
-// over BH for x0 and then over BH for x1 (null: one tensor). A block moves
-// one [32 rows x 32 dims] square through shared memory; 32 x 8 threads.
+// Splits x [BH, T, D] float32 (D = 256 or 384) for the TF32 kernels:
+// unless lo is null, lo [BH, T, D] (x less its TF32 part, exact), and
+// unless xt is null, its transpose xt [BH, D, T8] as it stands and xt_lo
+// its lo, each group of 8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7, zeros
+// past T. blockIdx.z runs over BH for x0 and then over BH for x1 (null:
+// one tensor). A block moves one [32 rows x 32 dims] square through shared
+// memory; 32 x 8 threads.
 __global__ void __launch_bounds__(256)
 tf32_split_kernel(const float* __restrict__ x0, float* __restrict__ lo0,
                   float* __restrict__ xt0, float* __restrict__ xt_lo0,
                   const float* __restrict__ x1, float* __restrict__ lo1,
                   float* __restrict__ xt1, float* __restrict__ xt_lo1, int BH,
-                  int T, int T8) {
+                  int T, int T8, int D) {
   __shared__ float square[32][33];
   const bool second = static_cast<int>(blockIdx.z) >= BH;
   const int bh = blockIdx.z - (second ? BH : 0);
@@ -3059,21 +3062,21 @@ tf32_split_kernel(const float* __restrict__ x0, float* __restrict__ lo0,
   float* xt_lo = second ? xt_lo1 : xt_lo0;
   const int t0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const long long base = static_cast<long long>(bh) * T * TF32_D;
+  const long long base = static_cast<long long>(bh) * T * D;
 #pragma unroll
   for (int r = ty; r < 32; r += 8) {
     const int t = t0 + r;
-    const long long at = base + static_cast<long long>(t) * TF32_D + d0 + tx;
+    const long long at = base + static_cast<long long>(t) * D + d0 + tx;
     const float v = t < T ? x[at] : 0.f;
     square[r][tx] = v;
-    if (t < T) lo[at] = v - __uint_as_float(tf32_bits(v));
+    if (t < T && lo != nullptr) lo[at] = v - __uint_as_float(tf32_bits(v));
   }
   if (xt == nullptr) return;
   __syncthreads();
   // row 8 g + l of the transpose holds row 8 g + (l < 4 ? 2 l : 2 l - 7)
   const int l = tx % 8;
   const int src = tx - l + (l < 4 ? 2 * l : 2 * l - 7);
-  const long long tbase = static_cast<long long>(bh) * TF32_D * T8;
+  const long long tbase = static_cast<long long>(bh) * D * T8;
 #pragma unroll
   for (int r = ty; r < 32; r += 8) {
     const int t = t0 + tx;
@@ -3152,30 +3155,34 @@ __device__ __forceinline__ void tf32_add_slab(float (&total)[16],
   for (int e = 0; e < 16; ++e) total[e] = first ? slab[e] : total[e] + slab[e];
 }
 
-// acc[64 x 32] += (hi + lo)[64 x 32 rows] . b[32 rows x 32 dims] (b a unit
-// of the transposed copy: the box, then its lo), 8 rows a step in order,
-// each step hi hi, hi lo, lo hi.
+// acc[64 x 32] (+)= (hi + lo)[64 x 32 rows] . b[32 rows x 32 dims] (b a
+// unit of the transposed copy: the box, then its lo), 8 rows a step in
+// order, each step hi hi, hi lo, lo hi; the first product's scale-d of 0
+// starts the sum when `start`.
 __device__ __forceinline__ void tf32_over_rows(float (&acc)[16],
                                                const uint32_t (&hi)[4][4],
                                                const uint32_t (&lo)[4][4],
-                                               const unsigned char* b) {
+                                               const unsigned char* b,
+                                               bool start = false) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = sw128_descriptor(b + 32 * kk, 0);
-    wgmma_tf32_rs(acc, hi[kk], bd);
+    wgmma_tf32_rs(acc, hi[kk], bd, !(start && kk == 0));
     wgmma_tf32_rs(acc, hi[kk],
                   sw128_descriptor(b + TF32_BOX + 32 * kk, 0));
     wgmma_tf32_rs(acc, lo[kk], bd);
   }
 }
 
-// A block's resident rows of one operand: 8 slabs of [64 x 32], each as two
-// [32 x 32] boxes, counted into `bar` (thread 0 of the loading warpgroup).
+// A block's resident rows of one operand: `slabs` slabs of [64 x 32] (8 at
+// D = 256), each as two [32 x 32] boxes, counted into `bar` (thread 0 of
+// the loading warpgroup).
 __device__ __forceinline__ void tf32_load_rows(unsigned char* dst,
                                                const CUtensorMap* map,
                                                uint64_t* bar, int first,
-                                               int bh) {
-  for (int s = 0; s < TF32_SLABS; ++s)
+                                               int bh,
+                                               int slabs = TF32_SLABS) {
+  for (int s = 0; s < slabs; ++s)
     for (int h = 0; h < 2; ++h)
       tma_load_3d(dst + (2 * s + h) * TF32_BOX, map, bar, s * TF32_SLAB,
                   first + h * TF32_TILE, bh);
@@ -3192,20 +3199,30 @@ __device__ __forceinline__ void tf32_load_unit(unsigned char* dst,
   tma_load_3d(dst + TF32_BOX, lo, full, c0, c1, bh);
 }
 
-// Stores rows r, r + 8 of a 64 x 32 float32 accumulator times mul into
-// out's columns col0 .. col0 + 31 (out [rows, TF32_D], rows past n not).
-__device__ __forceinline__ void tf32_store(const float (&acc)[16], float mul,
-                                           float* out, int r, int n, int col0,
-                                           int tig) {
+// Stores rows r, r + 8 of a 64 x 32 float32 accumulator, row r + 8 h times
+// mul[h], into out's columns col0 .. col0 + 31 (out [rows, D], rows past n
+// not).
+__device__ __forceinline__ void tf32_store_rows(const float (&acc)[16],
+                                                const float (&mul)[2],
+                                                float* out, int D, int r,
+                                                int n, int col0, int tig) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (r + 8 * h >= n) continue;
-    float* row = out + static_cast<long long>(r + 8 * h) * TF32_D + col0;
+    float* row = out + static_cast<long long>(r + 8 * h) * D + col0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float2*>(row + 8 * j + 2 * tig) =
-          make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * tig) = make_float2(
+          acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
   }
+}
+
+// tf32_store_rows at D = TF32_D, both rows times mul.
+__device__ __forceinline__ void tf32_store(const float (&acc)[16], float mul,
+                                           float* out, int r, int n, int col0,
+                                           int tig) {
+  const float both[2] = {mul, mul};
+  tf32_store_rows(acc, both, out, TF32_D, r, n, col0, tig);
 }
 
 // dq at D = 256, float32: a block of one warpgroup owns 64 query rows; q_map
@@ -3566,6 +3583,321 @@ attn_dkdv_wide_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
     tf32_store(acc[h], mul, out, r0, Tk, h * TF32_SLAB, tig);
 }
 
+// ---- the float32 forward at D = 256 and 384 on the tensor cores ----
+//
+// attn_fwd_wide_kernel above runs the float32 forward past D = 128 on the
+// CUDA cores: a grid axis over the output's 128-wide chunks, each block
+// computing the whole logit tile again for its chunk (twice the S work at
+// D = 256, three times at 384), k and v staged 16 keys at a time by every
+// thread, at 11.6% of its CUDA-core bound at [32, 1600, 1600, 256]
+// (PERF.md). At a padded D = 256 and 384 attn_fwd_wide_tf32_kernel<D>
+// runs it on the tensor cores as three TF32 products a product, as the
+// TF32 dq and dk/dv above do (their helpers, their split pass): the bound
+// is then 3 x 4 BH Tq Tk D at 495 TFLOP/s, 0.51 ms at [32, 1600, 1600,
+// 256]. The design:
+//   - q resident, as it stands: the block's query rows come by TMA once
+//     (64 KB a warpgroup's 64 rows at D = 256, 96 KB at 384); their lo is
+//     formed in registers 8 dims a step (tf32_lo_fragment);
+//   - k streamed: k and k's lo (tf32_split_kernel's, into scratch the
+//     wrapper allocates) come by TMA in units of 8 KB, a [32 keys x 32
+//     dims] box and its lo (tf32_load_unit), through a ring of stages with
+//     a full mbarrier each; a stage is refilled by the ring's thread 0 once
+//     the warpgroups that read it have passed a named barrier after their
+//     products;
+//   - S once a 32-key tile, over all D in one sum (tf32_over_slab, slab
+//     after slab into the same accumulator, as dq's S); keys past Tk are
+//     masked to -1e30 (TMA zero-fills the rows past the tensor);
+//   - the online softmax in registers, as the bf16 kernels': the running
+//     max of the unscaled logit, p = exp2_approx(s scale log2 e - m scale
+//     log2 e), the denominator summed from the float32 p, out = acc /
+//     max(denom, 1e-30) and lse = m scale + log(denom) at the end;
+//   - P.V from registers: p is split into TF32 hi and lo in registers
+//     (tf32_parts) and is the A operand against v^T ([BH, D, Tk8], K-major
+//     as TF32 wgmma requires, each group of 8 keys in the order 0, 2, 4, 6,
+//     1, 3, 5, 7) and v^T's lo, which the split pass writes; 32 output dims
+//     a unit (tf32_over_rows);
+//   - the tensor cores add truncating (mma.cuh). Added straight into the
+//     running output, 1600 keys make 600 truncating adds a value; a model
+//     of the adds on the CPU (probes/k3_f32_forward.py model) put that
+//     1.6e-5 of the largest value off the exact output at [64, 1600, 1600,
+//     256], where a sum that each tile's P.V starts from zero for each
+//     32-dim unit, folded in registers as acc = acc alpha + tile_sum (one
+//     rounding a tile), is 4e-6 off: the kernel takes the tile sums, which
+//     also need no rescale of acc before the products (on the card the
+//     straight adds, the probe's `direct`, ran 1-4% faster, their out
+//     2.0e-5 of the largest value off the emulation against the tile
+//     sums' 1.0e-5 at [32, 1600, 1600, 256], PERF.md);
+//   - D = 384: a 64 x 384 float32 accumulator is 192 registers a thread,
+//     so two warpgroups take the same 64 rows, each half of the output's
+//     dims (96 accumulators), each with a ring of its own, and each sums S
+//     over half the dims; the halves are exchanged through shared memory,
+//     two tiles deep behind one named barrier a tile, and added in a fixed
+//     order (warpgroup 0's first), so both reach the same S, m and denom
+//     bit for bit. Both summing S over all D from their own stream of k (a
+//     third more tensor-core work, no exchange; the probe's `shared_s`)
+//     ran 30% slower with 6 stages a ring and 91-93% with 4 at
+//     [16, 1600, 1600, 384]; 4 stages (TF32_FWD_STAGES_384) ran 5-7%
+//     faster than 3 or 6;
+//   - D = 256: blocks of 128 query rows, two warpgroups of 64 rows that
+//     share one ring of 8 stages (TF32_FWD_STAGES_256; a named barrier of
+//     both releases a unit: half the k and v traffic a row, 3.03 waves of
+//     one block an SM at [32, 1600]); 64-row blocks of one warpgroup (the
+//     probe's `rows_64`) ran 34% slower there with 12 stages and within 3%
+//     with 5 (two blocks an SM), which ran 16% faster at the half-filled
+//     grid of [16, 400, 400, 160] (PERF.md); 6 or 12 stages ran 4-5%
+//     slower than 8;
+//   - registers: 128 (D = 256) or 96 (384) accumulators a thread beside S
+//     (16), p's parts (32), two tile sums (32) and q's lo (32): ptxas
+//     gives 212 and 237, no spill; every commit group of wgmmas (one unit's) stays in
+//     flight while the next unit's are issued (TF32_IN_FLIGHT), and no
+//     branch lies among the wgmmas (ptxas serialises them there, C7515).
+
+constexpr int TF32_FWD_MAX_D = 3 * CD;  // the head dims it takes: 256, 384
+constexpr int TF32_FWD_STAGES_256 = 8;
+constexpr int TF32_FWD_STAGES_384 = 4;  // a warpgroup's ring
+// named barriers: a shared ring's release (both warpgroups), and S's
+// halves written (1 and 2 are the warpgroups' own, warpgroup_sync)
+constexpr int TF32_FWD_RELEASE = 3, TF32_FWD_HALVES = 4;
+
+// Two warpgroups a block. D = 384 (SPLIT_DIMS): both over the same 64
+// rows, each with half the output dims, half of S's slabs and a ring of its
+// own; D = 256: 64 rows each, all of S and the output, one shared ring.
+template <int D>
+struct Tf32FwdPlan {
+  static constexpr int SLABS = D / TF32_SLAB;
+  static constexpr bool SPLIT_DIMS = D > TF32_D;
+  static constexpr int WGS = 2;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int BLOCK_ROWS = SPLIT_DIMS ? TF32_ROWS : WGS * TF32_ROWS;
+  static constexpr int OWN_UNITS = (SPLIT_DIMS ? D / 2 : D) / TF32_SLAB;
+  static constexpr int S_SLABS = SPLIT_DIMS ? SLABS / 2 : SLABS;
+  static constexpr int UNITS = S_SLABS + OWN_UNITS;  // a warpgroup's, a tile
+  static constexpr int RINGS = SPLIT_DIMS ? WGS : 1;
+  static constexpr int STAGES =
+      SPLIT_DIMS ? TF32_FWD_STAGES_384 : TF32_FWD_STAGES_256;
+  static constexpr int ROWS_BYTES = TF32_ROWS * D * 4;  // 64 rows of q
+  static constexpr int Q_BYTES = BLOCK_ROWS / TF32_ROWS * ROWS_BYTES;
+  // S's halves, both warpgroups', two tiles deep
+  static constexpr int HALVES_BYTES = SPLIT_DIMS ? 2 * WGS * 128 * 16 * 4 : 0;
+  static constexpr int SMEM =
+      SW_ALIGN + Q_BYTES + RINGS * STAGES * TF32_UNIT + HALVES_BYTES;
+};
+
+// The float32 forward at D = 256 or 384: a block owns
+// Tf32FwdPlan<D>::BLOCK_ROWS query rows and all D of their output; q_map,
+// k_map and klo_map map q, k and k's lo ([BH, T, D]), vt_map and vtlo_map
+// v^T and its lo ([BH, D, Tk8]); every box [32 x 32] float32, 128-byte
+// swizzle.
+template <int D>
+__global__ void __launch_bounds__(Tf32FwdPlan<D>::THREADS, 1)
+attn_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap klo_map,
+                          const __grid_constant__ CUtensorMap vt_map,
+                          const __grid_constant__ CUtensorMap vtlo_map,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int Tq, int Tk, int tiles, float scale) {
+  using P = Tf32FwdPlan<D>;
+  constexpr int STAGES = P::STAGES, UNITS = P::UNITS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t rows_full, full[P::RINGS][STAGES];
+  // q [BLOCK_ROWS / 64][SLABS][64 x 32], the rings' units, S's halves
+  unsigned char* sq = swizzle_aligned(smem_raw);
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int r_of = P::SPLIT_DIMS ? wg : 0;  // this warpgroup's ring
+  unsigned char* ring = sq + P::Q_BYTES + r_of * STAGES * TF32_UNIT;
+  float4* halves = reinterpret_cast<float4*>(sq + P::Q_BYTES +
+                                             P::RINGS * STAGES * TF32_UNIT);
+  const int bh = blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * P::BLOCK_ROWS;
+  const int n_tiles = (Tk + TF32_TILE - 1) / TF32_TILE;
+  const int total = n_tiles * UNITS;
+  if (threadIdx.x == 0) {
+    barrier_init(&rows_full, 1);
+    // a stage is full after its loader's one arrival and its bytes
+#pragma unroll
+    for (int r = 0; r < P::RINGS; ++r)
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) barrier_init(&full[r][s], 1);
+    barrier_init_fence();
+  }
+  __syncthreads();
+  // this warpgroup's first slab of S and first 32-dim unit of the output
+  const int s0 = P::SPLIT_DIMS ? wg * P::S_SLABS : 0;
+  const int h0 = P::SPLIT_DIMS ? wg * P::OWN_UNITS : 0;
+  // unit u of tile i: u < S_SLABS k's slab s0 + u, then v^T's dims of
+  // output unit h0 + u - S_SLABS
+  auto load_unit = [&](int n) {
+    const int i = n / UNITS, u = n % UNITS, st = n % STAGES;
+    unsigned char* dst = ring + st * TF32_UNIT;
+    if (u < P::S_SLABS)
+      tf32_load_unit(dst, &k_map, &klo_map, &full[r_of][st],
+                     (s0 + u) * TF32_SLAB, i * TF32_TILE, bh);
+    else
+      tf32_load_unit(dst, &vt_map, &vtlo_map, &full[r_of][st],
+                     i * TF32_TILE, (h0 + u - P::S_SLABS) * TF32_SLAB, bh);
+  };
+  const bool loader = P::SPLIT_DIMS ? t == 0 : threadIdx.x == 0;
+  if (threadIdx.x == 0) {
+    barrier_expect_bytes(&rows_full, P::Q_BYTES);
+    for (int g = 0; g < P::BLOCK_ROWS / TF32_ROWS; ++g)
+      tf32_load_rows(sq + g * P::ROWS_BYTES, &q_map, &rows_full,
+                     first + g * TF32_ROWS, bh, P::SLABS);
+  }
+  if (loader)
+    for (int n = 0; n < STAGES && n < total; ++n) load_unit(n);
+  const int warp = t / 32, lane = t % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int row0 = P::SPLIT_DIMS ? 0 : wg * TF32_ROWS;  // in the block
+  const int r0 = first + row0 + warp * STEP + grp;      // rows r0, r0 + 8
+  const unsigned char* q_rows = sq + row0 / TF32_ROWS * P::ROWS_BYTES;
+  const long long q_base = static_cast<long long>(bh) * Tq;
+  const float scale2 = scale * LOG2E;
+  auto unit_of = [&](int n) {
+    const int st = n % STAGES;
+    barrier_wait(&full[r_of][st], (n / STAGES) & 1);
+    __syncwarp();
+    return ring + st * TF32_UNIT;
+  };
+  // the unit's products are done in every warp that reads it: its loader
+  // refills its stage
+  auto release = [&](int n) {
+    if constexpr (P::SPLIT_DIMS)
+      warpgroup_sync(wg);
+    else
+      named_barrier_sync(TF32_FWD_RELEASE, P::THREADS);
+    if (loader && n + STAGES < total) load_unit(n + STAGES);
+    __syncwarp();
+  };
+  float m[2] = {NEG, NEG}, denom[2] = {0.f, 0.f};
+  float acc[P::OWN_UNITS][16];  // output dims 32 (h0 + h) .. in acc[h]
+#pragma unroll
+  for (int h = 0; h < P::OWN_UNITS; ++h)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[h][e] = 0.f;
+
+  barrier_wait(&rows_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int base = i * UNITS, k0 = i * TF32_TILE;
+    // S = q k^T over this warpgroup's slabs in one sum; the lo fragments
+    // double-buffered so that one slab's group stays in flight
+    float s[16];
+    uint32_t q_lo[2][4][4];
+#pragma unroll
+    for (int sl = 0; sl < P::S_SLABS; ++sl) {
+      const unsigned char* q_slab = q_rows + (s0 + sl) * 2 * TF32_BOX;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tf32_lo_fragment(q_slab, kk, warp, grp, tig, q_lo[sl % 2][kk]);
+      const unsigned char* unit = unit_of(base + sl);
+      wgmma_fence();
+      tf32_over_slab(s, q_slab, q_lo[sl % 2], unit, sl == 0);
+      wgmma_commit();
+      if (sl > 0) {
+        wgmma_wait<TF32_IN_FLIGHT>();
+        release(base + sl - 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    release(base + P::S_SLABS - 1);
+    if constexpr (P::SPLIT_DIMS) {
+      // both halves to shared memory (two tiles deep), then S = warpgroup
+      // 0's half + warpgroup 1's in both
+      float4* mine = halves + ((i % 2) * P::WGS + wg) * 4 * 128;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        mine[c * 128 + t] =
+            make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+      named_barrier_sync(TF32_FWD_HALVES, P::THREADS);
+      const float4* h_0 = halves + (i % 2) * P::WGS * 4 * 128;
+      const float4* h_1 = h_0 + 4 * 128;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 a = h_0[c * 128 + t], b = h_1[c * 128 + t];
+        s[4 * c] = a.x + b.x;
+        s[4 * c + 1] = a.y + b.y;
+        s[4 * c + 2] = a.z + b.z;
+        s[4 * c + 3] = a.w + b.w;
+      }
+    }
+
+    // the online softmax: keys past Tk masked, the rows' new max (a
+    // thread's 8 keys of each row, then the row's 4 lanes), p
+    const bool ragged = k0 + TF32_TILE > Tk;
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (ragged && k0 + 8 * j + 2 * tig + e % 2 >= Tk)
+          s[4 * j + e] = NEG;
+        m_new[e / 2] = fmaxf(m_new[e / 2], s[4 * j + e]);
+      }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2_approx((m[h] - m_new[h]) * scale2);
+      shift[h] = m_new[h] * scale2;
+      m[h] = m_new[h];
+      denom[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      // a masked key: 2^(-1e30 scale2 - shift) = 0
+      s[e] = exp2_approx(fmaf(s[e], scale2, -shift[e % 4 / 2]));
+      denom[e % 4 / 2] += s[e];  // the float32 p, not its TF32 parts
+    }
+    uint32_t hi[4][4], lo[4][4];
+    tf32_parts(s, hi, lo);
+
+    // acc += p v, 32 output dims a unit of v^T: each unit's products into
+    // a sum of its own, started from zero and folded into acc once done
+    // (acc alpha + tile_sum, one rounding)
+    float part[2][16];
+#pragma unroll
+    for (int h = 0; h < P::OWN_UNITS; ++h) {
+      const unsigned char* unit = unit_of(base + P::S_SLABS + h);
+      wgmma_fence();
+      tf32_over_rows(part[h % 2], hi, lo, unit, true);
+      wgmma_commit();
+      if (h > 0) {
+        wgmma_wait<TF32_IN_FLIGHT>();
+        wgmma_hold(part[(h - 1) % 2]);
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          acc[h - 1][e] =
+              fmaf(acc[h - 1][e], alpha[e % 4 / 2], part[(h - 1) % 2][e]);
+        release(base + P::S_SLABS + h - 1);
+      }
+    }
+    wgmma_wait<0>();
+    constexpr int LAST = P::OWN_UNITS - 1;
+    wgmma_hold(part[LAST % 2]);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      acc[LAST][e] = fmaf(acc[LAST][e], alpha[e % 4 / 2], part[LAST % 2][e]);
+    release(base + UNITS - 1);
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
+    denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    denom[h] = fmaxf(denom[h], FLOOR);
+    inv[h] = 1.f / denom[h];
+    if (h0 == 0 && tig == 0 && r0 + 8 * h < Tq)
+      lse[q_base + r0 + 8 * h] = m[h] * scale + logf(denom[h]);
+  }
+  float* out_rows = out + q_base * D;
+#pragma unroll
+  for (int h = 0; h < P::OWN_UNITS; ++h)
+    tf32_store_rows(acc[h], inv, out_rows, D, r0, Tq, (h0 + h) * TF32_SLAB,
+                    tig);
+}
+
 // Dynamic shared memory of the wide tensor-core kernels: `slots` staged
 // [64 x 128] chunks a stage, two stages; dk/dv's stages hold two 64-row
 // chunks and four 32-row ones, then the two stages' lse and delta.
@@ -3594,7 +3926,9 @@ static_assert(2 * (FwdNarrowPlan<128>::SMEM + 1024) <= 233472,
               "two blocks of the wgmma forward at D = 80 and 128 pass an "
               "H100 SM's shared memory (with the 1 KB it keeps for each "
               "block)");
-static_assert(TF32_DQ_SMEM <= 232448 - 128 && TF32_DKDV_SMEM <= 232448 - 128,
+static_assert(TF32_DQ_SMEM <= 232448 - 128 && TF32_DKDV_SMEM <= 232448 - 128 &&
+                  Tf32FwdPlan<TF32_D>::SMEM <= 232448 - 256 &&
+                  Tf32FwdPlan<TF32_FWD_MAX_D>::SMEM <= 232448 - 256,
               "the TF32 kernels' shared memory (with their barriers) passes "
               "an H100 block's");
 static_assert(resident_smem_bytes<RESIDENT_MAX_NC>(false) <= 232448 &&
@@ -3807,18 +4141,18 @@ cudaError_t tf32_tensor_map(CUtensorMap* map, const void* base, int BH,
 // Rows rounded up to 8: the transposed copies' inner extent.
 int tf32_rows8(int rows) { return (rows + 7) / 8 * 8; }
 
-// tf32_split_kernel over x0 (and x1 unless null), [BH, T, 256] each.
+// tf32_split_kernel over x0 (and x1 unless null), [BH, T, D] each.
 cudaError_t launch_tf32_split(const void* x0, void* lo0, void* xt0,
                               void* xt_lo0, const void* x1, void* lo1,
-                              void* xt1, void* xt_lo1, int BH, int T,
+                              void* xt1, void* xt_lo1, int BH, int T, int D,
                               cudaStream_t stream) {
   const int T8 = tf32_rows8(T);
-  const dim3 grid((T8 + 31) / 32, TF32_D / 32, BH * (x1 == nullptr ? 1 : 2));
+  const dim3 grid((T8 + 31) / 32, D / 32, BH * (x1 == nullptr ? 1 : 2));
   tf32_split_kernel<<<grid, 256, 0, stream>>>(
       static_cast<const float*>(x0), static_cast<float*>(lo0),
       static_cast<float*>(xt0), static_cast<float*>(xt_lo0),
       static_cast<const float*>(x1), static_cast<float*>(lo1),
-      static_cast<float*>(xt1), static_cast<float*>(xt_lo1), BH, T, T8);
+      static_cast<float*>(xt1), static_cast<float*>(xt_lo1), BH, T, T8, D);
   return cudaGetLastError();
 }
 
@@ -3830,7 +4164,7 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
                            void* kt_lo, int BH, int Tq, int Tk, float scale,
                            cudaStream_t stream) {
   cudaError_t err = launch_tf32_split(k, k_lo, kt, kt_lo, v, v_lo, nullptr,
-                                      nullptr, BH, Tk, stream);
+                                      nullptr, BH, Tk, TF32_D, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap maps[8];
   const void* bases[8] = {q, g, k, k_lo, v, v_lo, kt, kt_lo};
@@ -3861,7 +4195,7 @@ cudaError_t launch_dkdv_tf32(const void* q, const void* k, const void* v,
                              void* gt, void* gt_lo, int BH, int Tq, int Tk,
                              float scale, cudaStream_t stream) {
   cudaError_t err = launch_tf32_split(q, q_lo, qt, qt_lo, g, g_lo, gt, gt_lo,
-                                      BH, Tq, stream);
+                                      BH, Tq, TF32_D, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap maps[10];
   const void* bases[10] = {k, v, q, q_lo, g, g_lo, qt, qt_lo, gt, gt_lo};
@@ -3883,6 +4217,35 @@ cudaError_t launch_dkdv_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The float32 forward at D = 256 or 384: the split of k (its lo) and of v
+// (v^T and its lo) into the caller's scratch, then
+// attn_fwd_wide_tf32_kernel<D>.
+template <int D>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v,
+                            void* out, void* lse, void* k_lo, void* vt,
+                            void* vt_lo, int BH, int Tq, int Tk, float scale,
+                            cudaStream_t stream) {
+  using P = Tf32FwdPlan<D>;
+  cudaError_t err = launch_tf32_split(k, k_lo, nullptr, nullptr, v, nullptr,
+                                      vt, vt_lo, BH, Tk, D, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[5];
+  const void* bases[5] = {q, k, k_lo, vt, vt_lo};
+  const int Tk8 = tf32_rows8(Tk);
+  for (int i = 0; i < 5; ++i) {
+    err = i < 3 ? tf32_tensor_map(&maps[i], bases[i], BH, i == 0 ? Tq : Tk, D)
+                : tf32_tensor_map(&maps[i], bases[i], BH, D, Tk8);
+    if (err != cudaSuccess) return err;
+  }
+  err = allow_smem(attn_fwd_wide_tf32_kernel<D>, P::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Tq + P::BLOCK_ROWS - 1) / P::BLOCK_ROWS;
+  attn_fwd_wide_tf32_kernel<D><<<BH * tiles, P::THREADS, P::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<float*>(out),
+      static_cast<float*>(lse), Tq, Tk, tiles, scale);
+  return cudaGetLastError();
+}
+
 // Blocks an SM of `kernel` launched with `threads` and `smem` bytes of
 // dynamic shared memory (after the opt-in its launch makes).
 template <typename Kernel>
@@ -3897,9 +4260,9 @@ cudaError_t occupancy(Kernel* kernel, int threads, int smem, int* blocks) {
 // arguments, then the chunks nc and the dtype (bf: bfloat16). In bf16 the
 // forward, dq and dk/dv take the resident kernels up to RESIDENT_MAX_NC
 // chunks (their rows at D = 512 would pass a block's shared memory) and
-// the chunked ones past it; float32 takes the chunked kernels (its dq and
-// dk/dv at D = 256 the TF32 kernels, through their own entries: these
-// refuse it). Each is a route chosen by shape: a failed map, opt-in or
+// the chunked ones past it; float32 takes the chunked kernels (its forward
+// at D = 256 and 384 and its dq and dk/dv at D = 256 the TF32 kernels,
+// through their own entries: these refuse them). Each is a route chosen by shape: a failed map, opt-in or
 // launch is returned.
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* out, void* lse, int BH, int Tq, int Tk,
@@ -3922,6 +4285,7 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<bf16*>(out),
         static_cast<float*>(lse), Tq, Tk, tiles, nc, scale);
   } else {
+    if (nc * CD <= TF32_FWD_MAX_D) return cudaErrorInvalidValue;  // TF32's
     attn_fwd_wide_kernel<<<grid, W_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
@@ -4097,16 +4461,30 @@ int attention_dkdv(const void* q, const void* k, const void* v,
 // Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of kernel
 // `kernel` (0 the forward, 1 dq, 2 dk/dv): in bf16 on the wgmma route at
 // head dim D up to 128 (see narrow_occupancy) or on the wide route that a
-// launch at D past 128, a multiple of it, takes; in float32 the TF32 dq or
-// dk/dv at D = TF32_D (no other); *smem gets its dynamic shared memory in
-// bytes.
+// launch at D past 128, a multiple of it, takes; in float32 the TF32
+// forward at D = 256 and 384 and the TF32 dq or dk/dv at D = TF32_D (no
+// other); *smem gets its dynamic shared memory in bytes.
 int attention_occupancy(int kernel, int D, int bf16, int* blocks,
                         int* smem) {
   if (kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!bf16 && kernel == 0) {
+    if (D == TF32_D) {
+      *smem = Tf32FwdPlan<TF32_D>::SMEM;
+      return static_cast<int>(occupancy(attn_fwd_wide_tf32_kernel<TF32_D>,
+                                        Tf32FwdPlan<TF32_D>::THREADS, *smem,
+                                        blocks));
+    }
+    if (D == TF32_FWD_MAX_D) {
+      *smem = Tf32FwdPlan<TF32_FWD_MAX_D>::SMEM;
+      return static_cast<int>(
+          occupancy(attn_fwd_wide_tf32_kernel<TF32_FWD_MAX_D>,
+                    Tf32FwdPlan<TF32_FWD_MAX_D>::THREADS, *smem, blocks));
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (!bf16) {
-    if (D != TF32_D || kernel == 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (D != TF32_D) return static_cast<int>(cudaErrorInvalidValue);
     *smem = kernel == 1 ? TF32_DQ_SMEM : TF32_DKDV_SMEM;
     return static_cast<int>(
         kernel == 1
@@ -4179,6 +4557,26 @@ int attention_dkdv_tf32(const void* q, const void* k, const void* v,
   return static_cast<int>(launch_dkdv_tf32(
       q, k, v, g, lse, delta, dk, dv, q_lo, g_lo, qt, qt_lo, gt, gt_lo, BH,
       Tq, Tk, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The float32 forward at D = 256 and 384 (the TF32 kernel): attention_fwd's
+// arguments (bf16 0), with the caller's scratch for the split operands
+// after the outputs, each contiguous float32: k_lo [BH, Tk, D] and vt,
+// vt_lo [BH, D, Tk8]. Every tensor 16-byte aligned (TMA).
+int attention_fwd_tf32(const void* q, const void* k, const void* v,
+                       void* out, void* lse, void* k_lo, void* vt,
+                       void* vt_lo, int BH, int Tq, int Tk, int D, int bf16,
+                       float scale, void* stream) {
+  if (!valid(BH, Tq, Tk) || bf16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == TF32_D)
+    return static_cast<int>(launch_fwd_tf32<TF32_D>(
+        q, k, v, out, lse, k_lo, vt, vt_lo, BH, Tq, Tk, scale, s));
+  if (D == TF32_FWD_MAX_D)
+    return static_cast<int>(launch_fwd_tf32<TF32_FWD_MAX_D>(
+        q, k, v, out, lse, k_lo, vt, vt_lo, BH, Tq, Tk, scale, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* attention_error_string(int code) {

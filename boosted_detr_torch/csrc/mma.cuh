@@ -468,11 +468,12 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d[64 x 32] += a[64 x 8] . b[8 x 32]: a from registers (the layout above,
-// TF32 bits), b from shared memory through a descriptor, K-major.
+// d[64 x 32] (+)= a[64 x 8] . b[8 x 32]: a from registers (the layout
+// above, TF32 bits), b from shared memory through a descriptor, K-major;
+// the sum is added to d unless scale_d is 0.
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
                                               const uint32_t (&a)[4],
-                                              uint64_t b) {
+                                              uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -482,7 +483,7 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 }  // namespace

@@ -49,15 +49,17 @@ model either. They take contiguous [BH, T, D] tensors: the MHA folds its
 heads into that layout before the call (one copy each of q, k and v), so
 the kernels need no strides. float32 inputs multiply in float32 on the
 CUDA cores (the tensor cores would make them TF32; 20 dims a thread at
-D = 80, 32 at 128), but dq and dk/dv at a padded ``TF32_HEAD_DIM`` (256)
-run on the tensor cores at float32's accuracy: each product as three
-TF32 products (hi hi + hi lo + lo hi, ``_tf32_parts``: hi the word with
-its low 13 bits dropped, as the tensor cores read it, lo the same of the
-remainder), ``attn_dq_wide_tf32_kernel`` and
+D = 80, 32 at 128), but the forward at a padded 256 and 384
+(``TF32_FORWARD_HEAD_DIMS``) and dq and dk/dv at a padded
+``TF32_HEAD_DIM`` (256) run on the tensor cores at float32's accuracy:
+each product as three TF32 products (hi hi + hi lo + lo hi,
+``_tf32_parts``: hi the word with its low 13 bits dropped, as the tensor
+cores read it, lo the same of the remainder),
+``attn_fwd_wide_tf32_kernel``, ``attn_dq_wide_tf32_kernel`` and
 ``attn_dkdv_wide_tf32_kernel`` after a split pass into scratch the
-wrapper allocates (``wide_gradient_kernels(d, dtype)`` names the route;
-``attention_dq_emulation`` and ``attention_dkdv_emulation`` take their
-arithmetic for float32 there). bfloat16 inputs run on the tensor
+wrapper allocates (``wide_forward_kernel(d, dtype)`` and
+``wide_gradient_kernels(d, dtype)`` name the route; the emulations take
+their arithmetic for float32 there). bfloat16 inputs run on the tensor
 cores: dq at D = 32 and dk/dv at D <= 64 where the other operand's
 stream is short (at most
 ``SHORT_STREAM`` rows: the DETR decoder's attention) on ``mma.sync`` with
@@ -122,6 +124,10 @@ SHORT_STREAM = 128
 # three TF32 products a product (csrc/attention.cu, TF32_D); float32 at
 # other head dims stays on the CUDA cores.
 TF32_HEAD_DIM = 2 * CHUNK
+# The head dims at which the float32 forward runs on the tensor cores as
+# three TF32 products a product (csrc/attention.cu, attn_fwd_wide_tf32_kernel
+# up to TF32_FWD_MAX_D); past them it stays on the CUDA cores.
+TF32_FORWARD_HEAD_DIMS = (2 * CHUNK, 3 * CHUNK)
 # The bits of a float32 word that a TF32 operand keeps (0xffffe000).
 _TF32_HI = -(1 << 13)
 # streamed rows a tile of the TF32 kernels, dims (rows) a step, and dims a
@@ -130,6 +136,15 @@ _TF32_HI = -(1 << 13)
 _TF32_TILE, _TF32_STEP, _TF32_SLAB = 32, 8, 32
 _DTYPES = (torch.float32, torch.bfloat16)
 _FLOOR = 1e-30
+
+# torch.exp on a CPU float32 tensor runs MKL's vector exp, threaded over
+# chunks. In a process that had loaded many libraries, the first such call
+# split over two threads now and then came out on the calling thread's
+# chunk at about 12 bits (1.5e-4 relative; every later call exact to an
+# ulp), which put the plain forward's batch 0 2.1e-5 off. One call on the
+# calling thread alone, before any threaded one, keeps that first threaded
+# call exact.
+torch.exp(torch.zeros(1024))
 
 
 def _scale(d: int) -> float:
@@ -283,6 +298,44 @@ def _tf32_logits(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _tf32_forward(q, k, v, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) as ``attn_fwd_wide_tf32_kernel`` computes them: 32-key
+    tiles, S over the head dim in one sum (``_tf32_logits``; past
+    ``TF32_HEAD_DIM`` each half of the dims in a sum of its own, the
+    halves added in order, as the kernel's two warpgroups sum them), the
+    online softmax of the bf16 kernels (the max of the unscaled logit, the
+    scale times log2 e inside the exponent, the denominator from the
+    float32 p), and each tile's P.V three TF32 products a product summed
+    from zero (``_tf32_product``) and folded into the output as acc alpha
+    + the tile's sum, where the kernel adds it in registers."""
+    scale2 = scale * _LOG2E
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    d = q.shape[-1]
+    halves = ((slice(0, d // 2), slice(d // 2, d)) if d > TF32_HEAD_DIM
+              else (slice(0, d),))
+    m = torch.full(q.shape[:2] + (1,), -1e30, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    zero = torch.zeros_like(acc)
+    for k0 in range(0, k.shape[1], _TF32_TILE):
+        tile = slice(k0, k0 + _TF32_TILE)
+        s = None
+        for h in halves:
+            part = _tf32_logits(qf[..., h], kf[:, tile, h], False)
+            s = part if s is None else s + part
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale2)
+        p = torch.exp2(s * scale2 - m_new * scale2)
+        denom = denom * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_product(_tf32_parts(p),
+                                          _tf32_parts(vf[:, tile]), zero)
+        m = m_new
+    denom = denom.clamp_min(_FLOOR)
+    return ((acc * (1.0 / denom)).to(q.dtype),
+            (m * scale + torch.log(denom)).squeeze(-1))
+
+
 def _tf32_tiles(q, k, v, g, lse, delta, over_keys: bool, scale: float):
     """What the float32 tensor-core gradient kernels compute, tile by tile
     (``_emulated_tiles``' counterpart): S and dP over the head dim as
@@ -339,9 +392,13 @@ def attention_fwd_emulation(q: torch.Tensor, k: torch.Tensor,
     head dim padded with zeros keeps the true one (``_padded``). Past
     D = 128 the logits are summed chunk by chunk (``_logits``), as every
     block of the wide kernel sums them before it takes its 128-wide chunk
-    of the output."""
+    of the output. Where the route is the TF32 forward (float32 at a
+    padded 256 or 384, ``_on_tf32_forward``) it is that kernel's arithmetic
+    (``_tf32_forward``); ``split`` is not read there."""
     _check(q, k, v)
     scale = _scale(q.shape[-1]) if scale is None else scale
+    if _on_tf32_forward(q):
+        return _tf32_forward(q, k, v, scale)
     scale2 = scale * _LOG2E
     qf, kf, vf = (t.float() for t in (q, k, v))
     m = torch.full(q.shape[:2] + (1,), -1e30, device=q.device)
@@ -430,7 +487,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("attention")
     tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     for name, pointers in (("attention_fwd", 5), ("attention_dq", 7),
-                           ("attention_dkdv", 8), ("attention_dq_tf32", 11),
+                           ("attention_dkdv", 8), ("attention_fwd_tf32", 8),
+                           ("attention_dq_tf32", 11),
                            ("attention_dkdv_tf32", 14)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
@@ -481,12 +539,19 @@ def _wide_route(d: int) -> str:
     return "" if padded <= RESIDENT_MAX_HEAD_DIM else "chunked_"
 
 
-def wide_forward_kernel(d: int) -> str:
-    """The name of the bf16 forward kernel that a launch at head dim ``d``
-    past ``CHUNK`` runs: the resident one (wgmma, TMA, q resident, the
-    logits once a tile) up to ``RESIDENT_MAX_HEAD_DIM``, the chunked one
-    past it."""
-    return f"attn_fwd_wide_{_wide_route(d)}mma_kernel"
+def wide_forward_kernel(d: int, dtype: torch.dtype = torch.bfloat16
+                        ) -> str:
+    """The name of the forward kernel that a launch at head dim ``d`` past
+    ``CHUNK`` runs in ``dtype``: in bf16 the resident one (wgmma, TMA, q
+    resident, the logits once a tile) up to ``RESIDENT_MAX_HEAD_DIM``, the
+    chunked one past it; in float32 the TF32 one at a padded
+    ``TF32_FORWARD_HEAD_DIMS``, the CUDA-core one past them."""
+    route = _wide_route(d)
+    if dtype == torch.float32:
+        return ("attn_fwd_wide_tf32_kernel"
+                if padded_head_dim(d) in TF32_FORWARD_HEAD_DIMS
+                else "attn_fwd_wide_kernel")
+    return f"attn_fwd_wide_{route}mma_kernel"
 
 
 def wide_gradient_kernels(d: int, dtype: torch.dtype = torch.bfloat16
@@ -509,6 +574,13 @@ def _on_tf32(q: torch.Tensor) -> bool:
     kernels."""
     return (q.dtype == torch.float32
             and padded_head_dim(q.shape[-1]) == TF32_HEAD_DIM)
+
+
+def _on_tf32_forward(q: torch.Tensor) -> bool:
+    """Whether the forward of q (as the wrapper pads it) takes the TF32
+    kernel."""
+    return (q.dtype == torch.float32
+            and padded_head_dim(q.shape[-1]) in TF32_FORWARD_HEAD_DIMS)
 
 
 def _narrow_padded(d: int) -> int:
@@ -553,7 +625,8 @@ def kernel_occupancy(kernel: str, d: int,
     head dim ``d`` up to ``CHUNK`` as built (32, 64, 80 and 128; the
     forward in the blocks it launches, of one warpgroup at D <= 64 and of
     two at 80 and 128), or on the wide route that a launch at ``d`` past
-    it (a multiple of it) takes; in float32, of the TF32 dq or dk/dv at
+    it (a multiple of it) takes; in float32, of the TF32 forward at
+    ``TF32_FORWARD_HEAD_DIMS`` or the TF32 dq or dk/dv at
     ``TF32_HEAD_DIM`` (the entry refuses any other); from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card."""
@@ -581,10 +654,9 @@ def _padded(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
                  for t in tensors)
 
 
-def _check_aligned(name: str, q, *tensors):
+def _check_aligned(name: str, tensor_core: bool, *tensors):
     # the tensor-core kernels copy 16 bytes at a time
-    if ((q.dtype == torch.bfloat16 or _on_tf32(q))
-            and any(t.data_ptr() % 16 for t in (q,) + tensors)):
+    if tensor_core and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the tensor-core kernels copy rows 16 "
                          f"bytes at a time and take q, k, v and g aligned "
                          f"to that")
@@ -607,15 +679,15 @@ def _launch(fn: str, q, k, scale: float, *pointers):
                            f"{q.dtype})")
 
 
-def _tf32_scratch(x: torch.Tensor,
+def _tf32_scratch(x: torch.Tensor, los: int,
                   transposed: int) -> Tuple[torch.Tensor, ...]:
-    """Scratch of the TF32 kernels' split operands for two [BH, T, D]
-    tensors shaped as ``x``, in the entries' order: the lo of each ([BH,
-    T, D]), then for the first ``transposed`` of them the transpose and
-    its lo ([BH, D, T8], T8 = T rounded up to 8)."""
+    """Scratch of the TF32 kernels' split operands for [BH, T, D] tensors
+    shaped as ``x``, in the entries' order: ``los`` lo's ([BH, T, D]),
+    then ``transposed`` transposes, each with its lo ([BH, D, T8], T8 = T
+    rounded up to 8)."""
     bh, t, d = x.shape
     t8 = -(-t // 8) * 8
-    return (torch.empty_like(x), torch.empty_like(x),
+    return (*(torch.empty_like(x) for _ in range(los)),
             *(torch.empty((bh, d, t8), dtype=x.dtype, device=x.device)
               for _ in range(2 * transposed)))
 
@@ -646,11 +718,20 @@ def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return attention_fwd_reference(q, k, v)
     d = q.shape[-1]
     qp, kp, vp = _padded(q, k, v)
-    _check_aligned("attention_fwd", qp, kp, vp)
+    tf32 = _on_tf32_forward(qp)
+    _check_aligned("attention_fwd", tf32 or q.dtype == torch.bfloat16, qp,
+                   kp, vp)
     out = torch.empty_like(qp)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("attention_fwd", qp, kp, _scale(d), qp.data_ptr(), kp.data_ptr(),
-            vp.data_ptr(), out.data_ptr(), lse.data_ptr())
+    pointers = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                lse.data_ptr())
+    if tf32:
+        # k's lo, v^T and its lo (csrc/attention.cu, tf32_split)
+        scratch = _tf32_scratch(kp, 1, 1)
+        _launch("attention_fwd_tf32", qp, kp, _scale(d), *pointers,
+                *(t.data_ptr() for t in scratch))
+    else:
+        _launch("attention_fwd", qp, kp, _scale(d), *pointers)
     attention_fwd.launches += 1
     return _sliced(out, d), lse
 
@@ -670,13 +751,14 @@ def attention_dq(q, k, v, g, lse, delta) -> torch.Tensor:
         return attention_dq_reference(q, k, v, g, lse, delta)
     d = q.shape[-1]
     q, k, v, g = _padded(q, k, v, g)
-    _check_aligned("attention_dq", q, k, v, g)
+    _check_aligned("attention_dq", q.dtype == torch.bfloat16 or _on_tf32(q),
+                   q, k, v, g)
     dq = torch.empty_like(q)
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     if _on_tf32(q):
         # k's and v's lo, k^T and its lo (csrc/attention.cu, tf32_split)
-        scratch = _tf32_scratch(k, 1)
+        scratch = _tf32_scratch(k, 2, 1)
         _launch("attention_dq_tf32", q, k, _scale(d), *pointers,
                 *(t.data_ptr() for t in scratch))
     else:
@@ -697,14 +779,15 @@ def attention_dkdv(q, k, v, g, lse, delta
         return attention_dkdv_reference(q, k, v, g, lse, delta)
     d = q.shape[-1]
     q, k, v, g = _padded(q, k, v, g)
-    _check_aligned("attention_dkdv", q, k, v, g)
+    _check_aligned("attention_dkdv",
+                   q.dtype == torch.bfloat16 or _on_tf32(q), q, k, v, g)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr())
     if _on_tf32(q):
         # q's and dO's lo, their transposes and those ones' lo
-        scratch = _tf32_scratch(q, 2)
+        scratch = _tf32_scratch(q, 2, 2)
         _launch("attention_dkdv_tf32", q, k, _scale(d), *pointers,
                 *(t.data_ptr() for t in scratch))
     else:

@@ -12,9 +12,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    of every K3 instantiation (3 kernels, 2 dtypes, D = 32, 64, 80 and 128,
    in bf16 the forward, dq and dk/dv on wgmma at all four, dq on mma.sync
    at 32 and dk/dv at 32 and 64, the chunked wide kernels for D = 128 n,
-   n >= 2, the resident bf16 forward, dq and dk/dv at D = 256 and 384, and
-   the float32 TF32 dq and dk/dv at D = 256) and the wgmma kernels', the
-   wide bf16 kernels' and the TF32 kernels' blocks an SM;
+   n >= 2, the resident bf16 forward, dq and dk/dv at D = 256 and 384, the
+   float32 TF32 forward at D = 256 and 384 and the float32 TF32 dq and
+   dk/dv at D = 256) and the wgmma kernels', the wide bf16 kernels' and
+   the TF32 kernels' blocks an SM;
 2. kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (and the port's other stem shapes): the stem's forward
    (K1-fwd) and weight gradient (K1-dW), each with bf16 weights on the
@@ -26,10 +27,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    serial-chain yardstick), and the fused
    attention's forward with its lse (K3-fwd), dq (K3-dq) and dk/dv
    (K3-dkdv) in bf16 (on the tensor cores) and float32 (on the CUDA
-   cores; dq and dk/dv at a padded D = 256 on the tensor cores as three
-   TF32 products a product, each named, launched twice for the same bits
-   and held against its emulation too, SDPA's own float32 differences
-   printed on every float32 row), up to D = 512 (in bf16 up to D = 128
+   cores; the forward at a padded D = 256 and 384 and dq and dk/dv at a
+   padded D = 256 on the tensor cores as three TF32 products a product,
+   each named, launched twice for the same bits and held against its
+   emulation too, SDPA's own float32 differences printed on every float32
+   row), up to D = 512 (in bf16 up to D = 128
    the forward, dq and dk/dv on the wgmma kernels, dq at D = 32 and
    dk/dv at D <= 64 on mma.sync over short streams, each also launched
    twice for the same bits and
@@ -76,11 +78,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      D = 32);
    - ``vit_l16_h4`` in float32 (``vit_l16_h4_f32``,
      ``compute_dtype="float32"``), trained only (one warm-up and three
-     timed steps, within the run's time limit): the 24 blocks' dq and
-     dk/dv on the TF32 kernels, held by name and count in the train step's
-     profile, the forward and DETR's 11 attentions on the float32
-     CUDA-core kernels; its step, busy share, K3's device ms by kernel and
-     peak memory;
+     timed steps, within the run's time limit): the 24 blocks' forward,
+     dq and dk/dv on the TF32 kernels, held by name and count in the train
+     step's profile, DETR's 11 attentions on the float32 CUDA-core
+     kernels; its step, busy share, K3's device ms by kernel and peak
+     memory;
    - one train step of the 640 flagship at DINO's 900 queries and
      ``max_objects=120`` (``flagship_900q``): K2 once on its columns route
      at [8, 120, 900], the loss held to the plain step's;
@@ -219,13 +221,13 @@ import torch
 # operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# the TF32 rate of the tensor cores: the float32 dq and dk/dv at D = 256
-# run on them as three TF32 products a product, and their ``bound_ms`` is
-# that work at this rate (the CUDA-core figure stays beside it as
-# ``bound_cuda_core_ms``)
+# the TF32 rate of the tensor cores: the float32 forward at D = 256 and 384
+# and dq and dk/dv at D = 256 run on them as three TF32 products a
+# product, and their ``bound_ms`` is that work at this rate (the CUDA-core
+# figure stays beside it as ``bound_cuda_core_ms``)
 TF32_OPS_PER_S = 495e12
-# how far the TF32 kernels' dq, dk and dv may lie from the emulation of
-# their arithmetic, of the largest value: the tensor cores add truncating
+# how far the TF32 kernels' out, dq, dk and dv may lie from the emulation
+# of their arithmetic, of the largest value: the tensor cores add truncating
 # where the emulation rounds (tests/test_torch_attention_kernel.py,
 # TF32_EMULATION_GATE; dq's 3.4e-5 at [32, 1600, 1600, 256] is the most
 # measured, PERF.md)
@@ -450,8 +452,10 @@ def kernel_names() -> int:
     the P=4 stem; the same for each weight gradient; in bf16 the route
     of the forward, dq and dk/dv (mma.sync or wgmma up to D = 128,
     resident or chunked past it), in float32 past 128 the route of dq and
-    dk/dv (the TF32 kernels at a padded 256, the CUDA-core ones past it),
-    and the wgmma, wide and TF32 kernels' blocks an SM (``occupancy``).
+    dk/dv (the TF32 kernels at a padded 256, the CUDA-core ones past it)
+    and of the forward (the TF32 kernel at a padded 256 and 384, the
+    CUDA-core one past them), and the wgmma, wide and TF32 kernels'
+    blocks an SM (``occupancy``).
     Apart, because a
     profiler, once used, stays attached to its process, slows every later
     launch there, and after the paths' long profiles drops kernels of
@@ -494,12 +498,13 @@ def kernel_names() -> int:
                      f"SDPA yardstick ran: {[n[:70] for n in ran]}")
             wide = "wide_" if A.padded_head_dim(d) > A.CHUNK else ""
             what = _attention_label(label, bh, tq, tk, d, dtype)
-            # the bf16 forward's route: mma.sync or wgmma up to 128, past
-            # it resident or chunked
+            # the forward's route: in bf16 wgmma up to 128, past it
+            # resident or chunked; in float32 the CUDA-core kernel up to
+            # 128, past it the TF32 one at a padded 256 and 384
             _expect_kernel(lambda: A.attention_fwd(q, k, v), "attn_fwd",
-                           f"attn_fwd_{wide}kernel"
+                           A.wide_forward_kernel(d, dtype) if wide
+                           else "attn_fwd_kernel"
                            if dtype != torch.bfloat16
-                           else A.wide_forward_kernel(d) if wide
                            else A.narrow_forward_kernel(d), what)
             if dtype == torch.bfloat16 or wide:
                 # the gradients' route: up to 128 wgmma but mma.sync over
@@ -543,8 +548,8 @@ def ptxas_k3(log):
     kernels' dims a thread times threads a row, the resident wide kernels'
     (attn_<kind>_wide_mma_kernel<NC>, the forward's too) 128 times theirs
     (the chunks); the chunked wide kernels (no template) read
-    "D=128n", the float32 TF32 ones (``attn_*_wide_tf32_kernel``, no
-    template) "D=256"."""
+    "D=128n", the float32 TF32 dq and dk/dv (``attn_*_wide_tf32_kernel``,
+    no template) "D=256", the TF32 forward its template argument, D."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(attn_\w+?_kernel)"
@@ -554,7 +559,7 @@ def ptxas_k3(log):
         if entry:
             d = int(np.prod([int(n) for n in
                              re.findall(r"Li(\d+)E", entry.group(2))]))
-            if "_wide_" in entry.group(1):
+            if "_wide_" in entry.group(1) and "_tf32_" not in entry.group(1):
                 d *= 128
             name = f"{entry.group(1)} D={d}"
             continue
@@ -599,14 +604,15 @@ def phase_build():
     k3 = ptxas_k3(libs["attention"].with_suffix(".log").read_text())
     _say("[build] ptxas K3 (registers, spill bytes stored and loaded): "
          + json.dumps(k3))
-    if len(k3) != 41:
-        raise AssertionError(f"expected 41 K3 kernels (3 kernels, 2 dtypes, "
+    if len(k3) != 43:
+        raise AssertionError(f"expected 43 K3 kernels (3 kernels, 2 dtypes, "
                              f"D = 32, 64, 80, 128, in bf16 the forward, "
                              f"dq and dk/dv on wgmma at all four, dq on "
                              f"mma.sync at 32 and dk/dv at 32 and 64, the "
                              f"6 chunked wide ones, the resident "
                              f"forward, dq and dk/dv at D = 256 and 384, "
-                             f"and the float32 TF32 dq and dk/dv at "
+                             f"the float32 TF32 forward at D = 256 and "
+                             f"384, and the float32 TF32 dq and dk/dv at "
                              f"D = 256), read {len(k3)}")
     _say("[build] K3 wgmma and wide bf16 kernels: "
          + json.dumps(occupancy(k3)))
@@ -620,8 +626,9 @@ def occupancy(k3):
     128), dq and dk/dv at D = 32, 64, 80 and 128,
     and the wide forward, dq and dk/dv on the route a launch at D = 256,
     384 and 512 takes (resident, then chunked: the design whose shared
-    memory and threads do not depend on D), and the float32 TF32 dq and
-    dk/dv at D = 256; blocks an SM from
+    memory and threads do not depend on D), the float32 TF32 forward at
+    D = 256 and 384 and the float32 TF32 dq and dk/dv at D = 256; blocks
+    an SM from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
     shared memory (``kernel_occupancy``), registers and spill bytes from
     ptxas (``ptxas_k3``)."""
@@ -650,15 +657,19 @@ def occupancy(k3):
             "registers": report.get("registers"),
             "spill_bytes": report.get("spill_stores", 0)
             + report.get("spill_loads", 0)}
-    # the float32 dq and dk/dv on the tensor cores (three TF32 products)
-    for kind, name in zip(("dq", "dkdv"), A.wide_gradient_kernels(
-            A.TF32_HEAD_DIM, torch.float32)):
-        blocks, smem = A.kernel_occupancy(kind, A.TF32_HEAD_DIM,
-                                          torch.float32)
+    # the float32 forward, dq and dk/dv on the tensor cores (three TF32
+    # products)
+    tf32 = [("fwd", A.wide_forward_kernel(d, torch.float32), d)
+            for d in A.TF32_FORWARD_HEAD_DIMS]
+    tf32 += [(kind, name, A.TF32_HEAD_DIM) for kind, name in zip(
+        ("dq", "dkdv"), A.wide_gradient_kernels(A.TF32_HEAD_DIM,
+                                                torch.float32))]
+    for kind, name, d in tf32:
+        blocks, smem = A.kernel_occupancy(kind, d, torch.float32)
         if blocks < 1:
-            raise AssertionError(f"{name}: no block fits an SM")
-        report = k3.get(f"{name} D={A.TF32_HEAD_DIM}", {})
-        out[f"{name} D={A.TF32_HEAD_DIM}"] = {
+            raise AssertionError(f"{name} at D = {d}: no block fits an SM")
+        report = k3.get(f"{name} D={d}", {})
+        out[f"{name} D={d}"] = {
             "blocks_per_sm": blocks, "smem_bytes": smem,
             "registers": report.get("registers"),
             "spill_bytes": report.get("spill_stores", 0)
@@ -1024,12 +1035,14 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
     first bit for bit, and each is held against its emulation
     (``attention_fwd_emulation``, ``attention_dq_emulation``,
     ``attention_dkdv_emulation``: one bf16 ulp, at least 99% of the values
-    equal; the lse within 1e-5). In float32 at a padded D = 256 (the TF32
-    dq and dk/dv) the gradients' rows do the same: their kernels by name,
-    ptxas's report and blocks an SM, a second launch, and the emulation
-    (``TF32_EMULATION_GATE``), their ``bound_ms`` that of three TF32
-    products a product on the tensor cores, with the CUDA-core one
-    (``bound_cuda_core_ms``) beside it; every float32 row prints
+    equal; the lse within 1e-5). In float32 at a padded D = 256 and 384
+    (the TF32 forward) the forward's row does the same, and at a padded
+    256 (the TF32 dq and dk/dv) the gradients' rows too: their kernels by
+    name, ptxas's report and blocks an SM, a second launch, and the
+    emulation (``TF32_EMULATION_GATE`` of the largest value; the lse
+    within 1e-5), their ``bound_ms`` that of three TF32 products a product
+    on the tensor cores, with the CUDA-core one (``bound_cuda_core_ms``)
+    beside it; every float32 row prints
     SDPA's own differences from the plain versions. Returns one row per
     kernel."""
     import torch.nn.functional as F
@@ -1089,6 +1102,41 @@ def _attention_case(label, bh, tq, tk, d, dtype, seed, flush, ptxas=None):
              "err " + ", ".join(f"{n} {e:.3e}" for n, e in sdpa.items()))
         for name in rows:
             rows[name]["sdpa_max_abs_err"] = sdpa
+    if dtype == torch.float32 and padded in A.TF32_FORWARD_HEAD_DIMS:
+        # the forward on the tensor cores, three TF32 products a product: a
+        # second launch, the same bits; against the emulation of its
+        # arithmetic
+        again = A.attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+            raise AssertionError(f"{what}: a second launch of the forward "
+                                 "gave other bits")
+        emu, emu_lse = A.attention_fwd_emulation(*A._padded(q, k, v),
+                                                 scale=A._scale(d))
+        emu = emu[..., :d]
+        big = emu.abs().max().item()
+        _close(out, emu, atol=TF32_EMULATION_GATE * big, rtol=0.0,
+               what=f"{what} out against the emulation")
+        _close(lse, emu_lse, atol=1e-5, rtol=1e-5,
+               what=f"{what} lse against the emulation")
+        off = (out - emu).abs().max().item() / big
+        kernel = A.wide_forward_kernel(d, dtype)
+        report = (ptxas or {}).get(f"{kernel} D={padded}", {})
+        blocks, smem = A.kernel_occupancy("fwd", padded, dtype)
+        rows["fwd"].update(
+            kernel=f"{kernel}<{padded}>", repeats_bit_for_bit=True,
+            off_emulation=off, registers=report.get("registers"),
+            spill_bytes=report.get("spill_stores", 0)
+            + report.get("spill_loads", 0), blocks_per_sm=blocks,
+            smem_bytes=smem, bound_cuda_core_ms=rows["fwd"]["bound_ms"],
+            bound_one_tf32_ms=ops["fwd"] / TF32_OPS_PER_S * 1e3,
+            **_bound(n_bytes["fwd"], 3 * ops["fwd"], dtype, TF32_OPS_PER_S))
+        _say(f"  {what} fwd: {rows['fwd']['kernel']}, "
+             f"{rows['fwd']['registers']} registers, "
+             f"{rows['fwd']['spill_bytes']} spill bytes, {blocks} block(s) "
+             f"an SM at {smem} bytes of shared memory; a second launch gave "
+             f"the same bits; out off the emulation by {off:.3e} of its "
+             "largest value")
     if dtype == torch.float32 and padded == A.TF32_HEAD_DIM:
         # dq and dk/dv on the tensor cores, three TF32 products a product:
         # a second launch, the same bits; against the emulation of their
@@ -1519,12 +1567,12 @@ PATHS = {
         serving_plain=("patchify_fwd",) + _K3),
     # vit_l16_h4 in float32 (compute_dtype="float32", as a user sets it in
     # ModelConfig), trained only (one warm-up and three timed steps: the
-    # run's time limit; its forward kernels are unchanged and held in the
-    # kernels phase): its 24 blocks run the float32 forward on the CUDA
-    # cores (attn_fwd_wide_kernel) and dq and dk/dv at [32, 1600, 1600,
-    # 256] on the tensor cores, three TF32 products a product; DETR's 11
-    # attentions at D = 32 the float32 CUDA-core kernels; K1 its float32
-    # route
+    # run's time limit; its forward kernels are held in the kernels
+    # phase): its 24 blocks run the forward, dq and dk/dv at [32, 1600,
+    # 1600, 256] on the tensor cores, three TF32 products a product
+    # (attn_fwd_wide_tf32_kernel, attn_dq_wide_tf32_kernel,
+    # attn_dkdv_wide_tf32_kernel); DETR's 11 attentions at D = 32 the
+    # float32 CUDA-core kernels; K1 its float32 route
     "vit_l16_h4_f32": dict(
         res=RES, cfg=dict(backbone="vit_p16_d24_w1024_h4", norm="batchnorm",
                           use_pallas_attention=True,
@@ -1532,7 +1580,7 @@ PATHS = {
         params=318_726_526, train_only=(1, 3),
         step=_expect(patchify_fwd=1, patchify_dw=1, lap=1, attention_fwd=35,
                      attention_dq=35, attention_dkdv=35),
-        fwd_kernels=dict(attn_fwd_wide_kernel=24, attn_fwd_kernel=11),
+        fwd_kernels=dict(attn_fwd_wide_tf32_kernel=24, attn_fwd_kernel=11),
         grad_kernels=dict(attn_dq_wide_tf32_kernel=24,
                           attn_dkdv_wide_tf32_kernel=24, attn_dq_kernel=11,
                           attn_dkdv_kernel=11)),
@@ -2086,7 +2134,8 @@ def phase_breakdown(name, model, codec, images):
     _say(f"  forward kernels of K1 and K3 per forward: {ours}")
     dtype = PATHS[name]["cfg"].get("compute_dtype", "bfloat16")
     allowed = ({"patchify_fwd_kernel", "attn_fwd_kernel",
-                "attn_fwd_wide_kernel"} if dtype == "float32" else
+                "attn_fwd_wide_kernel", "attn_fwd_wide_tf32_kernel"}
+               if dtype == "float32" else
                {"patchify_fwd_mma_kernel", "attn_fwd_wgmma_kernel",
                 "attn_fwd_wide_mma_kernel",
                 "attn_fwd_wide_chunked_mma_kernel"})

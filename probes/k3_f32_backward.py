@@ -136,8 +136,8 @@ def _launchers(dll, tf32, args, outs, scale):
         return launch
 
     if tf32:
-        dq_scratch = A._tf32_scratch(k, 1)
-        dkdv_scratch = A._tf32_scratch(q, 2)
+        dq_scratch = A._tf32_scratch(k, 2, 1)
+        dkdv_scratch = A._tf32_scratch(q, 2, 2)
         return {"dq": call("attention_dq_tf32", outs[0].data_ptr(),
                            *(t.data_ptr() for t in dq_scratch), bh, tq, tk,
                            d, 0, ctypes.c_float(scale), scratch=dq_scratch),

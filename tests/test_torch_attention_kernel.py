@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of the fused attention
 (boosted_detr_torch/csrc/attention.cu: K3's forward with the lse, dq and
 dk/dv; bfloat16 inputs on the tensor cores, float32 inputs on the CUDA
-cores but dq and dk/dv at a padded D = 256 on the tensor cores as three
-TF32 products a product) against their plain PyTorch versions on the
+cores but the forward at a padded D = 256 and 384 and dq and dk/dv at a
+padded D = 256 on the tensor cores as three TF32 products a product)
+against their plain PyTorch versions on the
 card, the tensor-core kernels against the plain PyTorch emulation of
 their arithmetic, the
 autograd ``FusedAttentionFn`` on the card against its CPU route, the
@@ -266,15 +267,23 @@ def _profiled():
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_float32_forward_stays_on_the_cuda_cores(cuda, _profiled, d):
-    """float32 inputs take the float32 forward (tensor cores would make
-    them TF32 or bf16) and keep its float32 accuracy; bfloat16 inputs take
-    the tensor-core forward; past D = 128 the wide ones."""
+    """float32 inputs take the float32 forward (one TF32 or bf16 pass of
+    the tensor cores would lose float32's accuracy) and keep its float32
+    accuracy: on the CUDA cores, but at D = 256 on the tensor cores as
+    three TF32 products a product (``attn_fwd_wide_tf32_kernel``);
+    bfloat16 inputs take the tensor-core forward; past D = 128 the wide
+    ones."""
     inputs = {dtype: _inputs(cuda, 3, 200, 330, d, dtype, seed=3)[:3]
               for dtype in ("float32", "bfloat16")}
     names = _profiled[d]["fwd"]
     wide = "wide_" if d > 128 else ""
     assert len(names["float32"]) == len(names["bfloat16"]) == 1, names
-    assert f"attn_fwd_{wide}kernel" in names["float32"][0], names
+    f32 = (ta.wide_forward_kernel(d, torch.float32) if wide
+           else "attn_fwd_kernel")
+    assert f32 == ("attn_fwd_wide_tf32_kernel" if d == 256
+                   else "attn_fwd_kernel"), f32
+    # both are templates: the name is followed by its arguments
+    assert f"{f32}<" in names["float32"][0], names
     tensor_core = (ta.wide_forward_kernel(d) if wide
                    else ta.narrow_forward_kernel(d))
     assert tensor_core in names["bfloat16"][0], names
@@ -457,14 +466,23 @@ def test_wide_forward_launches_its_route(cuda, _profiled, d, route):
     """Past D = 128 the bf16 forward runs the resident kernel
     (``attn_fwd_wide_mma_kernel<NC>``: wgmma, TMA, q resident) up to
     D = 384 (160 padded to 256) and the chunked one from 512 on, by name
-    from a profile; float32 keeps its CUDA-core wide kernel."""
+    from a profile; float32 runs the TF32 kernel
+    (``attn_fwd_wide_tf32_kernel<D>``) at a padded 256 and 384 and keeps
+    its CUDA-core wide kernel from 512 on."""
     names = _profiled[d]["fwd"]
     assert len(names["bfloat16"]) == len(names["float32"]) == 1, names
     name = ta.wide_forward_kernel(d)
     assert name == f"attn_fwd_wide_{route}mma_kernel"
     # a template's name is followed by its arguments, a plain one's by (
     assert f"{name}{'(' if route else '<'}" in names["bfloat16"][0], names
-    assert "attn_fwd_wide_kernel(" in names["float32"][0], names
+    padded = ta.padded_head_dim(d)
+    f32 = ta.wide_forward_kernel(d, torch.float32)
+    if padded in ta.TF32_FORWARD_HEAD_DIMS:
+        assert f32 == "attn_fwd_wide_tf32_kernel"
+        assert f"{f32}<{padded}>" in names["float32"][0], names
+    else:
+        assert f32 == "attn_fwd_wide_kernel"
+        assert f"{f32}(" in names["float32"][0], names
 
 
 @pytest.mark.gpu
@@ -599,6 +617,71 @@ def test_tf32_gradients_match_plain_and_emulation(cuda, bh, tq, tk, d):
     again = (ta.attention_dq(*args), *ta.attention_dkdv(*args))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    # ragged against the 32-key tiles and the 64-row blocks, one query, one
+    # key, both; 160 padded to 256, 300 to 384; vit_l16_h4's blocks (2 of
+    # 32 heads) and the D = 384 row of chip_smoke.py
+    (3, 70, 130, 256), (3, 130, 70, 160), (3, 1, 130, 256), (3, 130, 1, 384),
+    (3, 1, 1, 256), (3, 300, 520, 384), (3, 17, 1000, 160),
+    (3, 520, 17, 256), (3, 33, 65, 384), (3, 70, 130, 300),
+    (2, 1600, 1600, 256), (3, 400, 400, 384)])
+def test_tf32_forward_matches_plain_and_emulation(cuda, bh, tq, tk, d):
+    """The float32 forward at a padded D = 256 and 384
+    (``attn_fwd_wide_tf32_kernel``) inside the float32 gates against the
+    plain version (out 1e-5 of the largest value / 1e-4, the lse 1e-5 /
+    1e-5) and within ``TF32_EMULATION_GATE`` of the largest value of the
+    emulation of its arithmetic (the lse within 1e-5); a second launch
+    gives the same bits, and each adds one to ``attention_fwd.launches``."""
+    q, k, v = _inputs(cuda, bh, tq, tk, d, "float32", seed=10)[:3]
+    assert ta.padded_head_dim(d) in ta.TF32_FORWARD_HEAD_DIMS
+    before = ta.attention_fwd.launches
+    out, lse = ta.attention_fwd(q, k, v)
+    again = ta.attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert ta.attention_fwd.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    _assert_close(out, want, "float32")
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    emu, emu_lse = _emulated(ta.attention_fwd_emulation, q, k, v)
+    big = emu.abs().max().item()
+    print(f"off the emulation by {(out - emu).abs().max().item() / big:.3e} "
+          "of the largest value")
+    torch.testing.assert_close(out, emu, rtol=0,
+                               atol=TF32_EMULATION_GATE * big)
+    torch.testing.assert_close(lse, emu_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_float32_function_at_256_runs_tf32_end_to_end(cuda):
+    """A float32 ``FusedAttentionFn`` forward and backward at D = 256 runs
+    the TF32 forward, dq and dk/dv (one launch each) and stays inside the
+    float32 gates of the plain step (the plain forward, then the plain dq
+    and dk/dv from its lse and delta)."""
+    assert ta.wide_forward_kernel(256, torch.float32) == (
+        "attn_fwd_wide_tf32_kernel")
+    assert all("tf32" in n for n in ta.wide_gradient_kernels(
+        256, torch.float32))
+    q, k, v, g, g_lse = _inputs(cuda, 3, 300, 520, 256, "float32", seed=11)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (ta.attention_fwd.launches, ta.attention_dq.launches,
+              ta.attention_dkdv.launches)
+    out, lse = ta.fused_attention_with_lse(*leaves)
+    torch.autograd.backward([out, lse], [g, g_lse])
+    torch.cuda.synchronize()
+    assert (ta.attention_fwd.launches, ta.attention_dq.launches,
+            ta.attention_dkdv.launches) == tuple(n + 1 for n in before)
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    _assert_close(out, want, "float32")
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    args = (q, k, v, g, want_lse, (g * want).sum(-1) - g_lse)
+    want_dk, want_dv = ta.attention_dkdv_reference(*args)
+    for got, ref in ((leaves[0].grad, ta.attention_dq_reference(*args)),
+                     (leaves[1].grad, want_dk), (leaves[2].grad, want_dv)):
+        _assert_close(got, ref, "float32", grad=True)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""K3's float32 backward on the tensor cores (csrc/attention.cu,
-``attn_dq_wide_tf32_kernel`` and ``attn_dkdv_wide_tf32_kernel``), on the
+"""K3's float32 forward and backward on the tensor cores (csrc/attention.cu,
+``attn_fwd_wide_tf32_kernel``, ``attn_dq_wide_tf32_kernel`` and
+``attn_dkdv_wide_tf32_kernel``), on the
 CPU: the TF32 split that stands for a float32 value as two TF32 values
 (``_tf32_parts``: hi the word with its low 13 bits dropped, as the tensor
 cores read it; lo the same of the exact remainder), the emulations of the
@@ -124,16 +125,54 @@ def test_tf32_arithmetic_passes_the_float32_gates(bh, tq, tk, d):
         assert _outside_float32_gate(a, b) == 0, name
 
 
+def _forward_outside(q, k, v):
+    """Values of (out, lse) of the forward's emulation, on the inputs
+    padded as the wrapper pads them with the true 1/sqrt(D), outside the
+    card's float32 forward gates against the plain version (out 1e-5 of
+    the largest value, at least 1e-5, plus 1e-4 relative; the lse 1e-5 /
+    1e-5)."""
+    d = q.shape[-1]
+    want, want_lse = ta.attention_fwd_reference(q, k, v)
+    out, lse = ta.attention_fwd_emulation(*ta._padded(q, k, v),
+                                          scale=1.0 / d ** 0.5)
+    assert out.dtype == torch.float32 and not out[..., d:].any()
+    lse_outside = int(((lse - want_lse).abs()
+                       > 1e-5 + 1e-5 * want_lse.abs()).sum())
+    return _outside_float32_gate(out[..., :d], want), lse_outside
+
+
+# ragged against the 32-key tiles and the 128-row blocks (D = 256) or
+# 64-row blocks (384), one query, one key, both; 160 padded to 256 and 300
+# to 384
+TF32_FORWARD_SHAPES = ([(2, 70, 130, d) for d in (160, 256, 300, 384)]
+                       + [(2, 1, 130, 256), (2, 130, 1, 384),
+                          (2, 1, 1, 160), (1, 200, 70, 384)])
+
+
+@pytest.mark.parametrize("bh,tq,tk,d", TF32_FORWARD_SHAPES)
+def test_tf32_forward_passes_the_float32_gates(bh, tq, tk, d):
+    """The TF32 forward's arithmetic (32-key tiles, S in one sum or, past
+    D = 256, in two halves, each tile's P.V summed from zero and folded
+    into the output) inside the float32 gates against the plain version,
+    at the head dims the card runs it at (a padded 256 and 384)."""
+    q, k, v = _gradient_inputs(bh, tq, tk, d)[:3]
+    assert ta.padded_head_dim(d) in ta.TF32_FORWARD_HEAD_DIMS
+    assert _forward_outside(q, k, v) == (0, 0)
+
+
 def test_one_tf32_product_fails_the_float32_gates(monkeypatch):
     """Why three products: with hi hi alone (one TF32 rounding of each
     operand, ~2^-11 of a term), dq, dk and dv leave the gates that the
-    three products pass."""
+    three products pass, and so do the forward's out and lse."""
     args = _gradient_inputs(2, 70, 130, 256)
     want_dk, want_dv = ta.attention_dkdv_reference(*args)
     want = (ta.attention_dq_reference(*args), want_dk, want_dv)
     three = _emulated(args, 256)
     assert [_outside_float32_gate(a, b) for a, b in zip(three, want)] == [
         0, 0, 0]
+    fwd_args = {d: _gradient_inputs(2, 70, 130, d)[:3] for d in (256, 384)}
+    for d, qkv in fwd_args.items():
+        assert _forward_outside(*qkv) == (0, 0), d
 
     def hi_hi(a_parts, b_parts, out):
         for c0 in range(0, a_parts[0].shape[-1], 8):
@@ -145,6 +184,9 @@ def test_one_tf32_product_fails_the_float32_gates(monkeypatch):
     one = _emulated(args, 256)
     outside = [_outside_float32_gate(a, b) for a, b in zip(one, want)]
     assert all(n > 0 for n in outside), outside
+    for d, qkv in fwd_args.items():
+        outside = _forward_outside(*qkv)
+        assert all(n > 0 for n in outside), (d, outside)
 
 
 @pytest.mark.parametrize("d,dtype", [
@@ -170,6 +212,65 @@ def test_emulations_follow_the_tf32_route_by_default(monkeypatch, d, dtype):
     on_tf32 = d > ta.CHUNK and "tf32" in ta.wide_gradient_kernels(d,
                                                                   dtype)[0]
     assert bool(calls) == on_tf32 == ta._on_tf32(args[0])
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (256, torch.float32), (160, torch.float32), (384, torch.float32),
+    (300, torch.float32), (512, torch.float32), (128, torch.float32),
+    (256, torch.bfloat16), (384, torch.bfloat16)])
+def test_forward_emulation_follows_the_tf32_route(monkeypatch, d, dtype):
+    """The route decides the forward emulation's arithmetic too: it takes
+    the three TF32 products exactly where ``wide_forward_kernel(d,
+    dtype)`` names the TF32 kernel (float32 at a padded 256 and 384), and
+    there sums S over 32-key tiles in one sum a tile at 256 and in two
+    halves of the dims at 384, as the kernel's two warpgroups do."""
+    logits = []
+
+    def counted(a, b, by_slab):
+        logits.append((a.shape[-1], by_slab))
+        return sums(a, b, by_slab)
+
+    sums = ta._tf32_logits
+    monkeypatch.setattr(ta, "_tf32_logits", counted)
+    q, k, v = (t.to(dtype) for t in _gradient_inputs(1, 40, 70, d)[:3])
+    ta.attention_fwd_emulation(*ta._padded(q, k, v), scale=1.0 / d ** 0.5)
+    on_tf32 = d > ta.CHUNK and "tf32" in ta.wide_forward_kernel(d, dtype)
+    assert bool(logits) == on_tf32 == ta._on_tf32_forward(
+        ta._padded(q)[0])
+    if on_tf32:
+        padded = ta.padded_head_dim(d)
+        halves = 2 if padded > ta.TF32_HEAD_DIM else 1
+        assert logits == [(padded // halves, False)] * (halves * 3)
+
+
+@pytest.mark.parametrize("d,dtype,name", [
+    (160, torch.float32, "attn_fwd_wide_tf32_kernel"),
+    (256, torch.float32, "attn_fwd_wide_tf32_kernel"),
+    (300, torch.float32, "attn_fwd_wide_tf32_kernel"),
+    (384, torch.float32, "attn_fwd_wide_tf32_kernel"),
+    (512, torch.float32, "attn_fwd_wide_kernel"),
+    (256, torch.bfloat16, "attn_fwd_wide_mma_kernel"),
+    (384, torch.bfloat16, "attn_fwd_wide_mma_kernel")])
+def test_tf32_forward_route_follows_the_source(d, dtype, name):
+    """``wide_forward_kernel(d, dtype)`` names a kernel the source
+    defines: float32 at a padded 256 and 384 the TF32 one (the entry
+    ``attention_fwd_tf32`` takes exactly those, TF32_D and TF32_FWD_MAX_D),
+    past them the CUDA-core one, whose launcher refuses the TF32 head
+    dims; bf16 as before."""
+    assert ta.wide_forward_kernel(d, dtype) == name
+    assert f"\n{name}(" in SOURCE
+    assert int(re.search(r"constexpr int TF32_FWD_MAX_D = (\d+) \* CD;",
+                         SOURCE)[1]) * ta.CHUNK == ta.TF32_FORWARD_HEAD_DIMS[
+        -1]
+    assert ta.TF32_FORWARD_HEAD_DIMS == (ta.TF32_HEAD_DIM, 3 * ta.CHUNK)
+    body = SOURCE.split("cudaError_t launch_fwd_wide(")[1].split("\n}\n")[0]
+    assert ("if (nc * CD <= TF32_FWD_MAX_D) return cudaErrorInvalidValue;"
+            in body)
+    entry = SOURCE.split("int attention_fwd_tf32(")[1].split("\n}\n")[0]
+    assert re.findall(r"if \(D == (\w+)\)", entry) == ["TF32_D",
+                                                        "TF32_FWD_MAX_D"]
+    assert ta._on_tf32_forward(torch.zeros(1, 1, ta.padded_head_dim(d),
+                                           dtype=dtype)) == ("tf32" in name)
 
 
 @pytest.mark.parametrize("d,dtype,names", [
@@ -220,14 +321,21 @@ def test_tf32_constants_follow_the_source():
     assert ta._TF32_HI == -(1 << 13) and "0xffffe000u" in (
         Path(ta.__file__).resolve().parents[1] / "csrc" / "mma.cuh"
     ).read_text()
+    # the split pass takes D, and leaves a null lo or transpose unwritten
+    assert "const dim3 grid((T8 + 31) / 32, D / 32," in SOURCE
+    assert "if (t < T && lo != nullptr)" in SOURCE
 
 
 def test_tf32_scratch_shapes():
     """The wrapper's scratch, in the order the entries take it: dq k's
     and v's lo, then k^T and its lo; dk/dv q's and dO's lo, then each
-    transpose and its lo, the rows rounded up to 8."""
+    transpose and its lo; the forward k's lo, then v^T and its lo; the
+    rows rounded up to 8, at D = 256 and 384."""
     k = torch.zeros(2, 13, 256)
-    shapes = [tuple(t.shape) for t in ta._tf32_scratch(k, 1)]
+    shapes = [tuple(t.shape) for t in ta._tf32_scratch(k, 2, 1)]
     assert shapes == [(2, 13, 256)] * 2 + [(2, 256, 16)] * 2
-    shapes = [tuple(t.shape) for t in ta._tf32_scratch(k, 2)]
+    shapes = [tuple(t.shape) for t in ta._tf32_scratch(k, 2, 2)]
     assert shapes == [(2, 13, 256)] * 2 + [(2, 256, 16)] * 4
+    shapes = [tuple(t.shape) for t in ta._tf32_scratch(torch.zeros(
+        3, 17, 384), 1, 1)]
+    assert shapes == [(3, 17, 384)] + [(3, 384, 24)] * 2

@@ -95,6 +95,28 @@ def test_tf32_arithmetic_matches_the_pallas_kernel():
             msg=name)
 
 
+@pytest.mark.parametrize("bh,tq,tk,d", WIDE[1:])
+def test_tf32_forward_matches_the_pallas_kernel(bh, tq, tk, d):
+    """The float32 forward's arithmetic at D = 256 and 384 (the TF32
+    kernel: three TF32 products a product over 32-key tiles, S in two
+    halves at 384, each tile's P.V summed from zero, which
+    ``attention_fwd_emulation`` takes for float32 there, as the route
+    does) against JAX's Pallas forward in interpret mode on the same
+    float32 inputs, at the card's float32 gates (out 1e-5 of the largest
+    value, at least 1e-5, plus 1e-4 relative; the lse 1e-5 / 1e-5)."""
+    q, k, v = (torch.tensor(a) for a in _k3_inputs(bh, tq, tk, d)[:3])
+    j_out, j_lse = (torch.tensor(a) for a in _pallas_k3(bh, tq, tk, d,
+                                                      "float32")[:2])
+    assert d in ta.TF32_FORWARD_HEAD_DIMS
+    assert ta.wide_forward_kernel(d, torch.float32) == (
+        "attn_fwd_wide_tf32_kernel")
+    out, lse = ta.attention_fwd_emulation(q, k, v)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(
+        out, j_out, rtol=1e-4, atol=1e-5 * max(j_out.abs().max().item(), 1))
+    torch.testing.assert_close(lse, j_lse, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("bh,tq,tk,d", WIDE + CHUNKED)
 def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
     """The emulations on the padded tensors (the logits summed 128-wide
@@ -138,10 +160,12 @@ def test_wide_tensor_core_arithmetic_passes_the_gates(bh, tq, tk, d):
                                      (512, "chunked_"), (1000, "chunked_")])
 def test_wide_gradient_route_follows_the_source(d, route):
     """``wide_gradient_kernels`` and ``wide_forward_kernel`` name the
-    kernels csrc/attention.cu launches: the resident ones up to
-    RESIDENT_MAX_NC chunks, read from the source, the chunked ones past
-    it; the launchers of the forward, dq and dk/dv branch on that
-    constant's chunks."""
+    kernels csrc/attention.cu launches: in bf16 (their default dtype) the
+    resident ones up to RESIDENT_MAX_NC chunks, read from the source, the
+    chunked ones past it, the launchers of the forward, dq and dk/dv
+    branching on that constant's chunks; in float32 the forward the TF32
+    kernel up to the source's TF32_FWD_MAX_D, the CUDA-core one past
+    it."""
     from pathlib import Path
 
     src = (Path(ta.__file__).resolve().parents[1] / "csrc"
@@ -152,7 +176,16 @@ def test_wide_gradient_route_follows_the_source(d, route):
     assert ta.wide_gradient_kernels(d) == (
         f"attn_dq_wide_{route}mma_kernel", f"attn_dkdv_wide_{route}mma_kernel")
     assert ta.wide_forward_kernel(d) == f"attn_fwd_wide_{route}mma_kernel"
-    for name in (ta.wide_forward_kernel(d), *ta.wide_gradient_kernels(d)):
+    assert ta.wide_forward_kernel(d, torch.bfloat16) == (
+        ta.wide_forward_kernel(d))
+    tf32_max = int(re.search(r"constexpr int TF32_FWD_MAX_D = (\d+) \* CD;",
+                             src).group(1)) * ta.CHUNK
+    f32 = ta.wide_forward_kernel(d, torch.float32)
+    assert f32 == ("attn_fwd_wide_tf32_kernel"
+                   if ta.padded_head_dim(d) <= tf32_max
+                   else "attn_fwd_wide_kernel")
+    for name in (ta.wide_forward_kernel(d), *ta.wide_gradient_kernels(d),
+                 f32):
         assert f"\n{name}(" in src  # a kernel of that name is defined
     for kind in ("fwd", "dq", "dkdv"):
         # the launcher takes the resident kernel at every nc up to the
@@ -167,6 +200,8 @@ def test_wide_gradient_route_follows_the_source(d, route):
         ta.wide_gradient_kernels(128)
     with pytest.raises(ValueError):
         ta.wide_forward_kernel(128)
+    with pytest.raises(ValueError):
+        ta.wide_forward_kernel(128, torch.float32)
 
 
 def test_chunked_logits_are_the_whole_product_to_rounding():
